@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout; needs one card
+
+Phases, each failing loudly (nonzero exit):
+  1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+     source, all started together) into ``build/kernels``;
+  3. hold every kernel against its plain PyTorch version on the card at the
+     serving path's shapes and the test sweep's, and time kernel, plain version
+     and the PyTorch library call that computes the same function;
+  4. serve qwen3-0.6b at full width through ``run_serve_task`` (8 requests of
+     512 prompt + 32 new tokens, 4 slots, 2048-token cache), with the launch
+     counters set to 0 just before and read just after; then check prefill +
+     one decode step against ``forward`` at full width (f32 at 28 layers to
+     1e-4; bf16 at 0.08 at 4 layers, see ``phase_serve``) and time prefill and
+     decode throughput.
+
+The last three lines of standard output are the card line, one JSON object with
+each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or outside a checkout, it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+# H100 SXM published peaks (dense): HBM bytes/s; flop/s by the type of the work
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, bf16 inputs
+              torch.float32: 67e12}     # CUDA cores, f32 without TF32
+
+SERVE_PAYLOAD = {"arch": "qwen3-0.6b", "reduced": False, "slots": 4,
+                 "max_len": 2048, "n_requests": 8, "prompt_len": 512,
+                 "max_new": 32}
+QWEN3_PARAMS = 751_632_384
+# twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
+FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
+               (1, 256, 8, 1, 32, True, 0), (1, 128, 4, 4, 64, False, 0),
+               (1, 256, 4, 2, 64, True, 64), (1, 96, 2, 2, 80, True, 0)]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, n: int = 20) -> float:
+    """Median device time of one call over ``n`` back-to-back calls, after
+    warm-up. A sleep kernel holds the card while the host enqueues every call,
+    so host launch latency does not show up as device time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for i in range(n):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(n))
+
+
+def wall_ms(fn, n: int = 10) -> float:
+    """Median host wall time of one call that ends in a synchronize: what an
+    eager caller waits, host launch latency included."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def close(a, b, tol) -> bool:
+    a, b = a.float(), b.float()
+    return bool(torch.isfinite(a).all()) and bool(
+        ((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the end-aligned mask keeps: the work this input needs."""
+    total = 0
+    for i in range(Sq):
+        qa = i + Skv - Sq
+        hi = min(Skv, qa + 1) if causal else Skv
+        lo = max(0, qa - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def randn(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# ----------------------------------------------------------------------- phases
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
+    return smi.splitlines()[0]
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    paths = _build.build(names)
+    print(f"build: {names} in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+def phase_flash(gen) -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    def qkv(B, Sq, Skv, H, K, D, dtype):
+        return (randn((B, Sq, H, D), dtype, gen), randn((B, Skv, K, D), dtype, gen),
+                randn((B, Skv, K, D), dtype, gen))
+
+    # the sweep, both dtypes, and short q (end-aligned masks) against the oracle
+    for B, S, H, K, D, causal, window in FLASH_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(B, S, S, H, K, D, dtype)
+            got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+            check(close(got, want, TOL[dtype]),
+                  f"flash {B, S, H, K, D, causal, window} {dtype}: max err "
+                  f"{max_err(got, want)}")
+    for B, Sq, Skv, H, K, D, causal, window in [(1, 32, 96, 4, 2, 64, True, 0),
+                                                (2, 17, 80, 4, 1, 32, True, 24)]:
+        q, k, v = qkv(B, Sq, Skv, H, K, D, torch.float32)
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        check(close(got, want, 2e-5), f"flash Sq<Skv {B, Sq, Skv}: {max_err(got, want)}")
+    print("flash_attention: sweep (f32, bf16) and Sq<Skv cases match")
+
+    row = None
+    for S in (512, 1024, 2048):          # 512 = the served prompt: the main path
+        B, H, K, D, dtype = 1, 16, 8, 128, torch.bfloat16
+        q, k, v = qkv(B, S, S, H, K, D, dtype)
+        got = FA.flash_attention_cuda(q, k, v)
+        want = FA.flash_attention_plain(q, k, v)
+        err = max_err(got, want)
+        check(close(got, want, TOL[dtype]), f"flash S={S} bf16: max err {err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        check(close(lib.transpose(1, 2), want, TOL[dtype]), "SDPA disagrees with plain")
+        ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v))
+        plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B * H * D * attn_pairs(S, S, True, 0)
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+        print(f"flash_attention B=1 S={S} H=16 K=8 D=128 bf16 causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g}")
+        if S == 512:
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:27",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    return row
+
+
+def phase_rmsnorm(gen) -> dict:
+    from repro_torch.kernels import rmsnorm as RN
+    shapes = [((1, 512, 1024), torch.bfloat16),    # main path: ln1/ln2 in prefill
+              ((1, 512, 16, 128), torch.bfloat16), ((1, 512, 8, 128), torch.bfloat16),
+              ((4, 1, 1024), torch.bfloat16),      # decode step, 4 slots
+              ((4 * 1024, 1024), torch.bfloat16), ((1, 2048, 16, 128), torch.bfloat16),
+              ((3, 5, 80), torch.bfloat16), ((3, 5, 80), torch.float32),
+              ((2, 64, 128), torch.float32), ((1, 7, 256), torch.float32),
+              ((4, 1, 512), torch.float32)]
+    row = None
+    for shape, dtype in shapes:
+        x, sc = randn(shape, dtype, gen), randn(shape[-1:], dtype, gen)
+        got = RN.rmsnorm_cuda(x, sc, eps=1e-6)
+        want = RN.rmsnorm_plain(x, sc, eps=1e-6)
+        err = max_err(got, want)
+        check(close(got, want, RMS_TOL[dtype]), f"rmsnorm {shape} {dtype}: max err {err}")
+        lib = F.rms_norm(x, shape[-1:], weight=sc, eps=1e-6)
+        ms = time_ms(lambda: RN.rmsnorm_cuda(x, sc, eps=1e-6))
+        plain_ms = time_ms(lambda: RN.rmsnorm_plain(x, sc, eps=1e-6))
+        lib_ms = time_ms(lambda: F.rms_norm(x, shape[-1:], weight=sc, eps=1e-6))
+        nbytes = (2 * x.numel() + sc.numel()) * x.element_size()
+        # ~4 flops an element, done in f32 on the CUDA cores whatever x's dtype
+        bound_ms, bound_by = bound(nbytes, 4 * x.numel(), PEAK_FLOPS[torch.float32])
+        print(f"rmsnorm {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.rms_norm {lib_ms:.4f} ms (err vs plain {max_err(lib, want):.3g}), "
+              f"bound {bound_ms:.5f} ms ({bound_by}), max abs err {err:.3g}")
+        if row is None:
+            row = {"name": "rmsnorm", "route": "triton",
+                   "source": "src/repro_torch/kernels/rmsnorm.py",
+                   "replaces": "src/repro/kernels/rmsnorm.py:11",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    return row
+
+
+def decode_vs_forward(model, params, toks) -> dict:
+    """{stage: (logits, forward's logits at the same position)} for prefill of
+    toks[:, :-1] and one decode step of toks[:, -1]."""
+    k = toks.shape[1] - 1
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": toks})
+        last, kv = model.prefill(params, {"tokens": toks[:, :k]}, max_len=2 * k)
+        step, _ = model.decode_step(params, toks[:, k:], kv)
+    return {"prefill": (last, full[:, k - 1]), "decode": (step, full[:, k])}
+
+
+def phase_serve(card: str) -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import ServeJobConfig
+    from repro_torch.runtime.step_cache import ServerCache, run_serve_task
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cache = ServerCache(1)
+    torch.cuda.synchronize()
+    FA.flash_attention_cuda.launches = 0
+    RN.rmsnorm_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = run_serve_task(cache, SERVE_PAYLOAD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.flash_attention_cuda.launches,
+                "rmsnorm": RN.rmsnorm_cuda.launches}
+    print(f"serve: {res} in {wall:.2f} s (incl. param init); launches {launches}")
+    n, new = SERVE_PAYLOAD["n_requests"], SERVE_PAYLOAD["max_new"]
+    check(res["requests"] == n and res["generated_tokens"] == n * new,
+          f"expected {n} requests of {new} tokens, got {res}")
+    check(launches["flash_attention"] >= 28 * n, f"flash launches {launches}")
+    check(launches["rmsnorm"] > 0, f"rmsnorm launches {launches}")
+
+    srv = cache.get(ServeJobConfig.from_job({"payload": SERVE_PAYLOAD}))  # warm hit
+    model, params = srv.model, srv.params
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == QWEN3_PARAMS == model.cfg.param_count(), f"params {n_params}")
+    check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in tree_leaves(params)),
+          "params must be bf16 on the card")
+
+    # prefill + one decode step == forward's last logits, at full width. In f32
+    # the two paths agree to ~2e-5 at all 28 layers. In bf16 their rounding
+    # drifts apart with depth (max ~0.03 at 4 layers, ~0.15 at 28 on random
+    # weights), so the JAX suite's bf16 tolerance 0.08, set on 4-layer reduced
+    # configs, is held at that depth; the 28-layer bf16 decode error is printed.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    cases = [
+        ("f32, 28 layers", dataclasses.replace(model.cfg, dtype="float32"),
+         tree_map(lambda t: t.float(), params), {"prefill": 1e-4, "decode": 1e-4}),
+        ("bf16, 4 layers", dataclasses.replace(model.cfg, num_layers=4),
+         dict(params, layers=tree_map(lambda t: t[:4], params["layers"])),
+         {"prefill": 0.08, "decode": 0.08}),
+        ("bf16, 28 layers", model.cfg, params, {"prefill": 0.08, "decode": None})]
+    for tag, cfg, p, tols in cases:
+        for name, (got, want) in decode_vs_forward(Model(cfg, "cuda"), p, toks).items():
+            err = max_err(got, want)
+            print(f"{name} vs forward logits (full width, {tag}): max abs err {err:.4g}, "
+                  f"|logit| max {want.float().abs().max().item():.3g}")
+            check(bool(torch.isfinite(got).all()), f"{name} ({tag}): non-finite logits")
+            if tols[name] is not None:
+                check(close(got, want, tols[name]),
+                      f"{name} vs forward ({tag}): max err {err} > tolerance {tols[name]}")
+    del cases
+
+    # throughput: one 512-token prefill; decode steps of all 4 slots
+    prompt = toks.new_tensor([list(range(SERVE_PAYLOAD["prompt_len"]))])
+    L = SERVE_PAYLOAD["max_len"]
+    with torch.inference_mode():
+        t_pre = wall_ms(lambda: model.prefill(params, {"tokens": prompt}, max_len=L))
+        dcache = model.init_cache(SERVE_PAYLOAD["slots"], L)
+        dcache["pos"].fill_(SERVE_PAYLOAD["prompt_len"])
+        slot_toks = toks[:, :2].reshape(-1, 1)
+        t_dec = wall_ms(lambda: model.decode_step(params, slot_toks, dcache))
+        profile_breakdown("prefill 512 tokens",
+                          lambda: model.prefill(params, {"tokens": prompt}, max_len=L))
+        profile_breakdown("decode step, 4 slots",
+                          lambda: model.decode_step(params, slot_toks, dcache))
+    pre_tps = SERVE_PAYLOAD["prompt_len"] / t_pre * 1e3
+    dec_tps = SERVE_PAYLOAD["slots"] / t_dec * 1e3
+    print(f"prefill 512 tokens: {t_pre:.2f} ms = {pre_tps:.0f} tokens/s [{card}]")
+    print(f"decode step, 4 slots, cache 2048: {t_dec:.2f} ms = {dec_tps:.0f} tokens/s [{card}]")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = run_serve_task(cache, SERVE_PAYLOAD)          # same server, rebound
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(warm == res, f"warm serve task {warm} != cold {res}")
+    print(f"serve task: cold {wall:.2f} s (incl. param init), warm {warm_s:.2f} s = "
+          f"{res['generated_tokens'] / warm_s:.1f} generated tokens/s end to end [{card}]; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def profile_breakdown(tag: str, fn, top: int = 6) -> None:
+    """Device-busy share of one call and its kernels by device time, from
+    torch.profiler (the wall time here includes the profiler's own cost)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile {tag}: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+          f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5} {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_card()
+    phase_build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = [phase_flash(gen), phase_rmsnorm(gen)]
+    launches = phase_serve(card)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

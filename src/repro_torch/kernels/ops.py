@@ -1,0 +1,70 @@
+"""Public kernel ops, dispatched by the device of the tensors they are given.
+
+A CUDA tensor goes to the hand-written Hopper kernel (which launches or raises);
+a CPU tensor goes to the kernel's plain PyTorch version. There is no switch and
+no fallback from one to the other. ``attend_cache`` has no kernel in the JAX
+package either and is plain PyTorch on both devices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm as RN
+
+NEG_INF = -1e30
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel path for device {x.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,Sq,H,D], k/v [B,Skv,K,D] -> [B,Sq,H,D]. GQA via H % K == 0."""
+    if _on_card(q):
+        return FA.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=causal, window=window)
+    return FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    if _on_card(x):
+        return RN.rmsnorm_cuda(x.contiguous(), scale.contiguous(), eps=eps)
+    return RN.rmsnorm_plain(x, scale, eps=eps)
+
+
+def attend_cache(q, k_cache, v_cache, pos, *, window: int = 0,
+                 packed: bool = False):
+    """Decode-step attention: q [B,1,H,D] against a [B,Smax,K,D] cache where
+    positions >= ``pos``+1 are not yet written; ``pos`` broadcasts as [B,1,1,1].
+
+    ``packed=True``: GQA grouped product straight against the cache, with no
+    repeat of the kv heads; the probabilities are cast to q's dtype before the
+    value product, as in the JAX package. Both forms accumulate in f32."""
+    B, _, H, D = q.shape
+    _, Smax, K, _ = k_cache.shape
+    group = H // K
+    k_pos = torch.arange(Smax, device=q.device)[None, None, None, :]
+    if packed:
+        qg = q.reshape(B, K, group, D).float()
+        s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(D)
+        mask = k_pos <= pos.reshape(B, 1, 1, 1)
+        if window > 0:
+            mask = mask & (pos.reshape(B, 1, 1, 1) - k_pos < window)
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(), v_cache.float())
+        return out.reshape(B, 1, H, D).to(q.dtype)
+    kk = k_cache.float().repeat_interleave(group, dim=2)
+    vv = v_cache.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(D)
+    mask = k_pos <= pos
+    if window > 0:
+        mask = mask & (pos - k_pos < window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)

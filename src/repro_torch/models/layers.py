@@ -1,0 +1,91 @@
+"""Shared layer primitives, twins of ``repro.models.layers``: RMSNorm, RoPE, SwiGLU
+MLP, GQA q/k/v projection and output projection, and the KV-cache write.
+
+Parameters arrive as the dicts of ``models.params``. On one card every sharding
+constraint of the JAX package is the identity, so none appears here, and the
+dots keep their natural output dtype (the serving path's ``reduce_dtype`` is
+None).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return ops.rmsnorm(x, scale, eps=eps)
+
+
+# ------------------------------------------------------------------------------ RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half RoPE in f32. x: [B, S, H, D] (D even), positions: [B, S]."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)                        # [D/2]
+    angles = positions[..., None].float() * freqs                 # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------------------- MLP
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(h.float()).to(x.dtype) * u.to(x.dtype)
+    return (h @ p["w_down"]).to(x.dtype)
+
+
+# -------------------------------------------------------------------------- attention
+def _qk_norm(p: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
+    if "q_norm" in p:
+        q = ops.rmsnorm(q, p["q_norm"], eps=eps)
+        k = ops.rmsnorm(k, p["k_norm"], eps=eps)
+    return q, k
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+    D, H, hd = w.shape
+    return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
+
+
+def qkv_project(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+                theta: float, eps: float):
+    """Self-attention q [B,S,H,hd] and k, v [B,S,K,hd], with qk-norm and RoPE."""
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    q, k = _qk_norm(p, q, k, eps)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def attn_out(p: dict, o: torch.Tensor) -> torch.Tensor:
+    H, hd, D = p["wo"].shape
+    return (o.flatten(-2) @ p["wo"].reshape(H * hd, D)).to(o.dtype)
+
+
+def _cache_update(cache: torch.Tensor, new: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Write new [B, 1, K, D] into cache [B, Smax, K, D] at per-row position pos.
+
+    The JAX package blends a one-hot row mask over the whole cache, a functional
+    update that rewrites every position. Here it is an in-place index write into
+    the preallocated cache: one row per batch entry. As with the one-hot blend, a
+    row whose pos is past the end (an idle serving slot) writes nothing."""
+    B, Smax = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    idx = pos.long().clamp(max=Smax - 1)
+    keep = (pos < Smax).reshape(B, 1, 1)
+    cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype), cache[rows, idx])
+    return cache

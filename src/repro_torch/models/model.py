@@ -1,0 +1,213 @@
+"""Model facade of the PyTorch port, twin of ``repro.models.model``.
+
+This slice ports the dense family: ``[attn -> mlp] x L`` with the local:global
+period of ``_period``/``_window_for``. PyTorch runs eagerly, so ``lax.scan`` over
+the stacked layer params becomes a Python loop over the leading "layers" dim.
+Three entry points: ``forward`` (full sequence), ``prefill`` (KV cache build +
+last-token logits) and ``decode_step`` (one token against the cache). The cache
+layout is declared once as a ``TensorDef`` tree (``cache_defs``) that
+``init_cache`` and the server's batch-axis search both read.
+
+The KV cache is updated in place: ``decode_step`` writes the new token's k/v
+into the tensors of the cache it is given and returns them in the new cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import device as devices
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as LY
+from repro_torch.models.params import init_params
+from repro_torch.tree import tree_map
+
+# family -> the port slice that brings it
+_LATER_SLICES = {
+    "moe": "the MoE slice",
+    "ssm": "the SSM slice (with kernel K3, the SSD scan)",
+    "hybrid": "the SSM slice (with kernel K3, the SSD scan)",
+    "encdec": "the encoder-decoder and VLM slice",
+    "vlm": "the encoder-decoder and VLM slice",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorDef:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _period(cfg: ArchConfig) -> int:
+    return cfg.local_global_pattern + 1 if cfg.local_global_pattern else 1
+
+
+def _window_for(cfg: ArchConfig, j: int) -> int:
+    """Static sliding window for period position j (gemma3: j<pattern => local)."""
+    if cfg.local_global_pattern and j < cfg.local_global_pattern:
+        return cfg.sliding_window or 0
+    return 0
+
+
+def _layer(params_layers: dict, i: int) -> dict:
+    return tree_map(lambda a: a[i], params_layers)
+
+
+# ----------------------------------------------------------------------- layer blocks
+def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+           window: int, want_kv: bool):
+    """attn -> mlp. Returns (x, kv)."""
+    h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = LY.qkv_project(p["attn"], h, positions=positions,
+                             theta=cfg.rope_theta, eps=cfg.norm_eps)
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    x = x + LY.attn_out(p["attn"], o)
+    h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + LY.swiglu(p["mlp"], h)
+    return x, ({"k": k, "v": v} if want_kv else None)
+
+
+def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Decode variant of ``_block`` against a full-length {"k","v"} cache."""
+    h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
+                                     theta=cfg.rope_theta, eps=cfg.norm_eps)
+    k_c = LY._cache_update(cache["k"], k_new, pos)
+    v_c = LY._cache_update(cache["v"], v_new, pos)
+    o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
+                         packed=cfg.packed_decode)
+    x = x + LY.attn_out(p["attn"], o)
+    h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + LY.swiglu(p["mlp"], h)
+
+
+# ------------------------------------------------------------------- dense stacks
+def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
+               positions: torch.Tensor, want_kv: bool = False):
+    """Returns (x, kvs): kvs[j] = {"k","v": [G,B,S,K,hd]} per period position j."""
+    period = _period(cfg)
+    windows = [_window_for(cfg, j) for j in range(period)]
+    kvs = [[] for _ in range(period)]
+    for g in range(cfg.num_layers // period):
+        for j in range(period):
+            p = _layer(params["layers"], g * period + j)
+            x, kv = _block(cfg, p, x, positions, windows[j], want_kv)
+            kvs[j].append(kv)
+    if not want_kv:
+        return x, None
+    return x, tuple({n: torch.stack([kv[n] for kv in kvs[j]]) for n in ("k", "v")}
+                    for j in range(period))
+
+
+def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                  cache_layers: tuple, pos: torch.Tensor) -> torch.Tensor:
+    period = _period(cfg)
+    for g in range(cfg.num_layers // period):
+        for j in range(period):
+            p = _layer(params["layers"], g * period + j)
+            cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
+            x = _block_decode(cfg, p, x, cache, pos)
+    return x
+
+
+# =============================================================================== Model
+class Model:
+    """Dense-family model bound to an ArchConfig and a device."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family arrives with "
+                f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
+        self.cfg = cfg
+        self.device = devices.resolve(device)
+
+    def init_params(self, seed: int = 0) -> dict:
+        return init_params(self.cfg, seed, self.device)
+
+    def _require_full_caches(self) -> None:
+        if any(_window_for(self.cfg, j) for j in range(_period(self.cfg))):
+            raise NotImplementedError(
+                f"{self.cfg.name}: windowed decode (ring cache) arrives with the "
+                "gemma3 slice of the port")
+
+    # --------------------------------------------------------------------- embedding
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.long()]
+
+    def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = LY.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        table = (params["embed"].T if self.cfg.tie_embeddings
+                 else params["unembed"])
+        return x @ table
+
+    def _positions(self, B: int, S: int) -> torch.Tensor:
+        return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
+
+    # ----------------------------------------------------------------------- forward
+    def forward(self, params: dict, batch: Dict[str, torch.Tensor]):
+        """Full-sequence forward. Returns (logits [B,S,V], aux_loss)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        x, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._unembed(params, x), aux
+
+    # ----------------------------------------------------------------------- prefill
+    def prefill(self, params: dict, batch: Dict[str, torch.Tensor],
+                max_len: Optional[int] = None):
+        """Build the decode cache from a full prompt; returns (last_logits, cache)."""
+        self._require_full_caches()
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        max_len = max_len or S
+        if max_len < S:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+        x = self._embed(params, tokens)
+        x, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S), want_kv=True)
+        layers = []
+        for kv in kvs:
+            padded = {}
+            for n, t in kv.items():                      # [G,B,S,K,hd]
+                full = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
+                full[:, :, :S] = t
+                padded[n] = full
+            layers.append(padded)
+        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        last_logits = self._unembed(params, x[:, -1:])[:, 0]
+        return last_logits, {"pos": pos, "layers": tuple(layers)}
+
+    # ------------------------------------------------------------------- decode step
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place."""
+        self._require_full_caches()
+        pos = cache["pos"]
+        x = self._embed(params, tokens)
+        x = _stack_decode(self.cfg, params, x, cache["layers"], pos)
+        logits = self._unembed(params, x)[:, 0]
+        return logits, {"pos": pos + 1, "layers": cache["layers"]}
+
+    # ------------------------------------------------------------------- cache views
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        period = _period(cfg)
+        G = cfg.num_layers // period
+
+        def kv(S):
+            return {"k": TensorDef((G, batch, S, K, hd), dt),
+                    "v": TensorDef((G, batch, S, K, hd), dt)}
+
+        return {"pos": TensorDef((batch,), torch.int32),
+                "layers": tuple(kv(_window_for(cfg, j) or max_len)
+                                for j in range(period))}
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),
+                        self.cache_defs(batch, max_len))

@@ -1,0 +1,184 @@
+"""Server: slot-based continuous batching over the decode cache (twin of
+``repro.runtime.serve_loop``).
+
+Requests (prompt token lists) queue up; each free slot prefills one request
+(B=1) and splices its cache into the batched decode cache at the slot's batch
+index; every tick runs ONE batched decode step for all active slots (inactive
+slots compute masked garbage — the standard continuous-batching trade). Slots
+free as requests hit EOS/max_new, so long and short generations coexist without
+head-of-line blocking.
+
+The batch axis of every cache leaf is located generically by diffing
+``cache_defs(batch=1)`` against ``cache_defs(batch=2)``. PyTorch runs eagerly,
+so there is no per-prompt-length compile cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from collections import deque
+from typing import Deque, Dict, List, Optional
+
+import torch
+
+from repro_torch import configs
+from repro_torch import device as devices
+from repro_torch.models.model import Model
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: str
+    prompt: List[int]
+    max_new: int = 16
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class ServeJobConfig:
+    arch: str = "qwen3-0.6b"
+    reduced: bool = True
+    slots: int = 4
+    max_len: int = 256
+    eos_id: Optional[int] = None
+    greedy: bool = True
+    seed: int = 0
+    device: str = "cuda"      # "cpu" runs the kernels' plain PyTorch versions
+
+    @classmethod
+    def from_job(cls, job: dict) -> "ServeJobConfig":
+        payload = dict(job.get("payload", {}))
+        payload.setdefault("arch", job.get("arch") or "qwen3-0.6b")
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in payload.items() if k in known})
+
+
+class Server:
+    def __init__(self, cfg: ServeJobConfig, params: Optional[dict] = None):
+        self.cfg = cfg
+        self.device = devices.resolve(cfg.device)
+        arch_cfg = configs.get(cfg.arch)
+        if cfg.reduced:
+            arch_cfg = arch_cfg.reduced()
+        arch_cfg = dataclasses.replace(arch_cfg, remat="none")
+        self.arch_cfg = arch_cfg
+        self.model = Model(arch_cfg, self.device)
+        self.params = params if params is not None else \
+            self.model.init_params(cfg.seed)
+
+        B, L = cfg.slots, cfg.max_len
+        self.cache = self.model.init_cache(B, L)
+        self._batch_axis = self._locate_batch_axes(L)
+        self.slots: List[Optional[Request]] = [None] * B
+        self.queue: Deque[Request] = deque()
+        self.requests: Dict[str, Request] = {}
+        self._ids = itertools.count(1)
+        self._rng = self._sampler(cfg.seed)
+        self.steps = 0
+        self._init_params = self.params
+        self._init_seed = cfg.seed
+
+    def _sampler(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed + 17)
+        return gen
+
+    def rebind(self, cfg: ServeJobConfig) -> None:
+        """Re-arm a warm server for a new task of the SAME family (the step-cache
+        hit path): fresh request/slot/cache state, same model. The caller
+        guarantees the cache key (arch, reduced, slots, max_len, device) matches;
+        eos/greedy/seed are host-side and may differ."""
+        if cfg.seed == self._init_seed:
+            self.params = self._init_params
+        else:
+            self.params = self.model.init_params(cfg.seed)
+            self._init_params = self.params
+            self._init_seed = cfg.seed
+        self.cfg = cfg
+        self.cache = self.model.init_cache(cfg.slots, cfg.max_len)
+        self.slots = [None] * cfg.slots
+        self.queue = deque()
+        self.requests = {}
+        self._ids = itertools.count(1)
+        self._rng = self._sampler(cfg.seed)
+        self.steps = 0
+
+    # ------------------------------------------------------------- batch axes
+    def _locate_batch_axes(self, L: int):
+        def axis(a, b):
+            diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+            assert len(diffs) == 1, (a.shape, b.shape)
+            return diffs[0]
+
+        return tree_map(axis, self.model.cache_defs(1, L), self.model.cache_defs(2, L))
+
+    def _splice(self, slot: int, one_cache: dict) -> None:
+        def put(full, one, ax):
+            full.narrow(ax, slot, 1).copy_(one)
+            return full
+        self.cache = tree_map(put, self.cache, one_cache, self._batch_axis)
+
+    # ----------------------------------------------------------------- request path
+    def submit(self, prompt: List[int], max_new: int = 16) -> str:
+        rid = f"req-{next(self._ids):04d}"
+        req = Request(rid, list(prompt), max_new)
+        self.queue.append(req)
+        self.requests[rid] = req
+        return rid
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.cfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=self._rng)[:, 0]
+
+    def _admit(self) -> None:
+        for slot in range(self.cfg.slots):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            toks = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
+            logits, one_cache = self.model.prefill(self.params, {"tokens": toks},
+                                                   max_len=self.cfg.max_len)
+            self._splice(slot, one_cache)
+            req.generated.append(int(self._sample(logits)[0]))
+            self.slots[slot] = req
+            self._maybe_finish(slot)
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self.slots[slot]
+        if req is None:
+            return
+        hit_eos = (self.cfg.eos_id is not None and req.generated
+                   and req.generated[-1] == self.cfg.eos_id)
+        total = len(req.prompt) + len(req.generated)
+        if hit_eos or len(req.generated) >= req.max_new \
+                or total >= self.cfg.max_len - 1:
+            req.done = True
+            self.slots[slot] = None
+
+    # -------------------------------------------------------------------- main loop
+    def step(self) -> int:
+        """Admit + one batched decode step. Returns number of active slots."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        last = [r.generated[-1] if r else 0 for r in self.slots]
+        tokens = torch.tensor(last, dtype=torch.long, device=self.device)[:, None]
+        logits, self.cache = self.model.decode_step(self.params, tokens, self.cache)
+        nxt = self._sample(logits).tolist()
+        for i in active:
+            self.slots[i].generated.append(int(nxt[i]))
+            self._maybe_finish(i)
+        self.steps += 1
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        for _ in range(max_steps):
+            n = self.step()
+            if n == 0 and not self.queue:
+                break
+        return [r for r in self.requests.values() if r.done]
