@@ -6,16 +6,19 @@
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
-     source, all started together) into ``build/kernels``;
+     source, all started together) into ``build/kernels``, printing each
+     kernel's registers and spills;
   3. hold every kernel against its plain PyTorch version on the card at the
-     serving path's shapes and the test sweep's, and time kernel, plain version
-     and the PyTorch library call that computes the same function;
-  4. serve qwen3-0.6b at full width through ``run_serve_task`` (8 requests of
-     512 prompt + 32 new tokens, 4 slots, 2048-token cache), with the launch
-     counters set to 0 just before and read just after; then check prefill +
-     one decode step against ``forward`` at full width (f32 at 28 layers to
-     1e-4; bf16 at 0.08 at 4 layers, see ``phase_serve``) and time prefill and
-     decode throughput.
+     serving paths' shapes and the test sweeps', and time kernel, plain version
+     and the PyTorch library call that computes the same function (none for the
+     SSD scan);
+  4. serve each model of the port at full width through ``run_serve_task``
+     (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
+     qwen3-0.6b (dense: K1, K2), then mamba2-2.7b (ssm: K2, K3), each with the
+     launch counters set to 0 just before and read just after, and the previous
+     server released first. Then check prefill + one decode step against
+     ``forward`` at full width (f32 at every layer to 1e-4; bf16 at 0.08 at 4
+     layers, see ``phase_serve``) and time prefill, decode and the warm task.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -24,6 +27,7 @@ device, or outside a checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -43,16 +47,29 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, bf16 inputs
               torch.float32: 67e12}     # CUDA cores, f32 without TF32
 
-SERVE_PAYLOAD = {"arch": "qwen3-0.6b", "reduced": False, "slots": 4,
-                 "max_len": 2048, "n_requests": 8, "prompt_len": 512,
-                 "max_new": 32}
-QWEN3_PARAMS = 751_632_384
+SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
+         "prompt_len": 512, "max_new": 32}
+# One serving path per ported family, at full width. ``min_launches``: what each
+# kernel must at least be launched in the serve task (K1 once per layer per
+# prefill; K3 likewise; K2 on every norm). ``f32_leaves``: params kept in f32.
+# ``toks``: the (batch, length) of the prefill + decode vs forward check; 601
+# makes mamba2's 600-token prefill cross two 256-token chunks and end ragged.
+PATHS = [
+    {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": (2, 64),
+     "min_launches": {"flash_attention": 28 * 8, "rmsnorm": 1}},
+    {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
+     "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8, "rmsnorm": 1}},
+]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
                (1, 256, 8, 1, 32, True, 0), (1, 128, 4, 4, 64, False, 0),
                (1, 256, 4, 2, 64, True, 64), (1, 96, 2, 2, 80, True, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# twins of tests/test_kernels.py:SSD_SWEEP (B, S, H, P, N, chunk), at its tolerances
+SSD_SWEEP = [(1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32)]
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+SSD_MAIN = (1, 512, 80, 64, 128, 256)   # mamba2-2.7b prefill of 512 tokens
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,6 +132,34 @@ def attn_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
         lo = max(0, qa - window + 1) if window > 0 else 0
         total += max(0, hi - lo)
     return total
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Flops of the chunked SSD scan for these shapes: C.B^T once per chunk
+    (G=1) over the causal pairs, then per head the masked score product, the
+    carried state's readout and the state update."""
+    total = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        pairs = q * (q + 1) // 2
+        total += 2 * B * (pairs * N + H * (pairs * P + 2 * q * N * P))
+    return total
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
+    return {"flash_attention": FA.flash_attention_cuda, "rmsnorm": RN.rmsnorm_cuda,
+            "ssd_scan": SS.ssd_scan_cuda}
+
+
+def named_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, path + (k,))
+    else:
+        yield path, tree
 
 
 def randn(shape, dtype, gen):
@@ -206,6 +251,9 @@ def phase_rmsnorm(gen) -> dict:
     shapes = [((1, 512, 1024), torch.bfloat16),    # main path: ln1/ln2 in prefill
               ((1, 512, 16, 128), torch.bfloat16), ((1, 512, 8, 128), torch.bfloat16),
               ((4, 1, 1024), torch.bfloat16),      # decode step, 4 slots
+              ((1, 512, 2560), torch.bfloat16),    # mamba2: ln1, final_norm in prefill
+              ((1, 512, 5120), torch.bfloat16),    # mamba2: gate_norm in prefill
+              ((4, 1, 2560), torch.bfloat16), ((4, 1, 5120), torch.bfloat16),  # decode
               ((4 * 1024, 1024), torch.bfloat16), ((1, 2048, 16, 128), torch.bfloat16),
               ((3, 5, 80), torch.bfloat16), ((3, 5, 80), torch.float32),
               ((2, 64, 128), torch.float32), ((1, 7, 256), torch.float32),
@@ -236,6 +284,62 @@ def phase_rmsnorm(gen) -> dict:
     return row
 
 
+def phase_ssd(gen) -> dict:
+    from repro_torch.kernels import ssd_scan as SS
+
+    def inputs(B, S, H, P, N, dtype):
+        return (randn((B, S, H, P), dtype, gen),
+                F.softplus(randn((B, S, H), torch.float32, gen)),
+                -torch.exp(0.2 * randn((H,), torch.float32, gen)),
+                randn((B, S, N), dtype, gen), randn((B, S, N), dtype, gen))
+
+    def held(tag, got, want, tol):
+        for name, g, w in zip(("y", "state"), got, want):
+            check(close(g, w, tol), f"ssd_scan {tag} {name}: max err {max_err(g, w)}")
+
+    # the sweep (ragged S included) in both dtypes, with and without an initial state
+    for B, S, H, P, N, chunk in SSD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(B, S, H, P, N, dtype)
+            for h0 in (None, randn((B, H, N, P), torch.float32, gen)):
+                held(f"{B, S, H, P, N, chunk} {dtype} init={h0 is not None}",
+                     SS.ssd_scan_cuda(*args, chunk=chunk, init_state=h0),
+                     SS.ssd_scan_plain(*args, chunk=chunk, init_state=h0), SSD_TOL[dtype])
+    # split scan: S1 tokens, then the rest from the first final state == one scan
+    args = inputs(2, 256, 4, 64, 32, torch.float32)
+    y, h = SS.ssd_scan_cuda(*args, chunk=64)
+    y1, h1 = SS.ssd_scan_cuda(*(t[:, :100].contiguous() if t.dim() > 1 else t
+                                for t in args), chunk=64)
+    y2, h2 = SS.ssd_scan_cuda(*(t[:, 100:].contiguous() if t.dim() > 1 else t
+                                for t in args), chunk=64, init_state=h1)
+    held("split 100+156", (torch.cat([y1, y2], dim=1), h2), (y, h), 2e-4)
+    print("ssd_scan: sweep (f32, bf16, ragged S, init_state) and split scan match")
+
+    B, S, H, P, N, chunk = SSD_MAIN
+    dtype = torch.bfloat16
+    args = inputs(B, S, H, P, N, dtype)
+    got = SS.ssd_scan_cuda(*args, chunk=chunk)
+    want = SS.ssd_scan_plain(*args, chunk=chunk)
+    held(f"{SSD_MAIN} bf16", got, want, SSD_TOL[dtype])
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    ms = time_ms(lambda: SS.ssd_scan_cuda(*args, chunk=chunk))
+    plain_ms = time_ms(lambda: SS.ssd_scan_plain(*args, chunk=chunk))
+    # x and y in bf16; B, C in bf16; dt, A and the final state in f32
+    nbytes = (2 * args[0].numel() + args[3].numel() + args[4].numel()) * 2 \
+        + (args[1].numel() + args[2].numel() + B * H * N * P) * 4
+    flops = ssd_flops(B, S, H, P, N, chunk)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms ({bound_by}; "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.2f} TFLOP/s, "
+          f"max abs err {err:.3g} (|y| max {want[0].float().abs().max().item():.3g})")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:27",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def decode_vs_forward(model, params, toks) -> dict:
     """{stage: (logits, forward's logits at the same position)} for prefill of
     toks[:, :-1] and one decode step of toks[:, -1]."""
@@ -247,89 +351,97 @@ def decode_vs_forward(model, params, toks) -> dict:
     return {"prefill": (last, full[:, k - 1]), "decode": (step, full[:, k])}
 
 
-def phase_serve(card: str) -> dict:
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import rmsnorm as RN
+def phase_serve(card: str, path: dict) -> dict:
+    """Serve one model at full width; returns each kernel's launches in the task."""
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import ServeJobConfig
     from repro_torch.runtime.step_cache import ServerCache, run_serve_task
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
+    arch = path["arch"]
+    payload = dict(SERVE, arch=arch)
+    wrappers = kernel_wrappers()
     cache = ServerCache(1)
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    FA.flash_attention_cuda.launches = 0
-    RN.rmsnorm_cuda.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    res = run_serve_task(cache, SERVE_PAYLOAD)
+    res = run_serve_task(cache, payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": FA.flash_attention_cuda.launches,
-                "rmsnorm": RN.rmsnorm_cuda.launches}
-    print(f"serve: {res} in {wall:.2f} s (incl. param init); launches {launches}")
-    n, new = SERVE_PAYLOAD["n_requests"], SERVE_PAYLOAD["max_new"]
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"serve {arch}: {res} in {wall:.2f} s (incl. param init); launches {launches}")
+    n, new = payload["n_requests"], payload["max_new"]
     check(res["requests"] == n and res["generated_tokens"] == n * new,
-          f"expected {n} requests of {new} tokens, got {res}")
-    check(launches["flash_attention"] >= 28 * n, f"flash launches {launches}")
-    check(launches["rmsnorm"] > 0, f"rmsnorm launches {launches}")
+          f"{arch}: expected {n} requests of {new} tokens, got {res}")
+    for name, least in path["min_launches"].items():
+        check(launches[name] >= least, f"{arch}: {name} launches {launches[name]} < {least}")
 
-    srv = cache.get(ServeJobConfig.from_job({"payload": SERVE_PAYLOAD}))  # warm hit
+    srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
     model, params = srv.model, srv.params
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    check(n_params == QWEN3_PARAMS == model.cfg.param_count(), f"params {n_params}")
-    check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in tree_leaves(params)),
-          "params must be bf16 on the card")
+    leaves = list(named_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves)
+    check(n_params == path["params"] == model.cfg.param_count(), f"{arch}: params {n_params}")
+    for name, t in leaves:
+        want = torch.float32 if name[-1] in path["f32_leaves"] else torch.bfloat16
+        check(t.is_cuda and t.dtype == want, f"{arch}: param {name} is {t.dtype} on "
+              f"{t.device}, want {want} on the card")
 
-    # prefill + one decode step == forward's last logits, at full width. In f32
-    # the two paths agree to ~2e-5 at all 28 layers. In bf16 their rounding
-    # drifts apart with depth (max ~0.03 at 4 layers, ~0.15 at 28 on random
+    # prefill + one decode step == forward's logits, at full width. In f32 the
+    # two paths agree to ~2e-5 at every layer. In bf16 their rounding drifts
+    # apart with depth (qwen3: max ~0.03 at 4 layers, ~0.15 at 28 on random
     # weights), so the JAX suite's bf16 tolerance 0.08, set on 4-layer reduced
-    # configs, is held at that depth; the 28-layer bf16 decode error is printed.
+    # configs, is held at that depth; the full-depth bf16 error is printed.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    toks = torch.randint(0, model.cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    toks = torch.randint(0, model.cfg.vocab_size, path["toks"], generator=gen, device="cuda")
+    L = model.cfg.num_layers
     cases = [
-        ("f32, 28 layers", dataclasses.replace(model.cfg, dtype="float32"),
-         tree_map(lambda t: t.float(), params), {"prefill": 1e-4, "decode": 1e-4}),
+        (f"f32, {L} layers", dataclasses.replace(model.cfg, dtype="float32"),
+         lambda: tree_map(lambda t: t.float(), params), {"prefill": 1e-4, "decode": 1e-4}),
         ("bf16, 4 layers", dataclasses.replace(model.cfg, num_layers=4),
-         dict(params, layers=tree_map(lambda t: t[:4], params["layers"])),
+         lambda: dict(params, layers=tree_map(lambda t: t[:4], params["layers"])),
          {"prefill": 0.08, "decode": 0.08}),
-        ("bf16, 28 layers", model.cfg, params, {"prefill": 0.08, "decode": None})]
-    for tag, cfg, p, tols in cases:
-        for name, (got, want) in decode_vs_forward(Model(cfg, "cuda"), p, toks).items():
+        (f"bf16, {L} layers", model.cfg, lambda: params, {"prefill": 0.08, "decode": None})]
+    for tag, cfg, make_params, tols in cases:
+        for name, (got, want) in decode_vs_forward(Model(cfg, "cuda"), make_params(),
+                                                   toks).items():
             err = max_err(got, want)
-            print(f"{name} vs forward logits (full width, {tag}): max abs err {err:.4g}, "
-                  f"|logit| max {want.float().abs().max().item():.3g}")
-            check(bool(torch.isfinite(got).all()), f"{name} ({tag}): non-finite logits")
+            print(f"{arch} {name} vs forward logits (full width, {tag}): max abs err "
+                  f"{err:.4g}, |logit| max {want.float().abs().max().item():.3g}")
+            check(bool(torch.isfinite(got).all()), f"{arch} {name} ({tag}): non-finite logits")
             if tols[name] is not None:
-                check(close(got, want, tols[name]),
-                      f"{name} vs forward ({tag}): max err {err} > tolerance {tols[name]}")
-    del cases
+                check(close(got, want, tols[name]), f"{arch} {name} vs forward ({tag}): "
+                      f"max err {err} > tolerance {tols[name]}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # throughput: one 512-token prefill; decode steps of all 4 slots
-    prompt = toks.new_tensor([list(range(SERVE_PAYLOAD["prompt_len"]))])
-    L = SERVE_PAYLOAD["max_len"]
+    prompt = toks.new_tensor([list(range(payload["prompt_len"]))])
+    slots, max_len = payload["slots"], payload["max_len"]
     with torch.inference_mode():
-        t_pre = wall_ms(lambda: model.prefill(params, {"tokens": prompt}, max_len=L))
-        dcache = model.init_cache(SERVE_PAYLOAD["slots"], L)
-        dcache["pos"].fill_(SERVE_PAYLOAD["prompt_len"])
+        t_pre = wall_ms(lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len))
+        dcache = model.init_cache(slots, max_len)
+        dcache["pos"].fill_(payload["prompt_len"])
         slot_toks = toks[:, :2].reshape(-1, 1)
         t_dec = wall_ms(lambda: model.decode_step(params, slot_toks, dcache))
-        profile_breakdown("prefill 512 tokens",
-                          lambda: model.prefill(params, {"tokens": prompt}, max_len=L))
-        profile_breakdown("decode step, 4 slots",
+        profile_breakdown(f"{arch} prefill 512 tokens",
+                          lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len))
+        profile_breakdown(f"{arch} decode step, 4 slots",
                           lambda: model.decode_step(params, slot_toks, dcache))
-    pre_tps = SERVE_PAYLOAD["prompt_len"] / t_pre * 1e3
-    dec_tps = SERVE_PAYLOAD["slots"] / t_dec * 1e3
-    print(f"prefill 512 tokens: {t_pre:.2f} ms = {pre_tps:.0f} tokens/s [{card}]")
-    print(f"decode step, 4 slots, cache 2048: {t_dec:.2f} ms = {dec_tps:.0f} tokens/s [{card}]")
+    print(f"{arch} prefill 512 tokens: {t_pre:.2f} ms = "
+          f"{payload['prompt_len'] / t_pre * 1e3:.0f} tokens/s [{card}]")
+    print(f"{arch} decode step, 4 slots, cache {max_len}: {t_dec:.2f} ms = "
+          f"{slots / t_dec * 1e3:.0f} tokens/s [{card}]")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    warm = run_serve_task(cache, SERVE_PAYLOAD)          # same server, rebound
+    warm = run_serve_task(cache, payload)          # same server, rebound
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    check(warm == res, f"warm serve task {warm} != cold {res}")
-    print(f"serve task: cold {wall:.2f} s (incl. param init), warm {warm_s:.2f} s = "
+    check(warm == res, f"{arch}: warm serve task {warm} != cold {res}")
+    print(f"{arch} serve task: cold {wall:.2f} s (incl. param init), warm {warm_s:.2f} s = "
           f"{res['generated_tokens'] / warm_s:.1f} generated tokens/s end to end [{card}]; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
@@ -367,10 +479,18 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [phase_flash(gen), phase_rmsnorm(gen)]
-    launches = phase_serve(card)
+    rows = [phase_flash(gen), phase_rmsnorm(gen), phase_ssd(gen)]
+    by_path = {}
+    for path in PATHS:
+        by_path[path["arch"]] = phase_serve(card, path)
+        gc.collect()                   # release this server before the next one
+        torch.cuda.empty_cache()
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # each kernel's launches in the serve task(s) of the path(s) that run it
+        row["launches_by_path"] = {arch: n[row["name"]] for arch, n in by_path.items()
+                                   if n[row["name"]]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        check(row["launches"] > 0, f"{row['name']} was never launched on a serving path")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,8 @@
 
 A CUDA tensor goes to the hand-written Hopper kernel (which launches or raises);
 a CPU tensor goes to the kernel's plain PyTorch version. There is no switch and
-no fallback from one to the other. ``attend_cache`` has no kernel in the JAX
-package either and is plain PyTorch on both devices.
+no fallback from one to the other. ``attend_cache`` and ``ssd_decode_step`` have
+no kernel in the JAX package either and are plain PyTorch on both devices.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd_scan as SS
 
 NEG_INF = -1e30
 
@@ -68,3 +69,29 @@ def attend_cache(q, k_cache, v_cache, pos, *, window: int = 0,
         mask = mask & (pos - k_pos < window)
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def ssd_scan(x, dt, a, bm, cm, *, chunk: int = 256, init_state=None,
+             return_state: bool = False):
+    """Mamba-2 SSD chunked scan. x [B,S,H,P], dt [B,S,H], a [H], bm/cm [B,S,N],
+    init_state [B,H,N,P] f32 or None -> y [B,S,H,P] (and the final state)."""
+    if _on_card(x):
+        y, h = SS.ssd_scan_cuda(
+            x.contiguous(), dt.contiguous(), a.contiguous(), bm.contiguous(),
+            cm.contiguous(), chunk=chunk,
+            init_state=None if init_state is None else init_state.contiguous())
+    else:
+        y, h = SS.ssd_scan_plain(x, dt, a, bm, cm, chunk=chunk, init_state=init_state)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_step(x, dt, a, bm, cm, state):
+    """One-token SSD recurrence. x [B,1,H,P], dt [B,1,H], bm/cm [B,1,N],
+    state [B,H,N,P] -> (y [B,1,H,P], new_state)."""
+    xf, dtf = x[:, 0].float(), dt[:, 0].float()
+    bf, cf = bm[:, 0].float(), cm[:, 0].float()
+    decay = torch.exp(dtf * a.float()[None, :])                  # [B,H]
+    inject = torch.einsum("bn,bhp->bhnp", bf, xf * dtf[..., None])
+    new_state = state.float() * decay[..., None, None] + inject
+    y = torch.einsum("bn,bhnp->bhp", cf, new_state)
+    return y[:, None].to(x.dtype), new_state.to(state.dtype)

@@ -31,6 +31,26 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
 
 
+def ssd_ref(x, dt, a, bm, cm):
+    """Naive per-timestep SSD recurrence (the oracle for the SSD scan).
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * B_t x_t^T ;  y_t = C_t . h_t
+    x [B,S,H,P], dt [B,S,H], a [H], bm/cm [B,S,N] -> y [B,S,H,P], final h [B,H,N,P]
+    """
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), bm.float(), cm.float()
+    af = a.float()
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * af[None, :])                         # [B,H]
+        inject = torch.einsum("bn,bhp->bhnp", bf[:, t], xf[:, t] * dtf[:, t, :, None])
+        h = h * decay[..., None, None] + inject
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
 def rmsnorm_ref(x, scale, *, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)

@@ -1,15 +1,17 @@
 """Model facade of the PyTorch port, twin of ``repro.models.model``.
 
-This slice ports the dense family: ``[attn -> mlp] x L`` with the local:global
-period of ``_period``/``_window_for``. PyTorch runs eagerly, so ``lax.scan`` over
-the stacked layer params becomes a Python loop over the leading "layers" dim.
-Three entry points: ``forward`` (full sequence), ``prefill`` (KV cache build +
-last-token logits) and ``decode_step`` (one token against the cache). The cache
-layout is declared once as a ``TensorDef`` tree (``cache_defs``) that
-``init_cache`` and the server's batch-axis search both read.
+Two families are ported: dense (``[attn -> mlp] x L`` with the local:global
+period of ``_period``/``_window_for``) and ssm (``[mamba2 SSD] x L``). PyTorch
+runs eagerly, so ``lax.scan`` over the stacked layer params becomes a Python
+loop over the leading "layers" dim. Three entry points: ``forward`` (full
+sequence), ``prefill`` (cache build + last-token logits) and ``decode_step``
+(one token against the cache). The cache layout is declared once as a
+``TensorDef`` tree (``cache_defs``) that ``init_cache`` and the server's
+batch-axis search both read.
 
-The KV cache is updated in place: ``decode_step`` writes the new token's k/v
-into the tensors of the cache it is given and returns them in the new cache.
+The cache is updated in place: ``decode_step`` writes the new token's k/v (dense)
+or the new conv tail and SSD state (ssm) into the tensors of the cache it is
+given and returns them in the new cache.
 """
 from __future__ import annotations
 
@@ -22,14 +24,14 @@ from repro_torch import device as devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as LY
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import init_params
 from repro_torch.tree import tree_map
 
 # family -> the port slice that brings it
 _LATER_SLICES = {
     "moe": "the MoE slice",
-    "ssm": "the SSM slice (with kernel K3, the SSD scan)",
-    "hybrid": "the SSM slice (with kernel K3, the SSD scan)",
+    "hybrid": "the hybrid slice (zamba2: shared attention block, K1 at head dim 112)",
     "encdec": "the encoder-decoder and VLM slice",
     "vlm": "the encoder-decoder and VLM slice",
 }
@@ -114,12 +116,44 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
     return x
 
 
+# --------------------------------------------------------------------- ssm stacks
+def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
+             want_state: bool = False):
+    """Returns (x, states): states = {"conv": [L,B,W-1,C], "ssd": [L,B,H,N,P]}."""
+    states = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        y, st = SSM.ssm_block(cfg, lp["ssm"], h)
+        x = x + y
+        if want_state:
+            states.append(st)
+    if not want_state:
+        return x, None
+    return x, {n: torch.stack([st[n] for st in states]) for n in ("conv", "ssd")}
+
+
+def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                states: dict) -> torch.Tensor:
+    """One token through every layer; writes each layer's new state into
+    ``states`` in place."""
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        y, new = SSM.ssm_block(cfg, lp["ssm"], h,
+                               state={n: states[n][i] for n in ("conv", "ssd")})
+        for n in ("conv", "ssd"):
+            states[n][i].copy_(new[n])
+        x = x + y
+    return x
+
+
 # =============================================================================== Model
 class Model:
-    """Dense-family model bound to an ArchConfig and a device."""
+    """Dense- or ssm-family model bound to an ArchConfig and a device."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family arrives with "
                 f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
@@ -154,7 +188,10 @@ class Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
-        x, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
+        if self.cfg.family == "ssm":
+            x, _ = _ssm_fwd(self.cfg, params, x)
+        else:
+            x, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return self._unembed(params, x), aux
 
@@ -169,18 +206,22 @@ class Model:
         if max_len < S:
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
         x = self._embed(params, tokens)
-        x, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S), want_kv=True)
-        layers = []
-        for kv in kvs:
-            padded = {}
-            for n, t in kv.items():                      # [G,B,S,K,hd]
-                full = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
-                full[:, :, :S] = t
-                padded[n] = full
-            layers.append(padded)
+        if self.cfg.family == "ssm":
+            x, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
+        else:
+            x, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S), want_kv=True)
+            layers = []
+            for kv in kvs:
+                padded = {}
+                for n, t in kv.items():                  # [G,B,S,K,hd]
+                    full = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
+                    full[:, :, :S] = t
+                    padded[n] = full
+                layers.append(padded)
+            layers = tuple(layers)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         last_logits = self._unembed(params, x[:, -1:])[:, 0]
-        return last_logits, {"pos": pos, "layers": tuple(layers)}
+        return last_logits, {"pos": pos, "layers": layers}
 
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
@@ -188,13 +229,21 @@ class Model:
         self._require_full_caches()
         pos = cache["pos"]
         x = self._embed(params, tokens)
-        x = _stack_decode(self.cfg, params, x, cache["layers"], pos)
+        if self.cfg.family == "ssm":
+            x = _ssm_decode(self.cfg, params, x, cache["layers"])
+        else:
+            x = _stack_decode(self.cfg, params, x, cache["layers"], pos)
         logits = self._unembed(params, x)[:, 0]
         return logits, {"pos": pos + 1, "layers": cache["layers"]}
 
     # ------------------------------------------------------------------- cache views
     def cache_defs(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
+        pos = TensorDef((batch,), torch.int32)
+        if cfg.family == "ssm":
+            return {"pos": pos, "layers": {
+                n: TensorDef(*d)
+                for n, d in SSM.ssm_state_defs(cfg, batch, cfg.num_layers).items()}}
         dt = getattr(torch, cfg.dtype)
         K, hd = cfg.num_kv_heads, cfg.head_dim
         period = _period(cfg)
@@ -204,7 +253,7 @@ class Model:
             return {"k": TensorDef((G, batch, S, K, hd), dt),
                     "v": TensorDef((G, batch, S, K, hd), dt)}
 
-        return {"pos": TensorDef((batch,), torch.int32),
+        return {"pos": pos,
                 "layers": tuple(kv(_window_for(cfg, j) or max_len)
                                 for j in range(period))}
 

@@ -16,6 +16,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
@@ -67,12 +68,18 @@ def test_cpu_dispatch_takes_plain_path_without_triton_or_library():
         "sys.modules['triton'] = None\n"          # any import of triton raises
         "import torch\n"
         "from repro_torch.kernels import _build, ops, flash_attention as FA, rmsnorm as RN\n"
+        "from repro_torch.kernels import ssd_scan as SS\n"
         "q = torch.randn(1, 8, 4, 32); k = torch.randn(1, 8, 2, 32)\n"
         "o = ops.flash_attention(q, k, k)\n"
         "y = ops.rmsnorm(q, torch.ones(32))\n"
-        "assert o.shape == q.shape and y.shape == q.shape\n"
+        "bm = torch.randn(1, 8, 16)\n"
+        "s, h = ops.ssd_scan(q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, chunk=4,\n"
+        "                    return_state=True)\n"
+        "assert o.shape == q.shape and y.shape == q.shape and s.shape == q.shape\n"
+        "assert h.shape == (1, 4, 16, 32)\n"
         "assert _build.loaded() == {}, _build.loaded()\n"
         "assert FA.flash_attention_cuda.launches == 0 and RN.rmsnorm_cuda.launches == 0\n"
+        "assert SS.ssd_scan_cuda.launches == 0\n"
         "assert sys.modules['triton'] is None\n")
 
 
@@ -82,7 +89,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         FA.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         RN.rmsnorm_cuda(q, torch.ones(32))
+    bm = torch.randn(1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        SS.ssd_scan_cuda(q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, chunk=4)
     assert FA.flash_attention_cuda.launches == 0 and RN.rmsnorm_cuda.launches == 0
+    assert SS.ssd_scan_cuda.launches == 0
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
