@@ -9,9 +9,10 @@ Phases, each failing loudly (nonzero exit):
      source, all started together) into ``build/kernels``, printing each
      kernel's registers and spills;
   3. hold every kernel against its plain PyTorch version on the card at the
-     serving paths' shapes and the test sweeps', and time kernel, plain version
-     and the PyTorch library call that computes the same function (none for the
-     SSD scan);
+     serving paths' shapes and the test sweeps', in f32 and bf16 (the two
+     designs of each CUDA kernel), and the SSD scan on the conv output's strided
+     views; time kernel, plain version and the PyTorch library call that
+     computes the same function (none for the SSD scan);
   4. serve each model of the port at full width through ``run_serve_task``
      (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
      qwen3-0.6b (dense: K1, K2), then mamba2-2.7b (ssm: K2, K3), each with the
@@ -64,6 +65,9 @@ PATHS = [
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
                (1, 256, 8, 1, 32, True, 0), (1, 128, 4, 4, 64, False, 0),
                (1, 256, 4, 2, 64, True, 64), (1, 96, 2, 2, 80, True, 0)]
+# twins of tests/test_torch_kernels.py:SHORT_Q: B, Sq, Skv, H, K, D, causal, window
+SHORT_Q = [(1, 32, 96, 4, 2, 64, True, 0), (2, 17, 80, 4, 1, 32, True, 24),
+           (1, 40, 72, 2, 2, 80, False, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # twins of tests/test_kernels.py:SSD_SWEEP (B, S, H, P, N, chunk), at its tolerances
@@ -207,13 +211,15 @@ def phase_flash(gen) -> dict:
             check(close(got, want, TOL[dtype]),
                   f"flash {B, S, H, K, D, causal, window} {dtype}: max err "
                   f"{max_err(got, want)}")
-    for B, Sq, Skv, H, K, D, causal, window in [(1, 32, 96, 4, 2, 64, True, 0),
-                                                (2, 17, 80, 4, 1, 32, True, 24)]:
-        q, k, v = qkv(B, Sq, Skv, H, K, D, torch.float32)
-        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
-        want = ref.attention_ref(q, k, v, causal=causal, window=window)
-        check(close(got, want, 2e-5), f"flash Sq<Skv {B, Sq, Skv}: {max_err(got, want)}")
-    print("flash_attention: sweep (f32, bf16) and Sq<Skv cases match")
+    for B, Sq, Skv, H, K, D, causal, window in SHORT_Q:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(B, Sq, Skv, H, K, D, dtype)
+            got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            check(close(got, want, TOL[dtype]),
+                  f"flash Sq<Skv {B, Sq, Skv, causal, window} {dtype}: {max_err(got, want)}")
+    print("flash_attention: sweep and Sq<Skv cases match (f32 CUDA-core and bf16 "
+          "tensor-core designs)")
 
     row = None
     for S in (512, 1024, 2048):          # 512 = the served prompt: the main path
@@ -322,6 +328,15 @@ def phase_ssd(gen) -> dict:
     want = SS.ssd_scan_plain(*args, chunk=chunk)
     held(f"{SSD_MAIN} bf16", got, want, SSD_TOL[dtype])
     err = max(max_err(g, w) for g, w in zip(got, want))
+    # as the model passes them: x, B, C read in place from one conv output
+    conv = torch.cat([args[0].reshape(B, S, H * P), args[3], args[4]], dim=-1)
+    views = (conv[..., :H * P].reshape(B, S, H, P), args[1], args[2],
+             conv[..., H * P:H * P + N], conv[..., H * P + N:])
+    on_views = SS.ssd_scan_cuda(*views, chunk=chunk)
+    for name, g, w in zip(("y", "state"), on_views, got):
+        check(torch.equal(g, w), f"ssd_scan on conv-output views: {name} differs from "
+              f"contiguous inputs by {max_err(g, w)}")
+    views_ms = time_ms(lambda: SS.ssd_scan_cuda(*views, chunk=chunk))
     ms = time_ms(lambda: SS.ssd_scan_cuda(*args, chunk=chunk))
     plain_ms = time_ms(lambda: SS.ssd_scan_plain(*args, chunk=chunk))
     # x and y in bf16; B, C in bf16; dt, A and the final state in f32
@@ -332,7 +347,8 @@ def phase_ssd(gen) -> dict:
     print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms ({bound_by}; "
           f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.2f} TFLOP/s, "
-          f"max abs err {err:.3g} (|y| max {want[0].float().abs().max().item():.3g})")
+          f"max abs err {err:.3g} (|y| max {want[0].float().abs().max().item():.3g}); "
+          f"on the conv output's strided views {views_ms:.4f} ms, bit-equal")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:27",

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/kernels/`` at the
-root of the checkout. The file name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded. Nothing here
-runs at import time; the CPU path never reaches it.
+root of the checkout. The file name carries a hash of the source, the shared
+headers and the flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing here runs at import time; the CPU path never reaches it.
 """
 from __future__ import annotations
 
@@ -37,8 +37,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

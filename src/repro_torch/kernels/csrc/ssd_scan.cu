@@ -5,9 +5,10 @@
 // computes, the jnp `_ssd_blocked` of src/repro/kernels/ops.py: y and the final
 // state, from an optional initial state, for any S. Single B/C group (G = 1).
 //
-//   x [B, S, H, P], bm/cm [B, S, N] (contiguous, f32 or bf16, one dtype)
+//   x [B, S, H, P], bm/cm [B, S, N] (f32 or bf16, one dtype; any batch and row
+//     strides, the last dim contiguous, x's heads P apart)
 //   dt [B, S, H] f32 (> 0), A [H] f32 (< 0), init_state [B, H, N, P] f32 or null
-//   y [B, S, H, P] in x's dtype, final_state [B, H, N, P] f32. All arithmetic f32.
+//   y [B, S, H, P] (contiguous) in x's dtype, final_state [B, H, N, P] f32.
 //
 // Per chunk of Q rows, with cum = cumsum(dt * A) from the chunk's start:
 //   y_i   = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i . h
@@ -15,61 +16,72 @@
 // The SSD math does not depend on the chunk length except through rounding, so
 // the kernel walks its own tiles of Q = 64 rows whatever the model's chunk is.
 // Rows at or past S act as dt = 0, x = B = C = 0 and are not written: exactly
-// the zero padding of `_ssd_blocked`, without a padded copy.
+// the zero padding of `_ssd_blocked`, without a padded copy. x, B and C are read
+// in place through their strides, so the model's conv output needs no copies.
 //
-// Design. The TPU kernel carries the [N, P] state in VMEM across a sequential
-// chunk grid axis; Hopper blocks run in no order, so here each block loops over
-// the chunks itself and keeps its state in shared memory. One block per
+// Both designs share one plan. The TPU kernel carries the [N, P] state in VMEM
+// across a sequential chunk grid axis; Hopper blocks run in no order, so each
+// block loops over the chunks itself with its state on chip. One block per
 // (32-column tile of P, head, batch): y[:, p] needs only state[:, p] and
 // x[:, p], while C.B^T and the decay are shared by the columns, so the P tiles
 // are independent and the grid has P/32 * H * B blocks (160 for mamba2-2.7b at
-// B = 1, more than the 132 SMs; one block per (batch, head) would give 80). The
-// price is that C.B^T is recomputed by each P tile and each head; a two-pass
-// form (chunk states in parallel, then the recurrence) was not taken because
-// the recurrence is cheap here and one pass keeps the state out of device
-// memory. A [64, 128] chunk of B or C is 32 KB in f32, so one chunk of B, C,
-// x*dt, the [64, 64] score tile and the [N, 32] state fit in ~108 KB of shared
-// memory (two blocks an SM). Rows of B, C and the score tile are padded by one
-// float so that the per-row and per-column reads hit distinct banks.
-//
+// B = 1, more than the 132 SMs). C.B^T is recomputed by each P tile and head;
+// one pass keeps the state out of device memory and costs one launch a layer.
 // Overflow: L[i,j] = exp(cum_i - cum_j) is formed from the difference, never as
-// exp(cum_i) * exp(-cum_j) (cum falls to about -1000 over a long chunk), and
-// only for j <= i: the causal mask is applied before the exp, so the positive
-// upper triangle never becomes inf (and inf * 0 never becomes NaN).
+// exp(cum_i) * exp(-cum_j), and only for j <= i, so the positive upper triangle
+// never becomes inf (and inf * 0 never becomes NaN).
 //
 // What bounds it on the H100. At the serving shape (B=1, S=512, H=80, P=64,
-// N=128, bf16) it moves 13.5 MB (0.004 ms at 3.35 TB/s) and needs 2.7 GFLOP
-// with C.B^T counted once per chunk (0.0027 ms on the bf16 tensor cores), so
-// its bound is set by bytes. This first version does f32 FMAs on the CUDA cores
-// and recomputes C.B^T for every (head, P tile): ~4 GFLOP at 64 FMA a clock an
-// SM (two shared-memory reads per four FMAs), so it is bound by its own
-// arithmetic, with the tile loops shaped for a later mma/wgmma inner product.
+// N=128, bf16) it moves 13.5 MB (0.004 ms at 3.35 TB/s) and needs 2.0 GFLOP with
+// C.B^T counted once per chunk (0.002 ms on the bf16 tensor cores): bytes.
+//
+// bf16 (dtype 1), the serving path: tensor cores. 4 warps. The next chunk's B, C
+//   (bf16 [64, N]), x ([64, 32]) and dt are copied in with cp.async while this
+//   chunk computes (two stages; rows padded by 16 bytes, so every ldmatrix is
+//   conflict-free). All four products are mma.sync.m16n8k16 bf16 -> f32:
+//     1. G = C.B^T, one 16-column block at a time, only at or left of the
+//        diagonal; each warp owns 16 rows of the chunk for 1-3;
+//     2. the block's score G * exp(cum_i - cum_j) * dt_j, formed in f32 on the
+//        accumulators, times raw bf16 x, right after its G: the exponentials
+//        of one block overlap the products of the next;
+//     3. the readout C.h of the carried state;
+//     4. the state update B^T.(w x), w_j = exp(cum_last - cum_j) dt_j, with each
+//        warp owning 8 columns of the [N, 32] f32 state, kept in registers as
+//        the accumulator across chunks (B^T's fragments come from ldmatrix.trans).
+//   Per row, cum, w, exp(cum) and the decay to its 16-row block's end are formed
+//   once per warp by the cumsum's lanes; left of the diagonal the score's decay
+//   is a product of two such factors, so only the diagonal block takes an
+//   exponential per element.
+//   Operands that are not bf16 inputs (the score, the state, w x) enter as a
+//   bf16 hi + lo pair, two products instead of one rounding, so the bf16 design
+//   keeps ~16 bits of their mantissa and stays near the f32 result at the
+//   64-layer check. The state is published to shared memory as hi + lo after
+//   each chunk for every warp's readout. ~103 KB of shared memory at N = 128:
+//   two blocks an SM. Bound by the latency of the chunk loop (8 dependent
+//   chunks at S = 512, each a chain of products, exponentials and two
+//   barriers run by one warp per scheduler), not by the mma rate or bytes.
+// f32 (dtype 0), the check path: the exact CUDA-core design. 256 threads; B, C,
+//   x*dt, the [64, 64] score tile and the [N, 32] state staged in shared memory
+//   as f32 (~108 KB); f32 FMAs (67 TFLOP/s) keep f32 inputs within 2e-4 of the
+//   reference, which TF32 tensor cores would not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int Q = 64;         // rows per chunk tile
 constexpr int PT = 32;        // columns of P per block
+
+// ------------------------------------------------------------ f32: CUDA cores
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
 constexpr int RPT = 4;        // score / y rows per thread (Q / 16)
 constexpr int CPT = 4;        // score columns per thread (Q / 16)
 constexpr int YPT = 2;        // y / state columns per thread (PT / 16)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int N>
 constexpr size_t smem_floats() {
@@ -78,13 +90,14 @@ constexpr size_t smem_floats() {
          (size_t)N * PT + 4 * (size_t)Q;
 }
 
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ bm,
-                const T* __restrict__ cm, const float* __restrict__ init_state,
-                T* __restrict__ y, float* __restrict__ final_state, int S, int H,
-                int P) {
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ bm,
+                const float* __restrict__ cm, const float* __restrict__ init_state,
+                float* __restrict__ y, float* __restrict__ final_state, int S, int H,
+                int P, long long sxb, long long sxs, long long sbb, long long sbs,
+                long long scb, long long scs) {
   static_assert(N % 16 == 0, "state dim must be a multiple of 16");
   constexpr int NP = N + 1;     // padded row stride of sB and sC
   constexpr int QP = Q + 1;     // padded row stride of sS
@@ -109,12 +122,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int b = blockIdx.z;
   const float a = A[h];
 
-  const size_t xrow = (size_t)H * P;   // between consecutive x / y rows
-  const T* xb = x + (size_t)b * S * xrow + (size_t)h * P + p0;
-  T* yb = y + (size_t)b * S * xrow + (size_t)h * P + p0;
+  const size_t yrow = (size_t)H * P;   // between consecutive y rows
+  const float* xb = x + b * sxb + (size_t)h * P + p0;
+  float* yb = y + (size_t)b * S * yrow + (size_t)h * P + p0;
   const float* dtb = dt + (size_t)b * S * H + h;
-  const T* bb = bm + (size_t)b * S * N;
-  const T* cb = cm + (size_t)b * S * N;
+  const float* bb = bm + b * sbb;
+  const float* cb = cm + b * scb;
   const size_t st = ((size_t)b * H + h) * N * P + p0;   // state [B,H,N,P] at p0
 
   for (int i = tid; i < N * PT; i += THREADS) {
@@ -128,16 +141,15 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < Q * N; i += THREADS) {
       const int r = i / N, n = i % N;
       const bool ok = r < rows;
-      const size_t g = (size_t)(c0 + r) * N + n;
-      sB[r * NP + n] = ok ? to_f32(bb[g]) : 0.f;
-      sC[r * NP + n] = ok ? to_f32(cb[g]) : 0.f;
+      sB[r * NP + n] = ok ? bb[(c0 + r) * sbs + n] : 0.f;
+      sC[r * NP + n] = ok ? cb[(c0 + r) * scs + n] : 0.f;
     }
     if (tid < Q) sDt[tid] = tid < rows ? dtb[(size_t)(c0 + tid) * H] : 0.f;
     __syncthreads();
 
     for (int i = tid; i < Q * PT; i += THREADS) {
       const int r = i / PT, p = i % PT;
-      sXdt[i] = r < rows ? to_f32(xb[(size_t)(c0 + r) * xrow + p]) * sDt[r] : 0.f;
+      sXdt[i] = r < rows ? xb[(c0 + r) * sxs + p] * sDt[r] : 0.f;
     }
     if (tid < 32) {  // inclusive cumsum of dt * A over the Q = 64 rows, by warp 0
       const float v0 = sDt[2 * tid] * a, v1 = sDt[2 * tid + 1] * a;
@@ -225,8 +237,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         if (r >= rows) continue;
 #pragma unroll
         for (int e = 0; e < YPT; ++e)
-          yb[(size_t)(c0 + r) * xrow + tx + 16 * e] =
-              from_f32<T>(yi[i][e] + sIn[r] * yh[i][e]);
+          yb[(size_t)(c0 + r) * yrow + tx + 16 * e] = yi[i][e] + sIn[r] * yh[i][e];
       }
     }
     __syncthreads();  // every read of sH for this chunk's y is done
@@ -267,54 +278,356 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int N>
-cudaError_t launch(const void* x, const float* dt, const float* A, const void* bm,
-                   const void* cm, const float* init_state, void* y,
-                   float* final_state, int B, int S, int H, int P,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<N>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(P / PT, H, B);
-  ssd_scan_kernel<T, N><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), init_state, static_cast<T*>(y), final_state, S, H, P);
-  return cudaGetLastError();
+// ------------------------------------------------------------ bf16: tensor cores
+constexpr int TC_THREADS = 128;  // 4 warps
+
+template <int N>
+struct TcSmem {
+  static constexpr int BR = N + 8;    // padded row of the B and C tiles, bf16 elements
+  static constexpr int XR = PT + 8;   // padded row of the x tile and of the state copies
+  static constexpr int B_TILE = Q * BR, X_TILE = Q * XR, H_TILE = N * XR;  // elements
+  // a stage: B, C, x (bf16) and dt (f32); two stages, then the state's hi and lo
+  // copies (bf16), then per warp four per-row factors (f32, see the kernel)
+  static constexpr size_t STAGE = (2 * (size_t)B_TILE + X_TILE) * 2 + Q * 4;
+  static constexpr size_t bytes = 2 * STAGE + 2 * (size_t)H_TILE * 2 + 4 * 4 * Q * 4;
+};
+
+template <int N>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const __nv_bfloat16* __restrict__ bm,
+                     const __nv_bfloat16* __restrict__ cm,
+                     const float* __restrict__ init_state, __nv_bfloat16* __restrict__ y,
+                     float* __restrict__ final_state, int S, int H, int P, long long sxb,
+                     long long sxs, long long sbb, long long sbs, long long scb,
+                     long long scs) {
+  static_assert(N % 16 == 0, "state dim must be a multiple of 16");
+  using L = TcSmem<N>;
+  using bf16 = __nv_bfloat16;
+  constexpr int NK = N / 16;  // k-steps over the state dim, and m-tiles of the state
+  constexpr float LOG2E = 1.4426950408889634f;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sHhi = reinterpret_cast<bf16*>(smem_raw + 2 * L::STAGE);
+  bf16* sHlo = sHhi + L::H_TILE;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // this warp's copy of, per row r of the chunk: cum_r, w_r = exp(cum_last - cum_r) dt_r,
+  // exp(cum_r), and v_r = exp(cum_e - cum_r) dt_r with e the last row of r's 16-row block
+  float* cw = reinterpret_cast<float*>(sHlo + L::H_TILE) + warp * 4 * Q;
+  float* ww = cw + Q;
+  float* win = ww + Q;
+  float* vw = win + Q;
+
+  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const float a = A[h];
+  const bf16* xb = x + b * sxb + (size_t)h * P + p0;
+  const bf16* bb = bm + b * sbb;
+  const bf16* cb = cm + b * scb;
+  const float* dtb = dt + (size_t)b * S * H + h;
+  const size_t yrow = (size_t)H * P;
+  bf16* yb = y + (size_t)b * S * yrow + (size_t)h * P + p0;
+  const size_t st = ((size_t)b * H + h) * N * P + p0;   // state [B,H,N,P] at p0
+  const int n_chunks = (S + Q - 1) / Q;
+
+  auto stage_b = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + s * L::STAGE); };
+  auto stage_dt = [&](int s) {
+    return reinterpret_cast<float*>(stage_b(s) + 2 * L::B_TILE + L::X_TILE);
+  };
+
+  auto load_chunk = [&](int c, int s) {
+    bf16* dB = stage_b(s);
+    bf16* dC = dB + L::B_TILE;
+    bf16* dX = dC + L::B_TILE;
+    const int r0 = c * Q;
+    constexpr int CH = N / 8;  // 16-byte pieces per row of B and C
+    static_assert(Q * CH % TC_THREADS == 0, "whole pieces per thread");
+#pragma unroll
+    for (int j = 0; j < Q * CH / TC_THREADS; ++j) {
+      const int i = tid + j * TC_THREADS;
+      const int r = i / CH, k = i % CH;
+      const bool ok = r0 + r < S;
+      const long long row = ok ? r0 + r : 0;
+      tc::cp_async16(dB + r * L::BR + 8 * k, bb + row * sbs + 8 * k, ok);
+      tc::cp_async16(dC + r * L::BR + 8 * k, cb + row * scs + 8 * k, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < Q * (PT / 8) / TC_THREADS; ++j) {
+      const int i = tid + j * TC_THREADS;
+      const int r = i / (PT / 8), k = i % (PT / 8);
+      const bool ok = r0 + r < S;
+      tc::cp_async16(dX + r * L::XR + 8 * k, xb + (ok ? r0 + r : 0) * sxs + 8 * k, ok);
+    }
+    if (tid < Q) {
+      const bool ok = r0 + tid < S;
+      tc::cp_async4(stage_dt(s) + tid, dtb + (size_t)(ok ? r0 + tid : 0) * H, ok);
+    }
+  };
+
+  // the state: this warp owns columns 8*warp .. 8*warp+7 of the block's 32 and
+  // all N rows, as mma accumulators: hs[m][.] holds rows 16m + g (+ 8), columns
+  // 8*warp + 2t (+ 1)
+  float hs[NK][4];
+#pragma unroll
+  for (int mt = 0; mt < NK; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 16 * mt + g + 8 * half, p = 8 * warp + 2 * t;
+      const float2 v = init_state
+                           ? *reinterpret_cast<const float2*>(init_state + st + (size_t)n * P + p)
+                           : make_float2(0.f, 0.f);
+      hs[mt][2 * half] = v.x;
+      hs[mt][2 * half + 1] = v.y;
+    }
+  auto publish_state = [&]() {  // the carried state as bf16 hi + lo, for every warp's readout
+#pragma unroll
+    for (int mt = 0; mt < NK; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int idx = (16 * mt + g + 8 * half) * L::XR + 8 * warp + 2 * t;
+        uint32_t hi, lo;
+        tc::split(hs[mt][2 * half], hs[mt][2 * half + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(sHhi + idx) = hi;
+        *reinterpret_cast<uint32_t*>(sHlo + idx) = lo;
+      }
+  };
+
+  load_chunk(0, 0);
+  tc::cp_async_commit();
+  publish_state();
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // chunk c and the carried state's copy are visible to every thread,
+                      // and every warp is done with the other stage
+    if (c + 1 < n_chunks) load_chunk(c + 1, s ^ 1);  // lands while this chunk computes
+    tc::cp_async_commit();
+    const bf16* cB = stage_b(s);
+    const bf16* cC = cB + L::B_TILE;
+    const bf16* cX = cC + L::B_TILE;
+    const float* cDt = stage_dt(s);
+
+    {  // inclusive cumsum of dt * A over the 64 rows (lane l: rows 2l, 2l+1), per warp
+      const float2 d = *reinterpret_cast<const float2*>(cDt + 2 * lane);
+      const float v0 = d.x * a, v1 = d.y * a;
+      float sum = v0 + v1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, sum, o);
+        if (lane >= o) sum += u;
+      }
+      const float before = __shfl_up_sync(0xffffffffu, sum, 1);  // sum of the lanes below
+      const float last = __shfl_sync(0xffffffffu, sum, 31);
+      const float c0 = lane ? before + v0 : v0;
+      const float c1 = lane ? before + v0 + v1 : v0 + v1;
+      *reinterpret_cast<float2*>(cw + 2 * lane) = make_float2(c0, c1);
+      *reinterpret_cast<float2*>(ww + 2 * lane) =
+          make_float2(exp2f((last - c0) * LOG2E) * d.x, exp2f((last - c1) * LOG2E) * d.y);
+      *reinterpret_cast<float2*>(win + 2 * lane) =
+          make_float2(exp2f(c0 * LOG2E), exp2f(c1 * LOG2E));
+      const float ce = __shfl_sync(0xffffffffu, c1, 8 * (lane / 8) + 7);  // block's last row
+      *reinterpret_cast<float2*>(vw + 2 * lane) =
+          make_float2(exp2f((ce - c0) * LOG2E) * d.x, exp2f((ce - c1) * LOG2E) * d.y);
+      __syncwarp();
+    }
+    const int i0 = 16 * warp + g;  // this thread's rows of the chunk: i0 and i0 + 8
+    const float ci[2] = {cw[i0], cw[i0 + 8]};
+
+    // C fragments of this warp's 16 rows: the A operand of C.h and of C.B^T
+    uint32_t cf[NK][4];
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      tc::ldsm_x4(cf[ks], cC + (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * L::BR +
+                              16 * ks + 8 * (lane / 16));
+
+    // 3. the readout C.h of the carried state, h entering as bf16 hi + lo (none
+    // while the state is the zero initial state)
+    float yh[4][4], yi[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yi[n][e] = yh[n][e] = 0.f;
+    if (c > 0 || init_state) {
+#pragma unroll
+      for (int ks = 0; ks < NK; ++ks)
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          const int off = (16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + 16 * pp +
+                          8 * (lane / 16);
+          uint32_t hf[4];
+          tc::ldsm_x4_t(hf, sHhi + off);
+          tc::mma(yh[2 * pp], cf[ks], hf[0], hf[1]);
+          tc::mma(yh[2 * pp + 1], cf[ks], hf[2], hf[3]);
+          tc::ldsm_x4_t(hf, sHlo + off);
+          tc::mma(yh[2 * pp], cf[ks], hf[0], hf[1]);
+          tc::mma(yh[2 * pp + 1], cf[ks], hf[2], hf[3]);
+        }
+    }
+
+    // 1. and 2., one 16-column block of the chunk at a time, left of or on the
+    // diagonal: G = C.B^T, the score G exp(cum_i - cum_j) dt_j (j <= i, in f32),
+    // and y += score . x with the score entering as bf16 hi + lo
+    for (int jb = 0; jb <= warp; ++jb) {
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < NK; ++ks) {
+        uint32_t bf[4];
+        tc::ldsm_x4(bf, cB + (16 * jb + (lane % 8) + 8 * (lane / 16)) * L::BR + 16 * ks +
+                            8 * ((lane / 8) % 2));
+        tc::mma(sc[0], cf[ks], bf[0], bf[1]);
+        tc::mma(sc[1], cf[ks], bf[2], bf[3]);
+      }
+      // left of the diagonal every j < i, and exp(cum_i - cum_j) splits at the
+      // block's last row e into exp(cum_i - cum_e) exp(cum_e - cum_j), both <= 1
+      float u[2];
+      if (jb < warp) {
+        const float ce = cw[16 * jb + 15];
+        u[0] = exp2f((ci[0] - ce) * LOG2E);
+        u[1] = exp2f((ci[1] - ce) * LOG2E);
+      }
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 16 * jb + 8 * n + 2 * t, i = i0 + 8 * r;
+          float s0, s1;
+          if (jb < warp) {
+            const float2 vj = *reinterpret_cast<const float2*>(vw + j);
+            s0 = sc[n][2 * r] * u[r] * vj.x;
+            s1 = sc[n][2 * r + 1] * u[r] * vj.y;
+          } else {
+            const float2 cj = *reinterpret_cast<const float2*>(cw + j);
+            const float2 dj = *reinterpret_cast<const float2*>(cDt + j);
+            s0 = j <= i ? sc[n][2 * r] * exp2f((ci[r] - cj.x) * LOG2E) * dj.x : 0.f;
+            s1 = j + 1 <= i ? sc[n][2 * r + 1] * exp2f((ci[r] - cj.y) * LOG2E) * dj.y : 0.f;
+          }
+          tc::split(s0, s1, ahi[2 * n + r], alo[2 * n + r]);
+        }
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        uint32_t xf[4];
+        tc::ldsm_x4_t(xf, cX + (16 * jb + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR +
+                              16 * pp + 8 * (lane / 16));
+        tc::mma(yi[2 * pp], ahi, xf[0], xf[1]);
+        tc::mma(yi[2 * pp], alo, xf[0], xf[1]);
+        tc::mma(yi[2 * pp + 1], ahi, xf[2], xf[3]);
+        tc::mma(yi[2 * pp + 1], alo, xf[2], xf[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = c * Q + i0 + 8 * r;
+      if (row >= S) continue;
+      const float decay_in = win[i0 + 8 * r];
+      uint32_t* out = reinterpret_cast<uint32_t*>(yb + row * yrow + 2 * t);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        out[4 * n] = tc::pack(fmaf(decay_in, yh[n][2 * r], yi[n][2 * r]),
+                              fmaf(decay_in, yh[n][2 * r + 1], yi[n][2 * r + 1]));
+    }
+
+    // 4. h = exp(cum_last) h + B^T (w x), w x entering as bf16 hi + lo
+    const float seg = win[Q - 1];
+#pragma unroll
+    for (int mt = 0; mt < NK; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hs[mt][e] *= seg;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      // x rows 32kp .. 32kp+31 at this warp's 8 columns: B fragments of two k-steps
+      uint32_t xr[4], xhi[4], xlo[4];
+      tc::ldsm_x4_t(xr, cX + (32 * kp + lane) * L::XR + 8 * warp);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 xv = tc::unpack(xr[q]);
+        const float2 w = *reinterpret_cast<const float2*>(ww + 32 * kp + 8 * q + 2 * t);
+        tc::split(xv.x * w.x, xv.y * w.y, xhi[q], xlo[q]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int ks = 2 * kp + kk;
+#pragma unroll
+        for (int mt = 0; mt < NK; ++mt) {
+          uint32_t bt[4];
+          tc::ldsm_x4_t(bt, cB + (16 * ks + (lane % 8) + 8 * (lane / 16)) * L::BR + 16 * mt +
+                                8 * ((lane / 8) % 2));
+          tc::mma(hs[mt], bt, xhi[2 * kk], xhi[2 * kk + 1]);
+          tc::mma(hs[mt], bt, xlo[2 * kk], xlo[2 * kk + 1]);
+        }
+      }
+    }
+
+    __syncthreads();  // every warp's readout of the old state is done
+    publish_state();
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < NK; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 16 * mt + g + 8 * half, p = 8 * warp + 2 * t;
+      *reinterpret_cast<float2*>(final_state + st + (size_t)n * P + p) =
+          make_float2(hs[mt][2 * half], hs[mt][2 * half + 1]);
+    }
 }
 
-template <typename T>
-cudaError_t launch_for_state(const void* x, const float* dt, const float* A,
-                             const void* bm, const void* cm, const float* init_state,
-                             void* y, float* final_state, int B, int S, int H, int P,
-                             int N, cudaStream_t stream) {
-  switch (N) {
-    case 16: return launch<T, 16>(x, dt, A, bm, cm, init_state, y, final_state, B, S, H, P, stream);
-    case 32: return launch<T, 32>(x, dt, A, bm, cm, init_state, y, final_state, B, S, H, P, stream);
-    case 64: return launch<T, 64>(x, dt, A, bm, cm, init_state, y, final_state, B, S, H, P, stream);
-    case 128: return launch<T, 128>(x, dt, A, bm, cm, init_state, y, final_state, B, S, H, P, stream);
-    default: return cudaErrorInvalidValue;
+template <int N>
+cudaError_t launch(const void* x, const float* dt, const float* A, const void* bm,
+                   const void* cm, const float* init_state, void* y, float* final_state,
+                   int B, int S, int H, int P, const long long* st, int dtype,
+                   cudaStream_t stream) {
+  const dim3 grid(P / PT, H, B);
+  cudaError_t err;
+  if (dtype == 1) {
+    constexpr size_t smem = TcSmem<N>::bytes;
+    err = cudaFuncSetAttribute(ssd_scan_bf16_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ssd_scan_bf16_kernel<N><<<grid, TC_THREADS, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), dt, A, static_cast<const __nv_bfloat16*>(bm),
+        static_cast<const __nv_bfloat16*>(cm), init_state, static_cast<__nv_bfloat16*>(y),
+        final_state, S, H, P, st[0], st[1], st[2], st[3], st[4], st[5]);
+  } else {
+    constexpr size_t smem = smem_floats<N>() * sizeof(float);
+    err = cudaFuncSetAttribute(ssd_scan_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ssd_scan_kernel<N><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(x), dt, A, static_cast<const float*>(bm),
+        static_cast<const float*>(cm), init_state, static_cast<float*>(y), final_state, S, H,
+        P, st[0], st[1], st[2], st[3], st[4], st[5]);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). dtype: 0 = f32, 1 = bf16.
-// init_state may be null (a zero initial state).
+// Returns the cudaError_t of the launch (0 on success). dtype: 0 = f32 (the
+// CUDA-core design), 1 = bf16 (the tensor-core design). init_state may be null
+// (a zero initial state). Strides are in elements: batch and row strides of x,
+// then of bm, then of cm. For bf16 every base pointer and stride is 16-byte
+// aligned (the wrapper checks).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* bm,
                             const void* cm, const void* init_state, void* y,
                             void* final_state, int B, int S, int H, int P, int N,
-                            int dtype, void* stream) {
+                            long long x_batch, long long x_row, long long b_batch,
+                            long long b_row, long long c_batch, long long c_row, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % PT != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % PT != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const float* h0 = static_cast<const float*>(init_state);
   float* hT = static_cast<float*>(final_state);
-  const cudaError_t err =
-      dtype == 1 ? launch_for_state<__nv_bfloat16>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H,
-                                                   P, N, s)
-      : dtype == 0 ? launch_for_state<float>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, N, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  const long long st[6] = {x_batch, x_row, b_batch, b_row, c_batch, c_row};
+  switch (N) {
+    case 16: return (int)launch<16>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, st, dtype, s);
+    case 32: return (int)launch<32>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, st, dtype, s);
+    case 64: return (int)launch<64>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, st, dtype, s);
+    case 128: return (int)launch<128>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, st, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,7 +2,9 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel ``_attn_kernel`` /
 ``flash_attention_pallas`` of ``src/repro/kernels/flash_attention.py``; its source
-comment gives the design and what bounds it on the H100. Both versions follow the
+comment gives the design and what bounds it on the H100: bf16 inputs run a
+tensor-core design (mma.sync, cp.async double buffering), f32 inputs the exact
+CUDA-core design that the f32 checks hold at 2e-5. Both versions follow the
 JAX package's reference semantics: end-aligned causal / sliding-window masks
 (q row i at absolute position i + Skv - Sq), GQA by kv head ``h // (H/K)``,
 softmax scale ``1/sqrt(D)``, f32 accumulation, output in q's dtype.
@@ -87,6 +89,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_cuda needs non-empty q and k/v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda needs contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs 16-byte aligned q, k, v: the "
+                         "kernel copies 16-byte pieces")
     out = torch.empty_like(q)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream

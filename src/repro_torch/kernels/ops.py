@@ -75,10 +75,9 @@ def ssd_scan(x, dt, a, bm, cm, *, chunk: int = 256, init_state=None,
              return_state: bool = False):
     """Mamba-2 SSD chunked scan. x [B,S,H,P], dt [B,S,H], a [H], bm/cm [B,S,N],
     init_state [B,H,N,P] f32 or None -> y [B,S,H,P] (and the final state)."""
-    if _on_card(x):
+    if _on_card(x):   # x, bm, cm are read in place: the model passes conv-output slices
         y, h = SS.ssd_scan_cuda(
-            x.contiguous(), dt.contiguous(), a.contiguous(), bm.contiguous(),
-            cm.contiguous(), chunk=chunk,
+            x, dt.contiguous(), a.contiguous(), bm, cm, chunk=chunk,
             init_state=None if init_state is None else init_state.contiguous())
     else:
         y, h = SS.ssd_scan_plain(x, dt, a, bm, cm, chunk=chunk, init_state=init_state)

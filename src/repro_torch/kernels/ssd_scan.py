@@ -9,13 +9,15 @@ neither state and needs S % chunk == 0, so ``ssm_block`` never reaches it).
 
   x [B,S,H,P], dt [B,S,H] f32 (> 0), a [H] f32 (< 0), bm/cm [B,S,N] (G=1),
   init_state [B,H,N,P] f32 or None  ->  y [B,S,H,P] in x's dtype,
-  final state [B,H,N,P] f32. All arithmetic in f32.
+  final state [B,H,N,P] f32. Accumulation in f32.
 
-What bounds it on the H100, and the design: see the source comment of the
-kernel. In short: one block per (32-column tile of P, head, batch) walks the
-chunks in order with the [N, 32] state slice in shared memory; at the serving
-shape it is bound by its own f32 arithmetic on the CUDA cores, far above the
-byte bound.
+x, bm and cm are read in place through their batch and row strides (the model
+passes slices of its conv output), with the last dim contiguous and x's heads P
+apart. What bounds the kernel on the H100, and the design: see its source
+comment. In short: one block per (32-column tile of P, head, batch) walks the
+chunks in order with the [N, 32] state slice on chip; bf16 inputs run a
+tensor-core design (mma.sync, cp.async double buffering), f32 inputs the exact
+CUDA-core design that the f32 checks hold at 2e-4.
 """
 from __future__ import annotations
 
@@ -83,18 +85,32 @@ def ssd_scan_plain(x, dt, a, bm, cm, *, chunk: int, init_state=None):
 @functools.cache
 def _kernel_fn():
     fn = _build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _strides_16b(name: str, t: torch.Tensor, dims) -> list:
+    """``t``'s strides over ``dims``, after checking that they and its data
+    pointer are multiples of 16 bytes: the kernel copies 16-byte pieces."""
+    strides = [t.stride(d) for d in dims]
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in strides):
+        raise ValueError(f"ssd_scan_cuda needs {name}'s data pointer and batch/row "
+                         f"strides 16-byte aligned, got pointer {t.data_ptr()} and "
+                         f"strides {t.stride()} of {t.element_size()}-byte elements")
+    return strides
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   bm: torch.Tensor, cm: torch.Tensor, *, chunk: int,
                   init_state=None):
-    """Launch the CUDA kernel on contiguous CUDA tensors on PyTorch's current
-    stream; returns (y, final_state). Raises on anything the kernel does not
-    take. ``chunk`` is checked and kept for the signature: the kernel walks
-    its own 64-row tiles, which changes only the rounding."""
+    """Launch the CUDA kernel on CUDA tensors on PyTorch's current stream;
+    returns (y, final_state). x, bm and cm may be strided views (last dim
+    contiguous, x's heads P apart, pointers and batch/row strides 16-byte
+    aligned); dt, a and init_state are contiguous. Raises on anything the
+    kernel does not take. ``chunk`` is checked and kept for the signature: the
+    kernel walks its own 64-row tiles, which changes only the rounding."""
     tensors = [x, dt, a, bm, cm] + ([] if init_state is None else [init_state])
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("ssd_scan_cuda needs every input on one CUDA device")
@@ -116,17 +132,23 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan_cuda takes N in {STATE_DIMS}, P % {P_TILE} == 0 "
                          f"and non-empty B, S, H; got x {tuple(x.shape)}, N={N}, "
                          f"chunk={chunk}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_scan_cuda needs contiguous inputs")
-    y = torch.empty_like(x)
+    if x.stride(3) != 1 or x.stride(2) != P or bm.stride(2) != 1 or cm.stride(2) != 1:
+        raise ValueError(f"ssd_scan_cuda needs x's last dim contiguous with heads P "
+                         f"apart and bm/cm's last dim contiguous; strides x {x.stride()}, "
+                         f"bm {bm.stride()}, cm {cm.stride()}")
+    if not all(t.is_contiguous() for t in tensors[1:3] + tensors[5:]):
+        raise ValueError("ssd_scan_cuda needs contiguous dt, a and init_state")
+    strides = (_strides_16b("x", x, (0, 1)) + _strides_16b("bm", bm, (0, 1))
+               + _strides_16b("cm", cm, (0, 1)))
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
                  cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
-                 y.data_ptr(), state.data_ptr(), B, S, H, P, N, _DTYPE_CODE[x.dtype],
-                 stream)
+                 y.data_ptr(), state.data_ptr(), B, S, H, P, N, *strides,
+                 _DTYPE_CODE[x.dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan_fwd launch failed: cudaError {err}")
     ssd_scan_cuda.launches += 1

@@ -126,6 +126,44 @@ def test_ssd_split_scan_identity(s1, chunk):
     _close(h2, h, 2e-4)
 
 
+def _conv_views(B, S, H, P, N, dtype, device="cpu", seed=9):
+    """x, bm, cm as the model passes them: strided slices of one [B, S, H*P + 2N]
+    conv output (``ssm_block``), x reshaped to [B, S, H, P]."""
+    arrs = _inputs(B, S, H, P, N, seed=seed)
+    conv = torch.cat([_torch(arrs[0], dtype, device).reshape(B, S, H * P),
+                      _torch(arrs[3], dtype, device), _torch(arrs[4], dtype, device)], dim=-1)
+    DI = H * P
+    x, bm, cm = conv[..., :DI].reshape(B, S, H, P), conv[..., DI:DI + N], conv[..., DI + N:]
+    assert not (x.is_contiguous() or bm.is_contiguous() or cm.is_contiguous())
+    return x, _torch(arrs[1], "float32", device), _torch(arrs[2], "float32", device), bm, cm
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_reads_conv_output_views(dtype):
+    """ops.ssd_scan on the strided conv-output slices == on contiguous copies."""
+    x, dt, a, bm, cm = _conv_views(2, 100, 4, 32, 16, dtype)
+    y, h = tops.ssd_scan(x, dt, a, bm, cm, chunk=32, return_state=True)
+    y_c, h_c = tops.ssd_scan(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(),
+                             chunk=32, return_state=True)
+    assert y.shape == x.shape
+    np.testing.assert_array_equal(_f32(y), _f32(y_c))
+    np.testing.assert_array_equal(_f32(h), _f32(h_c))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_stride_check(dtype):
+    """The wrapper's 16-byte check, which the kernel's copies need: the model's
+    conv-output slices pass, a view one element off does not."""
+    x, _, _, bm, cm = _conv_views(2, 100, 4, 32, 16, dtype)
+    assert SS._strides_16b("x", x, (0, 1)) == [x.stride(0), x.stride(1)]
+    assert SS._strides_16b("cm", cm, (0, 1)) == [cm.stride(0), cm.stride(1)]
+    base = torch.zeros(2 * 100 * 17 + 8, dtype=getattr(torch, dtype))
+    with pytest.raises(ValueError, match="16-byte"):
+        SS._strides_16b("bm", base[1:1 + 2 * 100 * 16].view(2, 100, 16), (0, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        SS._strides_16b("bm", base[:2 * 100 * 17].view(2, 100, 17)[..., :16], (0, 1))
+
+
 # ------------------------------------------------------------------ decode step
 def test_ssd_decode_step_vs_jax():
     jnp = pytest.importorskip("jax.numpy")
@@ -200,3 +238,28 @@ def test_ssd_kernel_split_scan_on_card(cuda):
     torch.cuda.synchronize()
     _close(torch.cat([y1, y2], dim=1), y, 2e-4)
     _close(h2, h, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_reads_conv_output_views_on_card(cuda, dtype):
+    """The kernel on the strided conv-output slices, in place, against the
+    plain version on contiguous copies."""
+    x, dt, a, bm, cm = _conv_views(2, 100, 4, 32, 16, dtype, cuda)
+    y, h = SS.ssd_scan_cuda(x, dt, a, bm, cm, chunk=32)
+    y_want, h_want = SS.ssd_scan_plain(x.contiguous(), dt, a, bm.contiguous(),
+                                       cm.contiguous(), chunk=32)
+    torch.cuda.synchronize()
+    _close(y, y_want, TOL[dtype])
+    _close(h, h_want, TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_serving_shape_bf16_on_card(cuda):
+    """mamba2-2.7b's prefill of 512 tokens: B=1, H=80, P=64, N=128, chunk 256."""
+    args = _scan_args(_inputs(1, 512, 80, 64, 128, seed=10), "bfloat16", cuda)
+    y, h = SS.ssd_scan_cuda(*args, chunk=256)
+    y_want, h_want = SS.ssd_scan_plain(*args, chunk=256)
+    torch.cuda.synchronize()
+    _close(y, y_want, TOL["bfloat16"])
+    _close(h, h_want, TOL["bfloat16"])
