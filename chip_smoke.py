@@ -10,16 +10,20 @@ Phases, each failing loudly (nonzero exit):
      kernel's registers and spills;
   3. hold every kernel against its plain PyTorch version on the card at the
      serving paths' shapes and the test sweeps', in f32 and bf16 (the two
-     designs of each CUDA kernel), and the SSD scan on the conv output's strided
-     views; time kernel, plain version and the PyTorch library call that
-     computes the same function (none for the SSD scan);
+     designs of K1 and K3), K2 through each of its four entry points (rmsnorm,
+     add_rmsnorm, gated_rmsnorm, qk_norm_rope), and the SSD scan on the conv
+     output's strided views; time kernel, plain version and the PyTorch library
+     call that computes the same function (F.rms_norm, SDPA; none for the fused
+     norms and the SSD scan);
   4. serve each model of the port at full width through ``run_serve_task``
      (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
      qwen3-0.6b (dense: K1, K2), then mamba2-2.7b (ssm: K2, K3), each with the
      launch counters set to 0 just before and read just after, and the previous
      server released first. Then check prefill + one decode step against
      ``forward`` at full width (f32 at every layer to 1e-4; bf16 at 0.08 at 4
-     layers, see ``phase_serve``) and time prefill, decode and the warm task.
+     layers, see ``phase_serve``), time prefill, decode and the warm task, and
+     profile one prefill and one decode step (kernels per call, device busy,
+     K2's device time a launch).
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -30,7 +34,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -52,14 +55,20 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
          "prompt_len": 512, "max_new": 32}
 # One serving path per ported family, at full width. ``min_launches``: what each
 # kernel must at least be launched in the serve task (K1 once per layer per
-# prefill; K3 likewise; K2 on every norm). ``f32_leaves``: params kept in f32.
+# prefill; K3 likewise). ``per_call``: K2's entry points, launched that many
+# times in every prefill and every decode step (rmsnorm: ln1 of layer 0;
+# add_rmsnorm: every other norm, each with the residual add before it;
+# qk_norm_rope once a layer; gated_rmsnorm once a layer). ``f32_leaves``: params
+# kept in f32.
 # ``toks``: the (batch, length) of the prefill + decode vs forward check; 601
 # makes mamba2's 600-token prefill cross two 256-token chunks and end ragged.
 PATHS = [
     {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": (2, 64),
-     "min_launches": {"flash_attention": 28 * 8, "rmsnorm": 1}},
+     "min_launches": {"flash_attention": 28 * 8},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28, "qk_norm_rope": 28}},
     {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
-     "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8, "rmsnorm": 1}},
+     "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64}},
 ]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -70,6 +79,12 @@ SHORT_Q = [(1, 32, 96, 4, 2, 64, True, 0), (2, 17, 80, 4, 1, 32, True, 24),
            (1, 40, 72, 2, 2, 80, False, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# K2's check sweep: twins of tests/test_torch_kernels.py's rmsnorm shapes and more
+RMS_SWEEP = [(3, 5, 80), (2, 64, 128), (1, 7, 256), (4, 1, 512), (2, 16, 1024),
+             (4 * 1024, 1024), (1, 2048, 16, 128), (4, 1, 5120)]
+QWEN3_THETA = 1e6
+# kernel names of K2 in profiler traces (csrc/rmsnorm.cu's two kernels)
+K2_KERNEL_NAMES = ("rows_kernel", "qk_norm_rope_kernel")
 # twins of tests/test_kernels.py:SSD_SWEEP (B, S, H, P, N, chunk), at its tolerances
 SSD_SWEEP = [(1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32)]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -96,6 +111,37 @@ def time_ms(fn, n: int = 20) -> float:
         ev[i + 1].record()
     torch.cuda.synchronize()
     return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(n))
+
+
+def time_batch_ms(fn, n: int = 50) -> float:
+    """Device time of one call from a single event pair around ``n`` back-to-back
+    calls: without ``time_ms``'s event after every call, so its per-event floor
+    does not count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time to enqueue one call (wrapper checks, allocation, launch), with
+    the card held by a sleep kernel so the queue never drains or fills."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def wall_ms(fn, n: int = 10) -> float:
@@ -155,7 +201,8 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SS
     return {"flash_attention": FA.flash_attention_cuda, "rmsnorm": RN.rmsnorm_cuda,
-            "ssd_scan": SS.ssd_scan_cuda}
+            "add_rmsnorm": RN.add_rmsnorm_cuda, "gated_rmsnorm": RN.gated_rmsnorm_cuda,
+            "qk_norm_rope": RN.qk_norm_rope_cuda, "ssd_scan": SS.ssd_scan_cuda}
 
 
 def named_leaves(tree, path=()):
@@ -252,42 +299,91 @@ def phase_flash(gen) -> dict:
     return row
 
 
-def phase_rmsnorm(gen) -> dict:
+def phase_rmsnorm(gen) -> list:
+    """K2's four entry points: each held against its plain version on the serving
+    paths' shapes and the test sweep, in f32 and bf16, then timed at the serving
+    shapes beside its byte bound. Returns one JSON row per entry point."""
     from repro_torch.kernels import rmsnorm as RN
-    shapes = [((1, 512, 1024), torch.bfloat16),    # main path: ln1/ln2 in prefill
-              ((1, 512, 16, 128), torch.bfloat16), ((1, 512, 8, 128), torch.bfloat16),
-              ((4, 1, 1024), torch.bfloat16),      # decode step, 4 slots
-              ((1, 512, 2560), torch.bfloat16),    # mamba2: ln1, final_norm in prefill
-              ((1, 512, 5120), torch.bfloat16),    # mamba2: gate_norm in prefill
-              ((4, 1, 2560), torch.bfloat16), ((4, 1, 5120), torch.bfloat16),  # decode
-              ((4 * 1024, 1024), torch.bfloat16), ((1, 2048, 16, 128), torch.bfloat16),
-              ((3, 5, 80), torch.bfloat16), ((3, 5, 80), torch.float32),
-              ((2, 64, 128), torch.float32), ((1, 7, 256), torch.float32),
-              ((4, 1, 512), torch.float32)]
-    row = None
-    for shape, dtype in shapes:
-        x, sc = randn(shape, dtype, gen), randn(shape[-1:], dtype, gen)
-        got = RN.rmsnorm_cuda(x, sc, eps=1e-6)
-        want = RN.rmsnorm_plain(x, sc, eps=1e-6)
-        err = max_err(got, want)
-        check(close(got, want, RMS_TOL[dtype]), f"rmsnorm {shape} {dtype}: max err {err}")
-        lib = F.rms_norm(x, shape[-1:], weight=sc, eps=1e-6)
-        ms = time_ms(lambda: RN.rmsnorm_cuda(x, sc, eps=1e-6))
-        plain_ms = time_ms(lambda: RN.rmsnorm_plain(x, sc, eps=1e-6))
-        lib_ms = time_ms(lambda: F.rms_norm(x, shape[-1:], weight=sc, eps=1e-6))
-        nbytes = (2 * x.numel() + sc.numel()) * x.element_size()
-        # ~4 flops an element, done in f32 on the CUDA cores whatever x's dtype
-        bound_ms, bound_by = bound(nbytes, 4 * x.numel(), PEAK_FLOPS[torch.float32])
-        print(f"rmsnorm {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.rms_norm {lib_ms:.4f} ms (err vs plain {max_err(lib, want):.3g}), "
-              f"bound {bound_ms:.5f} ms ({bound_by}), max abs err {err:.3g}")
-        if row is None:
-            row = {"name": "rmsnorm", "route": "triton",
-                   "source": "src/repro_torch/kernels/rmsnorm.py",
-                   "replaces": "src/repro/kernels/rmsnorm.py:11",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-    return row
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def norm_case(shape, dtype):
+        return randn(shape, dtype, gen), randn(shape, dtype, gen), randn(shape[-1:], dtype, gen)
+
+    def qk_case(B, S, H, K, hd, dtype):
+        if S == 1:       # decode: pos[:, None] of 4 slots at positions past a prompt
+            pos = (torch.arange(B, dtype=torch.int32, device="cuda") * 37 + 512)[:, None]
+        else:            # prefill: the model's expanded arange, read through its strides
+            pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+        return (randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen),
+                randn((hd,), dtype, gen), randn((hd,), dtype, gen), pos, QWEN3_THETA)
+
+    # entry point -> (kernel, plain, inputs for a case, sweep cases, serving cases
+    # (main first), bytes moved, f32 flops, library call or None)
+    entries = {
+        "rmsnorm": (
+            lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
+            norm_case, RMS_SWEEP,
+            [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560)],
+            lambda x, r, sc: (2 * x.numel() + sc.numel()) * x.element_size(),
+            lambda x, r, sc: 4 * x.numel(),
+            lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
+        "add_rmsnorm": (
+            RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP,
+            [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560)],
+            lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
+            lambda x, r, sc: 5 * x.numel(), None),
+        "gated_rmsnorm": (
+            RN.gated_rmsnorm_cuda, RN.gated_rmsnorm_plain, norm_case, RMS_SWEEP,
+            [(1, 512, 5120), (4, 1, 5120)],
+            lambda y, z, sc: (3 * y.numel() + sc.numel()) * y.element_size(),
+            lambda y, z, sc: 9 * y.numel(), None),
+        "qk_norm_rope": (
+            RN.qk_norm_rope_cuda, RN.qk_norm_rope_plain, qk_case,
+            [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256)],
+            [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128)],
+            lambda q, k, qs, ks, pos, th: ((2 * (q.numel() + k.numel()) + 2 * qs.numel())
+                                           * q.element_size() + pos.numel() * 4
+                                           + qs.numel() // 2 * 4),
+            lambda q, k, qs, ks, pos, th: 8 * (q.numel() + k.numel()), None),
+    }
+    rows = []
+    for name, (kernel, plain, make, sweep, serving, nbytes, flops, lib) in entries.items():
+        worst = 0.0
+        for shape in sweep + serving:
+            for dtype in (f32, bf16):
+                args = make(*shape, dtype) if name == "qk_norm_rope" else make(shape, dtype)
+                got, want = kernel(*args), plain(*args)
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                for g, w in zip(got, want):
+                    err = max_err(g, w)
+                    check(close(g, w, RMS_TOL[dtype]), f"{name} {shape} {dtype}: max err {err}")
+                    if shape == serving[0] and dtype == bf16:
+                        worst = max(worst, err)
+        print(f"{name}: matches its plain version on {len(sweep + serving)} shapes in f32 "
+              f"and bf16")
+        for i, shape in enumerate(serving):
+            args = make(*shape, bf16) if name == "qk_norm_rope" else make(shape, bf16)
+            ms = time_ms(lambda: kernel(*args))
+            in_batch = time_batch_ms(lambda: kernel(*args))
+            enqueue_us = host_us(lambda: kernel(*args))
+            plain_ms = time_ms(lambda: plain(*args))
+            lib_ms = time_ms(lambda: lib(*args)) if lib else None
+            bound_ms, bound_by = bound(nbytes(*args), flops(*args), PEAK_FLOPS[f32])
+            lib_txt = f"F.rms_norm {lib_ms:.4f} ms" if lib else "library none"
+            print(f"{name} {shape} bf16: kernel {ms:.4f} ms ({in_batch:.4f} ms a launch in "
+                  f"50 back to back under one event pair), plain {plain_ms:.4f} ms, "
+                  f"{lib_txt}, bound {bound_ms:.5f} ms ({bound_by}, "
+                  f"{nbytes(*args) / 1e6:.3f} MB); host {enqueue_us:.1f} us to enqueue a call")
+            if i == 0:
+                rows.append({"name": name, "route": "cuda",
+                             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                             "replaces": "src/repro/kernels/rmsnorm.py:11",
+                             "max_abs_err": worst, "ms": ms, "ms_in_batch": in_batch,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": lib_ms})
+    floor = time_ms(lambda: None)
+    print(f"time_ms floor: {floor:.4f} ms between two events with no launch between them")
+    return rows
 
 
 def phase_ssd(gen) -> dict:
@@ -391,8 +487,11 @@ def phase_serve(card: str, path: dict) -> dict:
     n, new = payload["n_requests"], payload["max_new"]
     check(res["requests"] == n and res["generated_tokens"] == n * new,
           f"{arch}: expected {n} requests of {new} tokens, got {res}")
-    for name, least in path["min_launches"].items():
-        check(launches[name] >= least, f"{arch}: {name} launches {launches[name]} < {least}")
+    calls = n + res["decode_steps"]              # prefills and decode steps
+    least = dict(path["min_launches"],
+                 **{k: per * calls for k, per in path["per_call"].items()})
+    for name, want in least.items():
+        check(launches[name] >= want, f"{arch}: {name} launches {launches[name]} < {want}")
 
     srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
     model, params = srv.model, srv.params
@@ -481,6 +580,13 @@ def profile_breakdown(tag: str, fn, top: int = 6) -> None:
           f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5} {e.key[:90]}")
+    norms = [e for e in kernels if any(n in e.key for n in K2_KERNEL_NAMES)]
+    n_norm = sum(e.count for e in norms)
+    if n_norm:
+        t = sum(e.self_device_time_total for e in norms)
+        print(f"  K2: {t / 1e3:.3f} ms for {n_norm} launches = {t / n_norm:.2f} us a launch")
+        for e in norms:
+            print(f"    {e.self_device_time_total / e.count:6.2f} us x{e.count:<5} {e.key[:110]}")
 
 
 def main() -> int:
@@ -488,14 +594,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [phase_flash(gen), phase_rmsnorm(gen), phase_ssd(gen)]
+    rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen)]
     by_path = {}
     for path in PATHS:
         by_path[path["arch"]] = phase_serve(card, path)

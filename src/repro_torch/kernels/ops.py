@@ -40,6 +40,30 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     return RN.rmsnorm_plain(x, scale, eps=eps)
 
 
+def add_rmsnorm(x, r, scale, *, eps: float = 1e-6):
+    """Residual add, then the next norm: returns (s, rmsnorm(s)) with s = x + r."""
+    if _on_card(x):
+        return RN.add_rmsnorm_cuda(x.contiguous(), r.contiguous(), scale.contiguous(),
+                                   eps=eps)
+    return RN.add_rmsnorm_plain(x, r, scale, eps=eps)
+
+
+def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
+    """mamba2's gated norm: rmsnorm(y * silu(z)), silu in f32."""
+    if _on_card(y):
+        return RN.gated_rmsnorm_cuda(y.contiguous(), z.contiguous(), scale.contiguous(),
+                                     eps=eps)
+    return RN.gated_rmsnorm_plain(y, z, scale, eps=eps)
+
+
+def qk_norm_rope(q, k, q_scale, k_scale, positions, theta: float, *, eps: float = 1e-6):
+    """qk-norm then split-half RoPE: q [B,S,H,hd], k [B,S,K,hd], positions [B,S]."""
+    if _on_card(q):
+        return RN.qk_norm_rope_cuda(q.contiguous(), k.contiguous(), q_scale.contiguous(),
+                                    k_scale.contiguous(), positions, theta, eps=eps)
+    return RN.qk_norm_rope_plain(q, k, q_scale, k_scale, positions, theta, eps=eps)
+
+
 def attend_cache(q, k_cache, v_cache, pos, *, window: int = 0,
                  packed: bool = False):
     """Decode-step attention: q [B,1,H,D] against a [B,Smax,K,D] cache where

@@ -1,5 +1,7 @@
 """Naive PyTorch oracles, twins of ``repro.kernels.ref``: O(S^2)-memory, small
-shapes only. The kernels' plain versions and the tests are held against these."""
+shapes only. The kernels' plain versions and the tests are held against these.
+RoPE (twin of ``repro.models.layers``) lives here too, so that the fused
+qk-norm + RoPE kernel's plain version can use it without importing ``models``."""
 from __future__ import annotations
 
 import math
@@ -55,3 +57,20 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half RoPE in f32. x: [B, S, H, D] (D even), positions: [B, S]."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)                        # [D/2]
+    angles = positions[..., None].float() * freqs                 # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -12,28 +12,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import apply_rope, rope_freqs  # noqa: F401  (RoPE lives with the kernels)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return ops.rmsnorm(x, scale, eps=eps)
-
-
-# ------------------------------------------------------------------------------ RoPE
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Split-half RoPE in f32. x: [B, S, H, D] (D even), positions: [B, S]."""
-    D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)                        # [D/2]
-    angles = positions[..., None].float() * freqs                 # [B, S, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 # ------------------------------------------------------------------------------- MLP
@@ -45,13 +28,6 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------------- attention
-def _qk_norm(p: dict, q: torch.Tensor, k: torch.Tensor, eps: float):
-    if "q_norm" in p:
-        q = ops.rmsnorm(q, p["q_norm"], eps=eps)
-        k = ops.rmsnorm(k, p["k_norm"], eps=eps)
-    return q, k
-
-
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one contiguous matmul."""
     D, H, hd = w.shape
@@ -60,13 +36,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qkv_project(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
                 theta: float, eps: float):
-    """Self-attention q [B,S,H,hd] and k, v [B,S,K,hd], with qk-norm and RoPE."""
+    """Self-attention q [B,S,H,hd] and k, v [B,S,K,hd], with qk-norm and RoPE
+    (one fused launch on the card where the layer has qk-norm)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
-    q, k = _qk_norm(p, q, k, eps)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    if "q_norm" in p:
+        q, k = ops.qk_norm_rope(q, k, p["q_norm"], p["k_norm"], positions, theta, eps=eps)
+    else:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     return q, k, v
 
 

@@ -12,6 +12,11 @@ batch-axis search both read.
 The cache is updated in place: ``decode_step`` writes the new token's k/v (dense)
 or the new conv tail and SSD state (ssm) into the tensors of the cache it is
 given and returns them in the new cache.
+
+Every residual add runs fused with the norm that reads its sum
+(``ops.add_rmsnorm``): a block returns the residual stream ``x`` and its
+un-added output ``d``, and the next block's ln1 (or the final norm in
+``_unembed``) adds them as it normalises.
 """
 from __future__ import annotations
 
@@ -59,93 +64,102 @@ def _layer(params_layers: dict, i: int) -> dict:
 
 
 # ----------------------------------------------------------------------- layer blocks
-def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           window: int, want_kv: bool):
-    """attn -> mlp. Returns (x, kv)."""
-    h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+def _add_norm(x: torch.Tensor, d: Optional[torch.Tensor], scale: torch.Tensor,
+              eps: float):
+    """(x + d, rmsnorm(x + d)) in one launch; d None (the first layer): (x, rmsnorm(x))."""
+    if d is None:
+        return x, LY.rmsnorm(x, scale, eps)
+    return ops.add_rmsnorm(x, d, scale, eps=eps)
+
+
+def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
+           positions: torch.Tensor, window: int, want_kv: bool):
+    """attn -> mlp on the stream x + d. Returns (x, the mlp's un-added output, kv)."""
+    x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k, v = LY.qkv_project(p["attn"], h, positions=positions,
                              theta=cfg.rope_theta, eps=cfg.norm_eps)
     o = ops.flash_attention(q, k, v, causal=True, window=window)
-    x = x + LY.attn_out(p["attn"], o)
-    h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + LY.swiglu(p["mlp"], h)
-    return x, ({"k": k, "v": v} if want_kv else None)
+    x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
+    return x, LY.swiglu(p["mlp"], h), ({"k": k, "v": v} if want_kv else None)
 
 
-def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict,
-                  pos: torch.Tensor) -> torch.Tensor:
+def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
+                  cache: dict, pos: torch.Tensor):
     """Decode variant of ``_block`` against a full-length {"k","v"} cache."""
-    h = LY.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
                                      theta=cfg.rope_theta, eps=cfg.norm_eps)
     k_c = LY._cache_update(cache["k"], k_new, pos)
     v_c = LY._cache_update(cache["v"], v_new, pos)
     o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
                          packed=cfg.packed_decode)
-    x = x + LY.attn_out(p["attn"], o)
-    h = LY.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + LY.swiglu(p["mlp"], h)
+    x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
+    return x, LY.swiglu(p["mlp"], h)
 
 
 # ------------------------------------------------------------------- dense stacks
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, want_kv: bool = False):
-    """Returns (x, kvs): kvs[j] = {"k","v": [G,B,S,K,hd]} per period position j."""
+    """Returns (x, d, kvs): the stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]}
+    per period position j."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     kvs = [[] for _ in range(period)]
+    d = None
     for g in range(cfg.num_layers // period):
         for j in range(period):
             p = _layer(params["layers"], g * period + j)
-            x, kv = _block(cfg, p, x, positions, windows[j], want_kv)
+            x, d, kv = _block(cfg, p, x, d, positions, windows[j], want_kv)
             kvs[j].append(kv)
     if not want_kv:
-        return x, None
-    return x, tuple({n: torch.stack([kv[n] for kv in kvs[j]]) for n in ("k", "v")}
-                    for j in range(period))
+        return x, d, None
+    return x, d, tuple({n: torch.stack([kv[n] for kv in kvs[j]]) for n in ("k", "v")}
+                       for j in range(period))
 
 
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                  cache_layers: tuple, pos: torch.Tensor) -> torch.Tensor:
+                  cache_layers: tuple, pos: torch.Tensor):
+    """Returns (x, d): the stream is x + d."""
     period = _period(cfg)
+    d = None
     for g in range(cfg.num_layers // period):
         for j in range(period):
             p = _layer(params["layers"], g * period + j)
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
-            x = _block_decode(cfg, p, x, cache, pos)
-    return x
+            x, d = _block_decode(cfg, p, x, d, cache, pos)
+    return x, d
 
 
 # --------------------------------------------------------------------- ssm stacks
 def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
              want_state: bool = False):
-    """Returns (x, states): states = {"conv": [L,B,W-1,C], "ssd": [L,B,H,N,P]}."""
+    """Returns (x, d, states): the stream is x + d; states = {"conv": [L,B,W-1,C],
+    "ssd": [L,B,H,N,P]}."""
     states = []
+    d = None
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        y, st = SSM.ssm_block(cfg, lp["ssm"], h)
-        x = x + y
+        x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
+        d, st = SSM.ssm_block(cfg, lp["ssm"], h)
         if want_state:
             states.append(st)
     if not want_state:
-        return x, None
-    return x, {n: torch.stack([st[n] for st in states]) for n in ("conv", "ssd")}
+        return x, d, None
+    return x, d, {n: torch.stack([st[n] for st in states]) for n in ("conv", "ssd")}
 
 
-def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                states: dict) -> torch.Tensor:
+def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict):
     """One token through every layer; writes each layer's new state into
-    ``states`` in place."""
+    ``states`` in place. Returns (x, d): the stream is x + d."""
+    d = None
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        y, new = SSM.ssm_block(cfg, lp["ssm"], h,
+        x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
+        d, new = SSM.ssm_block(cfg, lp["ssm"], h,
                                state={n: states[n][i] for n in ("conv", "ssd")})
         for n in ("conv", "ssd"):
             states[n][i].copy_(new[n])
-        x = x + y
-    return x
+    return x, d
 
 
 # =============================================================================== Model
@@ -173,8 +187,10 @@ class Model:
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
 
-    def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = LY.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+    def _unembed(self, params: dict, x: torch.Tensor,
+                 d: Optional[torch.Tensor]) -> torch.Tensor:
+        """Logits of the stream x + d (the final norm takes in the last add)."""
+        _, x = _add_norm(x, d, params["final_norm"], self.cfg.norm_eps)
         table = (params["embed"].T if self.cfg.tie_embeddings
                  else params["unembed"])
         return x @ table
@@ -189,11 +205,11 @@ class Model:
         B, S = tokens.shape
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
-            x, _ = _ssm_fwd(self.cfg, params, x)
+            x, d, _ = _ssm_fwd(self.cfg, params, x)
         else:
-            x, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
+            x, d, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        return self._unembed(params, x), aux
+        return self._unembed(params, x, d), aux
 
     # ----------------------------------------------------------------------- prefill
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor],
@@ -207,9 +223,10 @@ class Model:
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
-            x, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
+            x, d, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
         else:
-            x, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S), want_kv=True)
+            x, d, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                   want_kv=True)
             layers = []
             for kv in kvs:
                 padded = {}
@@ -220,7 +237,8 @@ class Model:
                 layers.append(padded)
             layers = tuple(layers)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        last_logits = self._unembed(params, x[:, -1:])[:, 0]
+        last_logits = self._unembed(params, x[:, -1:],
+                                    None if d is None else d[:, -1:])[:, 0]
         return last_logits, {"pos": pos, "layers": layers}
 
     # ------------------------------------------------------------------- decode step
@@ -230,10 +248,10 @@ class Model:
         pos = cache["pos"]
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
-            x = _ssm_decode(self.cfg, params, x, cache["layers"])
+            x, d = _ssm_decode(self.cfg, params, x, cache["layers"])
         else:
-            x = _stack_decode(self.cfg, params, x, cache["layers"], pos)
-        logits = self._unembed(params, x)[:, 0]
+            x, d = _stack_decode(self.cfg, params, x, cache["layers"], pos)
+        logits = self._unembed(params, x, d)[:, 0]
         return logits, {"pos": pos + 1, "layers": cache["layers"]}
 
     # ------------------------------------------------------------------- cache views

@@ -1,6 +1,6 @@
 """Mamba-2 (SSD) block, twin of ``repro.models.ssm``: in-proj -> causal depthwise
-conv -> selective state-space scan (``kernels.ops.ssd_scan``) -> gated RMSNorm ->
-out-proj.
+conv -> selective state-space scan (``kernels.ops.ssd_scan``) -> gated RMSNorm
+(``kernels.ops.gated_rmsnorm``) -> out-proj.
 
 Single B/C group (G=1) as in the mamba2/zamba2 configs. The scan runs chunked
 (SSD dual form) for prefill and forward; decode carries a [B, H, N, P] f32 state
@@ -66,8 +66,7 @@ def ssm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     y = y + xh * p["d_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(B, S, DI)
 
-    y = y * F.silu(z.float()).to(y.dtype)                        # gated
-    y = ops.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps)
+    y = ops.gated_rmsnorm(y, z, p["gate_norm"], eps=cfg.norm_eps)
     out = (y.reshape(B * S, DI) @ p["out_proj"]).reshape(B, S, D)
     return out, {"conv": new_tail, "ssd": new_ssd}
 

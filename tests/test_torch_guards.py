@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it never imports jax or the JAX package, its entry
 points never quietly run on the CPU when the card was asked for, and on CPU
 tensors the kernel dispatch takes the plain path without touching triton or a
-compiled library."""
+compiled library, and no port file imports triton."""
 import ast
 import os
 import subprocess
@@ -24,7 +24,7 @@ from repro_torch.runtime.step_cache import run_serve_task  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "triton")
 
 
 def _imported_modules(path: Path):
@@ -37,6 +37,7 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_repro(path):
+    """Nor triton: every kernel of the port is CUDA C++."""
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
 
@@ -75,10 +76,17 @@ def test_cpu_dispatch_takes_plain_path_without_triton_or_library():
         "bm = torch.randn(1, 8, 16)\n"
         "s, h = ops.ssd_scan(q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, chunk=4,\n"
         "                    return_state=True)\n"
+        "r, z = ops.add_rmsnorm(q, q, torch.ones(32))\n"
+        "g = ops.gated_rmsnorm(q, q, torch.ones(32))\n"
+        "pos = torch.arange(8, dtype=torch.int32)[None]\n"
+        "rq, rk = ops.qk_norm_rope(q, k, torch.ones(32), torch.ones(32), pos, 1e4)\n"
         "assert o.shape == q.shape and y.shape == q.shape and s.shape == q.shape\n"
+        "assert r.shape == z.shape == g.shape == rq.shape == q.shape and rk.shape == k.shape\n"
         "assert h.shape == (1, 4, 16, 32)\n"
         "assert _build.loaded() == {}, _build.loaded()\n"
         "assert FA.flash_attention_cuda.launches == 0 and RN.rmsnorm_cuda.launches == 0\n"
+        "assert RN.add_rmsnorm_cuda.launches == RN.gated_rmsnorm_cuda.launches == 0\n"
+        "assert RN.qk_norm_rope_cuda.launches == 0\n"
         "assert SS.ssd_scan_cuda.launches == 0\n"
         "assert sys.modules['triton'] is None\n")
 
@@ -89,10 +97,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         FA.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         RN.rmsnorm_cuda(q, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        RN.add_rmsnorm_cuda(q, q, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        RN.gated_rmsnorm_cuda(q, q, torch.ones(32))
+    k = torch.randn(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        RN.qk_norm_rope_cuda(q, k, torch.ones(32), torch.ones(32),
+                             torch.arange(8, dtype=torch.int32)[None], 1e4)
     bm = torch.randn(1, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         SS.ssd_scan_cuda(q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, chunk=4)
     assert FA.flash_attention_cuda.launches == 0 and RN.rmsnorm_cuda.launches == 0
+    assert RN.add_rmsnorm_cuda.launches == RN.gated_rmsnorm_cuda.launches == 0
+    assert RN.qk_norm_rope_cuda.launches == 0
     assert SS.ssd_scan_cuda.launches == 0
 
 

@@ -1,0 +1,198 @@
+"""PyTorch port, K2's fused entry points (``add_rmsnorm``, ``gated_rmsnorm``,
+``qk_norm_rope``): each plain version against the JAX package's composition of
+the same ops on the same numpy inputs (f32 1e-5, bf16 2e-2, the JAX suite's
+rmsnorm tolerances); each ``ops.*`` call on the CPU against the unfused PyTorch
+sequence the model ran before the fusion, bit for bit; and, marked ``cuda``, each
+of K2's four kernel entry points against its plain version at the serving
+shapes."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.models import layers as TLY  # noqa: E402
+
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+THETA = 1e6                                   # qwen3's rope_theta
+# (B, S, H, K, hd): a prefill and a 4-slot decode step of qwen3's attention heads
+QK_SHAPES = [(2, 12, 4, 2, 128), (4, 1, 16, 8, 128)]
+NORM_SHAPES = [(2, 7, 128), (4, 1, 1024), (1, 9, 2560)]
+
+
+def _np(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _torch(a, dtype, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype)).to(device)
+
+
+def _f32(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().cpu().numpy()
+
+
+def _positions(B, S, decode: bool) -> np.ndarray:
+    """Decode: one position per slot; prefill: the model's expanded arange."""
+    if decode:
+        return (np.arange(B, dtype=np.int32) * 37 + 500)[:, None]
+    return np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+
+
+def _torch_positions(pos: np.ndarray, decode: bool):
+    if decode:
+        return torch.from_numpy(pos[:, 0].copy())[:, None]       # pos[:, None]
+    B, S = pos.shape
+    return torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+# --------------------------------------------------- plain versions vs the JAX package
+@pytest.mark.parametrize("B,S,H,K,hd", QK_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qk_norm_rope_plain_vs_jax(B, S, H, K, hd, dtype):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    from repro.models import layers as jlayers
+    decode = S == 1
+    q, k = _np((B, S, H, hd), 30), _np((B, S, K, hd), 31)
+    qs, ks = 1.0 + 0.1 * _np((hd,), 32), 1.0 + 0.1 * _np((hd,), 33)
+    pos = _positions(B, S, decode)
+    jq, jk, jqs, jks = (jnp.asarray(a).astype(dtype) for a in (q, k, qs, ks))
+    want_q = jlayers.apply_rope(jops.rmsnorm(jq, jqs), jnp.asarray(pos), THETA)
+    want_k = jlayers.apply_rope(jops.rmsnorm(jk, jks), jnp.asarray(pos), THETA)
+    got_q, got_k = RN.qk_norm_rope_plain(_torch(q, dtype), _torch(k, dtype), _torch(qs, dtype),
+                                         _torch(ks, dtype), _torch_positions(pos, decode), THETA)
+    for got, want in ((got_q, want_q), (got_k, want_k)):
+        assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_plain_vs_jax(shape, dtype):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    x, r, sc = _np(shape, 40), _np(shape, 41), 1.0 + 0.1 * _np(shape[-1:], 42)
+    jx, jr, jsc = (jnp.asarray(a).astype(dtype) for a in (x, r, sc))
+    want_s = jx + jr
+    want_y = jops.rmsnorm(want_s, jsc)
+    got_s, got_y = RN.add_rmsnorm_plain(_torch(x, dtype), _torch(r, dtype), _torch(sc, dtype))
+    for got, want in ((got_s, want_s), (got_y, want_y)):
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 128), (4, 1, 5120), (1, 9, 5120)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_rmsnorm_plain_vs_jax(shape, dtype):
+    """``repro.models.ssm``'s gate and ``gate_norm``, as ``ssm_block`` composes them."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ops as jops
+    y, z, sc = _np(shape, 50), _np(shape, 51), 1.0 + 0.1 * _np(shape[-1:], 52)
+    jy, jz, jsc = (jnp.asarray(a).astype(dtype) for a in (y, z, sc))
+    want = jops.rmsnorm(jy * jax.nn.silu(jz.astype(jnp.float32)).astype(jy.dtype), jsc)
+    got = RN.gated_rmsnorm_plain(_torch(y, dtype), _torch(z, dtype), _torch(sc, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ------------------------------------- CPU dispatch == the unfused sequence, bit for bit
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("decode", [False, True])
+def test_qk_norm_rope_cpu_equals_unfused(dtype, decode):
+    B, S, H, K, hd = (4, 1, 16, 8, 128) if decode else (2, 12, 4, 2, 128)
+    q, k = _torch(_np((B, S, H, hd), 60), dtype), _torch(_np((B, S, K, hd), 61), dtype)
+    qs, ks = _torch(_np((hd,), 62), dtype), _torch(_np((hd,), 63), dtype)
+    pos = _torch_positions(_positions(B, S, decode), decode)
+    got_q, got_k = tops.qk_norm_rope(q, k, qs, ks, pos, THETA, eps=1e-6)
+    want_q = TLY.apply_rope(tops.rmsnorm(q, qs, eps=1e-6), pos, THETA)
+    want_k = TLY.apply_rope(tops.rmsnorm(k, ks, eps=1e-6), pos, THETA)
+    assert torch.equal(got_q, want_q) and torch.equal(got_k, want_k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_cpu_equals_unfused(dtype):
+    x, r = _torch(_np((2, 9, 1024), 70), dtype), _torch(_np((2, 9, 1024), 71), dtype)
+    sc = _torch(_np((1024,), 72), dtype)
+    s, y = tops.add_rmsnorm(x, r, sc, eps=1e-6)
+    want_s = x + r
+    assert torch.equal(s, want_s) and torch.equal(y, tops.rmsnorm(want_s, sc, eps=1e-6))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_rmsnorm_cpu_equals_unfused(dtype):
+    y, z = _torch(_np((1, 9, 5120), 80), dtype), _torch(_np((1, 9, 5120), 81), dtype)
+    sc = _torch(_np((5120,), 82), dtype)
+    got = tops.gated_rmsnorm(y, z, sc, eps=1e-5)
+    want = tops.rmsnorm(y * F.silu(z.float()).to(y.dtype), sc, eps=1e-5)
+    assert torch.equal(got, want)
+
+
+def test_rope_is_reexported_by_layers():
+    assert TLY.apply_rope is tref.apply_rope and TLY.rope_freqs is tref.rope_freqs
+
+
+# ---------------------------------------------------- kernel vs plain version on card
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 1024), (4, 1, 1024), (1, 512, 2560),
+                                   (4, 1, 2560), (3, 5, 80)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_kernel_vs_plain_on_card(cuda, shape, dtype):
+    x, r = _torch(_np(shape, 90), dtype, cuda), _torch(_np(shape, 91), dtype, cuda)
+    sc = _torch(_np(shape[-1:], 92), dtype, cuda)
+    s, y = RN.add_rmsnorm_cuda(x, r, sc)
+    want_s, want_y = RN.add_rmsnorm_plain(x, r, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(s, want_s)
+    _close(y, want_y, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 5120), (4, 1, 5120), (3, 5, 80)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_rmsnorm_kernel_vs_plain_on_card(cuda, shape, dtype):
+    y, z = _torch(_np(shape, 93), dtype, cuda), _torch(_np(shape, 94), dtype, cuda)
+    sc = _torch(_np(shape[-1:], 95), dtype, cuda)
+    _close(RN.gated_rmsnorm_cuda(y, z, sc, eps=1e-5),
+           RN.gated_rmsnorm_plain(y, z, sc, eps=1e-5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd", [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128),
+                                        (2, 12, 4, 2, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qk_norm_rope_kernel_vs_plain_on_card(cuda, B, S, H, K, hd, dtype):
+    decode = S == 1
+    q, k = _torch(_np((B, S, H, hd), 96), dtype, cuda), _torch(_np((B, S, K, hd), 97), dtype, cuda)
+    qs, ks = _torch(_np((hd,), 98), dtype, cuda), _torch(_np((hd,), 99), dtype, cuda)
+    pos = _torch_positions(_positions(B, S, decode), decode).to(cuda)
+    got = RN.qk_norm_rope_cuda(q, k, qs, ks, pos, THETA)
+    want = RN.qk_norm_rope_plain(q, k, qs, ks, pos, THETA)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 1024), (4, 1, 1024), (1, 512, 5120)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_serving_shapes_on_card(cuda, shape, dtype):
+    x, sc = _torch(_np(shape, 100), dtype, cuda), _torch(_np(shape[-1:], 101), dtype, cuda)
+    _close(RN.rmsnorm_cuda(x, sc), RN.rmsnorm_plain(x, sc), dtype)
