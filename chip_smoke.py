@@ -23,7 +23,20 @@ Phases, each failing loudly (nonzero exit):
      ``forward`` at full width (f32 at every layer to 1e-4; bf16 at 0.08 at 4
      layers, see ``phase_serve``), time prefill, decode and the warm task, and
      profile one prefill and one decode step (kernels per call, device busy,
-     K2's device time a launch).
+     K2's device time a launch);
+  5. the backward kernels (K1's, and K2's for rmsnorm, add_rmsnorm and
+     qk_norm_rope) against their plain versions on the card in f32 and bf16,
+     the forward's LSE against the plain LSE, two runs of each bit-equal; then
+     time each beside its bound, its plain version and a library yardstick
+     (SDPA's and F.rms_norm's backward);
+  6. one train step of qwen3-0.6b at full width, 2 layers, f32, on the card
+     against the same step on the CPU (loss, grad_norm, master; every leaf
+     gets a nonzero gradient);
+  7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
+     (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
+     counters set to 0 just before and read just after; evaluate it through a
+     strict ``run_eval_task`` restore; time warm steps, profile one, and check
+     one step of 2 microbatches against the first step's loss.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -34,9 +47,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -89,6 +106,26 @@ K2_KERNEL_NAMES = ("rows_kernel", "qk_norm_rope_kernel")
 SSD_SWEEP = [(1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32)]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 SSD_MAIN = (1, 512, 80, 64, 128, 256)   # mamba2-2.7b prefill of 512 tokens
+
+# training: qwen3-0.6b at full width and depth, bf16, 8,192 tokens a step
+TRAIN = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
+         "microbatches": 1, "steps": 4, "checkpoint_every": 2}
+TRAIN_PATH = "qwen3-0.6b train"
+# K1 and K2 launches in each train step: forward and backward alike (rmsnorm: ln1
+# of layer 0; add_rmsnorm: every other norm, the final one included)
+TRAIN_PER_STEP = {"flash_attention": 28, "flash_attention_bwd": 28, "qk_norm_rope": 28,
+                  "qk_norm_rope_bwd": 28, "rmsnorm": 1, "rmsnorm_bwd": 1,
+                  "add_rmsnorm": 56, "add_rmsnorm_bwd": 56}
+# K1's backward check sweep: the forward's sweep, its Sq < Skv cases, qwen3's D=128
+FLASH_BWD_SWEEP = ([(B, S, S, H, K, D, c, w) for B, S, H, K, D, c, w in FLASH_SWEEP]
+                   + SHORT_Q + [(2, 200, 200, 16, 8, 128, True, 0)])
+# the JAX suite's flash-gradient tolerance for f32 (tests/test_kernels.py:71); bf16
+# gradients are rounded to bf16 once, held at the forward's bf16 tolerance
+FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128)]
+# kernel names of the backward kernels in profiler traces
+K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel", "colsum_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -202,7 +239,18 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import ssd_scan as SS
     return {"flash_attention": FA.flash_attention_cuda, "rmsnorm": RN.rmsnorm_cuda,
             "add_rmsnorm": RN.add_rmsnorm_cuda, "gated_rmsnorm": RN.gated_rmsnorm_cuda,
-            "qk_norm_rope": RN.qk_norm_rope_cuda, "ssd_scan": SS.ssd_scan_cuda}
+            "qk_norm_rope": RN.qk_norm_rope_cuda, "ssd_scan": SS.ssd_scan_cuda,
+            "flash_attention_bwd": FA.flash_attention_bwd_cuda,
+            "rmsnorm_bwd": RN.rmsnorm_bwd_cuda, "add_rmsnorm_bwd": RN.add_rmsnorm_bwd_cuda,
+            "qk_norm_rope_bwd": RN.qk_norm_rope_bwd_cuda}
+
+
+def reset_launches() -> dict:
+    """Every kernel wrapper's count set to 0; returns the wrappers by name."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
 
 
 def named_leaves(tree, path=()):
@@ -229,6 +277,8 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """Build every source; print each one's kernels, their registers, and every
+    kernel that spills, by name (from nvcc's -Xptxas -v log)."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -236,9 +286,21 @@ def phase_build() -> None:
     print(f"build: {names} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log = path.with_suffix(".log")
+        kernels, current = [], None         # [mangled name, spill stores, registers]
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                current = line.split("'")[1]
+            elif "spill stores" in line and current:
+                kernels.append([current, int(re.search(r"(\d+) bytes spill stores",
+                                                        line).group(1)), 0])
+            elif "registers" in line and kernels:
+                kernels[-1][2] = int(re.search(r"Used (\d+) registers", line).group(1))
+        regs = [k[2] for k in kernels] or [0]
+        spills = [k for k in kernels if k[1]]
+        print(f"  ptxas {name}: {len(kernels)} kernels, {min(regs)}-{max(regs)} registers, "
+              f"{len(spills)} spilling")
+        for kernel, stores, r in spills:
+            print(f"    spills {stores} bytes at {r} registers: {kernel}")
 
 
 def phase_flash(gen) -> dict:
@@ -472,12 +534,10 @@ def phase_serve(card: str, path: dict) -> dict:
 
     arch = path["arch"]
     payload = dict(SERVE, arch=arch)
-    wrappers = kernel_wrappers()
     cache = ServerCache(1)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_launches()
     t0 = time.perf_counter()
     res = run_serve_task(cache, payload)
     torch.cuda.synchronize()
@@ -492,6 +552,8 @@ def phase_serve(card: str, path: dict) -> dict:
                  **{k: per * calls for k, per in path["per_call"].items()})
     for name, want in least.items():
         check(launches[name] >= want, f"{arch}: {name} launches {launches[name]} < {want}")
+    backward = {n: c for n, c in launches.items() if n.endswith("_bwd") and c}
+    check(not backward, f"{arch}: serving launched backward kernels {backward}")
 
     srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
     model, params = srv.model, srv.params
@@ -562,9 +624,12 @@ def phase_serve(card: str, path: dict) -> dict:
     return launches
 
 
-def profile_breakdown(tag: str, fn, top: int = 6) -> None:
+def profile_breakdown(tag: str, fn, top: int = 6, groups=None) -> dict:
     """Device-busy share of one call and its kernels by device time, from
-    torch.profiler (the wall time here includes the profiler's own cost)."""
+    torch.profiler (the wall time here includes the profiler's own cost), and
+    the device time and launches of each group of kernel names (default: K2's
+    forward kernels). Returns {group: (ms, launches)}."""
+    groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -580,13 +645,341 @@ def profile_breakdown(tag: str, fn, top: int = 6) -> None:
           f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5} {e.key[:90]}")
-    norms = [e for e in kernels if any(n in e.key for n in K2_KERNEL_NAMES)]
-    n_norm = sum(e.count for e in norms)
-    if n_norm:
-        t = sum(e.self_device_time_total for e in norms)
-        print(f"  K2: {t / 1e3:.3f} ms for {n_norm} launches = {t / n_norm:.2f} us a launch")
-        for e in norms:
-            print(f"    {e.self_device_time_total / e.count:6.2f} us x{e.count:<5} {e.key[:110]}")
+    out = {}
+    for label, names in groups.items():
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        n = sum(e.count for e in mine)
+        if not n:
+            continue
+        t = sum(e.self_device_time_total for e in mine)
+        out[label] = (t / 1e3, n)
+        print(f"  {label}: {t / 1e3:.3f} ms for {n} launches = {t / n:.2f} us a launch")
+        for e in mine:
+            print(f"    {e.self_device_time_total / e.count:8.2f} us x{e.count:<5} {e.key[:110]}")
+    return out
+
+
+def phase_backward(gen) -> list:
+    """K1's backward and K2's three backward entry points against their plain
+    versions on the card, in f32 and bf16, each run twice for bit-equality; the
+    forward's LSE against the plain LSE; then times at the training shapes.
+    Returns one JSON row per backward kernel."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def flash_case(B, Sq, Skv, H, K, D, dtype):
+        return (randn((B, Sq, H, D), dtype, gen), randn((B, Skv, K, D), dtype, gen),
+                randn((B, Skv, K, D), dtype, gen), randn((B, Sq, H, D), dtype, gen))
+
+    worst = {f32: 0.0, bf16: 0.0}
+    for B, Sq, Skv, H, K, D, causal, window in FLASH_BWD_SWEEP:
+        for dtype in (f32, bf16):
+            tag = f"flash bwd {B, Sq, Skv, H, K, D, causal, window} {dtype}"
+            q, k, v, do = flash_case(B, Sq, Skv, H, K, D, dtype)
+            o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            _, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                    return_lse=True)
+            check(close(lse, plain_lse, TOL[f32]), f"{tag}: lse max err "
+                  f"{max_err(lse, plain_lse)}")
+            got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+            again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+            for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+                check(close(g, w, FLASH_GRAD_TOL[dtype]), f"{tag} {name}: max err "
+                      f"{max_err(g, w)}")
+                check(torch.equal(g, a), f"{tag} {name}: two runs differ")
+                worst[dtype] = max(worst[dtype], max_err(g, w))
+    print(f"flash_attention_bwd: {len(FLASH_BWD_SWEEP)} cases x f32/bf16 match the plain "
+          f"backward (max abs err f32 {worst[f32]:.3g} at tol {FLASH_GRAD_TOL[f32]}, bf16 "
+          f"{worst[bf16]:.3g} at tol {FLASH_GRAD_TOL[bf16]}); the forward's LSE matches; two "
+          "runs bit-equal")
+
+    rows = []
+    for S in (512, 2048):
+        B, H, K, D = 1, 16, 8, 128
+        q, k, v, do = flash_case(B, S, S, H, K, D, bf16)
+        o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        check(all(close(g, w, FLASH_GRAD_TOL[bf16]) for g, w in zip(got, want)),
+              f"flash bwd S={S} bf16: max err {err}")
+        ms = time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+        plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do), n=5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+        check(all(close(g.transpose(1, 2), w, FLASH_GRAD_TOL[bf16])
+                  for g, w in zip(lib, want)), "SDPA's backward disagrees with plain")
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                     retain_graph=True))
+        # q, o, dO read and dq written [B,S,H,D]; k, v read and dk, dv written
+        # [B,S,K,D]; lse read and delta written and read, f32 [B,H,S]
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + 3 * B * H * S * 4
+        flops = 10 * B * H * D * attn_pairs(S, S, True, 0)      # 2.5x the forward's
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
+        print(f"flash_attention_bwd B=1 S={S} H=16 K=8 D=128 bf16 causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g}")
+        if S == 2048:
+            rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                         "replaces": "src/repro/kernels/ops.py:90",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+
+    def norm_case(shape, dtype):
+        return (randn(shape, dtype, gen), randn(shape[-1:], dtype, gen),
+                randn(shape, dtype, gen), randn(shape, dtype, gen))
+
+    def qk_case(B, S, H, K, hd, dtype):
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+        return (randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen),
+                randn((hd,), dtype, gen), randn((hd,), dtype, gen), pos, QWEN3_THETA,
+                randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen))
+
+    # entry -> (kernel, plain, make inputs, sweep, main shape, bytes, f32 flops, library)
+    entries = {
+        "rmsnorm_bwd": (
+            lambda x, sc, dy, ds: RN.rmsnorm_bwd_cuda(x, sc, dy),
+            lambda x, sc, dy, ds: RN.rmsnorm_bwd_plain(x, sc, dy), norm_case,
+            RMS_SWEEP + [(4, 2048, 1024)], (4, 2048, 1024),
+            lambda x, sc, dy, ds: (3 * x.numel() + 2 * sc.numel()) * x.element_size(),
+            lambda x, sc, dy, ds: 12 * x.numel(), "rms_norm"),
+        "add_rmsnorm_bwd": (
+            lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_cuda(x, sc, ds, dy),
+            lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_plain(x, sc, ds, dy), norm_case,
+            RMS_SWEEP + [(4, 2048, 1024)], (4, 2048, 1024),
+            lambda x, sc, dy, ds: (4 * x.numel() + 2 * sc.numel()) * x.element_size(),
+            lambda x, sc, dy, ds: 13 * x.numel(), None),
+        "qk_norm_rope_bwd": (
+            RN.qk_norm_rope_bwd_cuda, RN.qk_norm_rope_bwd_plain, qk_case, QK_BWD_SWEEP,
+            (4, 2048, 16, 8, 128),
+            lambda q, k, qs, ks, pos, th, dq, dk: (3 * (q.numel() + k.numel())
+                                                   + 4 * qs.numel()) * q.element_size()
+            + pos.numel() * 4 + qs.numel() // 2 * 4,
+            lambda q, k, qs, ks, pos, th, dq, dk: 16 * (q.numel() + k.numel()), None),
+    }
+    def exact(args):
+        """f32 inputs widened to f64: the plain twin then gives the exact value.
+        dscale sums up to 131,072 rows, and two f32 sums of them in different
+        orders differ by more than 1e-5 near zero, so f32 outputs are held at
+        K2's 1e-5 against the exact value, not against another f32 sum."""
+        return [a.double() if torch.is_tensor(a) and a.dtype == f32 else a for a in args]
+
+    for name, (kernel, plain, make, sweep, main_shape, nbytes, flops, lib) in entries.items():
+        worst = 0.0
+        for shape in sweep:
+            for dtype in (f32, bf16):
+                args = make(*shape, dtype) if name == "qk_norm_rope_bwd" else make(shape, dtype)
+                got, again = kernel(*args), kernel(*args)
+                want = plain(*(exact(args) if dtype == f32 else args))
+                for i, (g, w, a) in enumerate(zip(got, want, again)):
+                    check(close(g, w, RMS_TOL[dtype]), f"{name} {shape} {dtype} output {i}: "
+                          f"max err {max_err(g, w)}")
+                    check(torch.equal(g, a), f"{name} {shape} {dtype} output {i}: two runs "
+                          "differ")
+                    if shape == main_shape and dtype == bf16:
+                        worst = max(worst, max_err(g, w))
+        print(f"{name}: matches its plain version on {len(sweep)} shapes (f32 against its "
+              f"f64 evaluation, bf16; dscale included), two runs bit-equal")
+        args = make(*main_shape, bf16) if name == "qk_norm_rope_bwd" else make(main_shape, bf16)
+        ms = time_ms(lambda: kernel(*args))
+        plain_ms = time_ms(lambda: plain(*args))
+        lib_ms = None
+        if lib:
+            x, sc, dy, _ = args
+            xg, scg = x.detach().requires_grad_(True), sc.detach().requires_grad_(True)
+            y = F.rms_norm(xg, sc.shape, weight=scg, eps=1e-6)
+            lib_ms = time_ms(lambda: torch.autograd.grad(y, (xg, scg), dy, retain_graph=True))
+        bound_ms, bound_by = bound(nbytes(*args), flops(*args), PEAK_FLOPS[f32])
+        lib_txt = f"F.rms_norm backward {lib_ms:.4f} ms" if lib else "library none"
+        print(f"{name} {main_shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{lib_txt}, bound {bound_ms:.5f} ms ({bound_by}, {nbytes(*args) / 1e6:.2f} MB)")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                     "replaces": "src/repro/kernels/ref.py:67",
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
+
+
+def phase_train_step_parity() -> None:
+    """One train step of qwen3-0.6b at full width, 2 layers, in f32, on the card
+    (the kernels, forward and backward) and on the CPU (their plain versions),
+    from the same params and batch. Every parameter leaf must get a nonzero
+    gradient on the card: a kernel that dropped a gradient would leave the
+    leaves before it without one."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.train_loop import TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted, tree_map
+
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), num_layers=2, dtype="float32",
+                              remat="none")
+    opt = TrainJobConfig().opt
+    params = Model(cfg, "cpu").init_params(0)
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen).to(torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous(),
+             "loss_mask": torch.ones((2, 256), dtype=torch.bfloat16)}
+    card_params = tree_map(lambda t: t.cuda(), params)
+    card = {"params": card_params, "opt": init_opt_state(card_params)}
+    host = {"params": params, "opt": init_opt_state(params)}
+
+    wrappers = reset_launches()
+    card, card_m = make_train_step(Model(cfg, "cuda"), opt, 1)(
+        card, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    t0 = time.perf_counter()
+    host, host_m = make_train_step(Model(cfg, "cpu"), opt, 1)(host, batch)
+    cpu_s = time.perf_counter() - t0
+    loss, want_loss = float(card_m["loss"]), float(host_m["loss"])
+    gnorm, want_gnorm = float(card_m["grad_norm"]), float(host_m["grad_norm"])
+    check(abs(loss - want_loss) <= 1e-4 * (1 + abs(want_loss)),
+          f"train step loss {loss} vs CPU {want_loss}")
+    check(abs(gnorm - want_gnorm) <= 1e-3 * abs(want_gnorm),
+          f"train step grad_norm {gnorm} vs CPU {want_gnorm}")
+    # m = (1 - b1) g holds the gradients themselves. The master moves by
+    # lr * g / (|g| + eps) at step 1, which turns a gradient difference dg into up
+    # to lr * dg / eps where |g| is near eps: the master is held at 1e-4 plus that
+    # sensitivity to the measured gradient difference.
+    lr = float(card_m["lr"])
+    m_err = master_err = 0.0
+    beyond = 0
+    leaves = zip(*(tree_flatten_sorted(t) for t in (
+        card["opt"]["m"], host["opt"]["m"], card["opt"]["master"], host["opt"]["master"])))
+    for (path, m), (_, m_cpu), (_, w), (_, w_cpu) in leaves:
+        name = "/".join(map(str, path))
+        m_cpu, w_cpu = m_cpu.cuda(), w_cpu.cuda()
+        check(bool(m.abs().max() > 0), f"train step: leaf {name} got no gradient on the card")
+        check(close(m, m_cpu, 1e-6), f"train step: m of {name} max err {max_err(m, m_cpu)}")
+        dg = (m - m_cpu).abs() / (1 - opt.b1)
+        diff = (w - w_cpu).abs()
+        plain_tol = 1e-4 * (1 + w_cpu.abs())
+        check(bool((diff <= plain_tol + lr * dg / opt.eps).all()),
+              f"train step: master of {name} max err {diff.max().item()}")
+        beyond += int((diff > plain_tol).sum())
+        m_err, master_err = max(m_err, max_err(m, m_cpu)), max(master_err, diff.max().item())
+    print(f"train step, qwen3-0.6b full width, 2 layers, f32, B=2 S=256: card loss {loss:.6f} "
+          f"grad_norm {gnorm:.6f}, CPU {want_loss:.6f} {want_gnorm:.6f} ({cpu_s:.1f} s); "
+          f"max abs err m {m_err:.3g} (at 1e-6), master {master_err:.3g} ({beyond} elements "
+          f"beyond 1e-4, each within lr * dg / eps of Adam's first step, lr {lr:.3g}); "
+          f"every leaf has a nonzero gradient; launches {launches}")
+    for name in TRAIN_PER_STEP:
+        check(launches.get(name, 0) > 0, f"train step: {name} was not launched")
+
+
+def phase_train(card: str) -> dict:
+    """Train qwen3-0.6b at full width through run_train_task with checkpoints,
+    evaluate through a strict restore; returns each kernel's launches in the
+    train task."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_eval_task, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    print(f"train: {shutil.disk_usage(build).free / 2**30:.1f} GiB free for checkpoints")
+    with tempfile.TemporaryDirectory(dir=build) as ckdir:
+        payload = dict(TRAIN, checkpoint_dir=ckdir)
+        cache = TrainerCache(1)
+        t0 = time.perf_counter()
+        trainer = cache.get(TrainJobConfig.from_job({"payload": payload}))  # built cold here
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        res = run_train_task(cache, payload)                  # a warm hit: rebound
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        losses = trainer.metrics.series("loss")
+        vocab = trainer.arch_cfg.vocab_size
+        print(f"train task {TRAIN['arch']} full width, {trainer.arch_cfg.num_layers} layers, "
+              f"bf16, {TRAIN['global_batch']} x {TRAIN['seq_len']} tokens a step: {res} in "
+              f"{wall:.2f} s (trainer built in {build_s:.2f} s before); losses {losses}; "
+              f"launches {launches}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        steps = TRAIN["steps"]
+        check(res["steps"] == steps and res["ran_steps"] == steps and len(losses) == steps,
+              f"train task: {res}, losses {losses}")
+        check(all(math.isfinite(x) for x in losses), f"train task: losses {losses}")
+        # on random weights the final-normed hidden state has unit rms and the
+        # unembedding std d_model^-1/2 (the init rule), so the logits have
+        # variance 1 and the expected CE is ln V + 1/2
+        expected = math.log(vocab) + 0.5
+        check(abs(losses[0] - expected) < 0.5,
+              f"train task: step 1 loss {losses[0]} not within 0.5 of ln({vocab}) + 1/2 = "
+              f"{expected:.3f} on random weights")
+        check(res["checkpoint"] == {"step": steps, "path": ckdir},
+              f"train task checkpoint {res.get('checkpoint')}")
+        for name, per in TRAIN_PER_STEP.items():
+            check(launches[name] >= per * steps,
+                  f"train task: {name} launches {launches[name]} < {per * steps}")
+        # the trained state's own loss on the eval task's batch: the eval of the
+        # restored checkpoint must give it back
+        with torch.no_grad():
+            own, _ = trainer.model.loss_fn(trainer.params_for_eval(),
+                                           trainer._sync_batch(10_000))
+        own = float(own)
+
+        t0 = time.perf_counter()
+        ev = run_eval_task(None, {**TRAIN, "restore_from": res["checkpoint"]})
+        torch.cuda.synchronize()
+        print(f"eval task, strict restore of step {steps}: {ev} in "
+              f"{time.perf_counter() - t0:.2f} s; the trained state's own loss on that "
+              f"batch {own}")
+        check(ev["restored_step"] == steps and math.isfinite(ev["eval_loss"]),
+              f"eval task: {ev}")
+        check(abs(ev["eval_loss"] - own) <= 1e-5 * abs(own),
+              f"eval task: restored loss {ev['eval_loss']} != the trained state's {own}")
+
+    # warm steps of the same trainer, rebound without a checkpoint directory
+    trainer = cache.get(TrainJobConfig.from_job({"payload": dict(TRAIN)}))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times[1:])
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    print(f"train step {TRAIN['arch']} full width, {tokens} tokens: {step_ms:.1f} ms (median "
+          f"of warm steps {[round(t, 1) for t in times[1:]]}) = {tokens / step_ms * 1e3:.0f} "
+          f"training tokens/s [{card}]; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    groups = profile_breakdown(f"{TRAIN['arch']} train step, {tokens} tokens",
+                               trainer.step_once, top=10,
+                               groups={"K1 forward": ("flash_fwd",), "K1 backward": K1_BWD_NAMES,
+                                       "K2 forward": K2_KERNEL_NAMES,
+                                       "K2 backward": K2_BWD_NAMES})
+    for label in ("K1 backward", "K2 backward"):
+        check(label in groups, f"train step profile: no {label} kernels")
+    first_loss = losses[0]
+    del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m2 = run_train_task(None, dict(TRAIN, steps=1, microbatches=2))
+    print(f"train step with 2 microbatches: loss {m2['loss']:.5f}, 1 microbatch "
+          f"{first_loss:.5f} (same params and batch)")
+    check(close(torch.tensor(m2["loss"]), torch.tensor(first_loss), 2e-2),
+          f"2 microbatches: loss {m2['loss']} vs {first_loss}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -600,18 +993,22 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen)]
+    rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen)]
+    phase_train_step_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path = {}
     for path in PATHS:
         by_path[path["arch"]] = phase_serve(card, path)
         gc.collect()                   # release this server before the next one
         torch.cuda.empty_cache()
+    by_path[TRAIN_PATH] = phase_train(card)
     for row in rows:
-        # each kernel's launches in the serve task(s) of the path(s) that run it
-        row["launches_by_path"] = {arch: n[row["name"]] for arch, n in by_path.items()
+        # each kernel's launches in the serve and train tasks of the paths that run it
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()
                                    if n[row["name"]]}
         row["launches"] = sum(row["launches_by_path"].values())
-        check(row["launches"] > 0, f"{row['name']} was never launched on a serving path")
+        check(row["launches"] > 0, f"{row['name']} was never launched on a main path")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

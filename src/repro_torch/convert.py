@@ -1,10 +1,13 @@
-"""Convert a JAX-package parameter tree into the port's tree.
+"""Convert a JAX-package parameter tree, or train state, into the port's.
 
 The caller hands over the tree as nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``); this module imports neither
 jax nor the JAX package. Names and shapes map 1:1 (``models.params``). bf16
 arrives as numpy's ml_dtypes ``bfloat16`` and goes through its uint16 bits, so
-no value is rounded on the way.
+no value is rounded on the way. A train state ``{params, opt: {m, v, master,
+step}}`` (``repro.launch.steps.init_train_state``'s layout, which the port's
+``launch.steps`` shares) converts leaf by leaf, so both packages can start a
+step from the same state.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _to_tensor(x, dev: torch.device) -> torch.Tensor:
@@ -26,3 +29,21 @@ def to_torch(tree, device="cuda"):
     """Nested dicts/tuples of numpy arrays -> the same tree of tensors on ``device``."""
     dev = devices.resolve(device)
     return tree_map(lambda x: _to_tensor(x, dev), tree)
+
+
+def train_state_to_torch(state: dict, device="cuda") -> dict:
+    """A JAX train state {params, opt: {m, v, master, step}} of numpy arrays ->
+    the port's train state on ``device``; checks its layout and dtypes (f32 m,
+    v and master of the params' shapes, int32 step)."""
+    if set(state) != {"params", "opt"} or set(state["opt"]) != {"m", "v", "master", "step"}:
+        raise ValueError(f"not a train state {{params, opt: {{m, v, master, step}}}}: "
+                         f"keys {sorted(state)}, opt {sorted(state.get('opt', {}))}")
+    out = to_torch(state, device)
+    shapes = tree_map(lambda t: t.shape, out["params"])
+    for name in ("m", "v", "master"):
+        if tree_map(lambda t: t.shape, out["opt"][name]) != shapes or any(
+                t.dtype != torch.float32 for t in tree_leaves(out["opt"][name])):
+            raise ValueError(f"opt/{name} must be f32 of the params' shapes")
+    if out["opt"]["step"].dtype != torch.int32 or out["opt"]["step"].dim():
+        raise ValueError("opt/step must be an int32 scalar")
+    return out

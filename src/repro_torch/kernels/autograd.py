@@ -1,0 +1,119 @@
+"""Autograd Functions of the kernel ops the dense model trains through.
+
+The port's twin of the JAX package's custom VJP around flash attention
+(``_flash_blocked``, ``src/repro/kernels/ops.py:134-145``) and of autodiff through
+``ref.rmsnorm_ref``. Each Function runs both directions on one path, picked by the
+device of its first input as ``ops`` picks it: a CUDA tensor goes to the
+hand-written kernels, forward and backward; a CPU tensor to the plain forward and
+the plain *explicit* backward (the ``*_bwd_plain`` twins), never to autodiff of the
+plain forward. So the CPU tests run the same Function the card runs.
+
+What each saves: q, k, v, o and the forward's LSE for flash attention (O(S), as
+the JAX VJP); the input of the norm for the norms (x; s = x + r for add_rmsnorm;
+the pre-norm q and k for qk_norm_rope).
+
+``ops`` enters these only when autograd is recording and an input requires grad;
+serving never does. Inside ``forward`` and ``backward`` recording is off, which is
+what lets the ``*_cuda`` wrappers refuse to be called with it on.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import on_card
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm as RN
+
+
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if on_card(q):
+            o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+        else:
+            o, lse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                              return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if on_card(q):
+            dq, dk, dv = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(),
+                                                     causal=ctx.causal, window=ctx.window)
+        else:
+            dq, dk, dv = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+class RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        y = RN.rmsnorm_cuda(x, scale, eps=eps) if on_card(x) else \
+            RN.rmsnorm_plain(x, scale, eps=eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        if on_card(x):
+            dx, dscale = RN.rmsnorm_bwd_cuda(x, scale, dy.contiguous(), eps=ctx.eps)
+        else:
+            dx, dscale = RN.rmsnorm_bwd_plain(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
+
+
+class AddRMSNorm(torch.autograd.Function):
+    """(s, rmsnorm(s)) with s = x + r. The cotangent of s is None where the caller
+    drops s (the final norm), so the backward then reads no zeros."""
+
+    @staticmethod
+    def forward(ctx, x, r, scale, eps: float):
+        ctx.set_materialize_grads(False)
+        if on_card(x):
+            s, y = RN.add_rmsnorm_cuda(x, r, scale, eps=eps)
+        else:
+            s, y = RN.add_rmsnorm_plain(x, r, scale, eps=eps)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dn):
+        s, scale = ctx.saved_tensors
+        if dn is None:       # rmsnorm(s) unused: only the stream's own cotangent
+            return ds, ds, None, None
+        if on_card(s):
+            dx, dscale = RN.add_rmsnorm_bwd_cuda(
+                s, scale, None if ds is None else ds.contiguous(), dn.contiguous(),
+                eps=ctx.eps)
+        else:
+            dx, dscale = RN.add_rmsnorm_bwd_plain(s, scale, ds, dn, eps=ctx.eps)
+        return dx, dx, dscale, None
+
+
+class QkNormRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, q_scale, k_scale, positions, theta: float, eps: float):
+        if on_card(q):
+            qo, ko = RN.qk_norm_rope_cuda(q, k, q_scale, k_scale, positions, theta, eps=eps)
+        else:
+            qo, ko = RN.qk_norm_rope_plain(q, k, q_scale, k_scale, positions, theta, eps=eps)
+        ctx.save_for_backward(q, k, q_scale, k_scale, positions)
+        ctx.theta, ctx.eps = theta, eps
+        return qo, ko
+
+    @staticmethod
+    def backward(ctx, dq_out, dk_out):
+        q, k, q_scale, k_scale, positions = ctx.saved_tensors
+        bwd = RN.qk_norm_rope_bwd_cuda if on_card(q) else RN.qk_norm_rope_bwd_plain
+        dq, dk, dq_scale, dk_scale = bwd(q, k, q_scale, k_scale, positions, ctx.theta,
+                                         dq_out.contiguous(), dk_out.contiguous(),
+                                         eps=ctx.eps)
+        return dq, dk, dq_scale, dk_scale, None, None, None

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), with a plain C interface for ctypes.
+// Flash attention forward and backward for Hopper (sm_90a), with a plain C
+// interface for ctypes. The backward's design is at its section below.
 //
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention_pallas` of
 // src/repro/kernels/flash_attention.py. Semantics follow the JAX package's
@@ -80,8 +81,8 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                 int H, int K, int causal, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int H, int K, int causal, int window, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DP = D + 1;     // padded row stride of sQ and sK
   constexpr int PP = BKV + 1;   // padded row stride of sP
@@ -216,6 +217,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < DPT; ++e) ob[(size_t)qi * q_stride + tx + 16 * e] = acc[i][e] / denom;
+    // m is in units of the scaled scores here (q was scaled on load)
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(denom);
   }
 }
 
@@ -249,7 +252,8 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int Sq, int Skv, int H, int K, int causal, int window, float scale) {
+                      float* __restrict__ lse, int Sq, int Skv, int H, int K, int causal,
+                      int window, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int RS = D + 8;   // padded smem row, bf16 elements
   constexpr int KS = D / 16;  // k-steps of Q.K^T
@@ -411,6 +415,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int qi = q0 + 16 * warp + g + 8 * r;
     if (qi >= Sq) continue;
+    // m is the row max of the unscaled scores and l sums exp2((s - m) * scale *
+    // log2 e) = exp((s - m) * scale): in natural-log units the LSE is
+    // m * scale + log(l), as `_flash_fwd_blocked` returns it
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * Sq + qi] =
+          m[r] == -INFINITY ? NEG_INF : fmaf(m[r], scale, logf(fmaxf(sum, 1e-30f)));
     uint32_t* row = reinterpret_cast<uint32_t*>(ob + (size_t)qi * q_stride + 2 * t);
 #pragma unroll
     for (int n = 0; n < NT; ++n) row[4 * n] = tc::pack(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
@@ -418,9 +428,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Skv, int H, int K, int causal, int window, float scale, int dtype,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Skv, int H, int K, int causal, int window, float scale,
+                   int dtype, cudaStream_t stream) {
   const int n_q = (Sq + BQ - 1) / BQ;
   cudaError_t err;
   if (dtype == 1) {
@@ -430,8 +440,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
     flash_fwd_bf16_kernel<D><<<dim3(H, B, n_q), TC_THREADS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, K,
-        causal, window, scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H,
+        K, causal, window, scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
     err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
@@ -439,28 +449,405 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
     flash_fwd_kernel<D><<<dim3(n_q, H, B), THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, K, causal, window,
-        scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H, K, causal,
+        window, scale);
   }
   return cudaGetLastError();
+}
+
+
+// ------------------------------------------------------------------- backward
+// dq, dk, dv of the forward above from its saved (q, k, v, o, lse) and dO: the
+// function of the JAX package's custom VJP `_flash_bwd_blocked` (ops.py:90), with
+// P = exp(S * scale - lse) recomputed tile by tile and dS = P o (dP - delta) * scale,
+// delta = rowsum(dO o O). Three launches, all deterministic (no atomics):
+//   bwd_delta_kernel  delta [B,H,Sq] f32, one warp a (b, q row, h) row;
+//   bwd_dkdv_kernel   one block per (64-row kv tile, kv head, batch): it loops over
+//                     the group's q heads and the q tiles the mask lets see this kv
+//                     tile, and keeps dK and dV of its tile in registers, so the GQA
+//                     fold (`ops.py:121-123`) is a sum inside the block;
+//   bwd_dq_kernel     one block per (64-row q tile, q head, batch): it loops over
+//                     the kv tiles the forward visits and keeps dQ in registers.
+// Both dtypes run one exact CUDA-core design: bf16 inputs are widened to f32 as
+// they are staged in shared memory, every product and sum is an f32 FMA, and only
+// dq, dk, dv are rounded to the input dtype (as `.astype(q.dtype)` does).
+//
+// What bounds it on the H100. The backward does ~2.5x the forward's flops (the
+// dkdv pass recomputes S and dP and forms dV and dK, the dq pass recomputes S and
+// dP and forms dQ: 7 tile products against the forward's 2; the bound counts 5)
+// on ~2x its bytes, so from S ~ 1000 it is bound by operations. The bound counts
+// the bf16 tensor-core rate (989 TFLOP/s); this design runs on the CUDA cores
+// (67 TFLOP/s f32 peak), so it sits far above the bound by construction: a
+// simple design that is right comes first. `mma.sync` / `wgmma` with the
+// transposed products through `ldmatrix.trans` is the step that closes the gap.
+//
+// Layout: 256 threads as 16 row groups x 16 column lanes, as the f32 forward.
+// Every staged tile is f32 with rows padded by one float, so the per-row and
+// per-column reads of the products hit distinct banks.
+constexpr int BWD_THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// rows r0 .. r0+63 of a [rows, D] matrix with row stride `stride` into a [64][D+1]
+// f32 tile; rows at or past `limit` are zero
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, size_t stride, int r0,
+                                      int limit, int tid) {
+  for (int i = tid; i < 64 * D; i += BWD_THREADS) {
+    const int r = i / D, d = i % D;
+    dst[r * (D + 1) + d] = r0 + r < limit ? to_f32(src[(size_t)(r0 + r) * stride + d]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                 long long rows, int Sq, int H, int D) {
+  const long long row = (long long)blockIdx.x * (BWD_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_f32(o[row * D + d]), to_f32(dout[row * D + d]), acc);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) {   // row = (b * Sq + i) * H + h  ->  delta[b, h, i]
+    const int h = (int)(row % H);
+    const long long bi = row / H;
+    const long long b = bi / Sq, i = bi % Sq;
+    delta[(b * H + h) * Sq + i] = acc;
+  }
+}
+
+// s = scale * Q.K^T and dp = dO.V^T of rows ty*4+i (q) and columns tx+16j (kv);
+// then P and dS into sP / sS (sP may be null: the dq pass needs only dS)
+template <int D>
+__device__ __forceinline__ void bwd_tile_scores(const float* sQ, const float* sO,
+                                                const float* sK, const float* sV,
+                                                const float* sL, const float* sD, float* sP,
+                                                float* sS, int q0, int k0, int Sq, int Skv,
+                                                int offset, int causal, int window,
+                                                float scale, int tx, int ty) {
+  constexpr int DP = D + 1, PP = BKV + 1;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = sQ[(ty * RPT + i) * DP + d];
+      ov[i] = sO[(ty * RPT + i) * DP + d];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      kv[j] = sK[(tx + 16 * j) * DP + d];
+      vv[j] = sV[(tx + 16 * j) * DP + d];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ty * RPT + i;
+    const int qi = q0 + r;
+    const int qa = qi + offset;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = tx + 16 * j;
+      const int kj = k0 + c;
+      const bool ok = qi < Sq && kj < Skv && (!causal || kj <= qa) &&
+                      (window <= 0 || qa - kj < window);
+      const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
+      if (sP != nullptr) sP[r * PP + c] = p;
+      sS[r * PP + c] = p * (dp[i][j] - sD[r]) * scale;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // sK, sV, sQ, sO [64][D+1]; sP, sS [64][65]; sL, sD [64]
+  return sizeof(float) * (4 * 64 * (size_t)(D + 1) + 2 * 64 * (BKV + 1) + 2 * 64);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                int Sq, int Skv, int H, int K, int causal, int window, float scale) {
+  constexpr int DP = D + 1, PP = BKV + 1, DPT = D / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + 64 * DP;
+  float* sQ = sV + 64 * DP;
+  float* sO = sQ + 64 * DP;
+  float* sP = sO + 64 * DP;
+  float* sS = sP + 64 * PP;
+  float* sL = sS + 64 * PP;
+  float* sD = sL + 64;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / K, offset = Skv - Sq;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  stage<T, D>(sK, k + (size_t)b * Skv * kv_stride + (size_t)kvh * D, kv_stride, k0, Skv, tid);
+  stage<T, D>(sV, v + (size_t)b * Skv * kv_stride + (size_t)kvh * D, kv_stride, k0, Skv, tid);
+
+  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
+#pragma unroll
+  for (int a = 0; a < RPT; ++a)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
+
+  // q rows that see at least one kv row of this tile: [qi_lo, qi_hi]
+  const int k_last = min(k0 + BKV, Skv) - 1;
+  const int qi_lo = causal ? max(0, k0 - offset) : 0;
+  const int qi_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
+
+  for (int h = kvh * group; h < (kvh + 1) * group; ++h) {
+    const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * D;
+    const T* ob = dout + (size_t)b * Sq * q_stride + (size_t)h * D;
+    const float* lb = lse + ((size_t)b * H + h) * Sq;
+    const float* db = delta + ((size_t)b * H + h) * Sq;
+    for (int q0 = (qi_lo / BQ) * BQ; q0 <= qi_hi; q0 += BQ) {
+      __syncthreads();   // the previous tile's sQ, sO, sP, sS are read
+      stage<T, D>(sQ, qb, q_stride, q0, Sq, tid);
+      stage<T, D>(sO, ob, q_stride, q0, Sq, tid);
+      if (tid < 64) {
+        sL[tid] = q0 + tid < Sq ? lb[q0 + tid] : 0.f;
+        sD[tid] = q0 + tid < Sq ? db[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      bwd_tile_scores<D>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, Skv, offset, causal,
+                         window, scale, tx, ty);
+      __syncthreads();
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows; this thread owns
+      // kv rows ty*4+a and columns tx+16e
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float pv[RPT], sv[RPT], ov[DPT], qv[DPT];
+#pragma unroll
+        for (int a = 0; a < RPT; ++a) {
+          pv[a] = sP[r * PP + ty * RPT + a];
+          sv[a] = sS[r * PP + ty * RPT + a];
+        }
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) {
+          ov[e] = sO[r * DP + tx + 16 * e];
+          qv[e] = sQ[r * DP + tx + 16 * e];
+        }
+#pragma unroll
+        for (int a = 0; a < RPT; ++a)
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) {
+            dv_acc[a][e] = fmaf(pv[a], ov[e], dv_acc[a][e]);
+            dk_acc[a][e] = fmaf(sv[a], qv[e], dk_acc[a][e]);
+          }
+      }
+    }
+  }
+
+  T* dkb = dk + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  T* dvb = dv + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+#pragma unroll
+  for (int a = 0; a < RPT; ++a) {
+    const int kj = k0 + ty * RPT + a;
+    if (kj >= Skv) continue;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) {
+      dkb[(size_t)kj * kv_stride + tx + 16 * e] = from_f32<T>(dk_acc[a][e]);
+      dvb[(size_t)kj * kv_stride + tx + 16 * e] = from_f32<T>(dv_acc[a][e]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // sQ, sO, sK, sV [64][D+1]; sS [64][65]; sL, sD [64]
+  return sizeof(float) * (4 * 64 * (size_t)(D + 1) + 64 * (BKV + 1) + 2 * 64);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int H,
+              int K, int causal, int window, float scale) {
+  constexpr int DP = D + 1, PP = BKV + 1, DPT = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sO = sQ + 64 * DP;
+  float* sK = sO + 64 * DP;
+  float* sV = sK + 64 * DP;
+  float* sS = sV + 64 * DP;
+  float* sL = sS + 64 * PP;
+  float* sD = sL + 64;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K), offset = Skv - Sq;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  stage<T, D>(sQ, q + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
+  stage<T, D>(sO, dout + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
+  if (tid < 64) {
+    const size_t row = ((size_t)b * H + h) * Sq + q0 + tid;
+    sL[tid] = q0 + tid < Sq ? lse[row] : 0.f;
+    sD[tid] = q0 + tid < Sq ? delta[row] : 0.f;
+  }
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
+
+  // the kv tiles the forward visits for this q tile
+  const int q_first = q0 + offset;
+  const int q_last = min(q0 + BQ, Sq) - 1 + offset;
+  const int kv_hi = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+
+  for (int k0 = (kv_lo / BKV) * BKV; k0 < kv_hi; k0 += BKV) {
+    __syncthreads();   // sQ, sO are written / the previous tile's sK, sS are read
+    stage<T, D>(sK, kb, kv_stride, k0, Skv, tid);
+    stage<T, D>(sV, vb, kv_stride, k0, Skv, tid);
+    __syncthreads();
+    bwd_tile_scores<D>(sQ, sO, sK, sV, sL, sD, nullptr, sS, q0, k0, Sq, Skv, offset, causal,
+                       window, scale, tx, ty);
+    __syncthreads();
+    // dQ += dS K over the tile's 64 kv rows; rows ty*4+i, columns tx+16e
+#pragma unroll 4
+    for (int c = 0; c < BKV; ++c) {
+      float sv[RPT], kv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sv[i] = sS[(ty * RPT + i) * PP + c];
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) kv[e] = sK[c * DP + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(sv[i], kv[e], acc[i][e]);
+    }
+  }
+
+  T* dqb = dq + (size_t)b * Sq * q_stride + (size_t)h * D;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + ty * RPT + i;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) dqb[(size_t)qi * q_stride + tx + 16 * e] = from_f32<T>(acc[i][e]);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int Sq, int Skv, int H, int K, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* o_ = static_cast<const T*>(o);
+  const T* do_ = static_cast<const T*>(dout);
+  const long long rows = (long long)B * Sq * H;
+  constexpr int RPB = BWD_THREADS / 32;
+  bwd_delta_kernel<T><<<(unsigned)((rows + RPB - 1) / RPB), BWD_THREADS, 0, stream>>>(
+      o_, do_, delta, rows, Sq, H, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t dq_smem = dq_smem_bytes<D>();
+  err = cudaFuncSetAttribute(bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, H, B), BWD_THREADS, dq_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), Sq, Skv, H, K, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t kv_smem = dkdv_smem_bytes<D>();
+  err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_kernel<T, D><<<dim3((Skv + BKV - 1) / BKV, K, B), BWD_THREADS, kv_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, K,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_dtype(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
+                             int causal, int window, float scale, int dtype,
+                             cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                                        H, K, causal, window, scale, stream);
+  return launch_bwd<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, K,
+                              causal, window, scale, stream);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = f32 (the
-// CUDA-core design), 1 = bf16 (the tensor-core design).
+// CUDA-core design), 1 = bf16 (the tensor-core design). `lse` is null (serving:
+// nothing extra is written) or an f32 [B, H, Sq] that receives each row's
+// log-sum-exp of the scaled scores, the residual the backward needs.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Skv, int H, int K,
                                    int D, int causal, int window, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, void* stream, void* lse) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return (int)launch<32>(q, k, v, o, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
-    case 64: return (int)launch<64>(q, k, v, o, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
-    case 80: return (int)launch<80>(q, k, v, o, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, o, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 32: return (int)launch<32>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 80: return (int)launch<80>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dq [B,Sq,H,D], dk / dv [B,Skv,K,D] (the inputs' dtype) from q, k, v, o, dO (one
+// dtype, contiguous) and the forward's f32 lse [B,H,Sq]; `delta` is f32 [B,H,Sq]
+// scratch. Three launches on `stream`; returns the first cudaError_t (0 on success).
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout, const void* lse,
+                                   void* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                                   int Skv, int H, int K, int D, int causal, int window,
+                                   float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return (int)launch_bwd_dtype<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 64: return (int)launch_bwd_dtype<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 80: return (int)launch_bwd_dtype<80>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 128: return (int)launch_bwd_dtype<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

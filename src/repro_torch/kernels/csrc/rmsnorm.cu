@@ -370,6 +370,344 @@ qk_norm_rope_kernel(QkArgs<T> a) {
   }
 }
 
+// ------------------------------------------------------------------- backward
+// The gradient of y = T(x * rstd * w), x and w widened to f32, rstd = rsqrt(mean(x^2)
+// + eps), for the cotangent dy (in T), as autodiff of `rmsnorm_ref` gives it:
+//   g = dy * w,   dx = rstd * g - x * rstd^3 * sum(g * x) / D   (rounded to T),
+//   dw = the sum over every row of dy * x * rstd                 (f32, rounded once).
+// One pass over the rows on the forward's row core: both row sums (x^2 and g x)
+// in one reduction, the row in registers between it and the store.
+//   rmsnorm_bwd       dx of the plain norm
+//   add_rmsnorm_bwd   the forward returned (s, rmsnorm(s)) with s = x + r, so
+//                     dx = dr = ds + dnorm: ds is added inside the pass, rounded
+//                     where the unfused sequence rounds: T(ds + T(dnorm))
+//   qk_norm_rope_bwd  q and k in one launch: the cotangent of the roped output is
+//                     rotated back by -theta (RoPE's transpose, f32) and rounded
+//                     to T (the grad of apply_rope's cast), then the norm's
+//                     backward over head_dim with q_norm / k_norm.
+// dw is a sum over every row (131,072 of them for qwen3's q-norm at 4 x 2048
+// tokens), where f32 loses ~1e-5 of the sum's scale. So its path runs in f64: the
+// row's sum of squares, rstd, each dy x rstd term and every partial sum (dx keeps
+// f32, as the forward). It is deterministic: each block sums its rows into one
+// f64 partial row (its lane groups added in a fixed order through shared memory),
+// then colsum_kernel, one small launch, sums the partial rows in block order. No
+// atomics, so two runs give the same bits. What bounds it: bytes, as the forward
+// (x, dy and dx, plus ds for the add; the partial rows are ~4 MB at qwen3's
+// widths), and the f64 work is a few operations an element.
+
+__device__ __forceinline__ double group_sum_d(double v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// the block's sums of a (f64) and b (f32); every thread gets both
+__device__ __forceinline__ void block_sum2(double& a, float& b, double* pa, float* pb) {
+  a = group_sum_d(a, 32);
+  b = group_sum(b, 32);
+  const int warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    pa[threadIdx.x >> 5] = a;
+    pb[threadIdx.x >> 5] = b;
+  }
+  __syncthreads();
+  double ta = 0.0;
+  float tb = 0.f;
+  for (int w = 0; w < warps; ++w) {
+    ta += pa[w];
+    tb += pb[w];
+  }
+  __syncthreads();   // the partials are reused by the next row
+  a = ta;
+  b = tb;
+}
+
+template <typename T>
+__device__ __forceinline__ void store1(T* p, int i, float v) {
+  if constexpr (sizeof(T) == 4) p[i] = v;
+  else p[i] = __float2bfloat16_rn(v);
+}
+
+// a block's lane groups add their f64 partials `acc` (vectors v * tpr + lane of a
+// row of nvec vectors) into red[0 .. nvec*VEC) in group order; then the block
+// writes red to its partial row `out`
+template <int NV, int VEC>
+__device__ __forceinline__ void block_partial(const double (&acc)[NV][VEC], double* red,
+                                              double* out, int nvec, int tpr, int lane,
+                                              int sub, int rpb) {
+  for (int g = 0; g < rpb; ++g) {
+    if (sub == g) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        if (i < nvec)
+#pragma unroll
+          for (int k = 0; k < VEC; ++k)
+            red[i * VEC + k] = (g ? red[i * VEC + k] : 0.0) + acc[v][k];
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < nvec * VEC; c += blockDim.x) out[c] = red[c];
+}
+
+struct Cols {              // one reduction job: out[c] = sum over blocks of partial[b][c]
+  const double* partial;
+  int blocks;
+  void* out;
+};
+
+template <typename T>
+__global__ void colsum_kernel(Cols a, Cols b, int D) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool second = blockIdx.y != 0;
+  const double* partial = second ? b.partial : a.partial;
+  const int blocks = second ? b.blocks : a.blocks;
+  T* out = static_cast<T*>(second ? b.out : a.out);
+  if (col >= D) return;
+  double s = 0.0;
+  for (int i = 0; i < blocks; ++i) s += partial[(long long)i * D + col];
+  store1(out, col, (float)s);
+}
+
+// Rows as rows_kernel assigns them. ADD: dx = T(ds + T(dx_norm)).
+template <typename T, int NV, bool ADD>
+__global__ void __launch_bounds__(MAX_THREADS)
+rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ ds,
+                const T* __restrict__ scale, T* __restrict__ dx, double* __restrict__ partial,
+                long long rows, int nvec, int tpr, float inv_d, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  __shared__ double sums_d[32];
+  __shared__ float sums_f[32];
+  __shared__ double red[MAX_GROUP_VECS * 8];
+  const bool wide = tpr > 32;
+  const int rpb = wide ? 1 : blockDim.x / tpr;
+  const int lane = wide ? threadIdx.x : (threadIdx.x & (tpr - 1));
+  const int sub = wide ? 0 : threadIdx.x / tpr;
+
+  uint4 sc[NV];
+  double dw[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int i = v * tpr + lane;
+    if (i < nvec) sc[v] = ld16(scale, i);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) dw[v][k] = 0.0;
+  }
+  for (long long r0 = (long long)blockIdx.x * rpb; r0 < rows;
+       r0 += (long long)gridDim.x * rpb) {
+    const long long row = r0 + sub;
+    const bool live = row < rows;
+    uint4 rx[NV], rg[NV], rs[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        rx[v] = ld16(x, row * nvec + i);
+        rg[v] = ld16(dy, row * nvec + i);
+        if constexpr (ADD) rs[v] = ld16(ds, row * nvec + i);
+      }
+    }
+    double ss = 0.0;
+    float sg = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        float xf[VEC], gf[VEC], w[VEC];
+        widen<T>(rx[v], xf);
+        widen<T>(rg[v], gf);
+        widen<T>(sc[v], w);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          ss += (double)xf[k] * xf[k];
+          sg += gf[k] * w[k] * xf[k];
+        }
+      }
+    }
+    if (wide) {
+      block_sum2(ss, sg, sums_d, sums_f);
+    } else {
+      ss = group_sum_d(ss, tpr);
+      sg = group_sum(sg, tpr);
+    }
+    const double rstd_d = 1.0 / sqrt(ss * inv_d + eps);
+    const float rstd = (float)rstd_d;
+    const float coef = rstd * rstd * rstd * sg * inv_d;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        float xf[VEC], gf[VEC], w[VEC], o[VEC];
+        widen<T>(rx[v], xf);
+        widen<T>(rg[v], gf);
+        widen<T>(sc[v], w);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          o[k] = rstd * gf[k] * w[k] - xf[k] * coef;
+          dw[v][k] += (double)gf[k] * xf[k] * rstd_d;
+        }
+        if constexpr (ADD) {
+          float sf[VEC];
+          widen<T>(rs[v], sf);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) o[k] = __fadd_rn(sf[k], round_to<T>(o[k]));
+        }
+        put16(dx, row * nvec + i, pack<T>(o));
+      }
+    }
+  }
+  double* prow = partial + (long long)blockIdx.x * nvec * VEC;
+  if (wide) {   // one row a block: every column belongs to one thread
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (i < nvec)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) prow[i * VEC + k] = dw[v][k];
+    }
+    return;
+  }
+  block_partial<NV, VEC>(dw, red, prow, nvec, tpr, lane, sub, rpb);
+}
+
+template <typename T>
+struct QkGrad {
+  const T* dout[2];        // cotangents of the roped q, k
+  double* partial[2];      // [blocks, hd] partial rows of dq_scale, dk_scale
+};
+
+// The forward's assignment of rows (q's row groups, then k's, in one grid-stride
+// loop) and its table of each token's cos / sin; a.out[] receives dq and dk.
+template <typename T, int NV>
+__global__ void __launch_bounds__(MAX_THREADS)
+qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int TABLE = MAX_THREADS * NV * VEC / 2;
+  __shared__ float tab_c[TABLE], tab_s[TABLE];
+  __shared__ double red[64 * 8];
+  const int tpr = a.tpr, nvec = a.nvec, half = nvec >> 1, hh = half * VEC;
+  const int rpb = blockDim.x / tpr;
+  const int lane = threadIdx.x & (tpr - 1);
+  const int sub = threadIdx.x / tpr;
+  const int q_groups = (a.rows[0] + rpb - 1) / rpb;
+  const int groups = q_groups + (a.rows[1] + rpb - 1) / rpb;
+
+  uint4 scq[NV], sck[NV];
+  double dwq[NV][VEC], dwk[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    scq[v] = ld16(a.scale[0], v * tpr + lane);
+    sck[v] = ld16(a.scale[1], v * tpr + lane);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) dwq[v][k] = dwk[v][k] = 0.0;
+  }
+
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const bool is_k = g >= q_groups;
+    const T* __restrict__ x = is_k ? a.x[1] : a.x[0];
+    const T* __restrict__ dout = is_k ? gr.dout[1] : gr.dout[0];
+    T* __restrict__ dx = is_k ? a.out[1] : a.out[0];
+    const int heads = is_k ? a.heads[1] : a.heads[0];
+    const int rows = is_k ? a.rows[1] : a.rows[0];
+    const int r0 = (is_k ? g - q_groups : g) * rpb;
+    const int row = r0 + sub;
+    const bool live = row < rows;
+    uint4 rx[NV], rd[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (live) {
+        rx[v] = ld16(x, (long long)row * nvec + v * tpr + lane);
+        rd[v] = ld16(dout, (long long)row * nvec + v * tpr + lane);
+      }
+    }
+    const int t0 = r0 / heads;
+    const int last = (r0 + rpb < rows ? r0 + rpb : rows) - 1;
+    const int n_ang = (last / heads - t0 + 1) * hh;
+    for (int e = threadIdx.x; e < n_ang; e += blockDim.x) {
+      const int t = t0 + e / hh;
+      const float p = (float)a.pos[(t / a.S) * a.pos_sb + (t % a.S) * a.pos_ss];
+      sincosf(__fmul_rn(p, a.inv_freq[e % hh]), &tab_s[e], &tab_c[e]);
+    }
+    __syncthreads();
+    float d[NV][VEC];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (live) {
+        widen<T>(rd[v], d[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) d[v][k] = 0.f;
+      }
+    }
+    // RoPE's transpose: first half d1 cos + d2 sin, second half d2 cos - d1 sin
+    const int base = (row / heads - t0) * hh;
+    float du[NV][VEC];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      const bool first = i < half;
+      const int e0 = base + (i % half) * VEC;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        float partner;
+        if constexpr (NV == 1) partner = __shfl_xor_sync(FULL, d[0][k], tpr >> 1);
+        else partner = d[v ^ (NV >> 1)][k];
+        float cs = 0.f, sn = 0.f;
+        if (live) {
+          cs = tab_c[e0 + k];
+          sn = tab_s[e0 + k];
+        }
+        const float own_c = __fmul_rn(d[v][k], cs), other_s = __fmul_rn(partner, sn);
+        du[v][k] = round_to<T>(first ? __fadd_rn(own_c, other_s) : __fsub_rn(own_c, other_s));
+      }
+    }
+    float xf[NV][VEC];
+    double ss = 0.0;
+    float sg = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float w[VEC];
+      widen<T>(is_k ? sck[v] : scq[v], w);
+      if (live) {
+        widen<T>(rx[v], xf[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) xf[v][k] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        ss += (double)xf[v][k] * xf[v][k];
+        sg += du[v][k] * w[k] * xf[v][k];
+      }
+    }
+    ss = group_sum_d(ss, tpr);
+    sg = group_sum(sg, tpr);
+    const double rstd_d = 1.0 / sqrt(ss * a.inv_d + a.eps);
+    const float rstd = (float)rstd_d;
+    const float coef = rstd * rstd * rstd * sg * a.inv_d;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float w[VEC], o[VEC];
+      widen<T>(is_k ? sck[v] : scq[v], w);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        o[k] = rstd * du[v][k] * w[k] - xf[v][k] * coef;
+        const double c = (double)du[v][k] * xf[v][k] * rstd_d;
+        if (is_k) dwk[v][k] += c;
+        else dwq[v][k] += c;
+      }
+      if (live) put16(dx, (long long)row * nvec + v * tpr + lane, pack<T>(o));
+    }
+    __syncthreads();   // the table is rewritten for the next rows
+  }
+  const int hd = nvec * VEC;
+  block_partial<NV, VEC>(dwq, red, gr.partial[0] + (long long)blockIdx.x * hd, nvec, tpr,
+                         lane, sub, rpb);
+  __syncthreads();   // red is reused for k
+  block_partial<NV, VEC>(dwk, red, gr.partial[1] + (long long)blockIdx.x * hd, nvec, tpr,
+                         lane, sub, rpb);
+}
+
 // ------------------------------------------------------------------ launching
 int sm_count() {
   static int count[64] = {0};
@@ -470,6 +808,84 @@ cudaError_t launch_qk(QkArgs<T> a, int hd, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// the backward's grid: the forward's, capped at the caller's partial rows
+template <typename T, bool ADD>
+cudaError_t launch_rows_bwd(const void* x, const void* dy, const void* ds, const void* scale,
+                            void* dx, void* dscale, double* partial, int max_blocks,
+                            long long rows, int D, float eps, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  if (rows <= 0 || D <= 0 || D % VEC || max_blocks <= 0) return cudaErrorInvalidValue;
+  const int nvec = D / VEC;
+  int tpr, nv, threads;
+  long long groups;
+  if (nvec <= MAX_GROUP_VECS) {
+    tpr = 8;
+    while (tpr < 32 && tpr < nvec) tpr <<= 1;
+    nv = (nvec + tpr - 1) / tpr;
+    if (nv == 3) nv = 4;
+    const int rpb = rows_per_block(rows, tpr);
+    threads = rpb * tpr;
+    groups = (rows + rpb - 1) / rpb;
+  } else {
+    nv = 1;
+    while (nv < 8 && (nvec + nv - 1) / nv > MAX_THREADS) nv <<= 1;
+    tpr = ((nvec + nv - 1) / nv + 31) / 32 * 32;
+    if (tpr > MAX_THREADS) return cudaErrorInvalidValue;
+    threads = tpr;
+    groups = rows;
+  }
+  unsigned blocks = grid_for(groups, threads);
+  if (blocks > (unsigned)max_blocks) blocks = (unsigned)max_blocks;
+  const T* x_ = static_cast<const T*>(x);
+  const T* dy_ = static_cast<const T*>(dy);
+  const T* ds_ = static_cast<const T*>(ds);
+  const T* sc = static_cast<const T*>(scale);
+  T* dx_ = static_cast<T*>(dx);
+  const float inv_d = 1.0f / (float)D;
+  switch (nv) {
+    case 1: rows_bwd_kernel<T, 1, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
+    case 2: rows_bwd_kernel<T, 2, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
+    case 4: rows_bwd_kernel<T, 4, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
+    case 8: rows_bwd_kernel<T, 8, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
+    default: return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const Cols job{partial, (int)blocks, dscale};
+  colsum_kernel<T><<<dim3((D + 255) / 256, 1), 256, 0, s>>>(job, job, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_qk_bwd(QkArgs<T> a, QkGrad<T> gr, void* dq_scale, void* dk_scale,
+                          int max_blocks, int hd, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  if (hd <= 0 || hd % (2 * VEC) || max_blocks <= 0) return cudaErrorInvalidValue;
+  const int nvec = hd / VEC;
+  if (nvec & (nvec - 1) || nvec > 64) return cudaErrorInvalidValue;
+  const int tpr = nvec < 32 ? nvec : 32;
+  const int nv = nvec / tpr;
+  a.nvec = nvec;
+  a.tpr = tpr;
+  a.inv_d = 1.0f / (float)hd;
+  const int rows = a.rows[0] + a.rows[1];
+  const int rpb = rows_per_block(rows, tpr);
+  unsigned grid = grid_for((a.rows[0] + rpb - 1) / rpb + (a.rows[1] + rpb - 1) / rpb,
+                           rpb * tpr);
+  if (grid > (unsigned)max_blocks) grid = (unsigned)max_blocks;
+  gr.partial[1] = gr.partial[0] + (long long)max_blocks * hd;
+  switch (nv) {
+    case 1: qk_norm_rope_bwd_kernel<T, 1><<<grid, rpb * tpr, 0, s>>>(a, gr); break;
+    case 2: qk_norm_rope_bwd_kernel<T, 2><<<grid, rpb * tpr, 0, s>>>(a, gr); break;
+    default: return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_kernel<T><<<dim3((hd + 255) / 256, 2), 256, 0, s>>>(
+      Cols{gr.partial[0], (int)grid, dq_scale}, Cols{gr.partial[1], (int)grid, dk_scale}, hd);
+  return cudaGetLastError();
+}
+
 template <typename T>
 QkArgs<T> qk_args(const void* q, const void* k, const void* q_scale, const void* k_scale,
                   void* q_out, void* k_out, const void* positions, long long pos_sb,
@@ -558,5 +974,72 @@ extern "C" int qk_norm_rope_fwd(const void* q, const void* k, const void* q_scal
     return (int)launch_qk(qk_args<__nv_bfloat16>(q, k, q_scale, k_scale, q_out, k_out,
                                                  positions, pos_sb, pos_ss, inv_freq, B, S,
                                                  H, K, eps), hd, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward entry points. `partial` is f64 scratch of max_blocks rows of D (two
+// such blocks of rows for qk_norm_rope_bwd, q's then k's); the launch uses at most
+// max_blocks blocks, then one colsum launch writes dscale in the input dtype.
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                           void* dscale, void* partial, int max_blocks, long long rows,
+                           int D, float eps, int dtype, int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* p = static_cast<double*>(partial);
+  if (dtype == 0)
+    return (int)launch_rows_bwd<float, false>(x, dy, nullptr, scale, dx, dscale, p, max_blocks,
+                                              rows, D, eps, s);
+  if (dtype == 1)
+    return (int)launch_rows_bwd<__nv_bfloat16, false>(x, dy, nullptr, scale, dx, dscale, p,
+                                                      max_blocks, rows, D, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// s: the forward's residual sum (its first output); ds, dn: the cotangents of s
+// and of rmsnorm(s). dx = ds + the norm's dx, the gradient of both x and r.
+extern "C" int add_rmsnorm_bwd(const void* s_in, const void* scale, const void* ds,
+                               const void* dn, void* dx, void* dscale, void* partial,
+                               int max_blocks, long long rows, int D, float eps, int dtype,
+                               int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* p = static_cast<double*>(partial);
+  if (dtype == 0)
+    return (int)launch_rows_bwd<float, true>(s_in, dn, ds, scale, dx, dscale, p, max_blocks,
+                                             rows, D, eps, s);
+  if (dtype == 1)
+    return (int)launch_rows_bwd<__nv_bfloat16, true>(s_in, dn, ds, scale, dx, dscale, p,
+                                                     max_blocks, rows, D, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k: the forward's inputs (before the norm); dq_out, dk_out: the cotangents of
+// its outputs; dq, dk, dq_scale, dk_scale receive the gradients.
+extern "C" int qk_norm_rope_bwd(const void* q, const void* k, const void* q_scale,
+                                const void* k_scale, const void* dq_out, const void* dk_out,
+                                const void* positions, long long pos_sb, long long pos_ss,
+                                const void* inv_freq, void* dq, void* dk, void* dq_scale,
+                                void* dk_scale, void* partial, int max_blocks, int B, int S,
+                                int H, int K, int hd, float eps, int dtype, int device,
+                                void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if ((long long)B * S * (H + K) >= (1LL << 31) - MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    QkGrad<float> gr{{(const float*)dq_out, (const float*)dk_out},
+                     {(double*)partial, nullptr}};
+    return (int)launch_qk_bwd(qk_args<float>(q, k, q_scale, k_scale, dq, dk, positions,
+                                             pos_sb, pos_ss, inv_freq, B, S, H, K, eps),
+                              gr, dq_scale, dk_scale, max_blocks, hd, s);
+  }
+  if (dtype == 1) {
+    using Bf = __nv_bfloat16;
+    QkGrad<Bf> gr{{(const Bf*)dq_out, (const Bf*)dk_out}, {(double*)partial, nullptr}};
+    return (int)launch_qk_bwd(qk_args<Bf>(q, k, q_scale, k_scale, dq, dk, positions, pos_sb,
+                                          pos_ss, inv_freq, B, S, H, K, eps),
+                              gr, dq_scale, dk_scale, max_blocks, hd, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,6 +4,14 @@ A CUDA tensor goes to the hand-written Hopper kernel (which launches or raises);
 a CPU tensor goes to the kernel's plain PyTorch version. There is no switch and
 no fallback from one to the other. ``attend_cache`` and ``ssd_decode_step`` have
 no kernel in the JAX package either and are plain PyTorch on both devices.
+
+Training: when autograd is recording and an input requires grad,
+``flash_attention``, ``rmsnorm``, ``add_rmsnorm`` and ``qk_norm_rope`` go through
+their autograd Function (``kernels/autograd.py``: the kernels both ways on the
+card, the plain forward and explicit backward on the CPU); otherwise, as on every
+serving call, they call the kernel directly, without ``Function.apply``'s host
+cost. ``ssd_scan`` and ``gated_rmsnorm`` have no backward yet (the ssm training
+slice): their kernel wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -11,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.device import on_card as _on_card
+from repro_torch.kernels import autograd as AG
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd_scan as SS
@@ -18,16 +28,17 @@ from repro_torch.kernels import ssd_scan as SS
 NEG_INF = -1e30
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel path for device {x.device}")
+def _recording(*tensors) -> bool:
+    """Autograd is recording and an input requires grad: take the Function."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,H,D], k/v [B,Skv,K,D] -> [B,Sq,H,D]. GQA via H % K == 0."""
+    if _recording(q, k, v):
+        if _on_card(q):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return AG.FlashAttention.apply(q, k, v, causal, window)
     if _on_card(q):
         return FA.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                        causal=causal, window=window)
@@ -35,6 +46,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
+    if _recording(x, scale):
+        if _on_card(x):
+            x, scale = x.contiguous(), scale.contiguous()
+        return AG.RMSNorm.apply(x, scale, eps)
     if _on_card(x):
         return RN.rmsnorm_cuda(x.contiguous(), scale.contiguous(), eps=eps)
     return RN.rmsnorm_plain(x, scale, eps=eps)
@@ -42,6 +57,10 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
 
 def add_rmsnorm(x, r, scale, *, eps: float = 1e-6):
     """Residual add, then the next norm: returns (s, rmsnorm(s)) with s = x + r."""
+    if _recording(x, r, scale):
+        if _on_card(x):
+            x, r, scale = x.contiguous(), r.contiguous(), scale.contiguous()
+        return AG.AddRMSNorm.apply(x, r, scale, eps)
     if _on_card(x):
         return RN.add_rmsnorm_cuda(x.contiguous(), r.contiguous(), scale.contiguous(),
                                    eps=eps)
@@ -58,6 +77,11 @@ def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
 
 def qk_norm_rope(q, k, q_scale, k_scale, positions, theta: float, *, eps: float = 1e-6):
     """qk-norm then split-half RoPE: q [B,S,H,hd], k [B,S,K,hd], positions [B,S]."""
+    if _recording(q, k, q_scale, k_scale):
+        if _on_card(q):
+            q, k = q.contiguous(), k.contiguous()
+            q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
+        return AG.QkNormRope.apply(q, k, q_scale, k_scale, positions, float(theta), eps)
     if _on_card(q):
         return RN.qk_norm_rope_cuda(q.contiguous(), k.contiguous(), q_scale.contiguous(),
                                     k_scale.contiguous(), positions, theta, eps=eps)

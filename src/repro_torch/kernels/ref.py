@@ -11,6 +11,12 @@ import torch
 NEG_INF = -1e30
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, the kernels' accumulation type; float64 stays float64 (the
+    gradient checks of the autograd Functions run in it)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,H,D], k/v [B,Skv,K,D] -> [B,Sq,H,D]. Naive masked softmax attention.
 
@@ -54,9 +60,9 @@ def ssd_ref(x, dt, a, bm, cm):
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-6):
-    xf = x.float()
+    xf = widen(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * widen(scale)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -71,6 +77,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     angles = positions[..., None].float() * freqs                 # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = widen(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -14,6 +14,15 @@ before or after it, each fusion rounding where the unfused sequence rounds:
 
 Each ``*_plain`` is exactly the sequence of PyTorch ops the model ran before the
 fusion, so the CPU path computes bit for bit what it computed then.
+
+The backward of the three entry points the dense model trains through
+(``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``qk_norm_rope_bwd``) runs on the same
+kernel's row core; each ``*_bwd_plain`` is its explicit formula, the gradient of
+``rmsnorm_ref``'s exact casts (and of RoPE's, for qk_norm_rope) that autodiff of
+the JAX reference gives. The kernel sums ``dscale`` over every row in f64 and
+deterministically (per-block partial rows, then one small reduction launch; no
+atomics).
+``gated_rmsnorm``'s backward comes with the ssm training slice.
 """
 from __future__ import annotations
 
@@ -23,8 +32,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import refuse_grad
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import apply_rope, rmsnorm_ref, rope_freqs
+from repro_torch.kernels.ref import apply_rope, rmsnorm_ref, rope_freqs, widen
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROW_BYTES = 256 * 8 * 16   # the widest row: 256 threads x 8 vectors of 16 bytes
@@ -50,6 +60,47 @@ def qk_norm_rope_plain(q, k, q_scale, k_scale, positions, theta: float, *,
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
 
 
+def _rope_bwd(dout, positions, theta: float):
+    """RoPE's transpose: the cotangent rotated back by -theta in f32, rounded to
+    dout's dtype (the grad of ``apply_rope``'s cast to f32)."""
+    D = dout.shape[-1]
+    angles = positions[..., None].float() * rope_freqs(D, theta, dout.device)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    d1, d2 = widen(dout).chunk(2, dim=-1)
+    return torch.cat([d1 * cos + d2 * sin, d2 * cos - d1 * sin], dim=-1).to(dout.dtype)
+
+
+def rmsnorm_bwd_plain(x, scale, dy, *, eps: float = 1e-6):
+    """(dx, dscale) of ``rmsnorm_ref(x, scale)`` for the cotangent dy:
+    g = dy w, dx = rstd g - x rstd^3 mean(g x) in f32, rounded to x's dtype;
+    dscale = the f32 sum over rows of dy x rstd, rounded to scale's dtype."""
+    xf, w, dyf = widen(x), widen(scale), widen(dy)
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g = dyf * w
+    dx = rstd * g - xf * (rstd ** 3) * (g * xf).mean(dim=-1, keepdim=True)
+    dscale = (dyf * xf * rstd).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def add_rmsnorm_bwd_plain(s, scale, ds, dn, *, eps: float = 1e-6):
+    """(dx, dscale) of ``add_rmsnorm``: s = x + r is the forward's first output,
+    ds and dn the cotangents of (s, rmsnorm(s)); dx (= dr) = ds + the norm's dx.
+    ds is None where s is not used further (the final norm's stream)."""
+    dx, dscale = rmsnorm_bwd_plain(s, scale, dn, eps=eps)
+    return (dx if ds is None else ds + dx), dscale
+
+
+def qk_norm_rope_bwd_plain(q, k, q_scale, k_scale, positions, theta: float, dq_out,
+                           dk_out, *, eps: float = 1e-6):
+    """(dq, dk, dq_scale, dk_scale) of ``qk_norm_rope`` for the cotangents of its
+    two outputs: RoPE's transpose, then the norm's backward over head_dim;
+    dq_scale is summed over B*S*H rows, dk_scale over B*S*K."""
+    dq, dq_scale = rmsnorm_bwd_plain(q, q_scale, _rope_bwd(dq_out, positions, theta), eps=eps)
+    dk, dk_scale = rmsnorm_bwd_plain(k, k_scale, _rope_bwd(dk_out, positions, theta), eps=eps)
+    return dq, dk, dq_scale, dk_scale
+
+
 # ------------------------------------------------------------------------- kernel
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -61,6 +112,9 @@ def _lib() -> ctypes.CDLL:
         "add_rmsnorm_fwd": [P] * 5 + [L, I] + tail,
         "gated_rmsnorm_fwd": [P] * 4 + [L, I] + tail,
         "qk_norm_rope_fwd": [P] * 7 + [L, L, P] + [I] * 5 + tail,
+        "rmsnorm_bwd": [P] * 6 + [I, L, I] + tail,
+        "add_rmsnorm_bwd": [P] * 7 + [I, L, I] + tail,
+        "qk_norm_rope_bwd": [P] * 7 + [L, L] + [P] * 6 + [I] * 6 + tail,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -109,6 +163,7 @@ def _stream(x: torch.Tensor) -> int:
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                  eps: float = 1e-6) -> torch.Tensor:
     """rmsnorm(x) on the card: x [..., D], scale [D], contiguous."""
+    refuse_grad("rmsnorm_cuda", x, scale)
     D = _norm_args("rmsnorm_cuda", x, scale)
     _check("rmsnorm_cuda", D, x, scale)
     y = torch.empty_like(x)
@@ -123,6 +178,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
 def add_rmsnorm_cuda(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor, *,
                      eps: float = 1e-6):
     """(s, rmsnorm(s)) with s = x + r, on the card: x, r [..., D] of one shape."""
+    refuse_grad("add_rmsnorm_cuda", x, r, scale)
     D = _norm_args("add_rmsnorm_cuda", x, scale)
     if r.shape != x.shape:
         raise ValueError(f"add_rmsnorm_cuda: x {tuple(x.shape)} and r {tuple(r.shape)} differ")
@@ -138,7 +194,9 @@ def add_rmsnorm_cuda(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor, *,
 
 def gated_rmsnorm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
                        eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm(y * silu(z)) on the card: y, z [..., D] of one shape."""
+    """rmsnorm(y * silu(z)) on the card: y, z [..., D] of one shape. It has no
+    backward yet (the ssm training slice)."""
+    refuse_grad("gated_rmsnorm_cuda", y, z, scale)
     D = _norm_args("gated_rmsnorm_cuda", y, scale)
     if z.shape != y.shape:
         raise ValueError(f"gated_rmsnorm_cuda: y {tuple(y.shape)} and z {tuple(z.shape)} differ")
@@ -150,6 +208,34 @@ def gated_rmsnorm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
                                        _DTYPE_CODE[y.dtype], y.device.index, _stream(y))
         _launched("gated_rmsnorm_fwd", gated_rmsnorm_cuda, err)
     return out
+
+
+def _qk_args(name: str, q, k, q_scale, k_scale, positions, *grads):
+    """Check qk_norm_rope's inputs (and the backward's cotangents, of q's and k's
+    shapes); returns (B, S, H, K, hd)."""
+    if q.dim() != 4 or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "are not [B,S,H,hd] and [B,S,K,hd]")
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if q_scale.shape != (hd,) or k_scale.shape != (hd,):
+        raise ValueError(f"{name}: scales {tuple(q_scale.shape)}, "
+                         f"{tuple(k_scale.shape)} != ({hd},)")
+    if any(g.shape != t.shape for g, t in zip(grads, (q, k))):
+        raise ValueError(f"{name}: cotangents {[tuple(g.shape) for g in grads]} do not "
+                         f"match q {tuple(q.shape)} and k {tuple(k.shape)}")
+    _check(name, hd, q, k, q_scale, k_scale, *grads)
+    vecs = hd * q.element_size() // 16
+    if vecs < 2 or vecs > 64 or vecs & (vecs - 1):
+        raise ValueError(f"{name}: head dim {hd} in {q.dtype} is not a power "
+                         "of two of 16-byte vectors from 2 to 64")
+    if positions.shape != (B, S) or positions.dtype != torch.int32 \
+            or positions.device != q.device:
+        raise ValueError(f"{name}: positions must be int32 [{B}, {S}] on "
+                         f"{q.device}, got {positions.dtype} {tuple(positions.shape)} "
+                         f"on {positions.device}")
+    return B, S, H, K, hd
 
 
 @functools.cache
@@ -165,25 +251,8 @@ def qk_norm_rope_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
     """RoPE(rmsnorm(q)), RoPE(rmsnorm(k)) in one launch on the card. q [B,S,H,hd],
     k [B,S,K,hd] contiguous; positions [B,S] int32, any strides (an expanded
     arange is read in place); hd * itemsize / 16 a power of two up to 64."""
-    if q.dim() != 4 or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
-            or q.shape[3] != k.shape[3]:
-        raise ValueError(f"qk_norm_rope_cuda: q {tuple(q.shape)} and k {tuple(k.shape)} "
-                         "are not [B,S,H,hd] and [B,S,K,hd]")
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    if q_scale.shape != (hd,) or k_scale.shape != (hd,):
-        raise ValueError(f"qk_norm_rope_cuda: scales {tuple(q_scale.shape)}, "
-                         f"{tuple(k_scale.shape)} != ({hd},)")
-    _check("qk_norm_rope_cuda", hd, q, k, q_scale, k_scale)
-    vecs = hd * q.element_size() // 16
-    if vecs < 2 or vecs > 64 or vecs & (vecs - 1):
-        raise ValueError(f"qk_norm_rope_cuda: head dim {hd} in {q.dtype} is not a power "
-                         "of two of 16-byte vectors from 2 to 64")
-    if positions.shape != (B, S) or positions.dtype != torch.int32 \
-            or positions.device != q.device:
-        raise ValueError(f"qk_norm_rope_cuda: positions must be int32 [{B}, {S}] on "
-                         f"{q.device}, got {positions.dtype} {tuple(positions.shape)} "
-                         f"on {positions.device}")
+    refuse_grad("qk_norm_rope_cuda", q, k, q_scale, k_scale)
+    B, S, H, K, hd = _qk_args("qk_norm_rope_cuda", q, k, q_scale, k_scale, positions)
     q_out, k_out = torch.empty_like(q), torch.empty_like(k)
     if min(B, S, H, K) == 0:
         return q_out, k_out
@@ -197,5 +266,94 @@ def qk_norm_rope_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
     return q_out, k_out
 
 
-for _wrapper in (rmsnorm_cuda, add_rmsnorm_cuda, gated_rmsnorm_cuda, qk_norm_rope_cuda):
+# ----------------------------------------------------------------------- backward
+@functools.cache
+def _max_blocks(device: torch.device) -> int:
+    """Partial rows of dscale a backward launch may use: four blocks an SM."""
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _partial(x: torch.Tensor, scales: int, D: int) -> tuple:
+    """(blocks, f64 scratch) for the kernel's per-block partial rows of ``scales``
+    dscale vectors of D."""
+    blocks = _max_blocks(x.device)
+    return blocks, torch.empty((scales * blocks, D), dtype=torch.float64, device=x.device)
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                     eps: float = 1e-6):
+    """(dx, dscale) of rmsnorm(x) on the card for the cotangent dy of x's shape."""
+    refuse_grad("rmsnorm_bwd_cuda", x, scale, dy)
+    D = _norm_args("rmsnorm_bwd_cuda", x, scale)
+    if dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd_cuda: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    _check("rmsnorm_bwd_cuda", D, x, scale, dy)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    if not x.numel():
+        return dx, dscale.zero_()
+    blocks, partial = _partial(x, 1, D)
+    err = _lib().rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                             dscale.data_ptr(), partial.data_ptr(), blocks, x.numel() // D, D,
+                             eps, _DTYPE_CODE[x.dtype], x.device.index, _stream(x))
+    _launched("rmsnorm_bwd", rmsnorm_bwd_cuda, err)
+    return dx, dscale
+
+
+def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Tensor, *,
+                         eps: float = 1e-6):
+    """(dx, dscale) of add_rmsnorm on the card: s = x + r (the forward's first
+    output), ds and dn the cotangents of (s, rmsnorm(s)); dx = dr = ds + the
+    norm's dx, with ds added in the same pass. ds None: the norm's dx alone."""
+    refuse_grad("add_rmsnorm_bwd_cuda", s, scale, ds, dn)
+    D = _norm_args("add_rmsnorm_bwd_cuda", s, scale)
+    if dn.shape != s.shape or (ds is not None and ds.shape != s.shape):
+        raise ValueError(f"add_rmsnorm_bwd_cuda: cotangents "
+                         f"{None if ds is None else tuple(ds.shape)}, {tuple(dn.shape)} "
+                         f"do not match s {tuple(s.shape)}")
+    _check("add_rmsnorm_bwd_cuda", D, s, scale, dn, *(() if ds is None else (ds,)))
+    dx, dscale = torch.empty_like(s), torch.empty_like(scale)
+    if not s.numel():
+        return dx, dscale.zero_()
+    blocks, partial = _partial(s, 1, D)
+    rows, code, lib = s.numel() // D, _DTYPE_CODE[s.dtype], _lib()
+    if ds is None:
+        err = lib.rmsnorm_bwd(s.data_ptr(), scale.data_ptr(), dn.data_ptr(), dx.data_ptr(),
+                              dscale.data_ptr(), partial.data_ptr(), blocks, rows, D, eps,
+                              code, s.device.index, _stream(s))
+    else:
+        err = lib.add_rmsnorm_bwd(s.data_ptr(), scale.data_ptr(), ds.data_ptr(),
+                                  dn.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                                  partial.data_ptr(), blocks, rows, D, eps, code,
+                                  s.device.index, _stream(s))
+    _launched("add_rmsnorm_bwd", add_rmsnorm_bwd_cuda, err)
+    return dx, dscale
+
+
+def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
+                          k_scale: torch.Tensor, positions: torch.Tensor, theta: float,
+                          dq_out: torch.Tensor, dk_out: torch.Tensor, *, eps: float = 1e-6):
+    """(dq, dk, dq_scale, dk_scale) of qk_norm_rope on the card, q and k in one
+    launch (then one launch that sums the scales' partial rows). q, k are the
+    forward's inputs; dq_out, dk_out the cotangents of its outputs."""
+    refuse_grad("qk_norm_rope_bwd_cuda", q, k, q_scale, k_scale, dq_out, dk_out)
+    B, S, H, K, hd = _qk_args("qk_norm_rope_bwd_cuda", q, k, q_scale, k_scale, positions,
+                              dq_out, dk_out)
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dq_scale, dk_scale = torch.empty_like(q_scale), torch.empty_like(k_scale)
+    if min(B, S, H, K) == 0:
+        return dq, dk, dq_scale.zero_(), dk_scale.zero_()
+    blocks, partial = _partial(q, 2, hd)
+    freqs = _inv_freq(q.device, hd, float(theta))
+    err = _lib().qk_norm_rope_bwd(
+        q.data_ptr(), k.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
+        dq_out.data_ptr(), dk_out.data_ptr(), positions.data_ptr(), positions.stride(0),
+        positions.stride(1), freqs.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dq_scale.data_ptr(), dk_scale.data_ptr(), partial.data_ptr(), blocks, B, S, H, K,
+        hd, eps, _DTYPE_CODE[q.dtype], q.device.index, _stream(q))
+    _launched("qk_norm_rope_bwd", qk_norm_rope_bwd_cuda, err)
+    return dq, dk, dq_scale, dk_scale
+
+
+for _wrapper in (rmsnorm_cuda, add_rmsnorm_cuda, gated_rmsnorm_cuda, qk_norm_rope_cuda,
+                 rmsnorm_bwd_cuda, add_rmsnorm_bwd_cuda, qk_norm_rope_bwd_cuda):
     _wrapper.launches = 0

@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from repro_torch.device import refuse_grad
 from repro_torch.kernels import _build
 
 STATE_DIMS = (16, 32, 64, 128)   # N the kernel is instantiated for
@@ -110,7 +111,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     contiguous, x's heads P apart, pointers and batch/row strides 16-byte
     aligned); dt, a and init_state are contiguous. Raises on anything the
     kernel does not take. ``chunk`` is checked and kept for the signature: the
-    kernel walks its own 64-row tiles, which changes only the rounding."""
+    kernel walks its own 64-row tiles, which changes only the rounding. It has
+    no backward yet (the ssm training slice)."""
+    refuse_grad("ssd_scan_cuda", x, dt, a, bm, cm, init_state)
     tensors = [x, dt, a, bm, cm] + ([] if init_state is None else [init_state])
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("ssd_scan_cuda needs every input on one CUDA device")

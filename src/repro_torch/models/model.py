@@ -17,6 +17,15 @@ Every residual add runs fused with the norm that reads its sum
 (``ops.add_rmsnorm``): a block returns the residual stream ``x`` and its
 un-added output ``d``, and the next block's ln1 (or the final norm in
 ``_unembed``) adds them as it normalises.
+
+Training (dense family): ``loss_fn`` is the twin of the JAX package's, masked CE
+by gather (with ``cfg.loss_chunk``, per-chunk CE under
+``torch.utils.checkpoint``). Autograd runs through the kernels' autograd
+Functions (``kernels/autograd.py``). The layer loop takes each layer's params as
+``unbind`` views of the stacked leaves, so their gradients are stacked once
+rather than summed from a full-size gradient per layer. ``cfg.remat`` is not
+ported (the Trainer forces "none"); the ssm family's ``loss_fn`` raises until
+the ssm training slice.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as devices
 from repro_torch.configs.base import ArchConfig
@@ -59,8 +69,13 @@ def _window_for(cfg: ArchConfig, j: int) -> int:
     return 0
 
 
-def _layer(params_layers: dict, i: int) -> dict:
-    return tree_map(lambda a: a[i], params_layers)
+def _unstack(params_layers: dict) -> list:
+    """The stacked layer params as one dict per layer, of ``unbind`` views."""
+    if isinstance(params_layers, dict):
+        parts = {k: _unstack(v) for k, v in params_layers.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(params_layers.unbind(0))
 
 
 # ----------------------------------------------------------------------- layer blocks
@@ -106,9 +121,10 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     windows = [_window_for(cfg, j) for j in range(period)]
     kvs = [[] for _ in range(period)]
     d = None
+    layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
         for j in range(period):
-            p = _layer(params["layers"], g * period + j)
+            p = layers[g * period + j]
             x, d, kv = _block(cfg, p, x, d, positions, windows[j], want_kv)
             kvs[j].append(kv)
     if not want_kv:
@@ -122,9 +138,10 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
     """Returns (x, d): the stream is x + d."""
     period = _period(cfg)
     d = None
+    layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
         for j in range(period):
-            p = _layer(params["layers"], g * period + j)
+            p = layers[g * period + j]
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
             x, d = _block_decode(cfg, p, x, d, cache, pos)
     return x, d
@@ -137,8 +154,7 @@ def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     "ssd": [L,B,H,N,P]}."""
     states = []
     d = None
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for lp in _unstack(params["layers"]):
         x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
         d, st = SSM.ssm_block(cfg, lp["ssm"], h)
         if want_state:
@@ -152,8 +168,7 @@ def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict):
     """One token through every layer; writes each layer's new state into
     ``states`` in place. Returns (x, d): the stream is x + d."""
     d = None
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"])):
         x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
         d, new = SSM.ssm_block(cfg, lp["ssm"], h,
                                state={n: states[n][i] for n in ("conv", "ssd")})
@@ -187,20 +202,27 @@ class Model:
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
 
+    def _final_norm(self, params: dict, x: torch.Tensor,
+                    d: Optional[torch.Tensor]) -> torch.Tensor:
+        """rmsnorm of the stream x + d (the final norm takes in the last add)."""
+        return _add_norm(x, d, params["final_norm"], self.cfg.norm_eps)[1]
+
+    def _table(self, params: dict) -> torch.Tensor:
+        return params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
+
     def _unembed(self, params: dict, x: torch.Tensor,
                  d: Optional[torch.Tensor]) -> torch.Tensor:
-        """Logits of the stream x + d (the final norm takes in the last add)."""
-        _, x = _add_norm(x, d, params["final_norm"], self.cfg.norm_eps)
-        table = (params["embed"].T if self.cfg.tie_embeddings
-                 else params["unembed"])
-        return x @ table
+        """Logits of the stream x + d."""
+        return self._final_norm(params, x, d) @ self._table(params)
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
 
     # ----------------------------------------------------------------------- forward
-    def forward(self, params: dict, batch: Dict[str, torch.Tensor]):
-        """Full-sequence forward. Returns (logits [B,S,V], aux_loss)."""
+    def forward(self, params: dict, batch: Dict[str, torch.Tensor],
+                return_hidden: bool = False):
+        """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
+        final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -209,7 +231,60 @@ class Model:
         else:
             x, d, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if return_hidden:
+            return self._final_norm(params, x, d), aux
         return self._unembed(params, x, d), aux
+
+    # ------------------------------------------------------------------------- loss
+    def loss_fn(self, params: dict, batch: Dict[str, torch.Tensor]):
+        """Masked CE (+ 0.01 aux). Returns (loss, metrics {loss, aux_loss, tokens}).
+
+        CE takes log p of the target by a gather, never a one-hot. With
+        ``cfg.loss_chunk`` the [B,S,V] logits are never materialised: see
+        ``_chunked_ce``. Twin of the JAX package's ``Model.loss_fn``."""
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the ssm family arrives with the ssm "
+                "training slice of the port (the backward of K3, the SSD scan, and of "
+                "gated_rmsnorm)")
+        mask = batch["loss_mask"].float()
+        denom = mask.sum().clamp_min(1.0)
+        if self.cfg.loss_chunk:
+            hidden, aux = self.forward(params, batch, return_hidden=True)
+            ce = self._chunked_ce(params, hidden, batch["targets"], mask) / denom
+        else:
+            logits, aux = self.forward(params, batch)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]   # [B, S]
+            ce = -(ll * mask).sum() / denom
+        loss = ce + 0.01 * aux
+        metrics = {"loss": ce.detach(), "aux_loss": aux.detach(), "tokens": mask.sum()}
+        return loss, metrics
+
+    def _chunked_ce(self, params: dict, hidden: torch.Tensor, targets: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+        """Sum of masked -log p over [B,S] in sequence chunks of cfg.loss_chunk;
+        each chunk's logits are recomputed in the backward
+        (``torch.utils.checkpoint``, the JAX package's per-chunk
+        ``jax.checkpoint``)."""
+        table = self._table(params)
+        S = hidden.shape[1]
+        c = min(self.cfg.loss_chunk, S)
+        if S % c:
+            raise ValueError(f"loss_chunk {c} must divide seq {S}")
+
+        def body(xc, tc, mc):
+            logits = (xc @ table).float()
+            ll = logits.gather(-1, tc.long()[..., None])[..., 0] \
+                - torch.logsumexp(logits, dim=-1)
+            return -(ll * mc).sum()
+
+        total = None
+        for i in range(0, S, c):
+            part = checkpoint(body, hidden[:, i:i + c], targets[:, i:i + c],
+                              mask[:, i:i + c], use_reentrant=False)
+            total = part if total is None else total + part
+        return total
 
     # ----------------------------------------------------------------------- prefill
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor],

@@ -1,1 +1,1 @@
-"""Serving runtime of the PyTorch port."""
+"""Runtime of the PyTorch port: serving, training and their task semantics."""

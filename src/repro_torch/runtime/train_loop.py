@@ -1,0 +1,197 @@
+"""Trainer: the training loop of the PyTorch port on one card, twin of
+``repro.runtime.train_loop`` in its "sync" mode (one synchronous step per
+batch). ``mode="local_sgd"`` is not ported yet (ROADMAP, "Modules to port",
+item 7) and raises.
+
+Deterministic restart: checkpoint = (train state, data step, seed); the data
+pipeline is a pure function of step, so kill/restore resumes exactly. The
+checkpoint is the JAX package's on-disk format.
+
+The train step updates the state in place (``optim/adamw.py``), so ``rebind``
+cannot hand back the initial tree as the JAX package does: the trainer keeps a
+pristine copy of the initial params (the initial optimizer state is a function
+of them) and rebuilds the state from it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch import configs
+from repro_torch import device as devices
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.optim.local_sgd import LocalSGDConfig
+from repro_torch.runtime.telemetry import MetricsLog, StepTimer
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass
+class TrainJobConfig:
+    arch: str = "qwen3-0.6b"
+    steps: int = 50
+    seq_len: int = 64
+    global_batch: int = 8
+    reduced: bool = True             # reduced() config for CPU execution
+    mode: str = "sync"               # sync (local_sgd: not ported yet)
+    n_pods: int = 2                  # local_sgd: pods emulated via the vmap dim
+    microbatches: int = 1
+    seed: int = 0
+    data_task: str = "ramp"
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 25
+    opt: AdamWConfig = dataclasses.field(default_factory=lambda: AdamWConfig(
+        peak_lr=1e-2, warmup_steps=20, total_steps=2000, weight_decay=0.0))
+    local_sgd: LocalSGDConfig = dataclasses.field(default_factory=LocalSGDConfig)
+    device: str = "cuda"             # "cpu" runs the kernels' plain PyTorch versions
+
+    @classmethod
+    def from_job(cls, job: dict) -> "TrainJobConfig":
+        payload = dict(job.get("payload", {}))
+        payload.setdefault("arch", job.get("arch") or "qwen3-0.6b")
+        payload.setdefault("steps", job.get("steps", 50))
+        known = {f.name for f in dataclasses.fields(cls)}
+        for key in ("opt", "local_sgd"):
+            if key in payload and isinstance(payload[key], dict):
+                klass = AdamWConfig if key == "opt" else LocalSGDConfig
+                payload[key] = klass(**payload[key])
+        return cls(**{k: v for k, v in payload.items() if k in known})
+
+
+def _copy(params: dict) -> dict:
+    return tree_map(lambda t: t.detach().clone(), params)
+
+
+class Trainer:
+    def __init__(self, cfg: TrainJobConfig,
+                 on_checkpoint: Optional[Callable[[int, str], None]] = None):
+        if cfg.mode == "local_sgd":
+            raise NotImplementedError(
+                "Trainer mode 'local_sgd' is not ported yet: ROADMAP, 'Modules to "
+                "port', item 7 (local SGD)")
+        if cfg.mode != "sync":
+            raise ValueError(f"unknown trainer mode {cfg.mode!r}")
+        self.cfg = cfg
+        self.device = devices.resolve(cfg.device)
+        arch_cfg = configs.get(cfg.arch)
+        if cfg.reduced:
+            arch_cfg = arch_cfg.reduced()
+        arch_cfg = dataclasses.replace(arch_cfg, remat="none")
+        self.arch_cfg = arch_cfg
+        self.model = Model(arch_cfg, self.device)
+        self.step = 0
+        self.state = init_train_state(self.model, cfg.seed)
+        self.step_fn = make_train_step(self.model, cfg.opt, cfg.microbatches)
+        self._init_params = _copy(self.state["params"])
+        self._init_seed = cfg.seed
+        self._arm(cfg, on_checkpoint)
+
+    def _arm(self, cfg: TrainJobConfig,
+             on_checkpoint: Optional[Callable[[int, str], None]]) -> None:
+        """Per-run state: data, metrics, timer and the checkpoint directory."""
+        self.data = SyntheticTokens(
+            vocab_size=self.arch_cfg.vocab_size, seq_len=cfg.seq_len,
+            global_batch=cfg.global_batch, seed=cfg.seed, task=cfg.data_task)
+        self.metrics = MetricsLog()
+        self.timer = StepTimer(tokens_per_step=cfg.global_batch * cfg.seq_len)
+        self.ckpt = (CheckpointManager(cfg.checkpoint_dir)
+                     if cfg.checkpoint_dir else None)
+        if self.ckpt and on_checkpoint:
+            self.ckpt.on_commit(on_checkpoint)
+
+    def rebind(self, cfg: TrainJobConfig,
+               on_checkpoint: Optional[Callable[[int, str], None]] = None) -> None:
+        """Re-arm a warm trainer for a new task of the SAME family (the step-cache
+        hit path): reset step, state, data and metrics and point the checkpoint
+        manager at the task's directory; the model and step function stay. The
+        caller guarantees the cache key matches; only per-run knobs differ."""
+        if self.ckpt:
+            self.ckpt.wait()             # bound the previous task's async save
+        if cfg.seed != self._init_seed:
+            self._init_params = self.model.init_params(cfg.seed)
+            self._init_seed = cfg.seed
+        params = _copy(self._init_params)
+        self.state = {"params": params, "opt": init_opt_state(params)}
+        self.cfg = cfg
+        self.step = 0
+        self._arm(cfg, on_checkpoint)
+
+    # ------------------------------------------------------------------ step logic
+    def _sync_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        batch = self.data.global_batch_at(step)
+        return {k: v.to(self.device) for k, v in batch.items()}
+
+    def step_once(self) -> Dict[str, float]:
+        batch = self._sync_batch(self.step)
+        self.state, m = self.step_fn(self.state, batch)
+        self.step += 1
+        m = {k: float(v) for k, v in m.items()}
+        self.timer.tick()
+        self.metrics.log(self.step, m)
+        if self.ckpt and self.step % self.cfg.checkpoint_every == 0:
+            # non-blocking: the host copies are taken now, the disk write runs
+            # beside the next steps (the next save joins it)
+            self.save_checkpoint(blocking=False)
+        return m
+
+    def run(self, steps: Optional[int] = None) -> Dict[str, float]:
+        target = self.step + (steps if steps is not None else self.cfg.steps)
+        last = {}
+        while self.step < target:
+            last = self.step_once()
+        return last
+
+    # ---------------------------------------------------------------- checkpointing
+    def save_checkpoint(self, blocking: bool = True) -> Optional[dict]:
+        """Snapshot the train state. ``blocking=False`` returns once the host
+        copies are taken; the next save, ``restore`` or ``rebind`` joins it."""
+        if not self.ckpt:
+            return None
+        self.ckpt.save(self.step, self.state,
+                       extra={"data": self.data.state_dict(),
+                              "arch": self.cfg.arch, "mode": self.cfg.mode})
+        if blocking:
+            self.ckpt.wait()
+        return {"step": self.step, "path": str(self.ckpt.directory)}
+
+    def restore(self, manifest: Optional[dict] = None, strict: bool = False) -> int:
+        """Restore from a manifest {step, path} (or the latest in our own dir).
+
+        Returns the restored step; 0 means "no checkpoint, fresh start", the
+        resume semantics a train task wants. ``strict=True`` raises instead
+        (``FileNotFoundError``): an eval task told to restore must see a
+        committed checkpoint. Integrity checks (stale manifest, missing or
+        torn leaves) are ``CheckpointManager.restore``'s and always raise."""
+        if self.ckpt:
+            self.ckpt.wait()             # our own async save is a valid source
+        directory = (manifest or {}).get("path") or (
+            self.cfg.checkpoint_dir if self.ckpt else None)
+        if directory is None:
+            if strict:
+                raise FileNotFoundError(
+                    f"restore requested but no checkpoint directory in "
+                    f"manifest or config: {manifest!r}")
+            return 0
+        mgr = CheckpointManager(directory)
+        step = (manifest or {}).get("step") or mgr.latest_step()
+        if step is None:
+            if strict:
+                raise FileNotFoundError(f"no committed checkpoint in {directory}")
+            return 0
+        self.state, step, extra = mgr.restore(self.state, step=step)
+        self.data.load_state_dict(extra["data"])
+        self.step = int(step)
+        return self.step
+
+    # -------------------------------------------------------------------- inspection
+    def loss(self) -> Optional[float]:
+        row = self.metrics.latest()
+        return row.get("loss") if row else None
+
+    def params_for_eval(self) -> dict:
+        return self.state["params"]

@@ -23,3 +23,33 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
+
+
+def tree_flatten_sorted(tree: Any, prefix: tuple = ()) -> List[tuple]:
+    """[(path, leaf)] in ``jax.tree_util``'s flatten order: dict keys sorted,
+    tuples and lists by index. ``path`` is the tuple of keys and indices. The
+    optimizer and the checkpoint format iterate leaves in this order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_flatten_sorted(tree[k], prefix + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, t in enumerate(tree) for x in tree_flatten_sorted(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_unflatten_sorted(like: Any, leaves: List[Any]) -> Any:
+    """A tree of ``like``'s structure whose leaves, in ``tree_flatten_sorted``
+    order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}          # keep like's own key order
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out

@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: it never imports jax or the JAX package, its entry
 points never quietly run on the CPU when the card was asked for, and on CPU
 tensors the kernel dispatch takes the plain path without touching triton or a
-compiled library, and no port file imports triton."""
+compiled library, and no port file imports triton. No kernel wrapper silently
+drops a gradient: each refuses an input that requires grad while autograd
+records, and the training path's gradients flow through the autograd Functions."""
 import ast
 import os
 import subprocess
@@ -20,11 +22,20 @@ from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
-from repro_torch.runtime.step_cache import run_serve_task  # noqa: E402
+from repro_torch.runtime.step_cache import (run_eval_task, run_serve_task,  # noqa: E402
+                                            run_train_task)
+from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "repro", "triton")
+
+
+# modules the training slice added: the import guard must see each of them
+TRAINING_MODULES = ("kernels/autograd.py", "models/model.py", "optim/adamw.py",
+                    "optim/schedules.py", "optim/local_sgd.py", "data/pipeline.py",
+                    "checkpoint/manager.py", "runtime/telemetry.py", "launch/steps.py",
+                    "runtime/train_loop.py", "runtime/step_cache.py", "convert.py")
 
 
 def _imported_modules(path: Path):
@@ -40,6 +51,11 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     """Nor triton: every kernel of the port is CUDA C++."""
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_import_guard_covers_the_training_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in PORT_FILES for m in TRAINING_MODULES)
 
 
 def _run(code: str):
@@ -91,27 +107,105 @@ def test_cpu_dispatch_takes_plain_path_without_triton_or_library():
         "assert sys.modules['triton'] is None\n")
 
 
+def test_cpu_grads_flow_through_the_functions_without_a_library():
+    """On CPU tensors that require grad, every op of the dense training path
+    enters its autograd Function, runs the plain forward and explicit backward,
+    gives every input a gradient, and loads no compiled library."""
+    _run(
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import _build, ops\n"
+        "from repro_torch.kernels import flash_attention as FA, rmsnorm as RN\n"
+        "q = torch.randn(1, 8, 4, 32, requires_grad=True)\n"
+        "k = torch.randn(1, 8, 2, 32, requires_grad=True)\n"
+        "v = torch.randn(1, 8, 2, 32, requires_grad=True)\n"
+        "w = torch.ones(32, requires_grad=True)\n"
+        "pos = torch.arange(8, dtype=torch.int32)[None]\n"
+        "qr, kr = ops.qk_norm_rope(q, k, w, w, pos, 1e4)\n"
+        "o = ops.flash_attention(qr, kr, v)\n"
+        "s, y = ops.add_rmsnorm(o, q, w)\n"
+        "out = ops.rmsnorm(y, w)\n"
+        "names = {type(t.grad_fn).__name__ for t in (qr, o, y, out)}\n"
+        "assert names == {'QkNormRopeBackward', 'FlashAttentionBackward',\n"
+        "                 'AddRMSNormBackward', 'RMSNormBackward'}, names\n"
+        "(out.square().sum() + s.sum()).backward()\n"
+        "for t in (q, k, v, w):\n"
+        "    assert t.grad is not None and bool(t.grad.abs().sum() > 0)\n"
+        "assert _build.loaded() == {}, _build.loaded()\n"
+        "for fn in (FA.flash_attention_cuda, FA.flash_attention_bwd_cuda, RN.rmsnorm_cuda,\n"
+        "           RN.rmsnorm_bwd_cuda, RN.add_rmsnorm_cuda, RN.add_rmsnorm_bwd_cuda,\n"
+        "           RN.qk_norm_rope_cuda, RN.qk_norm_rope_bwd_cuda):\n"
+        "    assert fn.launches == 0\n"
+        "assert sys.modules['triton'] is None\n")
+
+
+def _wrapper_calls(grad: bool) -> dict:
+    """{wrapper name: call} of every kernel wrapper on small CPU tensors; with
+    ``grad`` the first input requires grad."""
+    q = torch.randn(1, 8, 4, 32, requires_grad=grad)
+    k, sc, bm = torch.randn(1, 8, 2, 32), torch.ones(32), torch.randn(1, 8, 16)
+    lse = torch.zeros(1, 4, 8)
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    return {
+        "flash_attention_cuda": lambda: FA.flash_attention_cuda(q, q, q),
+        "flash_attention_bwd_cuda": lambda: FA.flash_attention_bwd_cuda(q, q, q, q, lse, q),
+        "rmsnorm_cuda": lambda: RN.rmsnorm_cuda(q, sc),
+        "rmsnorm_bwd_cuda": lambda: RN.rmsnorm_bwd_cuda(q, sc, q),
+        "add_rmsnorm_cuda": lambda: RN.add_rmsnorm_cuda(q, q, sc),
+        "add_rmsnorm_bwd_cuda": lambda: RN.add_rmsnorm_bwd_cuda(q, sc, q, q),
+        "gated_rmsnorm_cuda": lambda: RN.gated_rmsnorm_cuda(q, q, sc),
+        "qk_norm_rope_cuda": lambda: RN.qk_norm_rope_cuda(q, k, sc, sc, pos, 1e4),
+        "qk_norm_rope_bwd_cuda":
+            lambda: RN.qk_norm_rope_bwd_cuda(q, k, sc, sc, pos, 1e4, q, k),
+        "ssd_scan_cuda": lambda: SS.ssd_scan_cuda(q, torch.rand(1, 8, 4), -torch.ones(4),
+                                                  bm, bm, chunk=4),
+    }
+
+
+ALL_WRAPPERS = [FA.flash_attention_cuda, FA.flash_attention_bwd_cuda, RN.rmsnorm_cuda,
+                RN.rmsnorm_bwd_cuda, RN.add_rmsnorm_cuda, RN.add_rmsnorm_bwd_cuda,
+                RN.gated_rmsnorm_cuda, RN.qk_norm_rope_cuda, RN.qk_norm_rope_bwd_cuda,
+                SS.ssd_scan_cuda]
+
+
+@pytest.mark.parametrize("name", [fn.__name__ for fn in ALL_WRAPPERS])
+def test_every_wrapper_refuses_an_input_that_requires_grad(name):
+    """Called directly while autograd records, a wrapper would hand back an output
+    with no grad_fn: it raises instead, before any other check."""
+    call = _wrapper_calls(grad=True)[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    with torch.no_grad():                 # not recording: the usual device check
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert all(fn.launches == 0 for fn in ALL_WRAPPERS)
+
+
+def test_ssm_loss_fn_names_its_slice():
+    cfg = configs.get("mamba2-2.7b").reduced()
+    model = Model(cfg, "cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "targets": torch.zeros((1, 4), dtype=torch.int32),
+             "loss_mask": torch.ones((1, 4), dtype=torch.bfloat16)}
+    with pytest.raises(NotImplementedError, match="ssm training slice"):
+        model.loss_fn(model.init_params(0), batch)
+
+
+def test_local_sgd_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        Trainer(TrainJobConfig(mode="local_sgd", device="cpu"))
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
-    q = torch.randn(1, 8, 4, 32)
-    with pytest.raises(ValueError, match="CUDA"):
-        FA.flash_attention_cuda(q, q, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        RN.rmsnorm_cuda(q, torch.ones(32))
-    with pytest.raises(ValueError, match="CUDA"):
-        RN.add_rmsnorm_cuda(q, q, torch.ones(32))
-    with pytest.raises(ValueError, match="CUDA"):
-        RN.gated_rmsnorm_cuda(q, q, torch.ones(32))
-    k = torch.randn(1, 8, 2, 32)
-    with pytest.raises(ValueError, match="CUDA"):
-        RN.qk_norm_rope_cuda(q, k, torch.ones(32), torch.ones(32),
-                             torch.arange(8, dtype=torch.int32)[None], 1e4)
-    bm = torch.randn(1, 8, 16)
-    with pytest.raises(ValueError, match="CUDA"):
-        SS.ssd_scan_cuda(q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, chunk=4)
-    assert FA.flash_attention_cuda.launches == 0 and RN.rmsnorm_cuda.launches == 0
-    assert RN.add_rmsnorm_cuda.launches == RN.gated_rmsnorm_cuda.launches == 0
-    assert RN.qk_norm_rope_cuda.launches == 0
-    assert SS.ssd_scan_cuda.launches == 0
+    """Every kernel wrapper, the backward ones included, refuses CPU tensors and
+    counts no launch."""
+    calls = _wrapper_calls(grad=False)
+    assert sorted(calls) == sorted(fn.__name__ for fn in ALL_WRAPPERS)
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert all(fn.launches == 0 for fn in ALL_WRAPPERS)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -127,4 +221,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         to_torch({})
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(TrainJobConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_train_task(None, {"steps": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_eval_task(None, {})
     assert Server(ServeJobConfig(device="cpu")).device.type == "cpu"
+    assert Trainer(TrainJobConfig(device="cpu", seq_len=8, global_batch=2)).device.type \
+        == "cpu"
