@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
+    python3 chip_smoke.py --k1-bwd-against DIR   # only K1's backward against DIR's
 
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
@@ -28,7 +29,7 @@ Phases, each failing loudly (nonzero exit):
      qk_norm_rope) against their plain versions on the card in f32 and bf16,
      the forward's LSE against the plain LSE, two runs of each bit-equal; then
      time each beside its bound, its plain version and a library yardstick
-     (SDPA's and F.rms_norm's backward);
+     (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
   6. one train step of qwen3-0.6b at full width, 2 layers, f32, on the card
      against the same step on the CPU (loss, grad_norm, master; every leaf
      gets a nonzero gradient);
@@ -41,9 +42,16 @@ Phases, each failing loudly (nonzero exit):
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
+
+``--k1-bwd-against DIR`` runs phases 1-2, then only K1's backward against the one
+of the checkout at DIR (built from DIR's source into a library of its own): f32
+results bit-equal over the check sweep, bf16 results of both within the gate,
+and the bf16 times of both in turns (DIR's, this, this, DIR's).
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import gc
 import json
@@ -116,15 +124,20 @@ TRAIN_PATH = "qwen3-0.6b train"
 TRAIN_PER_STEP = {"flash_attention": 28, "flash_attention_bwd": 28, "qk_norm_rope": 28,
                   "qk_norm_rope_bwd": 28, "rmsnorm": 1, "rmsnorm_bwd": 1,
                   "add_rmsnorm": 56, "add_rmsnorm_bwd": 56}
-# K1's backward check sweep: the forward's sweep, its Sq < Skv cases, qwen3's D=128
+# K1's backward check sweep: the forward's sweep, its Sq < Skv cases, qwen3's D=128,
+# and D=128 with Sq < Skv, ragged lengths and a window (the masks at qwen3's width)
 FLASH_BWD_SWEEP = ([(B, S, S, H, K, D, c, w) for B, S, H, K, D, c, w in FLASH_SWEEP]
-                   + SHORT_Q + [(2, 200, 200, 16, 8, 128, True, 0)])
+                   + SHORT_Q + [(2, 200, 200, 16, 8, 128, True, 0),
+                                (1, 200, 328, 16, 8, 128, True, 128)])
+# K1's backward timed at (B, S), H=16, K=8, D=128, bf16, causal: qwen3's serving
+# prompt and S=2048 at B=1 (the JSON row), and the training shape (4 x 2048)
+FLASH_BWD_TIMED = [(1, 512), (1, 2048), (4, 2048)]
 # the JAX suite's flash-gradient tolerance for f32 (tests/test_kernels.py:71); bf16
 # gradients are rounded to bf16 once, held at the forward's bf16 tolerance
 FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128)]
 # kernel names of the backward kernels in profiler traces
-K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel")
 K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel", "colsum_kernel")
 
 
@@ -265,6 +278,12 @@ def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype):
+    """q, k, v, dO of one K1 backward case."""
+    return (randn((B, Sq, H, D), dtype, gen), randn((B, Skv, K, D), dtype, gen),
+            randn((B, Skv, K, D), dtype, gen), randn((B, Sq, H, D), dtype, gen))
+
+
 # ----------------------------------------------------------------------- phases
 def phase_card() -> str:
     smi = subprocess.run(
@@ -278,7 +297,8 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     """Build every source; print each one's kernels, their registers, and every
-    kernel that spills, by name (from nvcc's -Xptxas -v log)."""
+    kernel that spills, by name (from nvcc's -Xptxas -v log). K1's bf16 backward
+    kernels must not spill."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -301,6 +321,15 @@ def phase_build() -> None:
               f"{len(spills)} spilling")
         for kernel, stores, r in spills:
             print(f"    spills {stores} bytes at {r} registers: {kernel}")
+        # K1's bf16 backward kernels at each head dim: registers, and no spill stores
+        k1_bwd = []
+        for kernel, stores, r in kernels:
+            found = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
+            if found:
+                check(stores == 0, f"{found.group(1)}<{found.group(2)}> spills {stores} bytes")
+                k1_bwd.append(f"{found.group(1)}<{found.group(2)}> {r}")
+        if k1_bwd:
+            print(f"    K1's bf16 backward, registers (no spill stores): {', '.join(k1_bwd)}")
 
 
 def phase_flash(gen) -> dict:
@@ -668,15 +697,11 @@ def phase_backward(gen) -> list:
     from repro_torch.kernels import rmsnorm as RN
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def flash_case(B, Sq, Skv, H, K, D, dtype):
-        return (randn((B, Sq, H, D), dtype, gen), randn((B, Skv, K, D), dtype, gen),
-                randn((B, Skv, K, D), dtype, gen), randn((B, Sq, H, D), dtype, gen))
-
     worst = {f32: 0.0, bf16: 0.0}
     for B, Sq, Skv, H, K, D, causal, window in FLASH_BWD_SWEEP:
         for dtype in (f32, bf16):
             tag = f"flash bwd {B, Sq, Skv, H, K, D, causal, window} {dtype}"
-            q, k, v, do = flash_case(B, Sq, Skv, H, K, D, dtype)
+            q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype)
             o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                              return_lse=True)
             _, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -699,15 +724,15 @@ def phase_backward(gen) -> list:
           "runs bit-equal")
 
     rows = []
-    for S in (512, 2048):
-        B, H, K, D = 1, 16, 8, 128
-        q, k, v, do = flash_case(B, S, S, H, K, D, bf16)
+    for B, S in FLASH_BWD_TIMED:
+        H, K, D = 16, 8, 128
+        q, k, v, do = flash_bwd_inputs(gen, B, S, S, H, K, D, bf16)
         o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
         got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)
         want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
         err = max(max_err(g, w) for g, w in zip(got, want))
         check(all(close(g, w, FLASH_GRAD_TOL[bf16]) for g, w in zip(got, want)),
-              f"flash bwd S={S} bf16: max err {err}")
+              f"flash bwd B={B} S={S} bf16: max err {err}")
         ms = time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do))
         plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do), n=5)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
@@ -723,16 +748,20 @@ def phase_backward(gen) -> list:
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + 3 * B * H * S * 4
         flops = 10 * B * H * D * attn_pairs(S, S, True, 0)      # 2.5x the forward's
         bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
-        print(f"flash_attention_bwd B=1 S={S} H=16 K=8 D=128 bf16 causal: kernel {ms:.4f} ms, "
+        print(f"flash_attention_bwd B={B} S={S} H=16 K=8 D=128 bf16 causal: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
               f"{flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g}")
-        if S == 2048:
+        if (B, S) == (1, 2048):
             rows.append({"name": "flash_attention_bwd", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                          "replaces": "src/repro/kernels/ops.py:90",
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        elif B == 4:      # the training shape, beside the B=1 row
+            rows[-1]["at_training_shape"] = {
+                "B": B, "S": S, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
     def norm_case(shape, dtype):
         return (randn(shape, dtype, gen), randn(shape[-1:], dtype, gen),
@@ -964,9 +993,14 @@ def phase_train(card: str) -> dict:
                                trainer.step_once, top=10,
                                groups={"K1 forward": ("flash_fwd",), "K1 backward": K1_BWD_NAMES,
                                        "K2 forward": K2_KERNEL_NAMES,
-                                       "K2 backward": K2_BWD_NAMES})
+                                       "K2 backward": K2_BWD_NAMES,
+                                       **{name: (name,) for name in K1_BWD_NAMES}})
     for label in ("K1 backward", "K2 backward"):
         check(label in groups, f"train step profile: no {label} kernels")
+    layers = trainer.arch_cfg.num_layers
+    for name in K1_BWD_NAMES:       # the bf16 design's kernels, once a layer
+        n = groups.get(name, (0.0, 0))[1]
+        check(n == layers, f"train step profile: {name} launched {n} times, want {layers}")
     first_loss = losses[0]
     del trainer, cache
     gc.collect()
@@ -982,7 +1016,80 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-def main() -> int:
+def phase_k1_bwd_against(parent: Path, card: str) -> None:
+    """K1's backward of this checkout against the one of another checkout
+    (``parent``: its root, e.g. the parent commit unpacked by ``git archive``), in
+    one process on this card. The other source is built with the same nvcc flags
+    into a library of its own and called through the same C entry point. Over the
+    check sweep, f32 results must be bit-equal (one f32 design in both) and both
+    bf16 results must hold the plain version's gate; then the bf16 backward of
+    each is timed in turns (other, this, this, other) at FLASH_BWD_TIMED's shapes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    f32, bf16 = torch.float32, torch.bfloat16
+    src = parent.resolve() / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+    lib = _build.BUILD_DIR / "other-flash_attention.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True, timeout=600)
+    other_fn = ctypes.CDLL(str(lib)).flash_attention_bwd
+    other_fn.argtypes, other_fn.restype = FA._bwd_fn().argtypes, ctypes.c_int
+    print(f"k1-bwd-against: built {src}")
+
+    def other(q, k, v, o, lse, do, causal=True, window=0):
+        B, Sq, H, D = q.shape
+        Skv, K = k.shape[1], k.shape[2]
+        delta = torch.empty((B, H, Sq), dtype=f32, device=q.device)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        err = other_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, Sq, Skv, H, K, D, int(causal), int(window),
+                       1.0 / math.sqrt(D), FA._DTYPE_CODE[q.dtype],
+                       torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the other checkout's flash_attention_bwd: cudaError {err}")
+        return dq, dk, dv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for B, Sq, Skv, H, K, D, causal, window in FLASH_BWD_SWEEP:
+        for dtype in (f32, bf16):
+            tag = f"{B, Sq, Skv, H, K, D, causal, window} {dtype}"
+            q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype)
+            o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            mine = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                               window=window)
+            theirs = other(q, k, v, o, lse, do, causal=causal, window=window)
+            if dtype == f32:
+                check(all(torch.equal(a, b) for a, b in zip(mine, theirs)),
+                      f"k1-bwd-against {tag}: f32 results differ between the checkouts")
+                continue
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+            for who, got in (("this", mine), ("other", theirs)):
+                for g, w in zip(got, want):
+                    check(close(g, w, FLASH_GRAD_TOL[bf16]), f"k1-bwd-against {tag} {who}: "
+                          f"max err {max_err(g, w)}")
+    print(f"k1-bwd-against: {len(FLASH_BWD_SWEEP)} cases: f32 bit-equal across the two "
+          "checkouts; bf16 of both within the plain version's gate")
+    for B, S in FLASH_BWD_TIMED:
+        q, k, v, do = flash_bwd_inputs(gen, B, S, S, 16, 8, 128, bf16)
+        o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+        t = [time_ms(lambda: other(q, k, v, o, lse, do)),
+             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)),
+             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)),
+             time_ms(lambda: other(q, k, v, o, lse, do))]
+        print(f"k1-bwd-against B={B} S={S} H=16 K=8 D=128 bf16 causal, in turns: other "
+              f"{t[0]:.4f} ms, this {t[1]:.4f} ms, this {t[2]:.4f} ms, other {t[3]:.4f} ms "
+              f"[{card}]")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1-bwd-against", type=Path, metavar="CHECKOUT",
+                    help="only build the kernels and compare K1's backward with the one "
+                         "of another checkout (its root directory), in turns on this card")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -991,6 +1098,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card()
     phase_build()
+    if args.k1_bwd_against is not None:
+        phase_k1_bwd_against(args.k1_bwd_against, card)
+        print(card)
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen)]

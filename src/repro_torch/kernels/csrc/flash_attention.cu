@@ -460,39 +460,71 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // dq, dk, dv of the forward above from its saved (q, k, v, o, lse) and dO: the
 // function of the JAX package's custom VJP `_flash_bwd_blocked` (ops.py:90), with
 // P = exp(S * scale - lse) recomputed tile by tile and dS = P o (dP - delta) * scale,
-// delta = rowsum(dO o O). Three launches, all deterministic (no atomics):
+// delta = rowsum(dO o O). Three launches, all deterministic (no atomics), in both
+// designs:
 //   bwd_delta_kernel  delta [B,H,Sq] f32, one warp a (b, q row, h) row;
-//   bwd_dkdv_kernel   one block per (64-row kv tile, kv head, batch): it loops over
+//   dK/dV pass        one block per (64-row kv tile, kv head, batch): it loops over
 //                     the group's q heads and the q tiles the mask lets see this kv
 //                     tile, and keeps dK and dV of its tile in registers, so the GQA
 //                     fold (`ops.py:121-123`) is a sum inside the block;
-//   bwd_dq_kernel     one block per (64-row q tile, q head, batch): it loops over
+//   dQ pass           one block per (64-row q tile, q head, batch): it loops over
 //                     the kv tiles the forward visits and keeps dQ in registers.
-// Both dtypes run one exact CUDA-core design: bf16 inputs are widened to f32 as
-// they are staged in shared memory, every product and sum is an f32 FMA, and only
-// dq, dk, dv are rounded to the input dtype (as `.astype(q.dtype)` does).
+// Each pass recomputes S and dP, so the backward runs 7 tile products: S and dP
+// twice, dV += P^T dO, dK += dS^T Q, dQ += dS K.
 //
-// What bounds it on the H100. The backward does ~2.5x the forward's flops (the
-// dkdv pass recomputes S and dP and forms dV and dK, the dq pass recomputes S and
-// dP and forms dQ: 7 tile products against the forward's 2; the bound counts 5)
-// on ~2x its bytes, so from S ~ 1000 it is bound by operations. The bound counts
-// the bf16 tensor-core rate (989 TFLOP/s); this design runs on the CUDA cores
-// (67 TFLOP/s f32 peak), so it sits far above the bound by construction: a
-// simple design that is right comes first. `mma.sync` / `wgmma` with the
-// transposed products through `ldmatrix.trans` is the step that closes the gap.
+// What bounds it on the H100. The bound counts 5 of those products, 10*D flops
+// per visible (q, k) pair and head: 2.5x the forward's flops on ~2x its bytes, so
+// from S ~ 1000 it is bound by operations. At the training shape (B=4, S=2048,
+// H=16, K=8, D=128, causal) that is 172 GFLOP: 0.174 ms on the bf16 tensor cores
+// (989 TFLOP/s); at B=1, 43 GFLOP: 0.043 ms.
 //
-// Layout: 256 threads as 16 row groups x 16 column lanes, as the f32 forward.
-// Every staged tile is f32 with rows padded by one float, so the per-row and
-// per-column reads of the products hit distinct banks.
+// bf16 (dtype 1), the training path: tensor cores (bwd_dkdv_bf16_kernel,
+//   bwd_dq_bf16_kernel). Every tile product is mma.sync.m16n8k16 bf16 -> f32.
+//   Tiles sit in shared memory as bf16, rows padded by 16 bytes (conflict-free
+//   ldmatrix, as the forward), loaded by 16-byte cp.async with zero fill past Sq
+//   or Skv, two stages deep over the loop axis (q tiles in the dK/dV pass, kv
+//   tiles in the dQ pass) so the next tile's load overlaps this tile's products.
+//   4 warps a block, 2 blocks an SM; each warp owns 16 rows of the block's tile.
+//   - dK/dV pass: it computes S^T = K Q^T and dP^T = V dO^T with kv rows as M, so
+//     P^T and dS^T land in the accumulator layout and feed dV += P^T dO and
+//     dK += dS^T Q straight from registers as A fragments: no tile of P or dS goes
+//     through shared memory. K and V are the A operands (ldmatrix), Q and dO the
+//     B operands, plain for S^T and dP^T and through ldmatrix.trans for dV and dK.
+//     The q tile is taken in two halves of 32 columns to fit the registers: at
+//     D = 128 the dK and dV accumulators of a warp's 16 rows are 128 f32
+//     registers a thread, S^T and dP^T of a half 16 + 16, P and dS as bf16
+//     fragments 8 + 8; ptxas gives the kernel 255 registers at D = 128 with no
+//     spill (chip_smoke.py's build phase checks that none of these kernels
+//     spills). Shared memory: K, V and two stages of Q and dO, 6 x 64 x (D+8)
+//     bf16, and two stages of the q rows' lse and delta, 1 KB: 105,472 bytes at
+//     D = 128.
+//   - dQ pass: the forward's layout. S = Q K^T and dP = dO V^T with q rows as M,
+//     dS from the accumulators as the A fragment of dQ += dS K, K's B fragments
+//     through ldmatrix.trans. dQ is 64 registers a thread at D = 128, S and dP
+//     32 + 32 (ptxas: 242 in all). Shared memory: Q, dO and two stages of K and
+//     V, 104,448 bytes.
+//   - Rounding: P and dS are computed in f32 (dS from the f32 P) and rounded to
+//     bf16 once, as the A operands of their products, as FlashAttention-2 and
+//     PyTorch's SDPA backward do. A CPU emulation of these rounding points at the
+//     training shape stayed well inside the bf16 gate (2e-2 atol + rtol against
+//     the plain f32 math): its largest errors were single bf16 steps of the
+//     rounded outputs, so the forward's hi + lo split of P would buy nothing here.
+//   - Blocks are launched heaviest first: under the causal mask the first kv
+//     tiles see the most q tiles, the last q tiles the most kv tiles.
+//   `wgmma` with TMA and warp specialisation (FlashAttention-3) is the next step.
+// f32 (dtype 0), the check path: the exact CUDA-core design (bwd_dkdv_kernel,
+//   bwd_dq_kernel). Every product and sum is an f32 FMA (67 TFLOP/s f32 peak),
+//   which keeps the f32 gradients within 1e-3 of the reference and the card's
+//   2-layer f32 train step on the CPU's. 256 threads as 16 row groups x 16 column
+//   lanes, as the f32 forward; every staged tile is f32 with rows padded by one
+//   float, so the per-row and per-column reads of the products hit distinct banks.
 constexpr int BWD_THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// the CUDA-core dK/dV and dQ kernels write f32 only: bf16 has the tensor-core design
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // rows r0 .. r0+63 of a [rows, D] matrix with row stride `stride` into a [64][D+1]
 // f32 tile; rows at or past `limit` are zero
@@ -758,21 +790,410 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int Sq, int Skv, int H, int K, int causal, int window,
-                       float scale, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* o_ = static_cast<const T*>(o);
-  const T* do_ = static_cast<const T*>(dout);
+// ------------------------------------------------------- backward, bf16: tensor cores
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkdv_tc_smem_bytes() {
+  // sK, sV [BKV][D+8], sQ, sO [2][BQ][D+8] bf16; sL, sDl [2][BQ] f32
+  return sizeof(__nv_bfloat16) * 6 * 64 * (size_t)(D + 8) + sizeof(float) * 4 * BQ;
+}
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  // sQ, sO [BQ][D+8], sK, sV [2][BKV][D+8] bf16
+  return sizeof(__nv_bfloat16) * 6 * 64 * (size_t)(D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+                     int Skv, int H, int K, int causal, int window, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int RS = D + 8;   // padded smem row, bf16 elements
+  constexpr int KS = D / 16;  // k-steps of K Q^T and V dO^T
+  constexpr int NT = D / 8;   // n-tiles of dK and dV
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + BKV * RS;
+  __nv_bfloat16* sQ = sV + BKV * RS;       // [2][BQ][RS]
+  __nv_bfloat16* sO = sQ + 2 * BQ * RS;    // dO, [2][BQ][RS]
+  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * RS);   // lse [2][BQ]
+  float* sDl = sL + 2 * BQ;                                  // delta [2][BQ]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;   // the first kv tiles see the most causal q tiles
+  const int group = H / K, offset = Skv - Sq;
+  const float sl2 = scale * LOG2E;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+
+  // q rows that see at least one kv row of this tile: [qi_lo, qi_hi]; the loop
+  // walks (q head of the group, q tile) pairs, head-major
+  const int k_last = min(k0 + BKV, Skv) - 1;
+  const int qi_lo = causal ? max(0, k0 - offset) : 0;
+  const int qi_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
+  const int qt_lo = qi_lo / BQ;
+  const int n_qt = qi_hi >= qi_lo ? qi_hi / BQ - qt_lo + 1 : 0;
+  const int n_it = group * n_qt;
+
+  // Q, dO, lse and delta of step `it` into stage `buf`; rows past Sq are zero
+  auto load_q = [&](int it, int buf) {
+    const int h = kvh * group + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    tile_async<D>(sQ + buf * BQ * RS, q + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride,
+                  q0, Sq, tid);
+    tile_async<D>(sO + buf * BQ * RS, dout + (size_t)b * Sq * q_stride + (size_t)h * D,
+                  q_stride, q0, Sq, tid);
+    const int r = tid % BQ;            // threads 0..63 load lse, 64..127 delta
+    const bool ok = q0 + r < Sq;
+    const float* src = (tid < BQ ? lse : delta) + ((size_t)b * H + h) * Sq;
+    tc::cp_async4((tid < BQ ? sL : sDl) + buf * BQ + r, src + (ok ? q0 + r : 0), ok);
+  };
+
+  tile_async<D>(sK, kb, kv_stride, k0, Skv, tid);
+  tile_async<D>(sV, vb, kv_stride, k0, Skv, tid);
+  if (n_it > 0) load_q(0, 0);
+  tc::cp_async_commit();
+  if (n_it > 1) load_q(1, 1);
+  tc::cp_async_commit();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    tc::cp_async_wait<1>();
+    __syncthreads();  // this step's Q, dO, lse, delta (and on the first, K and V) have landed
+    const int buf = it & 1;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const __nv_bfloat16* cQ = sQ + buf * BQ * RS;
+    const __nv_bfloat16* cO = sO + buf * BQ * RS;
+    const float* cL = sL + buf * BQ;
+    const float* cD = sDl + buf * BQ;
+    const bool need_mask = q0 + BQ > Sq || k0 + BKV > Skv ||
+                           (causal && k0 + BKV - 1 > q0 + offset) ||
+                           (window > 0 && q0 + BQ - 1 + offset - k0 >= window);
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;   // q columns c0 .. c0+31 of the tile
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x 32 q columns
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kf[4], vf[4];
+        const int a_off = (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * RS + 16 * ks +
+                          8 * (lane / 16);
+        tc::ldsm_x4(kf, sK + a_off);
+        tc::ldsm_x4(vf, sV + a_off);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t qf[4], of[4];
+          const int b_off = (c0 + 16 * np + (lane % 8) + 8 * (lane / 16)) * RS + 16 * ks +
+                            8 * ((lane / 8) % 2);
+          tc::ldsm_x4(qf, cQ + b_off);
+          tc::ldsm_x4(of, cO + b_off);
+          tc::mma(s[2 * np], kf, qf[0], qf[1]);
+          tc::mma(s[2 * np + 1], kf, qf[2], qf[3]);
+          tc::mma(dp[2 * np], vf, of[0], of[1]);
+          tc::mma(dp[2 * np + 1], vf, of[2], of[3]);
+        }
+      }
+
+      // P^T and dS^T on the accumulators (kv row 16w + g + 8(e/2), q column
+      // c0 + 8n + 2t + e%2), rounded once to bf16 A fragments over the q columns
+      uint32_t pf[2][4], df[2][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = c0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(cL + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(cD + c);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if (need_mask) {
+            const int kj = k0 + 16 * warp + g + 8 * (e >> 1);
+            const int qi = q0 + c + (e & 1);
+            const int qa = qi + offset;
+            ok = qi < Sq && kj < Skv && (!causal || kj <= qa) && (window <= 0 || qa - kj < window);
+          }
+          const float l = (e & 1) ? l2.y : l2.x;
+          const float dl = (e & 1) ? d2.y : d2.x;
+          p[e] = ok ? exp2f(fmaf(s[n][e], sl2, -l * LOG2E)) : 0.f;
+          ds[e] = p[e] * (dp[n][e] - dl) * scale;
+        }
+        pf[n / 2][2 * (n % 2)] = tc::pack(p[0], p[1]);
+        pf[n / 2][2 * (n % 2) + 1] = tc::pack(p[2], p[3]);
+        df[n / 2][2 * (n % 2)] = tc::pack(ds[0], ds[1]);
+        df[n / 2][2 * (n % 2) + 1] = tc::pack(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the half's 32 q rows
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t of[4], qf[4];
+          const int t_off = (c0 + 16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * RS + 16 * nd +
+                            8 * (lane / 16);
+          tc::ldsm_x4_t(of, cO + t_off);
+          tc::ldsm_x4_t(qf, cQ + t_off);
+          tc::mma(dv_acc[2 * nd], pf[ks], of[0], of[1]);
+          tc::mma(dv_acc[2 * nd + 1], pf[ks], of[2], of[3]);
+          tc::mma(dk_acc[2 * nd], df[ks], qf[0], qf[1]);
+          tc::mma(dk_acc[2 * nd + 1], df[ks], qf[2], qf[3]);
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (it + 2 < n_it) load_q(it + 2, buf);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<0>();
+
+  __nv_bfloat16* dkb = dk + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  __nv_bfloat16* dvb = dv + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + 16 * warp + g + 8 * r;
+    if (kj >= Skv) continue;
+    uint32_t* rk = reinterpret_cast<uint32_t*>(dkb + (size_t)kj * kv_stride + 2 * t);
+    uint32_t* rv = reinterpret_cast<uint32_t*>(dvb + (size_t)kj * kv_stride + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      rk[4 * n] = tc::pack(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      rv[4 * n] = tc::pack(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int K, int causal,
+                   int window, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int RS = D + 8;   // padded smem row, bf16 elements
+  constexpr int KS = D / 16;  // k-steps of Q K^T and dO V^T
+  constexpr int NT = D / 8;   // n-tiles of dQ
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sO = sQ + BQ * RS;        // dO
+  __nv_bfloat16* sK = sO + BQ * RS;        // [2][BKV][RS]
+  __nv_bfloat16* sV = sK + 2 * BKV * RS;   // [2][BKV][RS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest causal tiles first
+  const int kvh = h / (H / K);
+  const int offset = Skv - Sq;
+  const float sl2 = scale * LOG2E;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+
+  // the kv tiles the forward visits for this q tile
+  const int q_first = q0 + offset;
+  const int q_last = min(q0 + BQ, Sq) - 1 + offset;
+  const int kv_hi = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_lo = kv_lo / BKV;
+  const int n_tiles = kv_hi > 0 ? (kv_hi + BKV - 1) / BKV - t_lo : 0;
+
+  tile_async<D>(sQ, q + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
+  tile_async<D>(sO, dout + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
+  if (n_tiles > 0) {
+    tile_async<D>(sK, kb, kv_stride, t_lo * BKV, Skv, tid);
+    tile_async<D>(sV, vb, kv_stride, t_lo * BKV, Skv, tid);
+  }
+  tc::cp_async_commit();
+  if (n_tiles > 1) {
+    tile_async<D>(sK + BKV * RS, kb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
+    tile_async<D>(sV + BKV * RS, vb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
+  }
+  tc::cp_async_commit();
+
+  // lse (in log2 units) and delta of this thread's rows 16w + g and 16w + g + 8
+  float l2r[2], dlr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 16 * warp + g + 8 * r;
+    const size_t row = ((size_t)b * H + h) * Sq + qi;
+    l2r[r] = qi < Sq ? lse[row] * LOG2E : 0.f;
+    dlr[r] = qi < Sq ? delta[row] : 0.f;
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    tc::cp_async_wait<1>();
+    __syncthreads();  // this tile (and on the first pass Q and dO) has landed
+    const int buf = it & 1;
+    const int k0 = (t_lo + it) * BKV;
+    const __nv_bfloat16* cK = sK + buf * BKV * RS;
+    const __nv_bfloat16* cV = sV + buf * BKV * RS;
+
+    // S = Q K^T and dP = dO V^T: 16 q rows x 64 kv columns per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qf[4], of[4];
+      const int a_off = (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * RS + 16 * ks +
+                        8 * (lane / 16);
+      tc::ldsm_x4(qf, sQ + a_off);
+      tc::ldsm_x4(of, sO + a_off);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4], vf[4];
+        const int b_off = (16 * np + (lane % 8) + 8 * (lane / 16)) * RS + 16 * ks +
+                          8 * ((lane / 8) % 2);
+        tc::ldsm_x4(kf, cK + b_off);
+        tc::ldsm_x4(vf, cV + b_off);
+        tc::mma(s[2 * np], qf, kf[0], kf[1]);
+        tc::mma(s[2 * np + 1], qf, kf[2], kf[3]);
+        tc::mma(dp[2 * np], of, vf[0], vf[1]);
+        tc::mma(dp[2 * np + 1], of, vf[2], vf[3]);
+      }
+    }
+
+    // dS on the accumulators (q row 16w + g + 8(e/2), kv column k0 + 8n + 2t + e%2),
+    // rounded once to bf16 A fragments over the kv columns
+    const bool need_mask = k0 + BKV > Skv || (causal && k0 + BKV - 1 > q_first) ||
+                           (window > 0 && k0 <= q_last - window);
+    uint32_t df[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if (need_mask) {
+          const int kj = k0 + 8 * n + 2 * t + (e & 1);
+          const int qa = q0 + 16 * warp + g + 8 * (e >> 1) + offset;
+          ok = kj < Skv && (!causal || kj <= qa) && (window <= 0 || qa - kj < window);
+        }
+        const float p = ok ? exp2f(fmaf(s[n][e], sl2, -l2r[e >> 1])) : 0.f;
+        ds[e] = p * (dp[n][e] - dlr[e >> 1]) * scale;
+      }
+      df[n / 2][2 * (n % 2)] = tc::pack(ds[0], ds[1]);
+      df[n / 2][2 * (n % 2) + 1] = tc::pack(ds[2], ds[3]);
+    }
+
+    // dQ += dS K, K's B fragments through ldmatrix.trans
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int nd = 0; nd < NT / 2; ++nd) {
+        uint32_t kf[4];
+        tc::ldsm_x4_t(kf, cK + (16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * RS + 16 * nd +
+                              8 * (lane / 16));
+        tc::mma(acc[2 * nd], df[ks], kf[0], kf[1]);
+        tc::mma(acc[2 * nd + 1], df[ks], kf[2], kf[3]);
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (it + 2 < n_tiles) {
+      tile_async<D>(sK + buf * BKV * RS, kb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
+      tile_async<D>(sV + buf * BKV * RS, vb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
+    }
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<0>();
+
+  __nv_bfloat16* dqb = dq + (size_t)b * Sq * q_stride + (size_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 16 * warp + g + 8 * r;
+    if (qi >= Sq) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(dqb + (size_t)qi * q_stride + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) row[4 * n] = tc::pack(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// delta = rowsum(dO o O) [B,H,Sq]: the first launch of both designs
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int Sq, int H,
+                         int D, cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   constexpr int RPB = BWD_THREADS / 32;
   bwd_delta_kernel<T><<<(unsigned)((rows + RPB - 1) / RPB), BWD_THREADS, 0, stream>>>(
-      o_, do_, delta, rows, Sq, H, D);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, Sq, H, D);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
+                            int causal, int window, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* do_ = static_cast<const bf16*>(dout);
+  cudaError_t err = launch_delta<bf16>(o, dout, delta, B, Sq, H, D, stream);
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t dq_smem = dq_tc_smem_bytes<D>();
+  err = cudaFuncSetAttribute(bwd_dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dq_bf16_kernel<D><<<dim3(H, B, (Sq + BQ - 1) / BQ), TC_THREADS, dq_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, K, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t kv_smem = dkdv_tc_smem_bytes<D>();
+  err = cudaFuncSetAttribute(bwd_dkdv_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_bf16_kernel<D><<<dim3(K, B, (Skv + BKV - 1) / BKV), TC_THREADS, kv_smem, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H,
+      K, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, float* delta, void* dq,
+                           void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
+                           int causal, int window, float scale, cudaStream_t stream) {
+  using T = float;
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* do_ = static_cast<const T*>(dout);
+  cudaError_t err = launch_delta<T>(o, dout, delta, B, Sq, H, D, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t dq_smem = dq_smem_bytes<D>();
@@ -801,10 +1222,10 @@ cudaError_t launch_bwd_dtype(const void* q, const void* k, const void* v, const 
                              int causal, int window, float scale, int dtype,
                              cudaStream_t stream) {
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                                        H, K, causal, window, scale, stream);
-  return launch_bwd<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, K,
+    return launch_bwd_bf16<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, K,
                               causal, window, scale, stream);
+  return launch_bwd_f32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, K,
+                           causal, window, scale, stream);
 }
 
 }  // namespace

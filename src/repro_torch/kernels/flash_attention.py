@@ -10,9 +10,13 @@ also writes each row's log-sum-exp, the residual of the backward.
 
 The backward kernel computes what the JAX package's custom VJP
 ``_flash_bwd_blocked`` (``src/repro/kernels/ops.py:90``) computes, from the
-forward's (q, k, v, o, lse) and dO; the JAX package has no Pallas backward. Its
-design (deterministic, no atomics, dK/dV of a kv tile summed over the GQA group
-inside one block) is in the source.
+forward's (q, k, v, o, lse) and dO; the JAX package has no Pallas backward. Both
+of its designs are deterministic (no atomics: a dK/dV pass over kv tiles that sums
+the GQA group inside one block, and a dQ pass over q tiles), and the source gives
+their bound and counts. bf16 inputs, the training path, run a tensor-core design:
+all seven tile products on mma.sync, bf16 tiles loaded by cp.async two stages
+deep, P and dS rounded once to bf16 as operands. f32 inputs run the exact
+CUDA-core design that the f32 checks hold at 1e-3.
 
 Both directions follow the JAX package's reference semantics: end-aligned causal /
 sliding-window masks (q row i at absolute position i + Skv - Sq), GQA by kv head

@@ -124,6 +124,24 @@ def test_flash_kernel_serving_shape_bf16_on_card(cuda):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.cuda
+def test_flash_bwd_kernel_training_shape_bf16_on_card(cuda):
+    """K1's backward at qwen3-0.6b's training shape: B=4, S=2048, H=16, K=8, D=128,
+    causal, bf16 (the tensor-core design), against the plain backward on the same
+    residuals at the bf16 gradient tolerance; two runs bit-equal."""
+    q, k, v, do = (_torch(_np(s, 30 + i), "bfloat16", cuda) for i, s in
+                   enumerate([(4, 2048, 16, 128), (4, 2048, 8, 128), (4, 2048, 8, 128),
+                              (4, 2048, 16, 128)]))
+    o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=2e-2, atol=2e-2)
+        assert torch.equal(g, a)
+
+
 # -------------------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("shape", RMS_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -52,17 +52,15 @@ def _auto_mesh():
                 axis_types=(AxisType.Auto,) * 2)
 
 
-def _cfg(**overrides):
-    return dataclasses.replace(tconfigs.get("qwen3-0.6b").reduced(), remat="none",
-                               **overrides)
+def _cfg(arch="qwen3-0.6b", **overrides):
+    return dataclasses.replace(tconfigs.get(arch).reduced(), remat="none", **overrides)
 
 
-def _jax_model(**overrides):
+def _jax_model(arch="qwen3-0.6b", **overrides):
     from repro.configs import base as jconfigs
     from repro.models.model import Model as JModel
     from repro.parallel.sharding import MeshPlan
-    cfg = dataclasses.replace(jconfigs.get("qwen3-0.6b").reduced(), remat="none",
-                              **overrides)
+    cfg = dataclasses.replace(jconfigs.get(arch).reduced(), remat="none", **overrides)
     return JModel(cfg, MeshPlan(mesh=_auto_mesh(), fsdp=False))
 
 
@@ -102,16 +100,30 @@ def _f32(t):
 
 
 # ------------------------------------------------------------------------- loss_fn
-@pytest.mark.parametrize("dtype,loss_chunk", [("float32", 0), ("float32", 8),
-                                              ("bfloat16", 0)])
-def test_loss_fn_matches_jax(dtype, loss_chunk):
+# (arch, sequence length, dtype, loss_chunk): qwen3-0.6b, the trained arch, in both
+# dtypes and with the chunked CE; in f32 three more reduced dense archs:
+# gemma3-12b at S=80 past its reduced window of 64, so its five local layers mask
+# what its global layer sees (K1's windowed backward), phi4-mini-3.8b (no
+# qk-norm) and qwen3-32b
+LOSS_CASES = [
+    pytest.param("qwen3-0.6b", 32, "float32", 0, id="float32-0"),
+    pytest.param("qwen3-0.6b", 32, "float32", 8, id="float32-8"),
+    pytest.param("qwen3-0.6b", 32, "bfloat16", 0, id="bfloat16-0"),
+    pytest.param("gemma3-12b", 80, "float32", 0, id="gemma3-12b-float32-0"),
+    pytest.param("phi4-mini-3.8b", 32, "float32", 0, id="phi4-mini-3.8b-float32-0"),
+    pytest.param("qwen3-32b", 32, "float32", 0, id="qwen3-32b-float32-0"),
+]
+
+
+@pytest.mark.parametrize("arch,S,dtype,loss_chunk", LOSS_CASES)
+def test_loss_fn_matches_jax(arch, S, dtype, loss_chunk):
     """Loss and metrics, and (f32) the gradient of every leaf."""
     jax = _jax()
-    jm = _jax_model(dtype=dtype, loss_chunk=loss_chunk)
-    tm = TModel(_cfg(dtype=dtype, loss_chunk=loss_chunk), "cpu")
+    jm = _jax_model(arch, dtype=dtype, loss_chunk=loss_chunk)
+    tm = TModel(_cfg(arch, dtype=dtype, loss_chunk=loss_chunk), "cpu")
     jp = jm.init_params(jax.random.PRNGKey(2))
     tp = to_torch(_np_tree(jp), "cpu")
-    b = _batch(2, 32, jm.cfg.vocab_size, seed=1)
+    b = _batch(2, S, jm.cfg.vocab_size, seed=1)
     (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(jp, _jbatch(b))
     leaves = {k: v.requires_grad_(True) for k, v in _named(tp).items()}
     tl, tmet = tm.loss_fn(tp, _tbatch(b))
@@ -119,7 +131,7 @@ def test_loss_fn_matches_jax(dtype, loss_chunk):
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=tol, atol=tol)
     for key in ("loss", "aux_loss", "tokens"):
         np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), rtol=tol, atol=tol)
-    assert float(tmet["tokens"]) == 2 * 29
+    assert float(tmet["tokens"]) == 2 * (S - 3)
     if dtype == "float32":
         grads = torch.autograd.grad(tl, list(leaves.values()))
         for (name, _), g in zip(leaves.items(), grads):

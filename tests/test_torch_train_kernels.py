@@ -19,7 +19,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 
 # tests/test_kernels.py's FLASH_SWEEP (GQA, MQA, bidirectional, window, ragged
-# D=80) and q shorter than k/v (end-aligned masks)
+# D=80), q shorter than k/v (end-aligned masks), and both at qwen3's head dim
 FLASH_CASES = [
     # B, Sq, Skv, H, K, D, causal, window
     (1, 128, 128, 4, 4, 64, True, 0),
@@ -31,6 +31,7 @@ FLASH_CASES = [
     (1, 32, 96, 4, 2, 64, True, 0),
     (2, 17, 80, 4, 1, 32, True, 24),
     (1, 40, 72, 2, 2, 80, False, 0),
+    (1, 200, 328, 16, 8, 128, True, 128),    # qwen3's D=128: Sq < Skv, ragged, window
 ]
 # tests/test_kernels.py:test_flash_custom_vjp_matches_autodiff_oracle's gradient
 # tolerance, for f32; bf16 gradients are rounded to bf16 (2^-8 relative), held at
