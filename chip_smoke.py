@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
     python3 chip_smoke.py --k1-bwd-against DIR   # only K1's backward against DIR's
+    python3 chip_smoke.py --k2-bwd-against DIR   # only K2's backward against DIR's
 
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
@@ -26,7 +27,8 @@ Phases, each failing loudly (nonzero exit):
      profile one prefill and one decode step (kernels per call, device busy,
      K2's device time a launch);
   5. the backward kernels (K1's, and K2's for rmsnorm, add_rmsnorm and
-     qk_norm_rope) against their plain versions on the card in f32 and bf16,
+     qk_norm_rope, one launch each with dscale folded in) against their plain
+     versions on the card in f32 and bf16,
      the forward's LSE against the plain LSE, two runs of each bit-equal; then
      time each beside its bound, its plain version and a library yardstick
      (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
@@ -47,6 +49,9 @@ device, or outside a checkout, it exits nonzero and prints no result.
 of the checkout at DIR (built from DIR's source into a library of its own): f32
 results bit-equal over the check sweep, bf16 results of both within the gate,
 and the bf16 times of both in turns (DIR's, this, this, DIR's).
+``--k2-bwd-against DIR`` does the same for K2's three backward entry points (f32
+dx bit-equal; every output of both within the gate), and profiles each design
+once at the training shapes, kernel by kernel. The two flags may be given together.
 """
 from __future__ import annotations
 
@@ -135,10 +140,17 @@ FLASH_BWD_TIMED = [(1, 512), (1, 2048), (4, 2048)]
 # the JAX suite's flash-gradient tolerance for f32 (tests/test_kernels.py:71); bf16
 # gradients are rounded to bf16 once, held at the forward's bf16 tolerance
 FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
-QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128)]
+# K2's backward check sweeps: the forward's, the training shape, and the edges of
+# the one-launch dscale fold: one row; rows fewer than blocks; rows not a multiple
+# of a block's; wide rows (a block a row); one token of qwen3's q and k
+NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), (1, 1, 1024), (600, 1024), (2, 3, 2560)]
+QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128),
+                (1, 1, 16, 8, 128)]
 # kernel names of the backward kernels in profiler traces
 K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel")
-K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel", "colsum_kernel")
+K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel")
+# K2's backward entry points: one launch each, dscale folded in
+K2_BWD_ENTRIES = ("rmsnorm_bwd", "add_rmsnorm_bwd", "qk_norm_rope_bwd")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -284,6 +296,30 @@ def flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype):
             randn((B, Skv, K, D), dtype, gen), randn((B, Sq, H, D), dtype, gen))
 
 
+def norm_bwd_case(gen, shape, dtype):
+    """x, scale, dy, ds of one K2 norm backward case."""
+    return (randn(shape, dtype, gen), randn(shape[-1:], dtype, gen),
+            randn(shape, dtype, gen), randn(shape, dtype, gen))
+
+
+def qk_bwd_case(gen, B, S, H, K, hd, dtype):
+    """The arguments of one qk_norm_rope backward case (positions: the model's
+    expanded arange)."""
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    return (randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen),
+            randn((hd,), dtype, gen), randn((hd,), dtype, gen), pos, QWEN3_THETA,
+            randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen))
+
+
+def exact(args):
+    """f32 inputs widened to f64: the plain twin then gives the exact value.
+    dscale sums up to 131,072 rows, and two f32 sums of them in different
+    orders differ by more than 1e-5 near zero, so f32 outputs are held at
+    K2's 1e-5 against the exact value, not against another f32 sum."""
+    return [a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a
+            for a in args]
+
+
 # ----------------------------------------------------------------------- phases
 def phase_card() -> str:
     smi = subprocess.run(
@@ -295,10 +331,51 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
+def ptxas_kernels(log: str) -> list:
+    """[mangled name, spill store bytes, registers] of each kernel in an nvcc
+    -Xptxas -v log, and of each device function compiled on its own (not
+    inlined: its registers count in its callers', so 0 here)."""
+    kernels, entry, props = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and props:
+            stores = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            kernels.append([props, stores, 0])
+        elif "Used" in line and "registers" in line and kernels and kernels[-1][0] == entry:
+            kernels[-1][2] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return kernels
+
+
+def bwd_registers(kernels: list, strict: bool = True) -> list:
+    """"name<args> registers" of each backward kernel that must not spill (K1's
+    bf16 ones and every instance of K2's two), failing on any that spills
+    (strict) or naming its spill stores."""
+    out = []
+    for kernel, stores, r in kernels:
+        k1 = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
+        k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|fold)I(f|13__nv_bfloat16)"
+                       r"Li(\d+)E(Lb([01])E)?", kernel)
+        if k1:
+            name = f"{k1.group(1)}<{k1.group(2)}>"
+        elif k2:
+            add = {"0": ", plain", "1": ", add"}.get(k2.group(5), "")
+            dtype = "f32" if k2.group(2) == "f" else "bf16"
+            name = f"{k2.group(1)}<{dtype}, {k2.group(3)}{add}>"
+        else:
+            continue
+        check(stores == 0 or not strict, f"{name} spills {stores} bytes")
+        if r or stores:      # a function's registers are its callers'
+            out.append(f"{name} {r}" + (f" (spills {stores} bytes)" if stores else ""))
+    return out
+
+
 def phase_build() -> None:
     """Build every source; print each one's kernels, their registers, and every
     kernel that spills, by name (from nvcc's -Xptxas -v log). K1's bf16 backward
-    kernels must not spill."""
+    kernels and every K2 backward kernel must not spill."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -306,30 +383,16 @@ def phase_build() -> None:
     print(f"build: {names} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log = path.with_suffix(".log")
-        kernels, current = [], None         # [mangled name, spill stores, registers]
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "Compiling entry function" in line:
-                current = line.split("'")[1]
-            elif "spill stores" in line and current:
-                kernels.append([current, int(re.search(r"(\d+) bytes spill stores",
-                                                        line).group(1)), 0])
-            elif "registers" in line and kernels:
-                kernels[-1][2] = int(re.search(r"Used (\d+) registers", line).group(1))
-        regs = [k[2] for k in kernels] or [0]
+        kernels = ptxas_kernels(log.read_text() if log.exists() else "")
+        regs = [k[2] for k in kernels if k[2]] or [0]     # kernels (functions have 0)
         spills = [k for k in kernels if k[1]]
-        print(f"  ptxas {name}: {len(kernels)} kernels, {min(regs)}-{max(regs)} registers, "
+        print(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"{len(spills)} spilling")
         for kernel, stores, r in spills:
             print(f"    spills {stores} bytes at {r} registers: {kernel}")
-        # K1's bf16 backward kernels at each head dim: registers, and no spill stores
-        k1_bwd = []
-        for kernel, stores, r in kernels:
-            found = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
-            if found:
-                check(stores == 0, f"{found.group(1)}<{found.group(2)}> spills {stores} bytes")
-                k1_bwd.append(f"{found.group(1)}<{found.group(2)}> {r}")
-        if k1_bwd:
-            print(f"    K1's bf16 backward, registers (no spill stores): {', '.join(k1_bwd)}")
+        bwd = bwd_registers(kernels)
+        if bwd:
+            print(f"    backward kernels, registers (no spill stores): {', '.join(bwd)}")
 
 
 def phase_flash(gen) -> dict:
@@ -653,11 +716,12 @@ def phase_serve(card: str, path: dict) -> dict:
     return launches
 
 
-def profile_breakdown(tag: str, fn, top: int = 6, groups=None) -> dict:
+def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = False) -> dict:
     """Device-busy share of one call and its kernels by device time, from
     torch.profiler (the wall time here includes the profiler's own cost), and
     the device time and launches of each group of kernel names (default: K2's
-    forward kernels). Returns {group: (ms, launches)}."""
+    forward kernels); ``every``: also each kernel name's launches, by name.
+    Returns {group: (ms, launches)}."""
     groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -674,6 +738,10 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None) -> dict:
           f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5} {e.key[:90]}")
+    if every:
+        print(f"  every kernel by name ({len(kernels)} names):")
+        for e in sorted(kernels, key=lambda e: e.key):
+            print(f"    x{e.count:<5} {e.self_device_time_total / 1e3:8.3f} ms  {e.key[:100]}")
     out = {}
     for label, names in groups.items():
         mine = [e for e in kernels if any(n in e.key for n in names)]
@@ -764,27 +832,23 @@ def phase_backward(gen) -> list:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
     def norm_case(shape, dtype):
-        return (randn(shape, dtype, gen), randn(shape[-1:], dtype, gen),
-                randn(shape, dtype, gen), randn(shape, dtype, gen))
+        return norm_bwd_case(gen, shape, dtype)
 
     def qk_case(B, S, H, K, hd, dtype):
-        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
-        return (randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen),
-                randn((hd,), dtype, gen), randn((hd,), dtype, gen), pos, QWEN3_THETA,
-                randn((B, S, H, hd), dtype, gen), randn((B, S, K, hd), dtype, gen))
+        return qk_bwd_case(gen, B, S, H, K, hd, dtype)
 
     # entry -> (kernel, plain, make inputs, sweep, main shape, bytes, f32 flops, library)
     entries = {
         "rmsnorm_bwd": (
             lambda x, sc, dy, ds: RN.rmsnorm_bwd_cuda(x, sc, dy),
             lambda x, sc, dy, ds: RN.rmsnorm_bwd_plain(x, sc, dy), norm_case,
-            RMS_SWEEP + [(4, 2048, 1024)], (4, 2048, 1024),
+            NORM_BWD_SWEEP, (4, 2048, 1024),
             lambda x, sc, dy, ds: (3 * x.numel() + 2 * sc.numel()) * x.element_size(),
             lambda x, sc, dy, ds: 12 * x.numel(), "rms_norm"),
         "add_rmsnorm_bwd": (
             lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_cuda(x, sc, ds, dy),
             lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_plain(x, sc, ds, dy), norm_case,
-            RMS_SWEEP + [(4, 2048, 1024)], (4, 2048, 1024),
+            NORM_BWD_SWEEP, (4, 2048, 1024),
             lambda x, sc, dy, ds: (4 * x.numel() + 2 * sc.numel()) * x.element_size(),
             lambda x, sc, dy, ds: 13 * x.numel(), None),
         "qk_norm_rope_bwd": (
@@ -795,13 +859,6 @@ def phase_backward(gen) -> list:
             + pos.numel() * 4 + qs.numel() // 2 * 4,
             lambda q, k, qs, ks, pos, th, dq, dk: 16 * (q.numel() + k.numel()), None),
     }
-    def exact(args):
-        """f32 inputs widened to f64: the plain twin then gives the exact value.
-        dscale sums up to 131,072 rows, and two f32 sums of them in different
-        orders differ by more than 1e-5 near zero, so f32 outputs are held at
-        K2's 1e-5 against the exact value, not against another f32 sum."""
-        return [a.double() if torch.is_tensor(a) and a.dtype == f32 else a for a in args]
-
     for name, (kernel, plain, make, sweep, main_shape, nbytes, flops, lib) in entries.items():
         worst = 0.0
         for shape in sweep:
@@ -990,10 +1047,11 @@ def phase_train(card: str) -> dict:
           f"training tokens/s [{card}]; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     groups = profile_breakdown(f"{TRAIN['arch']} train step, {tokens} tokens",
-                               trainer.step_once, top=10,
+                               trainer.step_once, top=10, every=True,
                                groups={"K1 forward": ("flash_fwd",), "K1 backward": K1_BWD_NAMES,
                                        "K2 forward": K2_KERNEL_NAMES,
                                        "K2 backward": K2_BWD_NAMES,
+                                       "a separate dscale launch": ("colsum_kernel",),
                                        **{name: (name,) for name in K1_BWD_NAMES}})
     for label in ("K1 backward", "K2 backward"):
         check(label in groups, f"train step profile: no {label} kernels")
@@ -1001,6 +1059,11 @@ def phase_train(card: str) -> dict:
     for name in K1_BWD_NAMES:       # the bf16 design's kernels, once a layer
         n = groups.get(name, (0.0, 0))[1]
         check(n == layers, f"train step profile: {name} launched {n} times, want {layers}")
+    n = groups["K2 backward"][1]
+    want = sum(TRAIN_PER_STEP[name] for name in K2_BWD_ENTRIES)
+    check(n == want, f"train step profile: {n} K2 backward kernels, want one a call ({want})")
+    check("a separate dscale launch" not in groups, "train step profile: K2's backward "
+          "launched a separate dscale reduction")
     first_loss = losses[0]
     del trainer, cache
     gc.collect()
@@ -1016,25 +1079,30 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-def phase_k1_bwd_against(parent: Path, card: str) -> None:
-    """K1's backward of this checkout against the one of another checkout
-    (``parent``: its root, e.g. the parent commit unpacked by ``git archive``), in
-    one process on this card. The other source is built with the same nvcc flags
-    into a library of its own and called through the same C entry point. Over the
-    check sweep, f32 results must be bit-equal (one f32 design in both) and both
-    bf16 results must hold the plain version's gate; then the bf16 backward of
-    each is timed in turns (other, this, this, other) at FLASH_BWD_TIMED's shapes."""
+def build_other(checkout: Path, name: str):
+    """csrc/<name>.cu of another checkout (its root, e.g. the parent commit
+    unpacked by ``git archive``), built with this checkout's nvcc flags into a
+    library of its own; returns (the loaded library, its ptxas kernels)."""
     from repro_torch.kernels import _build
+    src = checkout.resolve() / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    lib = _build.BUILD_DIR / f"other-{name}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                         check=True, capture_output=True, text=True, timeout=600)
+    print(f"built {src}")
+    return ctypes.CDLL(str(lib)), ptxas_kernels(out.stdout + out.stderr)
+
+
+def phase_k1_bwd_against(parent: Path, card: str) -> None:
+    """K1's backward of this checkout against the one of another checkout, in one
+    process on this card, through the same C entry point. Over the check sweep,
+    f32 results must be bit-equal (one f32 design in both) and both bf16 results
+    must hold the plain version's gate; then the bf16 backward of each is timed
+    in turns (other, this, this, other) at FLASH_BWD_TIMED's shapes."""
     from repro_torch.kernels import flash_attention as FA
     f32, bf16 = torch.float32, torch.bfloat16
-    src = parent.resolve() / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
-    lib = _build.BUILD_DIR / "other-flash_attention.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                   check=True, capture_output=True, timeout=600)
-    other_fn = ctypes.CDLL(str(lib)).flash_attention_bwd
+    other_fn = build_other(parent, "flash_attention")[0].flash_attention_bwd
     other_fn.argtypes, other_fn.restype = FA._bwd_fn().argtypes, ctypes.c_int
-    print(f"k1-bwd-against: built {src}")
 
     def other(q, k, v, o, lse, do, causal=True, window=0):
         B, Sq, H, D = q.shape
@@ -1084,10 +1152,108 @@ def phase_k1_bwd_against(parent: Path, card: str) -> None:
               f"[{card}]")
 
 
+def phase_k2_bwd_against(parent: Path, card: str) -> None:
+    """K2's three backward entry points of this checkout against those of another
+    checkout, in one process on this card, through the same C entry points (the
+    other called as its own wrapper calls it: the two-launch design takes 4
+    partial rows an SM and sums them in a second launch). Over the check sweeps,
+    f32 dx (dq, dk) must be bit-equal between the two, and every output of both
+    must hold the plain version's gate (f32 against the plain version in f64);
+    then each bf16 entry is timed at the training shapes in turns (other, this,
+    this, other) and profiled once a design, kernel by kernel."""
+    from repro_torch.kernels import rmsnorm as RN
+    f32, bf16 = torch.float32, torch.bfloat16
+    lib, kernels = build_other(parent, "rmsnorm")
+    print("k2-bwd-against: the other checkout's K2 backward kernels, registers: "
+          + ", ".join(bwd_registers(kernels, strict=False)))
+    fns = {}
+    for name in K2_BWD_ENTRIES:
+        fns[name] = getattr(lib, name)
+        fns[name].argtypes, fns[name].restype = getattr(RN._lib(), name).argtypes, ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+
+    def call(name, *args):
+        err = fns[name](*args, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the other checkout's {name}: cudaError {err}")
+
+    def other_norm(x, sc, dy, ds):
+        D = x.shape[-1]
+        dx, dscale = torch.empty_like(x), torch.empty_like(sc)
+        partial = torch.empty((blocks, D), dtype=torch.float64, device=x.device)
+        tail = (blocks, x.numel() // D, D, 1e-6, RN._DTYPE_CODE[x.dtype], x.device.index)
+        if ds is None:
+            call("rmsnorm_bwd", x.data_ptr(), sc.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 dscale.data_ptr(), partial.data_ptr(), *tail)
+        else:
+            call("add_rmsnorm_bwd", x.data_ptr(), sc.data_ptr(), ds.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), dscale.data_ptr(), partial.data_ptr(), *tail)
+        return dx, dscale
+
+    def other_qk(q, k, qs, ks, pos, theta, dq_out, dk_out):
+        B, S, H, hd = q.shape
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(qs),
+                torch.empty_like(ks))
+        partial = torch.empty((2 * blocks, hd), dtype=torch.float64, device=q.device)
+        freqs = RN._inv_freq(q.device, hd, float(theta))
+        call("qk_norm_rope_bwd", *(t.data_ptr() for t in (q, k, qs, ks, dq_out, dk_out, pos)),
+             pos.stride(0), pos.stride(1), freqs.data_ptr(), *(t.data_ptr() for t in outs),
+             partial.data_ptr(), blocks, B, S, H, k.shape[2], hd, 1e-6,
+             RN._DTYPE_CODE[q.dtype], q.device.index)
+        return outs
+
+    # entry -> (this, other, plain, make inputs, sweep, dx outputs)
+    entries = {
+        "rmsnorm_bwd": (lambda x, sc, dy, ds: RN.rmsnorm_bwd_cuda(x, sc, dy),
+                        lambda x, sc, dy, ds: other_norm(x, sc, dy, None),
+                        lambda x, sc, dy, ds: RN.rmsnorm_bwd_plain(x, sc, dy),
+                        norm_bwd_case, NORM_BWD_SWEEP, 1),
+        "add_rmsnorm_bwd": (lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_cuda(x, sc, ds, dy),
+                            other_norm,
+                            lambda x, sc, dy, ds: RN.add_rmsnorm_bwd_plain(x, sc, ds, dy),
+                            norm_bwd_case, NORM_BWD_SWEEP, 1),
+        "qk_norm_rope_bwd": (RN.qk_norm_rope_bwd_cuda, other_qk, RN.qk_norm_rope_bwd_plain,
+                             qk_bwd_case, QK_BWD_SWEEP, 2),
+    }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    timed = {"rmsnorm_bwd": (4, 2048, 1024), "add_rmsnorm_bwd": (4, 2048, 1024),
+             "qk_norm_rope_bwd": (4, 2048, 16, 8, 128)}
+    for name, (this, other, plain, make, sweep, n_dx) in entries.items():
+        for shape in sweep:
+            for dtype in (f32, bf16):
+                tag = f"k2-bwd-against {name} {shape} {dtype}"
+                args = make(gen, *shape, dtype) if name == "qk_norm_rope_bwd" else \
+                    make(gen, shape, dtype)
+                mine, theirs = this(*args), other(*args)
+                want = plain(*(exact(args) if dtype == f32 else args))
+                if dtype == f32:
+                    check(all(torch.equal(a, b) for a, b in zip(mine[:n_dx], theirs[:n_dx])),
+                          f"{tag}: f32 dx differs between the checkouts")
+                for who, got in (("this", mine), ("other", theirs)):
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        check(close(g, w, RMS_TOL[dtype]), f"{tag} {who} output {i}: max err "
+                              f"{max_err(g, w)}")
+        print(f"k2-bwd-against {name}: {len(sweep)} shapes: f32 dx bit-equal across the two "
+              "checkouts; every output of both within the plain version's gate")
+        shape = timed[name]
+        args = make(gen, *shape, bf16) if name == "qk_norm_rope_bwd" else make(gen, shape, bf16)
+        t = [time_ms(lambda: other(*args)), time_ms(lambda: this(*args)),
+             time_ms(lambda: this(*args)), time_ms(lambda: other(*args))]
+        print(f"k2-bwd-against {name} {shape} bf16, in turns: other {t[0]:.4f} ms, this "
+              f"{t[1]:.4f} ms, this {t[2]:.4f} ms, other {t[3]:.4f} ms [{card}]")
+        profile_breakdown(f"k2-bwd-against {name} {shape} bf16, other", lambda: other(*args),
+                          top=3)
+        profile_breakdown(f"k2-bwd-against {name} {shape} bf16, this", lambda: this(*args),
+                          top=3)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-bwd-against", type=Path, metavar="CHECKOUT",
                     help="only build the kernels and compare K1's backward with the one "
+                         "of another checkout (its root directory), in turns on this card")
+    ap.add_argument("--k2-bwd-against", type=Path, metavar="CHECKOUT",
+                    help="only build the kernels and compare K2's backward with the one "
                          "of another checkout (its root directory), in turns on this card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1098,8 +1264,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card()
     phase_build()
-    if args.k1_bwd_against is not None:
-        phase_k1_bwd_against(args.k1_bwd_against, card)
+    if args.k1_bwd_against is not None or args.k2_bwd_against is not None:
+        if args.k1_bwd_against is not None:
+            phase_k1_bwd_against(args.k1_bwd_against, card)
+        if args.k2_bwd_against is not None:
+            phase_k2_bwd_against(args.k2_bwd_against, card)
         print(card)
         return 0
     gen = torch.Generator(device="cuda")

@@ -385,24 +385,75 @@ qk_norm_rope_kernel(QkArgs<T> a) {
 //                     rotated back by -theta (RoPE's transpose, f32) and rounded
 //                     to T (the grad of apply_rope's cast), then the norm's
 //                     backward over head_dim with q_norm / k_norm.
+// Each entry point is one launch, dw included.
+//
 // dw is a sum over every row (131,072 of them for qwen3's q-norm at 4 x 2048
-// tokens), where f32 loses ~1e-5 of the sum's scale. So its path runs in f64: the
-// row's sum of squares, rstd, each dy x rstd term and every partial sum (dx keeps
-// f32, as the forward). It is deterministic: each block sums its rows into one
-// f64 partial row (its lane groups added in a fixed order through shared memory),
-// then colsum_kernel, one small launch, sums the partial rows in block order. No
-// atomics, so two runs give the same bits. What bounds it: bytes, as the forward
-// (x, dy and dx, plus ds for the add; the partial rows are ~4 MB at qwen3's
-// widths), and the f64 work is a few operations an element.
+// tokens). For f32 inputs, held at 1e-5 against the exact sum, f32 is not enough
+// there: each f32 term carries ~7e-8 of its size in rounding, which adds up to
+// ~2.5e-5 over 131,072 rows, in the products as much as in the adds. So their row
+// math is f64 wherever dw reads it: the row's sum of squares, rstd, each dy x rstd
+// term and every partial sum (dx keeps f32, as the forward; its bits are those of
+// the earlier two-launch design). For bf16 the same f32 error is ~1e-4 of the
+// bf16 rounding of dw and of its 2e-2 gate, while the f32 -> f64 conversions (two
+// an element, at 16 an SM a clock) and f64 shared-memory traffic were the costliest
+// steps of the pass; so bf16 takes the row's sum of squares, rstd (rsqrtf, as the
+// forward) and each slot's terms in f32, and f64 from the block's sum on.
+// Where the sums live and in what order they are taken (no atomics on values, so
+// two runs give the same bits):
+//   1. Each row slot of a block (a lane group; the whole block for a wide row) has
+//      its own accumulator row in shared memory (f64; f32 for bf16), laid out
+//      [element k][vector i] so that neighbouring lanes hit neighbouring banks. A
+//      thread adds its own columns only, row by row: no registers held for it
+//      across the loop, which is what bounds the occupancy of this pass, and no
+//      barrier per row.
+//   2. After its last row a block adds its slots in slot order into one f64 row
+//      of the scratch (`Fold::partial`), in that layout.
+//   3. The blocks fold those rows in one launch, wait-free: each block takes a
+//      ticket of its group (ceil(sqrt(blocks)) blocks a group); the group's last
+//      block sums the group's rows in block order into a group row, then takes a
+//      ticket of the groups; the last group's block sums the group rows in group
+//      order and writes dw, rounded to T. So two ~sqrt(blocks)-row reads end the
+//      launch (12 and 11 rows at qwen3's 132 blocks), the first spread over the
+//      groups' last blocks, and no block ever waits for another. (A last block
+//      that spun until every block was done could spread the final sum wider,
+//      but it is only safe while every block still to come can be scheduled,
+//      which no launch can promise when another stream's kernel shares the card.
+//      Thread block clusters would cut the rows by their size, but not the need
+//      for a ticket across clusters.) A counter's last user sets it back to 0, so
+//      the next launch on the stream finds them all at 0 without a memset launch;
+//      the scratch is one stream's (the wrapper keeps one a stream).
+// The grid is as many blocks as are resident at once (cudaOccupancy from the
+// registers and shared memory of the compiled kernel), capped by the scratch.
+// What bounds it: bytes (x, dy and dx, plus ds for the add), 15-45 us at qwen3's
+// training shapes. Choices the card decided (H100, variants in turns): the fold
+// is a few us a launch, most of it the two row reads (one SM each), and one level
+// over every block's row cost several times more; fewer blocks mean fewer rows
+// to fold, so the row pass takes 512-thread blocks, one an SM, where two smaller
+// blocks an SM or loading the next row ahead did not move the pass itself. f32
+// rather than f64 row work for bf16 sped qk_norm_rope_bwd up and left the plain
+// rows as they were.
 
-__device__ __forceinline__ double group_sum_d(double v, int width) {
+__device__ __forceinline__ double group_sum(double v, int width) {
   for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-// the block's sums of a (f64) and b (f32); every thread gets both
-__device__ __forceinline__ void block_sum2(double& a, float& b, double* pa, float* pb) {
-  a = group_sum_d(a, 32);
+// the type of a row's sum of squares, rstd and dw's terms: f64 for f32 inputs,
+// f32 for bf16 (see above)
+template <typename T> struct AccOf { using type = double; };
+template <> struct AccOf<__nv_bfloat16> { using type = float; };
+
+__device__ __forceinline__ double rstd_of(double ss, float inv_d, float eps) {
+  return 1.0 / sqrt(ss * inv_d + eps);
+}
+__device__ __forceinline__ float rstd_of(float ss, float inv_d, float eps) {   // the forward's
+  return rsqrtf(__fadd_rn(__fmul_rn(ss, inv_d), eps));
+}
+
+// the block's sums of a and b (f32); every thread gets both
+template <typename A>
+__device__ __forceinline__ void block_sum2(A& a, float& b, A* pa, float* pb) {
+  a = group_sum(a, 32);
   b = group_sum(b, 32);
   const int warps = blockDim.x >> 5;
   if ((threadIdx.x & 31) == 0) {
@@ -410,7 +461,7 @@ __device__ __forceinline__ void block_sum2(double& a, float& b, double* pa, floa
     pb[threadIdx.x >> 5] = b;
   }
   __syncthreads();
-  double ta = 0.0;
+  A ta = 0;
   float tb = 0.f;
   for (int w = 0; w < warps; ++w) {
     ta += pa[w];
@@ -427,87 +478,153 @@ __device__ __forceinline__ void store1(T* p, int i, float v) {
   else p[i] = __float2bfloat16_rn(v);
 }
 
-// a block's lane groups add their f64 partials `acc` (vectors v * tpr + lane of a
-// row of nvec vectors) into red[0 .. nvec*VEC) in group order; then the block
-// writes red to its partial row `out`
-template <int NV, int VEC>
-__device__ __forceinline__ void block_partial(const double (&acc)[NV][VEC], double* red,
-                                              double* out, int nvec, int tpr, int lane,
-                                              int sub, int rpb) {
-  for (int g = 0; g < rpb; ++g) {
-    if (sub == g) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const int i = v * tpr + lane;
-        if (i < nvec)
-#pragma unroll
-          for (int k = 0; k < VEC; ++k)
-            red[i * VEC + k] = (g ? red[i * VEC + k] : 0.0) + acc[v][k];
-      }
-    }
-    __syncthreads();
-  }
-  for (int c = threadIdx.x; c < nvec * VEC; c += blockDim.x) out[c] = red[c];
+constexpr int FOLD_COUNTERS = 256;   // tickets at the head of the scratch (1 KB)
+
+// blocks in a group of the fold: ceil(sqrt(blocks))
+__host__ __device__ inline int fold_group(int blocks) {
+  int m = 1;
+  while (m * m < blocks) ++m;
+  return m;
 }
 
-struct Cols {              // one reduction job: out[c] = sum over blocks of partial[b][c]
-  const double* partial;
-  int blocks;
-  void* out;
+// One stream's scratch for the fold: [FOLD_COUNTERS tickets][blocks rows][groups
+// rows] of W doubles. The tickets are 0 between launches.
+struct Fold {
+  unsigned* count;
+  double* partial;
+  double* group;
 };
 
-template <typename T>
-__global__ void colsum_kernel(Cols a, Cols b, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool second = blockIdx.y != 0;
-  const double* partial = second ? b.partial : a.partial;
-  const int blocks = second ? b.blocks : a.blocks;
-  T* out = static_cast<T*>(second ? b.out : a.out);
-  if (col >= D) return;
-  double s = 0.0;
-  for (int i = 0; i < blocks; ++i) s += partial[(long long)i * D + col];
-  store1(out, col, (float)s);
+Fold fold_at(double* scratch, int blocks, int W) {
+  Fold f;
+  f.count = reinterpret_cast<unsigned*>(scratch);
+  f.partial = scratch + FOLD_COUNTERS / 2;
+  f.group = f.partial + (long long)blocks * W;
+  return f;
 }
 
-// Rows as rows_kernel assigns them. ADD: dx = T(ds + T(dx_norm)).
+// Sums rows [r0, r1) (row stride W) in row order for each of the block's columns
+// and hands each sum to out(column, sum). A thread keeps 8 rows x 2 columns of
+// loads in flight (the rows were written by other SMs: read from L2).
+template <class Out>
+__device__ __forceinline__ void sum_rows(const double* rows, int r0, int r1, int W, Out out) {
+  constexpr int R = 8, C = 2;
+  for (int e0 = threadIdx.x; e0 < W; e0 += C * blockDim.x) {
+    double s[C] = {};
+    for (int b = r0; b < r1; b += R) {
+      double v[R][C];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int e = e0 + c * blockDim.x;
+          v[r][c] = b + r < r1 && e < W ? __ldcg(rows + (long long)(b + r) * W + e) : 0.0;
+        }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[c] += v[r][c];
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (e0 + c * blockDim.x < W) out(e0 + c * blockDim.x, s[c]);
+  }
+}
+
+// Takes a ticket of counter `count` for the block once every thread's writes are
+// done; returns it to every thread. The fence after the barrier covers the whole
+// block's writes (a release fence is cumulative), and a block that goes on to
+// read the others' rows has, by its ticket, seen every earlier ticket's writes.
+__device__ __forceinline__ unsigned block_ticket(unsigned* count) {
+  __shared__ unsigned ticket;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    ticket = atomicAdd(count, 1u);
+    __threadfence();
+  }
+  __syncthreads();
+  return ticket;
+}
+
+// Run by every thread of every block once the block's row f.partial[blockIdx.x]
+// is written. Element e of a row (of W) goes to output e / W1 (out0 or out1),
+// column (r % nvec) * VEC + r / nvec of it, r = e % W1: the [k][i] layout undone.
+// Not inlined: its loads in flight would otherwise count in the registers of the
+// whole row pass (117 against 80 for qk_norm_rope_bwd's, and a block an SM less).
+template <typename T, int VEC>
+__device__ __noinline__ void fold(const Fold& f, int W, int W1, int nvec, T* out0, T* out1) {
+  const int blocks = gridDim.x, m = fold_group(blocks), g = blockIdx.x / m;
+  const int groups = (blocks + m - 1) / m, first = g * m;
+  const int size = blocks - first < m ? blocks - first : m;
+  if (block_ticket(&f.count[g]) != (unsigned)size - 1) return;
+  double* grow = f.group + (long long)g * W;
+  sum_rows(f.partial, first, first + size, W, [&](int e, double s) { grow[e] = s; });
+  if (threadIdx.x == 0) f.count[g] = 0;   // every block of the group has its ticket
+  if (block_ticket(&f.count[groups]) != (unsigned)groups - 1) return;
+  sum_rows(f.group, 0, groups, W, [&](int e, double s) {
+    const int r = e % W1;
+    store1(e < W1 ? out0 : out1, (r % nvec) * VEC + r / nvec, (float)s);
+  });
+  if (threadIdx.x == 0) f.count[groups] = 0;
+}
+
+template <typename T>
+struct RowsBwd {
+  const T* x;
+  const T* dy;
+  const T* ds;             // ADD only
+  const T* scale;
+  T* dx;
+  T* dscale;
+  long long rows;
+  int nvec, tpr;
+  float inv_d, eps;
+};
+
+constexpr int BWD_THREADS = 512;   // largest block of the backward row pass
+
+// Rows as rows_kernel assigns them, up to BWD_THREADS threads a block (a block
+// an SM: the fewer blocks, the fewer rows the fold reads at the end, and a second
+// block an SM did not move the row pass). ADD: dx = T(ds + T(dx_norm)).
 template <typename T, int NV, bool ADD>
-__global__ void __launch_bounds__(MAX_THREADS)
-rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ ds,
-                const T* __restrict__ scale, T* __restrict__ dx, double* __restrict__ partial,
-                long long rows, int nvec, int tpr, float inv_d, float eps) {
+__global__ void __launch_bounds__(NV < 8 ? BWD_THREADS : MAX_THREADS, 1)
+rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
   constexpr int VEC = Vec<T>::N;
-  __shared__ double sums_d[32];
+  using Acc = typename AccOf<T>::type;
+  extern __shared__ __align__(8) unsigned char smem[];
+  Acc* acc = reinterpret_cast<Acc*>(smem);   // [rows a block][VEC][nvec]: each slot's dw
+  __shared__ Acc sums_a[32];
   __shared__ float sums_f[32];
-  __shared__ double red[MAX_GROUP_VECS * 8];
+  const int nvec = a.nvec, tpr = a.tpr, D = nvec * VEC;
   const bool wide = tpr > 32;
   const int rpb = wide ? 1 : blockDim.x / tpr;
   const int lane = wide ? threadIdx.x : (threadIdx.x & (tpr - 1));
   const int sub = wide ? 0 : threadIdx.x / tpr;
+  Acc* mine = acc + sub * D;
 
-  uint4 sc[NV];
-  double dw[NV][VEC];
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const int i = v * tpr + lane;
-    if (i < nvec) sc[v] = ld16(scale, i);
+    if (i < nvec)
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) dw[v][k] = 0.0;
+      for (int k = 0; k < VEC; ++k) mine[k * nvec + i] = 0;
   }
-  for (long long r0 = (long long)blockIdx.x * rpb; r0 < rows;
+  for (long long r0 = (long long)blockIdx.x * rpb; r0 < a.rows;
        r0 += (long long)gridDim.x * rpb) {
     const long long row = r0 + sub;
-    const bool live = row < rows;
+    const bool live = row < a.rows;
     uint4 rx[NV], rg[NV], rs[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const int i = v * tpr + lane;
       if (live && i < nvec) {
-        rx[v] = ld16(x, row * nvec + i);
-        rg[v] = ld16(dy, row * nvec + i);
-        if constexpr (ADD) rs[v] = ld16(ds, row * nvec + i);
+        rx[v] = ld16(a.x, row * nvec + i);
+        rg[v] = ld16(a.dy, row * nvec + i);
+        if constexpr (ADD) rs[v] = ld16(a.ds, row * nvec + i);
       }
     }
-    double ss = 0.0;
+    Acc ss = 0;
     float sg = 0.f;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
@@ -516,23 +633,23 @@ rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __re
         float xf[VEC], gf[VEC], w[VEC];
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
-        widen<T>(sc[v], w);
+        widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          ss += (double)xf[k] * xf[k];
+          ss += (Acc)xf[k] * xf[k];
           sg += gf[k] * w[k] * xf[k];
         }
       }
     }
     if (wide) {
-      block_sum2(ss, sg, sums_d, sums_f);
+      block_sum2(ss, sg, sums_a, sums_f);
     } else {
-      ss = group_sum_d(ss, tpr);
+      ss = group_sum(ss, tpr);
       sg = group_sum(sg, tpr);
     }
-    const double rstd_d = 1.0 / sqrt(ss * inv_d + eps);
-    const float rstd = (float)rstd_d;
-    const float coef = rstd * rstd * rstd * sg * inv_d;
+    const Acc rstd_a = rstd_of(ss, a.inv_d, a.eps);
+    const float rstd = (float)rstd_a;
+    const float coef = rstd * rstd * rstd * sg * a.inv_d;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const int i = v * tpr + lane;
@@ -540,11 +657,11 @@ rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __re
         float xf[VEC], gf[VEC], w[VEC], o[VEC];
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
-        widen<T>(sc[v], w);
+        widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           o[k] = rstd * gf[k] * w[k] - xf[k] * coef;
-          dw[v][k] += (double)gf[k] * xf[k] * rstd_d;
+          mine[k * nvec + i] += (Acc)gf[k] * xf[k] * rstd_a;
         }
         if constexpr (ADD) {
           float sf[VEC];
@@ -552,160 +669,200 @@ rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __re
 #pragma unroll
           for (int k = 0; k < VEC; ++k) o[k] = __fadd_rn(sf[k], round_to<T>(o[k]));
         }
-        put16(dx, row * nvec + i, pack<T>(o));
+        put16(a.dx, row * nvec + i, pack<T>(o));
       }
     }
   }
-  double* prow = partial + (long long)blockIdx.x * nvec * VEC;
-  if (wide) {   // one row a block: every column belongs to one thread
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int i = v * tpr + lane;
-      if (i < nvec)
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) prow[i * VEC + k] = dw[v][k];
-    }
-    return;
+  __syncthreads();
+  double* part = fold_.partial + (long long)blockIdx.x * D;
+  for (int e = threadIdx.x; e < D; e += blockDim.x) {
+    double s = 0.0;
+    for (int j = 0; j < rpb; ++j) s += acc[j * D + e];
+    part[e] = s;
   }
-  block_partial<NV, VEC>(dw, red, prow, nvec, tpr, lane, sub, rpb);
+  fold<T, VEC>(fold_, D, D, nvec, a.dscale, a.dscale);
 }
 
 template <typename T>
 struct QkGrad {
   const T* dout[2];        // cotangents of the roped q, k
-  double* partial[2];      // [blocks, hd] partial rows of dq_scale, dk_scale
+  T* dscale[2];            // dq_scale, dk_scale
+  int tokens;              // B * S
+  int n_tok;               // tokens a block takes at a time
 };
 
-// The forward's assignment of rows (q's row groups, then k's, in one grid-stride
-// loop) and its table of each token's cos / sin; a.out[] receives dq and dk.
+constexpr int QK_TOKENS = 8;   // the most tokens a block takes at a time
+
+// Row j of a chunk of tokens: token j / (H + K), then its H q heads and K k heads.
+__device__ __forceinline__ void qk_locate(int j, int t0, int H, int K, int& tt, bool& is_k,
+                                          int& row) {
+  tt = j / (H + K);
+  const int h = j - tt * (H + K);
+  is_k = h >= H;
+  row = is_k ? (t0 + tt) * K + (h - H) : (t0 + tt) * H + h;
+}
+
+// A block takes n_tok tokens at a time with all their q and k heads, so one
+// cos / sin table serves a token's every head and two barriers serve n_tok
+// tokens. Its row slots (lane groups of tpr) walk the chunk's rows, loading the
+// next row before working on this one. The row math is the forward's assignment
+// of a row to a lane group; a.out[] receives dq and dk.
 template <typename T, int NV>
-__global__ void __launch_bounds__(MAX_THREADS)
-qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr) {
+__global__ void __launch_bounds__(MAX_THREADS, NV == 1 ? 3 : 2)
+qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr, Fold fold_) {
   constexpr int VEC = Vec<T>::N;
-  constexpr int TABLE = MAX_THREADS * NV * VEC / 2;
+  constexpr int TABLE = QK_TOKENS * 32 * NV * VEC / 2;   // n_tok x hd / 2, at most
+  using Acc = typename AccOf<T>::type;
   __shared__ float tab_c[TABLE], tab_s[TABLE];
-  __shared__ double red[64 * 8];
-  const int tpr = a.tpr, nvec = a.nvec, half = nvec >> 1, hh = half * VEC;
-  const int rpb = blockDim.x / tpr;
+  extern __shared__ __align__(8) unsigned char smem[];
+  Acc* acc = reinterpret_cast<Acc*>(smem);   // [q, k][slot][VEC][nvec]: each slot's dw
+  const int tpr = a.tpr, nvec = a.nvec, half = nvec >> 1, hh = half * VEC, hd = nvec * VEC;
+  const int slots = blockDim.x / tpr;
   const int lane = threadIdx.x & (tpr - 1);
-  const int sub = threadIdx.x / tpr;
-  const int q_groups = (a.rows[0] + rpb - 1) / rpb;
-  const int groups = q_groups + (a.rows[1] + rpb - 1) / rpb;
+  const int slot = threadIdx.x / tpr;
+  const int H = a.heads[0], K = a.heads[1];
+  const int n_tok = gr.n_tok, chunks = (gr.tokens + n_tok - 1) / n_tok;
+  Acc* acc_q = acc + slot * hd;
+  Acc* acc_k = acc + (slots + slot) * hd;
 
   uint4 scq[NV], sck[NV];
-  double dwq[NV][VEC], dwk[NV][VEC];
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    scq[v] = ld16(a.scale[0], v * tpr + lane);
-    sck[v] = ld16(a.scale[1], v * tpr + lane);
+    const int i = v * tpr + lane;
+    scq[v] = ld16(a.scale[0], i);
+    sck[v] = ld16(a.scale[1], i);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) dwq[v][k] = dwk[v][k] = 0.0;
+    for (int k = 0; k < VEC; ++k) acc_q[k * nvec + i] = acc_k[k * nvec + i] = 0;
   }
 
-  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
-    const bool is_k = g >= q_groups;
-    const T* __restrict__ x = is_k ? a.x[1] : a.x[0];
-    const T* __restrict__ dout = is_k ? gr.dout[1] : gr.dout[0];
-    T* __restrict__ dx = is_k ? a.out[1] : a.out[0];
-    const int heads = is_k ? a.heads[1] : a.heads[0];
-    const int rows = is_k ? a.rows[1] : a.rows[0];
-    const int r0 = (is_k ? g - q_groups : g) * rpb;
-    const int row = r0 + sub;
-    const bool live = row < rows;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int t0 = c * n_tok;
+    const int nt = gr.tokens - t0 < n_tok ? gr.tokens - t0 : n_tok;
+    const int nrows = nt * (H + K), iters = (nrows + slots - 1) / slots;
     uint4 rx[NV], rd[NV];
+    int tt, row;
+    bool is_k;
+    qk_locate(slot, t0, H, K, tt, is_k, row);
+    if (slot < nrows) {
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (live) {
-        rx[v] = ld16(x, (long long)row * nvec + v * tpr + lane);
-        rd[v] = ld16(dout, (long long)row * nvec + v * tpr + lane);
+      for (int v = 0; v < NV; ++v) {
+        rx[v] = ld16(is_k ? a.x[1] : a.x[0], (long long)row * nvec + v * tpr + lane);
+        rd[v] = ld16(is_k ? gr.dout[1] : gr.dout[0], (long long)row * nvec + v * tpr + lane);
       }
     }
-    const int t0 = r0 / heads;
-    const int last = (r0 + rpb < rows ? r0 + rpb : rows) - 1;
-    const int n_ang = (last / heads - t0 + 1) * hh;
-    for (int e = threadIdx.x; e < n_ang; e += blockDim.x) {
+    // the angles of this chunk's tokens, while the first rows' loads are in flight
+    for (int e = threadIdx.x; e < nt * hh; e += blockDim.x) {
       const int t = t0 + e / hh;
       const float p = (float)a.pos[(t / a.S) * a.pos_sb + (t % a.S) * a.pos_ss];
       sincosf(__fmul_rn(p, a.inv_freq[e % hh]), &tab_s[e], &tab_c[e]);
     }
     __syncthreads();
-    float d[NV][VEC];
+    // every lane group runs every iteration (the shuffles take the full warp)
+    for (int m = 0; m < iters; ++m) {
+      const int j = slot + m * slots;
+      const bool live = j < nrows;
+      uint4 nx[NV], nd[NV];
+      int ntt, nrow;
+      bool nk;
+      qk_locate(j + slots, t0, H, K, ntt, nk, nrow);
+      if (j + slots < nrows) {
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (live) {
-        widen<T>(rd[v], d[v]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) d[v][k] = 0.f;
-      }
-    }
-    // RoPE's transpose: first half d1 cos + d2 sin, second half d2 cos - d1 sin
-    const int base = (row / heads - t0) * hh;
-    float du[NV][VEC];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int i = v * tpr + lane;
-      const bool first = i < half;
-      const int e0 = base + (i % half) * VEC;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        float partner;
-        if constexpr (NV == 1) partner = __shfl_xor_sync(FULL, d[0][k], tpr >> 1);
-        else partner = d[v ^ (NV >> 1)][k];
-        float cs = 0.f, sn = 0.f;
-        if (live) {
-          cs = tab_c[e0 + k];
-          sn = tab_s[e0 + k];
+        for (int v = 0; v < NV; ++v) {
+          nx[v] = ld16(nk ? a.x[1] : a.x[0], (long long)nrow * nvec + v * tpr + lane);
+          nd[v] = ld16(nk ? gr.dout[1] : gr.dout[0], (long long)nrow * nvec + v * tpr + lane);
         }
-        const float own_c = __fmul_rn(d[v][k], cs), other_s = __fmul_rn(partner, sn);
-        du[v][k] = round_to<T>(first ? __fadd_rn(own_c, other_s) : __fsub_rn(own_c, other_s));
       }
+      T* __restrict__ dx = is_k ? a.out[1] : a.out[0];
+      float d[NV][VEC];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (live) {
+          widen<T>(rd[v], d[v]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) d[v][k] = 0.f;
+        }
+      }
+      // RoPE's transpose: first half d1 cos + d2 sin, second half d2 cos - d1 sin
+      const int base = tt * hh;
+      float du[NV][VEC];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        const bool first = i < half;
+        const int e0 = base + (i % half) * VEC;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          float partner;
+          if constexpr (NV == 1) partner = __shfl_xor_sync(FULL, d[0][k], tpr >> 1);
+          else partner = d[v ^ (NV >> 1)][k];
+          float cs = 0.f, sn = 0.f;
+          if (live) {
+            cs = tab_c[e0 + k];
+            sn = tab_s[e0 + k];
+          }
+          const float own_c = __fmul_rn(d[v][k], cs), other_s = __fmul_rn(partner, sn);
+          du[v][k] = round_to<T>(first ? __fadd_rn(own_c, other_s) : __fsub_rn(own_c, other_s));
+        }
+      }
+      float xf[NV][VEC];
+      Acc ss = 0;
+      float sg = 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        float w[VEC];
+        widen<T>(is_k ? sck[v] : scq[v], w);
+        if (live) {
+          widen<T>(rx[v], xf[v]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) xf[v][k] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          ss += (Acc)xf[v][k] * xf[v][k];
+          sg += du[v][k] * w[k] * xf[v][k];
+        }
+      }
+      ss = group_sum(ss, tpr);
+      sg = group_sum(sg, tpr);
+      const Acc rstd_a = rstd_of(ss, a.inv_d, a.eps);
+      const float rstd = (float)rstd_a;
+      const float coef = rstd * rstd * rstd * sg * a.inv_d;
+      Acc* mine = is_k ? acc_k : acc_q;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        float w[VEC], o[VEC];
+        widen<T>(is_k ? sck[v] : scq[v], w);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          o[k] = rstd * du[v][k] * w[k] - xf[v][k] * coef;
+          if (live) mine[k * nvec + i] += (Acc)du[v][k] * xf[v][k] * rstd_a;
+        }
+        if (live) put16(dx, (long long)row * nvec + i, pack<T>(o));
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        rx[v] = nx[v];
+        rd[v] = nd[v];
+      }
+      tt = ntt;
+      is_k = nk;
+      row = nrow;
     }
-    float xf[NV][VEC];
-    double ss = 0.0;
-    float sg = 0.f;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      float w[VEC];
-      widen<T>(is_k ? sck[v] : scq[v], w);
-      if (live) {
-        widen<T>(rx[v], xf[v]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) xf[v][k] = 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        ss += (double)xf[v][k] * xf[v][k];
-        sg += du[v][k] * w[k] * xf[v][k];
-      }
-    }
-    ss = group_sum_d(ss, tpr);
-    sg = group_sum(sg, tpr);
-    const double rstd_d = 1.0 / sqrt(ss * a.inv_d + a.eps);
-    const float rstd = (float)rstd_d;
-    const float coef = rstd * rstd * rstd * sg * a.inv_d;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      float w[VEC], o[VEC];
-      widen<T>(is_k ? sck[v] : scq[v], w);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        o[k] = rstd * du[v][k] * w[k] - xf[v][k] * coef;
-        const double c = (double)du[v][k] * xf[v][k] * rstd_d;
-        if (is_k) dwk[v][k] += c;
-        else dwq[v][k] += c;
-      }
-      if (live) put16(dx, (long long)row * nvec + v * tpr + lane, pack<T>(o));
-    }
-    __syncthreads();   // the table is rewritten for the next rows
+    __syncthreads();   // the table is rewritten for the next chunk
   }
-  const int hd = nvec * VEC;
-  block_partial<NV, VEC>(dwq, red, gr.partial[0] + (long long)blockIdx.x * hd, nvec, tpr,
-                         lane, sub, rpb);
-  __syncthreads();   // red is reused for k
-  block_partial<NV, VEC>(dwk, red, gr.partial[1] + (long long)blockIdx.x * hd, nvec, tpr,
-                         lane, sub, rpb);
+  __syncthreads();
+  const int W = 2 * hd;
+  double* part = fold_.partial + (long long)blockIdx.x * W;
+  for (int e = threadIdx.x; e < W; e += blockDim.x) {
+    const int p = e < hd ? 0 : 1, r = e - p * hd;
+    double s = 0.0;
+    for (int j = 0; j < slots; ++j) s += acc[(p * slots + j) * hd + r];
+    part[e] = s;
+  }
+  fold<T, VEC>(fold_, W, hd, nvec, gr.dscale[0], gr.dscale[1]);
 }
 
 // ------------------------------------------------------------------ launching
@@ -734,13 +891,41 @@ struct DeviceScope {
   }
 };
 
-// Rows a block in the lane-group path: the most (up to MAX_THREADS threads) that
-// still leaves two blocks an SM, and never under one warp.
-int rows_per_block(long long rows, int tpr) {
-  int rpb = MAX_THREADS / tpr;
+// Rows a block in the lane-group path: the most (up to `threads`) that still
+// leaves two blocks an SM, and never under one warp.
+int rows_per_block(long long rows, int tpr, int threads = MAX_THREADS) {
+  int rpb = threads / tpr;
   const long long want = 2LL * sm_count();
   while (rpb * tpr > 32 && (rows + rpb - 1) / rpb < want) rpb >>= 1;
   return rpb;
+}
+
+// How rows_kernel and rows_bwd_kernel take a row of nvec vectors: up to
+// MAX_GROUP_VECS a lane group of tpr lanes (rows a block up to max_threads),
+// wider rows a block each; nv vectors a lane; groups = the blocks' row groups.
+struct RowShape {
+  int nvec, tpr, nv, threads;
+  long long groups;
+};
+
+bool row_shape(long long rows, int nvec, int max_threads, RowShape& r) {
+  r.nvec = nvec;
+  if (nvec <= MAX_GROUP_VECS) {
+    r.tpr = 8;
+    while (r.tpr < 32 && r.tpr < nvec) r.tpr <<= 1;
+    r.nv = (nvec + r.tpr - 1) / r.tpr;
+    if (r.nv == 3) r.nv = 4;
+    const int rpb = rows_per_block(rows, r.tpr, max_threads);
+    r.threads = rpb * r.tpr;
+    r.groups = (rows + rpb - 1) / rpb;
+  } else {
+    r.nv = 1;
+    while (r.nv < 8 && (nvec + r.nv - 1) / r.nv > MAX_THREADS) r.nv <<= 1;
+    r.tpr = ((nvec + r.nv - 1) / r.nv + 31) / 32 * 32;
+    r.threads = r.tpr;
+    r.groups = rows;
+  }
+  return r.tpr <= MAX_THREADS;
 }
 
 unsigned grid_for(long long groups, int threads) {
@@ -753,29 +938,13 @@ cudaError_t launch_rows(const Op& op, const void* scale, long long rows, int D,
                         float eps, cudaStream_t s) {
   constexpr int VEC = Vec<T>::N;
   if (rows <= 0 || D <= 0 || D % VEC) return cudaErrorInvalidValue;
-  const int nvec = D / VEC;
-  int tpr, nv, threads;
-  long long groups;
-  if (nvec <= MAX_GROUP_VECS) {
-    tpr = 8;
-    while (tpr < 32 && tpr < nvec) tpr <<= 1;
-    nv = (nvec + tpr - 1) / tpr;
-    if (nv == 3) nv = 4;
-    const int rpb = rows_per_block(rows, tpr);
-    threads = rpb * tpr;
-    groups = (rows + rpb - 1) / rpb;
-  } else {
-    nv = 1;
-    while (nv < 8 && (nvec + nv - 1) / nv > MAX_THREADS) nv <<= 1;
-    tpr = ((nvec + nv - 1) / nv + 31) / 32 * 32;
-    if (tpr > MAX_THREADS) return cudaErrorInvalidValue;
-    threads = tpr;
-    groups = rows;
-  }
-  const unsigned blocks = grid_for(groups, threads);
+  RowShape r;
+  if (!row_shape(rows, D / VEC, MAX_THREADS, r)) return cudaErrorInvalidValue;
+  const int nvec = r.nvec, tpr = r.tpr, threads = r.threads;
+  const unsigned blocks = grid_for(r.groups, threads);
   const T* sc = static_cast<const T*>(scale);
   const float inv_d = 1.0f / (float)D;
-  switch (nv) {
+  switch (r.nv) {
     case 1: rows_kernel<T, 1, Op><<<blocks, threads, 0, s>>>(op, sc, rows, nvec, tpr, inv_d, eps); break;
     case 2: rows_kernel<T, 2, Op><<<blocks, threads, 0, s>>>(op, sc, rows, nvec, tpr, inv_d, eps); break;
     case 4: rows_kernel<T, 4, Op><<<blocks, threads, 0, s>>>(op, sc, rows, nvec, tpr, inv_d, eps); break;
@@ -808,59 +977,85 @@ cudaError_t launch_qk(QkArgs<T> a, int hd, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the backward's grid: the forward's, capped at the caller's partial rows
+// Blocks of `kernel` resident on one SM at `threads` and `smem` bytes of dynamic
+// shared memory: what the compiled kernel's registers and shared memory allow.
+template <typename K>
+cudaError_t blocks_per_sm(K kernel, int threads, size_t smem, int* n) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && (size_t)attr.maxDynamicSharedSizeBytes < smem)   // only raised
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, threads, smem);
+  if (err == cudaSuccess && *n < 1) err = cudaErrorInvalidConfiguration;
+  return err;
+}
+
+// the fold's grid: every group of blocks resident at once, at most max_blocks
+// (the rows the caller's scratch holds) and at most `work` (one item each)
+unsigned fold_grid(int per_sm, long long work, int max_blocks) {
+  long long g = (long long)per_sm * sm_count();
+  if (g > work) g = work;
+  if (g > max_blocks) g = max_blocks;
+  return (unsigned)g;
+}
+
+template <typename T, int NV, bool ADD>
+cudaError_t run_rows_bwd(const RowsBwd<T>& a, long long groups, int threads, size_t smem,
+                         double* scratch, int max_blocks, cudaStream_t s) {
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm(rows_bwd_kernel<T, NV, ADD>, threads, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = fold_grid(per_sm, groups, max_blocks);
+  rows_bwd_kernel<T, NV, ADD><<<grid, threads, smem, s>>>(
+      a, fold_at(scratch, (int)grid, a.nvec * Vec<T>::N));
+  return cudaGetLastError();
+}
+
+// the forward's rows a block and threads a row; one launch, dscale folded in
 template <typename T, bool ADD>
-cudaError_t launch_rows_bwd(const void* x, const void* dy, const void* ds, const void* scale,
-                            void* dx, void* dscale, double* partial, int max_blocks,
-                            long long rows, int D, float eps, cudaStream_t s) {
+cudaError_t launch_rows_bwd(RowsBwd<T> a, double* scratch, int max_blocks, int D,
+                            cudaStream_t s) {
   constexpr int VEC = Vec<T>::N;
-  if (rows <= 0 || D <= 0 || D % VEC || max_blocks <= 0) return cudaErrorInvalidValue;
-  const int nvec = D / VEC;
-  int tpr, nv, threads;
-  long long groups;
-  if (nvec <= MAX_GROUP_VECS) {
-    tpr = 8;
-    while (tpr < 32 && tpr < nvec) tpr <<= 1;
-    nv = (nvec + tpr - 1) / tpr;
-    if (nv == 3) nv = 4;
-    const int rpb = rows_per_block(rows, tpr);
-    threads = rpb * tpr;
-    groups = (rows + rpb - 1) / rpb;
-  } else {
-    nv = 1;
-    while (nv < 8 && (nvec + nv - 1) / nv > MAX_THREADS) nv <<= 1;
-    tpr = ((nvec + nv - 1) / nv + 31) / 32 * 32;
-    if (tpr > MAX_THREADS) return cudaErrorInvalidValue;
-    threads = tpr;
-    groups = rows;
-  }
-  unsigned blocks = grid_for(groups, threads);
-  if (blocks > (unsigned)max_blocks) blocks = (unsigned)max_blocks;
-  const T* x_ = static_cast<const T*>(x);
-  const T* dy_ = static_cast<const T*>(dy);
-  const T* ds_ = static_cast<const T*>(ds);
-  const T* sc = static_cast<const T*>(scale);
-  T* dx_ = static_cast<T*>(dx);
-  const float inv_d = 1.0f / (float)D;
-  switch (nv) {
-    case 1: rows_bwd_kernel<T, 1, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
-    case 2: rows_bwd_kernel<T, 2, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
-    case 4: rows_bwd_kernel<T, 4, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
-    case 8: rows_bwd_kernel<T, 8, ADD><<<blocks, threads, 0, s>>>(x_, dy_, ds_, sc, dx_, partial, rows, nvec, tpr, inv_d, eps); break;
+  RowShape r;
+  if (a.rows <= 0 || D <= 0 || D % VEC || max_blocks <= 0 ||
+      fold_group(max_blocks) + 1 > FOLD_COUNTERS || !row_shape(a.rows, D / VEC, BWD_THREADS, r))
+    return cudaErrorInvalidValue;
+  const int threads = r.threads;
+  const long long groups = r.groups;
+  a.nvec = r.nvec;
+  a.tpr = r.tpr;
+  a.inv_d = 1.0f / (float)D;
+  const size_t smem =
+      (size_t)(r.tpr > 32 ? 1 : threads / r.tpr) * D * sizeof(typename AccOf<T>::type);
+  switch (r.nv) {
+    case 1: return run_rows_bwd<T, 1, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 2: return run_rows_bwd<T, 2, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 4: return run_rows_bwd<T, 4, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 8: return run_rows_bwd<T, 8, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
     default: return cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaGetLastError();
+}
+
+template <typename T, int NV>
+cudaError_t run_qk_bwd(const QkArgs<T>& a, const QkGrad<T>& gr, int threads, size_t smem,
+                       double* scratch, int max_blocks, cudaStream_t s) {
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm(qk_norm_rope_bwd_kernel<T, NV>, threads, smem, &per_sm);
   if (err != cudaSuccess) return err;
-  const Cols job{partial, (int)blocks, dscale};
-  colsum_kernel<T><<<dim3((D + 255) / 256, 1), 256, 0, s>>>(job, job, D);
+  const unsigned grid = fold_grid(per_sm, (gr.tokens + gr.n_tok - 1) / gr.n_tok, max_blocks);
+  qk_norm_rope_bwd_kernel<T, NV><<<grid, threads, smem, s>>>(
+      a, gr, fold_at(scratch, (int)grid, 2 * a.nvec * Vec<T>::N));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_qk_bwd(QkArgs<T> a, QkGrad<T> gr, void* dq_scale, void* dk_scale,
-                          int max_blocks, int hd, cudaStream_t s) {
+cudaError_t launch_qk_bwd(QkArgs<T> a, QkGrad<T> gr, double* scratch, int max_blocks, int hd,
+                          cudaStream_t s) {
   constexpr int VEC = Vec<T>::N;
-  if (hd <= 0 || hd % (2 * VEC) || max_blocks <= 0) return cudaErrorInvalidValue;
+  if (hd <= 0 || hd % (2 * VEC) || max_blocks <= 0 ||
+      fold_group(max_blocks) + 1 > FOLD_COUNTERS)
+    return cudaErrorInvalidValue;
   const int nvec = hd / VEC;
   if (nvec & (nvec - 1) || nvec > 64) return cudaErrorInvalidValue;
   const int tpr = nvec < 32 ? nvec : 32;
@@ -868,22 +1063,30 @@ cudaError_t launch_qk_bwd(QkArgs<T> a, QkGrad<T> gr, void* dq_scale, void* dk_sc
   a.nvec = nvec;
   a.tpr = tpr;
   a.inv_d = 1.0f / (float)hd;
-  const int rows = a.rows[0] + a.rows[1];
-  const int rpb = rows_per_block(rows, tpr);
-  unsigned grid = grid_for((a.rows[0] + rpb - 1) / rpb + (a.rows[1] + rpb - 1) / rpb,
-                           rpb * tpr);
-  if (grid > (unsigned)max_blocks) grid = (unsigned)max_blocks;
-  gr.partial[1] = gr.partial[0] + (long long)max_blocks * hd;
+  const int slots = rows_per_block(a.rows[0] + a.rows[1], tpr);
+  // tokens a chunk: those whose rows fill the slots' last pass the best; of
+  // those the fewest that give each slot 4 rows or more (fewer barriers a row)
+  const int per_tok = a.heads[0] + a.heads[1];
+  int best = 1;
+  long long best_idle = -1, best_rows = 1;
+  for (int n = 1; n <= QK_TOKENS; ++n) {
+    const long long rows = (long long)n * per_tok;
+    const long long idle = (rows + slots - 1) / slots * slots - rows;
+    const bool fewer_idle = best_idle < 0 || idle * best_rows < best_idle * rows;
+    const bool as_idle = idle * best_rows == best_idle * rows;
+    if (fewer_idle || (as_idle && best_rows < 4LL * slots)) {
+      best = n;
+      best_idle = idle;
+      best_rows = rows;
+    }
+  }
+  gr.n_tok = best;
+  const size_t smem = (size_t)2 * slots * hd * sizeof(typename AccOf<T>::type);
   switch (nv) {
-    case 1: qk_norm_rope_bwd_kernel<T, 1><<<grid, rpb * tpr, 0, s>>>(a, gr); break;
-    case 2: qk_norm_rope_bwd_kernel<T, 2><<<grid, rpb * tpr, 0, s>>>(a, gr); break;
+    case 1: return run_qk_bwd<T, 1>(a, gr, slots * tpr, smem, scratch, max_blocks, s);
+    case 2: return run_qk_bwd<T, 2>(a, gr, slots * tpr, smem, scratch, max_blocks, s);
     default: return cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  colsum_kernel<T><<<dim3((hd + 255) / 256, 2), 256, 0, s>>>(
-      Cols{gr.partial[0], (int)grid, dq_scale}, Cols{gr.partial[1], (int)grid, dk_scale}, hd);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -977,39 +1180,53 @@ extern "C" int qk_norm_rope_fwd(const void* q, const void* k, const void* q_scal
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward entry points. `partial` is f64 scratch of max_blocks rows of D (two
-// such blocks of rows for qk_norm_rope_bwd, q's then k's); the launch uses at most
-// max_blocks blocks, then one colsum launch writes dscale in the input dtype.
+// Backward entry points, one launch each. `scratch` is the calling stream's own:
+// f64, FOLD_COUNTERS / 2 doubles of tickets (zero when first handed over; each
+// launch leaves them at zero), then room for max_blocks + fold_group(max_blocks)
+// + 1 rows of W doubles (W = D; 2 * hd for qk_norm_rope_bwd). The launch uses at
+// most max_blocks blocks and writes dscale in the input dtype.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
-                           void* dscale, void* partial, int max_blocks, long long rows,
+                           void* dscale, void* scratch, int max_blocks, long long rows,
                            int D, float eps, int dtype, int device, void* stream) {
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  double* p = static_cast<double*>(partial);
+  double* p = static_cast<double*>(scratch);
   if (dtype == 0)
-    return (int)launch_rows_bwd<float, false>(x, dy, nullptr, scale, dx, dscale, p, max_blocks,
-                                              rows, D, eps, s);
-  if (dtype == 1)
-    return (int)launch_rows_bwd<__nv_bfloat16, false>(x, dy, nullptr, scale, dx, dscale, p,
-                                                      max_blocks, rows, D, eps, s);
+    return (int)launch_rows_bwd<float, false>(
+        RowsBwd<float>{(const float*)x, (const float*)dy, nullptr, (const float*)scale,
+                       (float*)dx, (float*)dscale, rows, 0, 0, 0.f, eps},
+        p, max_blocks, D, s);
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    return (int)launch_rows_bwd<B, false>(
+        RowsBwd<B>{(const B*)x, (const B*)dy, nullptr, (const B*)scale, (B*)dx, (B*)dscale,
+                   rows, 0, 0, 0.f, eps},
+        p, max_blocks, D, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // s: the forward's residual sum (its first output); ds, dn: the cotangents of s
 // and of rmsnorm(s). dx = ds + the norm's dx, the gradient of both x and r.
 extern "C" int add_rmsnorm_bwd(const void* s_in, const void* scale, const void* ds,
-                               const void* dn, void* dx, void* dscale, void* partial,
+                               const void* dn, void* dx, void* dscale, void* scratch,
                                int max_blocks, long long rows, int D, float eps, int dtype,
                                int device, void* stream) {
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  double* p = static_cast<double*>(partial);
+  double* p = static_cast<double*>(scratch);
   if (dtype == 0)
-    return (int)launch_rows_bwd<float, true>(s_in, dn, ds, scale, dx, dscale, p, max_blocks,
-                                             rows, D, eps, s);
-  if (dtype == 1)
-    return (int)launch_rows_bwd<__nv_bfloat16, true>(s_in, dn, ds, scale, dx, dscale, p,
-                                                     max_blocks, rows, D, eps, s);
+    return (int)launch_rows_bwd<float, true>(
+        RowsBwd<float>{(const float*)s_in, (const float*)dn, (const float*)ds,
+                       (const float*)scale, (float*)dx, (float*)dscale, rows, 0, 0, 0.f, eps},
+        p, max_blocks, D, s);
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    return (int)launch_rows_bwd<B, true>(
+        RowsBwd<B>{(const B*)s_in, (const B*)dn, (const B*)ds, (const B*)scale, (B*)dx,
+                   (B*)dscale, rows, 0, 0, 0.f, eps},
+        p, max_blocks, D, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1019,7 +1236,7 @@ extern "C" int qk_norm_rope_bwd(const void* q, const void* k, const void* q_scal
                                 const void* k_scale, const void* dq_out, const void* dk_out,
                                 const void* positions, long long pos_sb, long long pos_ss,
                                 const void* inv_freq, void* dq, void* dk, void* dq_scale,
-                                void* dk_scale, void* partial, int max_blocks, int B, int S,
+                                void* dk_scale, void* scratch, int max_blocks, int B, int S,
                                 int H, int K, int hd, float eps, int dtype, int device,
                                 void* stream) {
   DeviceScope scope(device);
@@ -1027,19 +1244,21 @@ extern "C" int qk_norm_rope_bwd(const void* q, const void* k, const void* q_scal
   if (B <= 0 || S <= 0 || H <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if ((long long)B * S * (H + K) >= (1LL << 31) - MAX_THREADS)
     return (int)cudaErrorInvalidValue;
+  double* p = static_cast<double*>(scratch);
   if (dtype == 0) {
     QkGrad<float> gr{{(const float*)dq_out, (const float*)dk_out},
-                     {(double*)partial, nullptr}};
+                     {(float*)dq_scale, (float*)dk_scale}, B * S, 1};
     return (int)launch_qk_bwd(qk_args<float>(q, k, q_scale, k_scale, dq, dk, positions,
                                              pos_sb, pos_ss, inv_freq, B, S, H, K, eps),
-                              gr, dq_scale, dk_scale, max_blocks, hd, s);
+                              gr, p, max_blocks, hd, s);
   }
   if (dtype == 1) {
     using Bf = __nv_bfloat16;
-    QkGrad<Bf> gr{{(const Bf*)dq_out, (const Bf*)dk_out}, {(double*)partial, nullptr}};
+    QkGrad<Bf> gr{{(const Bf*)dq_out, (const Bf*)dk_out}, {(Bf*)dq_scale, (Bf*)dk_scale},
+                  B * S, 1};
     return (int)launch_qk_bwd(qk_args<Bf>(q, k, q_scale, k_scale, dq, dk, positions, pos_sb,
                                           pos_ss, inv_freq, B, S, H, K, eps),
-                              gr, dq_scale, dk_scale, max_blocks, hd, s);
+                              gr, p, max_blocks, hd, s);
   }
   return (int)cudaErrorInvalidValue;
 }

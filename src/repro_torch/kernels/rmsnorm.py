@@ -17,17 +17,19 @@ fusion, so the CPU path computes bit for bit what it computed then.
 
 The backward of the three entry points the dense model trains through
 (``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``qk_norm_rope_bwd``) runs on the same
-kernel's row core; each ``*_bwd_plain`` is its explicit formula, the gradient of
-``rmsnorm_ref``'s exact casts (and of RoPE's, for qk_norm_rope) that autodiff of
-the JAX reference gives. The kernel sums ``dscale`` over every row in f64 and
-deterministically (per-block partial rows, then one small reduction launch; no
-atomics).
+kernel's row core, one launch each; each ``*_bwd_plain`` is its explicit
+formula, the gradient of ``rmsnorm_ref``'s exact casts (and of RoPE's, for
+qk_norm_rope) that autodiff of the JAX reference gives. The kernel sums
+``dscale`` over every row in f64 and deterministically inside the same launch
+(per-block partial rows folded by the blocks that finish last, in a fixed order;
+no atomics on values), through a scratch buffer kept for each stream.
 ``gated_rmsnorm``'s backward comes with the ssm training slice.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -267,17 +269,33 @@ def qk_norm_rope_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
 
 
 # ----------------------------------------------------------------------- backward
+_TICKETS = 128   # f64 words at the head of a backward scratch: csrc FOLD_COUNTERS tickets
+_SCRATCH: dict = {}        # (device index, stream) -> that stream's f64 scratch
+
+
 @functools.cache
 def _max_blocks(device: torch.device) -> int:
-    """Partial rows of dscale a backward launch may use: four blocks an SM."""
-    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    """Blocks a backward launch may use (so rows its scratch must hold): eight
+    an SM, as many 256-thread blocks as an SM can hold. The kernel takes fewer
+    where the compiled kernel's registers and shared memory allow fewer."""
+    return 8 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _partial(x: torch.Tensor, scales: int, D: int) -> tuple:
-    """(blocks, f64 scratch) for the kernel's per-block partial rows of ``scales``
-    dscale vectors of D."""
+def _scratch(x: torch.Tensor, W: int) -> tuple:
+    """(max blocks, f64 scratch) of the current stream for a backward launch whose
+    blocks fold rows of W doubles into dscale: the tickets, then one row a block
+    and one a group of blocks (ceil(sqrt(blocks)) a group). One buffer a stream:
+    each launch leaves the tickets at 0 for the next launch on its stream, and
+    two streams' launches may run at once. It grows, zeroed, when a launch needs
+    more rows; the old buffer goes back to the allocator in stream order."""
     blocks = _max_blocks(x.device)
-    return blocks, torch.empty((scales * blocks, D), dtype=torch.float64, device=x.device)
+    need = _TICKETS + (blocks + math.isqrt(blocks - 1) + 2) * W
+    key = (x.device.index, _stream(x))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.float64, device=x.device)
+        _SCRATCH[key] = buf
+    return blocks, buf
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
@@ -291,9 +309,9 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
     if not x.numel():
         return dx, dscale.zero_()
-    blocks, partial = _partial(x, 1, D)
+    blocks, scratch = _scratch(x, D)
     err = _lib().rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                             dscale.data_ptr(), partial.data_ptr(), blocks, x.numel() // D, D,
+                             dscale.data_ptr(), scratch.data_ptr(), blocks, x.numel() // D, D,
                              eps, _DTYPE_CODE[x.dtype], x.device.index, _stream(x))
     _launched("rmsnorm_bwd", rmsnorm_bwd_cuda, err)
     return dx, dscale
@@ -314,16 +332,16 @@ def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Ten
     dx, dscale = torch.empty_like(s), torch.empty_like(scale)
     if not s.numel():
         return dx, dscale.zero_()
-    blocks, partial = _partial(s, 1, D)
+    blocks, scratch = _scratch(s, D)
     rows, code, lib = s.numel() // D, _DTYPE_CODE[s.dtype], _lib()
     if ds is None:
         err = lib.rmsnorm_bwd(s.data_ptr(), scale.data_ptr(), dn.data_ptr(), dx.data_ptr(),
-                              dscale.data_ptr(), partial.data_ptr(), blocks, rows, D, eps,
+                              dscale.data_ptr(), scratch.data_ptr(), blocks, rows, D, eps,
                               code, s.device.index, _stream(s))
     else:
         err = lib.add_rmsnorm_bwd(s.data_ptr(), scale.data_ptr(), ds.data_ptr(),
                                   dn.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-                                  partial.data_ptr(), blocks, rows, D, eps, code,
+                                  scratch.data_ptr(), blocks, rows, D, eps, code,
                                   s.device.index, _stream(s))
     _launched("add_rmsnorm_bwd", add_rmsnorm_bwd_cuda, err)
     return dx, dscale
@@ -332,9 +350,9 @@ def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Ten
 def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
                           k_scale: torch.Tensor, positions: torch.Tensor, theta: float,
                           dq_out: torch.Tensor, dk_out: torch.Tensor, *, eps: float = 1e-6):
-    """(dq, dk, dq_scale, dk_scale) of qk_norm_rope on the card, q and k in one
-    launch (then one launch that sums the scales' partial rows). q, k are the
-    forward's inputs; dq_out, dk_out the cotangents of its outputs."""
+    """(dq, dk, dq_scale, dk_scale) of qk_norm_rope on the card, q and k and
+    both scales in one launch. q, k are the forward's inputs; dq_out, dk_out the
+    cotangents of its outputs."""
     refuse_grad("qk_norm_rope_bwd_cuda", q, k, q_scale, k_scale, dq_out, dk_out)
     B, S, H, K, hd = _qk_args("qk_norm_rope_bwd_cuda", q, k, q_scale, k_scale, positions,
                               dq_out, dk_out)
@@ -342,13 +360,13 @@ def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tenso
     dq_scale, dk_scale = torch.empty_like(q_scale), torch.empty_like(k_scale)
     if min(B, S, H, K) == 0:
         return dq, dk, dq_scale.zero_(), dk_scale.zero_()
-    blocks, partial = _partial(q, 2, hd)
+    blocks, scratch = _scratch(q, 2 * hd)
     freqs = _inv_freq(q.device, hd, float(theta))
     err = _lib().qk_norm_rope_bwd(
         q.data_ptr(), k.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
         dq_out.data_ptr(), dk_out.data_ptr(), positions.data_ptr(), positions.stride(0),
         positions.stride(1), freqs.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dq_scale.data_ptr(), dk_scale.data_ptr(), partial.data_ptr(), blocks, B, S, H, K,
+        dq_scale.data_ptr(), dk_scale.data_ptr(), scratch.data_ptr(), blocks, B, S, H, K,
         hd, eps, _DTYPE_CODE[q.dtype], q.device.index, _stream(q))
     _launched("qk_norm_rope_bwd", qk_norm_rope_bwd_cuda, err)
     return dq, dk, dq_scale, dk_scale

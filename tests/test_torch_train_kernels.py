@@ -273,23 +273,35 @@ def _exact(t):
     return t.double() if t.dtype == torch.float32 else t
 
 
+# Besides the CPU shapes and the training shape, the edges of the kernels' one-launch
+# dscale fold: one row, rows fewer than the blocks, rows not a multiple of a
+# block's (600), and wide rows that take a block each (mamba2's 2560 and 5120).
+NORM_CARD_SHAPES = NORM_SHAPES + [(4, 2048, 1024), (1, 1, 1024), (600, 1024), (2, 3, 2560),
+                                  (1, 5, 5120)]
+QK_CARD_SHAPES = QK_SHAPES + [(4, 2048, 16, 8, 128), (1, 1, 16, 8, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", NORM_SHAPES + [(4, 2048, 1024)])
+@pytest.mark.parametrize("shape", NORM_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_norm_bwd_kernels_match_plain_on_card(cuda, shape, dtype):
+    """Each entry point twice in a row on one stream: the second launch finds the
+    fold's tickets back at 0 and gives the same bits."""
     x, dy, ds = (_torch(_np(shape, s), dtype).to(cuda) for s in (1, 2, 3))
     sc = _torch(_np(shape[-1:], 4), dtype).to(cuda)
     tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]     # K2's forward tolerances
     ex = [_exact(t) for t in (x, sc, dy, ds)]
-    for got, want in [(RN.rmsnorm_bwd_cuda(x, sc, dy), RN.rmsnorm_bwd_plain(*ex[:3])),
-                      (RN.add_rmsnorm_bwd_cuda(x, sc, ds, dy),
+    for run, want in [(lambda: RN.rmsnorm_bwd_cuda(x, sc, dy), RN.rmsnorm_bwd_plain(*ex[:3])),
+                      (lambda: RN.add_rmsnorm_bwd_cuda(x, sc, ds, dy),
                        RN.add_rmsnorm_bwd_plain(ex[0], ex[1], ex[3], ex[2]))]:
-        for g, w in zip(got, want):
+        got, again = run(), run()
+        for g, w, a in zip(got, want, again):
             _close(g.cpu(), w.cpu(), tol)
+            assert torch.equal(g, a)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,K,hd", QK_SHAPES + [(4, 2048, 16, 8, 128)])
+@pytest.mark.parametrize("B,S,H,K,hd", QK_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_qk_norm_rope_bwd_kernel_matches_plain_on_card(cuda, B, S, H, K, hd, dtype):
     q, dq = (_torch(_np((B, S, H, hd), s), dtype).to(cuda) for s in (1, 2))
@@ -298,7 +310,9 @@ def test_qk_norm_rope_bwd_kernel_matches_plain_on_card(cuda, B, S, H, K, hd, dty
     pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].expand(B, S)
     tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
     got = RN.qk_norm_rope_bwd_cuda(q, k, qs, ks, pos, THETA, dq, dk)
+    again = RN.qk_norm_rope_bwd_cuda(q, k, qs, ks, pos, THETA, dq, dk)
     want = RN.qk_norm_rope_bwd_plain(*(_exact(t) for t in (q, k, qs, ks)), pos, THETA,
                                      _exact(dq), _exact(dk))
-    for g, w in zip(got, want):
+    for g, w, a in zip(got, want, again):
         _close(g.cpu(), w.cpu(), tol)
+        assert torch.equal(g, a)                 # deterministic: no atomics on values
