@@ -24,22 +24,31 @@ Phases, each failing loudly (nonzero exit):
      server released first. Then check prefill + one decode step against
      ``forward`` at full width (f32 at every layer to 1e-4; bf16 at 0.08 at 4
      layers, see ``phase_serve``), time prefill, decode and the warm task, and
-     profile one prefill and one decode step (kernels per call, device busy,
-     K2's device time a launch);
+     profile one prefill and one decode step (kernels per call, each held at
+     its known count; device busy; K2's device time a launch);
   5. the backward kernels (K1's, and K2's for rmsnorm, add_rmsnorm and
      qk_norm_rope, one launch each with dscale folded in) against their plain
      versions on the card in f32 and bf16,
      the forward's LSE against the plain LSE, two runs of each bit-equal; then
      time each beside its bound, its plain version and a library yardstick
      (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
-  6. one train step of qwen3-0.6b at full width, 2 layers, f32, on the card
-     against the same step on the CPU (loss, grad_norm, master; every leaf
-     gets a nonzero gradient);
+     then the ssm slice's (K3's backward, with and without init_state and
+     d(final state), on the conv output's views too; gated_rmsnorm's), timed
+     at mamba2-2.7b's training shape (no library call for either);
+  6. one train step at full width, 2 layers, f32, on the card against the same
+     step on the CPU (loss, grad_norm, master; every leaf gets a nonzero
+     gradient): qwen3-0.6b, then mamba2-2.7b;
   7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
      (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
      counters set to 0 just before and read just after; evaluate it through a
      strict ``run_eval_task`` restore; time warm steps, profile one, and check
-     one step of 2 microbatches against the first step's loss.
+     one step of 2 microbatches against the first step's loss;
+  8. train mamba2-2.7b at full width and depth, bf16, through ``run_train_task``
+     (2 steps of 2048 tokens), the counters read around it (every K2 and K3
+     entry of the path, exactly so many a layer a step); time warm steps and
+     profile one; then its train task (4 steps, a checkpoint every 2) and a
+     strict eval-task restore at full width and 4 layers (a 64-layer save is
+     ~39.6 GB).
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -56,6 +65,7 @@ once at the training shapes, kernel by kernel. The two flags may be given togeth
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -92,13 +102,19 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
 # kept in f32.
 # ``toks``: the (batch, length) of the prefill + decode vs forward check; 601
 # makes mamba2's 600-token prefill cross two 256-token chunks and end ragged.
+# ``kernels``: the kernels of one profiled prefill (512 tokens) and decode step (4
+# slots), every one of them counted, as every run has counted them since the K2
+# fusions. These are the first profiles of a run: a profile after an earlier one
+# can miss the first kernels of its window.
 PATHS = [
     {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": (2, 64),
      "min_launches": {"flash_attention": 28 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28, "qk_norm_rope": 28}},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28, "qk_norm_rope": 28},
+     "kernels": {"prefill": 432, "decode": 1_265}},
     {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
      "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64}},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64},
+     "kernels": {"prefill": 2_629, "decode": 3_459}},
 ]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -151,6 +167,42 @@ K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel"
 K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel")
 # K2's backward entry points: one launch each, dscale folded in
 K2_BWD_ENTRIES = ("rmsnorm_bwd", "add_rmsnorm_bwd", "qk_norm_rope_bwd")
+
+# training the ssm family: mamba2-2.7b at full width and depth (64 layers), bf16,
+# one sequence of 2,048 tokens a step
+SSM_TRAIN = {"arch": "mamba2-2.7b", "reduced": False, "seq_len": 2048, "global_batch": 1,
+             "microbatches": 1}
+SSM_TRAIN_PATH = "mamba2-2.7b train"
+
+
+def ssm_per_step(layers: int) -> dict:
+    """K2 and K3 launches in each mamba2 train step of ``layers`` layers, forward
+    and backward alike (rmsnorm: ln1 of layer 0; add_rmsnorm: every other norm,
+    the final one included)."""
+    return {"ssd_scan": layers, "ssd_scan_bwd": layers, "gated_rmsnorm": layers,
+            "gated_rmsnorm_bwd": layers, "add_rmsnorm": layers, "add_rmsnorm_bwd": layers,
+            "rmsnorm": 1, "rmsnorm_bwd": 1}
+
+
+SSM_TRAIN_PER_STEP = ssm_per_step(64)
+# the train and eval tasks' depth: a 64-layer checkpoint is ~39.6 GB, 4 layers ~5.8 GB
+SSM_TASK_LAYERS = 4
+# K3's backward: the check sweep (with and without init_state and d(final state))
+# and the training shape, at which it is timed
+SSD_BWD_MAIN = (1, 2048, 80, 64, 128, 256)
+# gates of K3's backward against the plain version evaluated in f64: relative, plus
+# a share of the gradient's largest element (each element sums S-long runs of terms
+# of that size, in another order and chunking); bf16 within one bf16 rounding of
+# the output, with margin. dA sums B*S terms that cancel: f32 evaluations of it,
+# the plain version's own, miss the f64 value by up to 1.5x the f32 gate (40 seeds
+# of the sweep), so dA is held at SSD_DA_TIMES the plain version's distance from
+# the f64 value, plus the share.
+SSD_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
+SSD_DA_TIMES = 4
+# the gated norm's backward: K2's backward sweep and mamba2's training shape
+GATED_BWD_SWEEP = NORM_BWD_SWEEP + [(1, 2048, 5120)]
+# kernel names of K3's backward in profiler traces (two launches a call)
+K3_BWD_NAMES = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_finish")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -267,7 +319,8 @@ def kernel_wrappers() -> dict:
             "qk_norm_rope": RN.qk_norm_rope_cuda, "ssd_scan": SS.ssd_scan_cuda,
             "flash_attention_bwd": FA.flash_attention_bwd_cuda,
             "rmsnorm_bwd": RN.rmsnorm_bwd_cuda, "add_rmsnorm_bwd": RN.add_rmsnorm_bwd_cuda,
-            "qk_norm_rope_bwd": RN.qk_norm_rope_bwd_cuda}
+            "gated_rmsnorm_bwd": RN.gated_rmsnorm_bwd_cuda,
+            "qk_norm_rope_bwd": RN.qk_norm_rope_bwd_cuda, "ssd_scan_bwd": SS.ssd_scan_bwd_cuda}
 
 
 def reset_launches() -> dict:
@@ -357,11 +410,11 @@ def bwd_registers(kernels: list, strict: bool = True) -> list:
     for kernel, stores, r in kernels:
         k1 = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
         k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|fold)I(f|13__nv_bfloat16)"
-                       r"Li(\d+)E(Lb([01])E)?", kernel)
+                       r"Li(\d+)E(Li([012])E)?", kernel)
         if k1:
             name = f"{k1.group(1)}<{k1.group(2)}>"
         elif k2:
-            add = {"0": ", plain", "1": ", add"}.get(k2.group(5), "")
+            add = {"0": ", plain", "1": ", add", "2": ", gated"}.get(k2.group(5), "")
             dtype = "f32" if k2.group(2) == "f" else "bf16"
             name = f"{k2.group(1)}<{dtype}, {k2.group(3)}{add}>"
         else:
@@ -695,10 +748,15 @@ def phase_serve(card: str, path: dict) -> dict:
         dcache["pos"].fill_(payload["prompt_len"])
         slot_toks = toks[:, :2].reshape(-1, 1)
         t_dec = wall_ms(lambda: model.decode_step(params, slot_toks, dcache))
-        profile_breakdown(f"{arch} prefill 512 tokens",
-                          lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len))
-        profile_breakdown(f"{arch} decode step, 4 slots",
-                          lambda: model.decode_step(params, slot_toks, dcache))
+        counted = {
+            "prefill": profile_breakdown(
+                f"{arch} prefill 512 tokens",
+                lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len)),
+            "decode": profile_breakdown(f"{arch} decode step, 4 slots",
+                                        lambda: model.decode_step(params, slot_toks, dcache))}
+    for call, want in path["kernels"].items():
+        n = counted[call]["all kernels"][1]
+        check(n == want, f"{arch} {call}: {n} kernels a call, want {want}")
     print(f"{arch} prefill 512 tokens: {t_pre:.2f} ms = "
           f"{payload['prompt_len'] / t_pre * 1e3:.0f} tokens/s [{card}]")
     print(f"{arch} decode step, 4 slots, cache {max_len}: {t_dec:.2f} ms = "
@@ -721,7 +779,8 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
     torch.profiler (the wall time here includes the profiler's own cost), and
     the device time and launches of each group of kernel names (default: K2's
     forward kernels); ``every``: also each kernel name's launches, by name.
-    Returns {group: (ms, launches)}."""
+    Returns {group: (ms, launches)}, with every kernel of the call under "all
+    kernels"."""
     groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -742,7 +801,7 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
         print(f"  every kernel by name ({len(kernels)} names):")
         for e in sorted(kernels, key=lambda e: e.key):
             print(f"    x{e.count:<5} {e.self_device_time_total / 1e3:8.3f} ms  {e.key[:100]}")
-    out = {}
+    out = {"all kernels": (busy, sum(e.count for e in kernels))}
     for label, names in groups.items():
         mine = [e for e in kernels if any(n in e.key for n in names)]
         n = sum(e.count for e in mine)
@@ -895,13 +954,189 @@ def phase_backward(gen) -> list:
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     return rows
 
+def ssd_bwd_case(gen, B, S, H, P, N, dtype, with_state: bool):
+    """x, dt, a, bm, cm, init_state, dy, d(final state) of one K3 backward case;
+    the states None without ``with_state`` (the training path's case)."""
+    f32 = torch.float32
+    return (randn((B, S, H, P), dtype, gen), F.softplus(randn((B, S, H), f32, gen)),
+            -torch.exp(0.2 * randn((H,), f32, gen)), randn((B, S, N), dtype, gen),
+            randn((B, S, N), dtype, gen),
+            randn((B, H, N, P), f32, gen) if with_state else None,
+            randn((B, S, H, P), dtype, gen),
+            randn((B, H, N, P), f32, gen) if with_state else None)
 
-def phase_train_step_parity() -> None:
-    """One train step of qwen3-0.6b at full width, 2 layers, in f32, on the card
+
+def gate_ratio(g, w, rtol: float, share: float) -> float:
+    """max over elements of |g - w| / (rtol |w| + share max |w|): at most 1 within
+    the gate; inf where g is not finite."""
+    g, w = g.double(), w.double()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    return ((g - w).abs() / (rtol * w.abs() + share * w.abs().max()).clamp_min(1e-300)
+            ).max().item()
+
+
+def gated_bwd_exact(y, z, sc, dout):
+    """The gradient of the f32 gated norm evaluated in f64 from the forward's own
+    f32 gate t = y * silu(z): the kernel sums dscale in f64 over that t, and a t
+    formed in f64 would differ from it by an f32 rounding in every element."""
+    from repro_torch.kernels import rmsnorm as RN
+    silu = F.silu(z)
+    dt, dscale = RN.rmsnorm_bwd_plain((y * silu).double(), sc.double(), dout.double())
+    zd = z.double()
+    sig = torch.sigmoid(zd)
+    return dt * silu.double(), dt * y.double() * sig * (1 + zd * (1 - sig)), dscale
+
+
+def ssd_bwd_bytes(args) -> int:
+    """Bytes K3's backward must move: x, dy, bm, cm, dt, a (and init_state and
+    d(final state)) read once; dx, dbm, dcm, ddt, da (and d(init_state)) written
+    once."""
+    x, dt, a, bm, cm, h0, dy, _ = args
+    state = 0 if h0 is None else 3 * h0.numel() * 4
+    return (3 * x.numel() + 2 * (bm.numel() + cm.numel())) * x.element_size() \
+        + 2 * (dt.numel() + a.numel()) * 4 + state
+
+
+def ssd_bwd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Flops of the scan's gradient for these shapes, counted once (the states
+    the forward carried taken as given): per chunk, per head dY X^T and the
+    intra-chunk dX over the causal pairs, dC and dB from the summed dG once, and
+    per head the four state products (dC's and dB's inter-chunk terms, dX's
+    readout of dh, dh's update)."""
+    total = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        pairs = q * (q + 1) // 2
+        total += 2 * B * (2 * H * pairs * P + 2 * pairs * N + 4 * H * q * N * P)
+    return total
+
+
+def f64(args):
+    """Every float tensor widened to f64 (bf16 values are exact in f64): the
+    plain version then gives the exact gradient at these inputs."""
+    return [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args]
+
+
+def phase_ssm_backward(gen) -> list:
+    """The ssm training slice's backward kernels against their plain versions on
+    the card, in f32 and bf16, each run twice for bit-equality: K3's backward
+    against the plain version evaluated in f64 (SSD_GRAD_TOL, dA by SSD_DA_TIMES)
+    on the SSD sweep and the training shape, with
+    and without init_state and d(final state), and on the conv output's strided
+    views; gated_rmsnorm's backward on K2's backward sweep and the training
+    shape. Then each is timed at mamba2-2.7b's training shape beside its bound
+    and its plain version (no library call computes either). Returns their JSON
+    rows."""
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
+    f32, bf16 = torch.float32, torch.bfloat16
+    names = ("dx", "ddt", "da", "dbm", "dcm", "d_init")
+    worst = {f32: 0.0, bf16: 0.0}
+    for B, S, H, P, N, chunk in SSD_SWEEP + [SSD_BWD_MAIN]:
+        for dtype in (f32, bf16):
+            for with_state in (False, True):
+                tag = f"ssd_scan_bwd {B, S, H, P, N, chunk} {dtype} states={with_state}"
+                args = ssd_bwd_case(gen, B, S, H, P, N, dtype, with_state)
+                got = SS.ssd_scan_bwd_cuda(*args, chunk=chunk)
+                again = SS.ssd_scan_bwd_cuda(*args, chunk=chunk)
+                want = SS.ssd_scan_bwd_plain(*f64(args), chunk=chunk)
+                plain_da = SS.ssd_scan_bwd_plain(*args, chunk=chunk)[2]
+                for name, g, w, r in zip(names, got, want, again):
+                    if w is None:
+                        check(g is None, f"{tag} {name}: given without an init_state")
+                        continue
+                    if name == "da":   # as a share of its gate, SSD_DA_TIMES x the plain's
+                        share = SSD_GRAD_TOL[dtype][1] * w.abs().max().item()
+                        ratio = max_err(g, w) / (SSD_DA_TIMES * max_err(plain_da, w) + share)
+                    else:
+                        ratio = gate_ratio(g, w, *SSD_GRAD_TOL[dtype])
+                    check(ratio <= 1, f"{tag} {name}: {ratio:.3g} x the gate (max abs err "
+                          f"{max_err(g, w):.3g}, |grad| max {w.abs().max().item():.3g})")
+                    check(torch.equal(g, r), f"{tag} {name}: two runs differ")
+                    worst[dtype] = max(worst[dtype], ratio)
+                del got, again, want
+    print(f"ssd_scan_bwd: {len(SSD_SWEEP) + 1} shapes x f32/bf16 x with/without init_state "
+          f"and d(final state) match the plain backward (worst error as a share of its gate, "
+          f"rel + share of the largest element {SSD_GRAD_TOL[f32]} / {SSD_GRAD_TOL[bf16]}: "
+          f"f32 {worst[f32]:.3g}, bf16 {worst[bf16]:.3g}); two runs bit-equal")
+
+    B, S, H, P, N, chunk = SSD_BWD_MAIN
+    args = ssd_bwd_case(gen, B, S, H, P, N, bf16, False)
+    x, dt, a, bm, cm, _, dy, _ = args
+    got = SS.ssd_scan_bwd_cuda(*args, chunk=chunk)
+    want = SS.ssd_scan_bwd_plain(*args, chunk=chunk)
+    err = max(max_err(g, w) for g, w in zip(got[:5], want[:5]))
+    conv = torch.cat([x.reshape(B, S, H * P), bm, cm], dim=-1)
+    views = (conv[..., :H * P].reshape(B, S, H, P), dt, a, conv[..., H * P:H * P + N],
+             conv[..., H * P + N:], None, dy, None)
+    on_views = SS.ssd_scan_bwd_cuda(*views, chunk=chunk)
+    for name, g, w in zip(names[:5], on_views[:5], got[:5]):
+        check(torch.equal(g, w), f"ssd_scan_bwd on conv-output views: {name} differs from "
+              f"contiguous inputs by {max_err(g, w)}")
+    ms = time_ms(lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk))
+    views_ms = time_ms(lambda: SS.ssd_scan_bwd_cuda(*views, chunk=chunk))
+    plain_ms = time_ms(lambda: SS.ssd_scan_bwd_plain(*args, chunk=chunk), n=5)
+    nbytes, flops = ssd_bwd_bytes(args), ssd_bwd_flops(B, S, H, P, N, chunk)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
+    print(f"ssd_scan_bwd B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: kernel {ms:.4f} ms "
+          f"(two launches), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms "
+          f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s, max abs err {err:.3g}; on the conv output's "
+          f"strided views {views_ms:.4f} ms, bit-equal")
+    rows = [{"name": "ssd_scan_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:27",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}]
+    del got, want, on_views, conv, views, args, x, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    worst = 0.0
+    for shape in GATED_BWD_SWEEP:
+        for dtype in (f32, bf16):
+            y, z, dout = (randn(shape, dtype, gen) for _ in range(3))
+            sc = randn(shape[-1:], dtype, gen)
+            got = RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout)
+            again = RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout)
+            want = (gated_bwd_exact(y, z, sc, dout) if dtype == f32
+                    else RN.gated_rmsnorm_bwd_plain(y, z, sc, dout))
+            for i, (g, w, r) in enumerate(zip(got, want, again)):
+                check(close(g, w, RMS_TOL[dtype]), f"gated_rmsnorm_bwd {shape} {dtype} output "
+                      f"{i}: max err {max_err(g, w)}")
+                check(torch.equal(g, r), f"gated_rmsnorm_bwd {shape} {dtype} output {i}: two "
+                      "runs differ")
+                if shape == GATED_BWD_SWEEP[-1] and dtype == bf16:
+                    worst = max(worst, max_err(g, w))
+    print(f"gated_rmsnorm_bwd: matches its plain version on {len(GATED_BWD_SWEEP)} shapes (f32 "
+          f"against the f64 evaluation from the forward's f32 gate, bf16; dscale included), "
+          f"two runs bit-equal")
+    shape = GATED_BWD_SWEEP[-1]
+    y, z, dout = (randn(shape, bf16, gen) for _ in range(3))
+    sc = randn(shape[-1:], bf16, gen)
+    ms = time_ms(lambda: RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout))
+    plain_ms = time_ms(lambda: RN.gated_rmsnorm_bwd_plain(y, z, sc, dout))
+    nbytes = (5 * y.numel() + 2 * sc.numel()) * y.element_size()   # y, z, dout in; dy, dz out
+    bound_ms, bound_by = bound(nbytes, 20 * y.numel(), PEAK_FLOPS[f32])
+    print(f"gated_rmsnorm_bwd {shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"none, bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
+    rows.append({"name": "gated_rmsnorm_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "replaces": "src/repro/kernels/rmsnorm.py:11",
+                 "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None})
+    return rows
+
+
+def phase_train_step_parity(arch: str, seq: int, per_step: dict) -> None:
+    """One train step of ``arch`` at full width, 2 layers, in f32, on the card
     (the kernels, forward and backward) and on the CPU (their plain versions),
-    from the same params and batch. Every parameter leaf must get a nonzero
-    gradient on the card: a kernel that dropped a gradient would leave the
-    leaves before it without one."""
+    from the same params and a batch of 2 x ``seq`` tokens. Every parameter leaf
+    must get a nonzero gradient on the card: a kernel that dropped a gradient
+    would leave the leaves before it without one. Every kernel of ``per_step``
+    must be launched."""
     from repro_torch import configs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import Model
@@ -909,14 +1144,13 @@ def phase_train_step_parity() -> None:
     from repro_torch.runtime.train_loop import TrainJobConfig
     from repro_torch.tree import tree_flatten_sorted, tree_map
 
-    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), num_layers=2, dtype="float32",
-                              remat="none")
+    cfg = dataclasses.replace(configs.get(arch), num_layers=2, dtype="float32", remat="none")
     opt = TrainJobConfig().opt
     params = Model(cfg, "cpu").init_params(0)
     gen = torch.Generator().manual_seed(11)
-    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq + 1), generator=gen).to(torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous(),
-             "loss_mask": torch.ones((2, 256), dtype=torch.bfloat16)}
+             "loss_mask": torch.ones((2, seq), dtype=torch.bfloat16)}
     card_params = tree_map(lambda t: t.cuda(), params)
     card = {"params": card_params, "opt": init_opt_state(card_params)}
     host = {"params": params, "opt": init_opt_state(params)}
@@ -956,13 +1190,13 @@ def phase_train_step_parity() -> None:
               f"train step: master of {name} max err {diff.max().item()}")
         beyond += int((diff > plain_tol).sum())
         m_err, master_err = max(m_err, max_err(m, m_cpu)), max(master_err, diff.max().item())
-    print(f"train step, qwen3-0.6b full width, 2 layers, f32, B=2 S=256: card loss {loss:.6f} "
+    print(f"train step, {arch} full width, 2 layers, f32, B=2 S={seq}: card loss {loss:.6f} "
           f"grad_norm {gnorm:.6f}, CPU {want_loss:.6f} {want_gnorm:.6f} ({cpu_s:.1f} s); "
           f"max abs err m {m_err:.3g} (at 1e-6), master {master_err:.3g} ({beyond} elements "
           f"beyond 1e-4, each within lr * dg / eps of Adam's first step, lr {lr:.3g}); "
           f"every leaf has a nonzero gradient; launches {launches}")
-    for name in TRAIN_PER_STEP:
-        check(launches.get(name, 0) > 0, f"train step: {name} was not launched")
+    for name in per_step:
+        check(launches.get(name, 0) > 0, f"train step {arch}: {name} was not launched")
 
 
 def phase_train(card: str) -> dict:
@@ -1077,6 +1311,146 @@ def phase_train(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_ssm_train(card: str) -> dict:
+    """Train mamba2-2.7b at full width and depth through run_train_task (2 steps,
+    no checkpoint directory), with the launch counters set to 0 just before and
+    read just after: every K2 and K3 entry of the path, both ways, exactly
+    SSM_TRAIN_PER_STEP a step. Then time warm steps of the same trainer, profile
+    one, and check the step-1 loss. Returns each kernel's launches in the task."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    steps = 2
+    cache = TrainerCache(1)
+    t0 = time.perf_counter()
+    trainer = cache.get(TrainJobConfig.from_job({"payload": dict(SSM_TRAIN)}))  # built cold
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    res = run_train_task(cache, dict(SSM_TRAIN, steps=steps))        # a warm hit: rebound
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    losses = trainer.metrics.series("loss")
+    vocab, layers = trainer.arch_cfg.vocab_size, trainer.arch_cfg.num_layers
+    print(f"train task {SSM_TRAIN['arch']} full width, {layers} layers, bf16, "
+          f"{SSM_TRAIN['global_batch']} x {SSM_TRAIN['seq_len']} tokens a step: {res} in "
+          f"{wall:.2f} s (trainer built in {build_s:.2f} s before); losses {losses}; launches "
+          f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(res["steps"] == steps and len(losses) == steps, f"mamba2 train task: {res}")
+    check(all(math.isfinite(v) for v in losses), f"mamba2 train task: losses {losses}")
+    expected = math.log(vocab) + 0.5          # random weights: see phase_train
+    check(abs(losses[0] - expected) < 0.5,
+          f"mamba2 train: step 1 loss {losses[0]} not within 0.5 of ln({vocab}) + 1/2 = "
+          f"{expected:.3f} on random weights")
+    per_step = ssm_per_step(layers)
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps
+        check(n == want, f"mamba2 train task: {name} launched {n} times, want {want}")
+
+    trainer = cache.get(TrainJobConfig.from_job({"payload": dict(SSM_TRAIN)}))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times[1:])
+    tokens = SSM_TRAIN["global_batch"] * SSM_TRAIN["seq_len"]
+    print(f"train step {SSM_TRAIN['arch']} full width, {layers} layers, {tokens} tokens: "
+          f"{step_ms:.1f} ms (median of warm steps {[round(t, 1) for t in times[1:]]}) = "
+          f"{tokens / step_ms * 1e3:.0f} training tokens/s [{card}]; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    groups = profile_breakdown(
+        f"{SSM_TRAIN['arch']} train step, {tokens} tokens", trainer.step_once, top=12,
+        every=True, groups={"K3 forward": ("ssd_scan_kernel", "ssd_scan_bf16_kernel"),
+                            "K3 backward": K3_BWD_NAMES, "K2 forward": K2_KERNEL_NAMES,
+                            "K2 backward": K2_BWD_NAMES})
+    # the backward kernels a step (the counters above hold the forward's launches;
+    # a profile after an earlier one can miss a step's first kernels)
+    for label, want in (("K3 backward", 2 * layers), ("K2 backward", 2 * layers + 1)):
+        n = groups.get(label, (0.0, 0))[1]
+        check(n == want, f"mamba2 train step profile: {n} {label} kernels, want {want}")
+    del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def arch_depth(arch: str, layers: int):
+    """``configs.get(arch)`` with ``num_layers`` cut to ``layers`` (full width),
+    for the tasks, which name an arch and build their config from the registry."""
+    from repro_torch import configs
+    real = configs.get
+
+    def cut(name):
+        cfg = real(name)
+        return dataclasses.replace(cfg, num_layers=layers) if name == arch else cfg
+
+    configs.get = cut
+    try:
+        yield
+    finally:
+        configs.get = real
+
+
+def phase_ssm_tasks() -> None:
+    """The mamba2-2.7b train task (4 steps, a checkpoint every 2) and a strict
+    eval-task restore of its last checkpoint, at full width and SSM_TASK_LAYERS
+    layers (a full-depth save is ~39.6 GB, three a task)."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_eval_task, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    steps = 4
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with arch_depth(SSM_TRAIN["arch"], SSM_TASK_LAYERS), \
+            tempfile.TemporaryDirectory(dir=build) as ckdir:
+        payload = dict(SSM_TRAIN, steps=steps, checkpoint_every=2, checkpoint_dir=ckdir)
+        cache = TrainerCache(1)
+        trainer = cache.get(TrainJobConfig.from_job({"payload": payload}))
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        res = run_train_task(cache, payload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        losses = trainer.metrics.series("loss")
+        print(f"train task {SSM_TRAIN['arch']} full width, {trainer.arch_cfg.num_layers} "
+              f"layers: {res} in {wall:.2f} s; losses {losses}; launches {launches}")
+        check(trainer.arch_cfg.num_layers == SSM_TASK_LAYERS, "mamba2 task: depth not cut")
+        check(res["steps"] == steps and res["ran_steps"] == steps and len(losses) == steps
+              and all(math.isfinite(v) for v in losses), f"mamba2 train task: {res}")
+        check(res["checkpoint"] == {"step": steps, "path": ckdir},
+              f"mamba2 train task checkpoint {res.get('checkpoint')}")
+        for name, per in ssm_per_step(SSM_TASK_LAYERS).items():
+            want = per * steps
+            check(launches.get(name, 0) == want,
+                  f"mamba2 train task: {name} launched {launches.get(name, 0)}, want {want}")
+        with torch.no_grad():
+            own, _ = trainer.model.loss_fn(trainer.params_for_eval(),
+                                           trainer._sync_batch(10_000))
+        own = float(own)
+        t0 = time.perf_counter()
+        ev = run_eval_task(None, {**SSM_TRAIN, "restore_from": res["checkpoint"]})
+        torch.cuda.synchronize()
+        print(f"eval task {SSM_TRAIN['arch']}, strict restore of step {steps}: {ev} in "
+              f"{time.perf_counter() - t0:.2f} s; the trained state's own loss on that "
+              f"batch {own}")
+        check(ev["restored_step"] == steps and math.isfinite(ev["eval_loss"]),
+              f"mamba2 eval task: {ev}")
+        check(abs(ev["eval_loss"] - own) <= 1e-5 * abs(own),
+              f"mamba2 eval task: restored loss {ev['eval_loss']} != the trained state's {own}")
+        del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def build_other(checkout: Path, name: str):
@@ -1273,8 +1647,11 @@ def main(argv=None) -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen)]
-    phase_train_step_parity()
+    rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen),
+            *phase_ssm_backward(gen)]
+    phase_train_step_parity("qwen3-0.6b", 256, TRAIN_PER_STEP)
+    # 300 tokens: ragged for the kernel's 64-row chunks and the model's 256
+    phase_train_step_parity("mamba2-2.7b", 300, SSM_TRAIN_PER_STEP)
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {}
@@ -1283,6 +1660,8 @@ def main(argv=None) -> int:
         gc.collect()                   # release this server before the next one
         torch.cuda.empty_cache()
     by_path[TRAIN_PATH] = phase_train(card)
+    by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
+    phase_ssm_tasks()
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()

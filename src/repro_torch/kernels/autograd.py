@@ -1,8 +1,9 @@
-"""Autograd Functions of the kernel ops the dense model trains through.
+"""Autograd Functions of the kernel ops the models train through.
 
 The port's twin of the JAX package's custom VJP around flash attention
 (``_flash_blocked``, ``src/repro/kernels/ops.py:134-145``) and of autodiff through
-``ref.rmsnorm_ref``. Each Function runs both directions on one path, picked by the
+``ref.rmsnorm_ref``, mamba2's gate and the jnp SSD scan ``_ssd_blocked``. Each
+Function runs both directions on one path, picked by the
 device of its first input as ``ops`` picks it: a CUDA tensor goes to the
 hand-written kernels, forward and backward; a CPU tensor to the plain forward and
 the plain *explicit* backward (the ``*_bwd_plain`` twins), never to autodiff of the
@@ -10,7 +11,8 @@ plain forward. So the CPU tests run the same Function the card runs.
 
 What each saves: q, k, v, o and the forward's LSE for flash attention (O(S), as
 the JAX VJP); the input of the norm for the norms (x; s = x + r for add_rmsnorm;
-the pre-norm q and k for qk_norm_rope).
+y and z for gated_rmsnorm; the pre-norm q and k for qk_norm_rope); the scan's
+inputs for the SSD scan, whose backward recomputes the states it needs.
 
 ``ops`` enters these only when autograd is recording and an input requires grad;
 serving never does. Inside ``forward`` and ``backward`` recording is off, which is
@@ -23,6 +25,7 @@ import torch
 from repro_torch.device import on_card
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd_scan as SS
 
 
 class FlashAttention(torch.autograd.Function):
@@ -96,6 +99,50 @@ class AddRMSNorm(torch.autograd.Function):
         else:
             dx, dscale = RN.add_rmsnorm_bwd_plain(s, scale, ds, dn, eps=ctx.eps)
         return dx, dx, dscale, None
+
+
+class GatedRMSNorm(torch.autograd.Function):
+    """rmsnorm(y * silu(z)), mamba2's gated norm."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps: float):
+        out = RN.gated_rmsnorm_cuda(y, z, scale, eps=eps) if on_card(y) else \
+            RN.gated_rmsnorm_plain(y, z, scale, eps=eps)
+        ctx.save_for_backward(y, z, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale = ctx.saved_tensors
+        bwd = RN.gated_rmsnorm_bwd_cuda if on_card(y) else RN.gated_rmsnorm_bwd_plain
+        dy, dz, dscale = bwd(y, z, scale, dout.contiguous(), eps=ctx.eps)
+        return dy, dz, dscale, None
+
+
+class SSDScan(torch.autograd.Function):
+    """(y, final_state) of the chunked SSD scan. The cotangent of the final state
+    is None where the caller drops it (the training path), and the backward then
+    reads no zeros; that of y is None where only the state is used."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, init_state, chunk: int):
+        ctx.set_materialize_grads(False)
+        scan = SS.ssd_scan_cuda if on_card(x) else SS.ssd_scan_plain
+        y, h = scan(x, dt, a, bm, cm, chunk=chunk, init_state=init_state)
+        ctx.save_for_backward(x, dt, a, bm, cm, init_state)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, bm, cm, init_state = ctx.saved_tensors
+        dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None else \
+            dy.contiguous()
+        bwd = SS.ssd_scan_bwd_cuda if on_card(x) else SS.ssd_scan_bwd_plain
+        grads = bwd(x, dt, a, bm, cm, init_state, dy,
+                    None if dh is None else dh.contiguous(), chunk=ctx.chunk)
+        return (*grads, None)
 
 
 class QkNormRope(torch.autograd.Function):

@@ -381,6 +381,12 @@ qk_norm_rope_kernel(QkArgs<T> a) {
 //   add_rmsnorm_bwd   the forward returned (s, rmsnorm(s)) with s = x + r, so
 //                     dx = dr = ds + dnorm: ds is added inside the pass, rounded
 //                     where the unfused sequence rounds: T(ds + T(dnorm))
+//   gated_rmsnorm_bwd the forward normed t = T(y * T(silu(z))): t is recomputed
+//                     exactly as GatedOp::pre rounds it (a different t would move
+//                     rstd and dw), the norm's dx on t is rounded to T (dt), then
+//                     dy = T(dt * T(silu(z))) and dz = T(silu'(z) * T(dt * y)) in
+//                     f32, silu'(z) = sig (1 + z (1 - sig)): the casts of the JAX
+//                     sequence y * silu(z.astype(f32)).astype(y.dtype).
 //   qk_norm_rope_bwd  q and k in one launch: the cotangent of the roped output is
 //                     rotated back by -theta (RoPE's transpose, f32) and rounded
 //                     to T (the grad of apply_rope's cast), then the norm's
@@ -569,13 +575,17 @@ __device__ __noinline__ void fold(const Fold& f, int W, int W1, int nvec, T* out
   if (threadIdx.x == 0) f.count[groups] = 0;
 }
 
+// what the row pass of rows_bwd_kernel reads besides x and dy, and writes besides dx
+constexpr int BWD_PLAIN = 0, BWD_ADD = 1, BWD_GATED = 2;
+
 template <typename T>
 struct RowsBwd {
-  const T* x;
+  const T* x;              // GATED: y
   const T* dy;
-  const T* ds;             // ADD only
+  const T* ds;             // ADD: ds; GATED: z
   const T* scale;
-  T* dx;
+  T* dx;                   // GATED: dy
+  T* dz;                   // GATED only
   T* dscale;
   long long rows;
   int nvec, tpr;
@@ -584,10 +594,17 @@ struct RowsBwd {
 
 constexpr int BWD_THREADS = 512;   // largest block of the backward row pass
 
+// silu(g) as GatedOp::pre forms it, rounded to T
+template <typename T>
+__device__ __forceinline__ float gate_silu(float g) {
+  return round_to<T>(__fdividef(g, 1.0f + expf(-g)));
+}
+
 // Rows as rows_kernel assigns them, up to BWD_THREADS threads a block (a block
 // an SM: the fewer blocks, the fewer rows the fold reads at the end, and a second
-// block an SM did not move the row pass). ADD: dx = T(ds + T(dx_norm)).
-template <typename T, int NV, bool ADD>
+// block an SM did not move the row pass). ADD: dx = T(ds + T(dx_norm)). GATED: the
+// norm's input is t = T(y * silu), recomputed in both passes from y and z.
+template <typename T, int NV, int MODE>
 __global__ void __launch_bounds__(NV < 8 ? BWD_THREADS : MAX_THREADS, 1)
 rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
   constexpr int VEC = Vec<T>::N;
@@ -621,7 +638,7 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
       if (live && i < nvec) {
         rx[v] = ld16(a.x, row * nvec + i);
         rg[v] = ld16(a.dy, row * nvec + i);
-        if constexpr (ADD) rs[v] = ld16(a.ds, row * nvec + i);
+        if constexpr (MODE != BWD_PLAIN) rs[v] = ld16(a.ds, row * nvec + i);
       }
     }
     Acc ss = 0;
@@ -634,6 +651,12 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
         widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
+        if constexpr (MODE == BWD_GATED) {
+          float zf[VEC];
+          widen<T>(rs[v], zf);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) xf[k] = round_to<T>(__fmul_rn(xf[k], gate_silu<T>(zf[k])));
+        }
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           ss += (Acc)xf[k] * xf[k];
@@ -654,20 +677,40 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
     for (int v = 0; v < NV; ++v) {
       const int i = v * tpr + lane;
       if (live && i < nvec) {
-        float xf[VEC], gf[VEC], w[VEC], o[VEC];
+        float xf[VEC], gf[VEC], w[VEC], o[VEC], yf[VEC], zf[VEC];
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
         widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
+        if constexpr (MODE == BWD_GATED) {
+          widen<T>(rs[v], zf);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            yf[k] = xf[k];
+            xf[k] = round_to<T>(__fmul_rn(yf[k], gate_silu<T>(zf[k])));
+          }
+        }
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           o[k] = rstd * gf[k] * w[k] - xf[k] * coef;
           mine[k * nvec + i] += (Acc)gf[k] * xf[k] * rstd_a;
         }
-        if constexpr (ADD) {
+        if constexpr (MODE == BWD_ADD) {
           float sf[VEC];
           widen<T>(rs[v], sf);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) o[k] = __fadd_rn(sf[k], round_to<T>(o[k]));
+        }
+        if constexpr (MODE == BWD_GATED) {
+          float dz[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float dt = round_to<T>(o[k]);
+            const float sig = __fdividef(1.0f, 1.0f + expf(-zf[k]));
+            dz[k] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[k])),
+                              __fmul_rn(sig, 1.0f + zf[k] * (1.0f - sig)));
+            o[k] = __fmul_rn(dt, gate_silu<T>(zf[k]));
+          }
+          put16(a.dz, row * nvec + i, pack<T>(dz));
         }
         put16(a.dx, row * nvec + i, pack<T>(o));
       }
@@ -1000,20 +1043,20 @@ unsigned fold_grid(int per_sm, long long work, int max_blocks) {
   return (unsigned)g;
 }
 
-template <typename T, int NV, bool ADD>
+template <typename T, int NV, int MODE>
 cudaError_t run_rows_bwd(const RowsBwd<T>& a, long long groups, int threads, size_t smem,
                          double* scratch, int max_blocks, cudaStream_t s) {
   int per_sm = 0;
-  cudaError_t err = blocks_per_sm(rows_bwd_kernel<T, NV, ADD>, threads, smem, &per_sm);
+  cudaError_t err = blocks_per_sm(rows_bwd_kernel<T, NV, MODE>, threads, smem, &per_sm);
   if (err != cudaSuccess) return err;
   const unsigned grid = fold_grid(per_sm, groups, max_blocks);
-  rows_bwd_kernel<T, NV, ADD><<<grid, threads, smem, s>>>(
+  rows_bwd_kernel<T, NV, MODE><<<grid, threads, smem, s>>>(
       a, fold_at(scratch, (int)grid, a.nvec * Vec<T>::N));
   return cudaGetLastError();
 }
 
 // the forward's rows a block and threads a row; one launch, dscale folded in
-template <typename T, bool ADD>
+template <typename T, int MODE>
 cudaError_t launch_rows_bwd(RowsBwd<T> a, double* scratch, int max_blocks, int D,
                             cudaStream_t s) {
   constexpr int VEC = Vec<T>::N;
@@ -1029,10 +1072,10 @@ cudaError_t launch_rows_bwd(RowsBwd<T> a, double* scratch, int max_blocks, int D
   const size_t smem =
       (size_t)(r.tpr > 32 ? 1 : threads / r.tpr) * D * sizeof(typename AccOf<T>::type);
   switch (r.nv) {
-    case 1: return run_rows_bwd<T, 1, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
-    case 2: return run_rows_bwd<T, 2, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
-    case 4: return run_rows_bwd<T, 4, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
-    case 8: return run_rows_bwd<T, 8, ADD>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 1: return run_rows_bwd<T, 1, MODE>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 2: return run_rows_bwd<T, 2, MODE>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 4: return run_rows_bwd<T, 4, MODE>(a, groups, threads, smem, scratch, max_blocks, s);
+    case 8: return run_rows_bwd<T, 8, MODE>(a, groups, threads, smem, scratch, max_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1192,15 +1235,15 @@ extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* p = static_cast<double*>(scratch);
   if (dtype == 0)
-    return (int)launch_rows_bwd<float, false>(
+    return (int)launch_rows_bwd<float, BWD_PLAIN>(
         RowsBwd<float>{(const float*)x, (const float*)dy, nullptr, (const float*)scale,
-                       (float*)dx, (float*)dscale, rows, 0, 0, 0.f, eps},
+                       (float*)dx, nullptr, (float*)dscale, rows, 0, 0, 0.f, eps},
         p, max_blocks, D, s);
   if (dtype == 1) {
     using B = __nv_bfloat16;
-    return (int)launch_rows_bwd<B, false>(
-        RowsBwd<B>{(const B*)x, (const B*)dy, nullptr, (const B*)scale, (B*)dx, (B*)dscale,
-                   rows, 0, 0, 0.f, eps},
+    return (int)launch_rows_bwd<B, BWD_PLAIN>(
+        RowsBwd<B>{(const B*)x, (const B*)dy, nullptr, (const B*)scale, (B*)dx, nullptr,
+                   (B*)dscale, rows, 0, 0, 0.f, eps},
         p, max_blocks, D, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -1216,14 +1259,40 @@ extern "C" int add_rmsnorm_bwd(const void* s_in, const void* scale, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* p = static_cast<double*>(scratch);
   if (dtype == 0)
-    return (int)launch_rows_bwd<float, true>(
+    return (int)launch_rows_bwd<float, BWD_ADD>(
         RowsBwd<float>{(const float*)s_in, (const float*)dn, (const float*)ds,
-                       (const float*)scale, (float*)dx, (float*)dscale, rows, 0, 0, 0.f, eps},
+                       (const float*)scale, (float*)dx, nullptr, (float*)dscale, rows, 0, 0,
+                       0.f, eps},
         p, max_blocks, D, s);
   if (dtype == 1) {
     using B = __nv_bfloat16;
-    return (int)launch_rows_bwd<B, true>(
+    return (int)launch_rows_bwd<B, BWD_ADD>(
         RowsBwd<B>{(const B*)s_in, (const B*)dn, (const B*)ds, (const B*)scale, (B*)dx,
+                   nullptr, (B*)dscale, rows, 0, 0, 0.f, eps},
+        p, max_blocks, D, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// y, z: the forward's inputs; dout: the cotangent of its output; dy, dz and
+// dscale receive the gradients.
+extern "C" int gated_rmsnorm_bwd(const void* y, const void* z, const void* scale,
+                                 const void* dout, void* dy, void* dz, void* dscale,
+                                 void* scratch, int max_blocks, long long rows, int D, float eps,
+                                 int dtype, int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* p = static_cast<double*>(scratch);
+  if (dtype == 0)
+    return (int)launch_rows_bwd<float, BWD_GATED>(
+        RowsBwd<float>{(const float*)y, (const float*)dout, (const float*)z,
+                       (const float*)scale, (float*)dy, (float*)dz, (float*)dscale, rows, 0,
+                       0, 0.f, eps},
+        p, max_blocks, D, s);
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    return (int)launch_rows_bwd<B, BWD_GATED>(
+        RowsBwd<B>{(const B*)y, (const B*)dout, (const B*)z, (const B*)scale, (B*)dy, (B*)dz,
                    (B*)dscale, rows, 0, 0, 0.f, eps},
         p, max_blocks, D, s);
   }

@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), with a plain C interface for ctypes.
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), forward and backward, with a plain
+// C interface for ctypes. The backward's design is in its own note, below.
 //
 // Replaces the TPU kernel `_ssd_kernel` / `ssd_scan_pallas` of
 // src/repro/kernels/ssd_scan.py. It computes what the JAX package's model path
@@ -69,6 +70,8 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -573,6 +576,562 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
     }
 }
 
+// ------------------------------------------------------------ backward
+// One design for both input dtypes: f32 math on the CUDA cores, inputs widened
+// from T (float or bf16) as they are staged, gradients of x, B and C rounded to
+// T once. Two launches:
+//   1. ssd_scan_bwd_kernel, one block per (32-column tile of P, head, batch), as
+//      the forward. It first walks the chunks forward and writes the state
+//      entering each chunk, h_c (its [N, 32] slice), to a scratch buffer, then
+//      walks them in reverse carrying dh (the cotangent of the state leaving the
+//      chunk) on chip and reads h_c back. Per chunk, with S = (C B^T) * L and
+//      W_ij = L_ij dt_j (dy_i . x_j), L_ij = exp(cum_i - cum_j) for j <= i:
+//        y_i    = sum_j S_ij dt_j x_j + exp(cum_i) C_i h_c        (recomputed, f32)
+//        dxs_j  = sum_i S_ij dy_i + exp(seg - cum_j) B_j dh,   dx_j = dt_j dxs_j
+//        dC_i   = sum_j W_ij B_j + exp(cum_i) h_c dy_i
+//        dB_j   = sum_i W_ij C_i + exp(seg - cum_j) dt_j dh x_j
+//        dcum_i = dy_i . y_i - dt_i x_i . dxs_i  (+ <h_{c+1}, dh> on the last row:
+//                 exp(seg) <h_c, dh> + sum_j dt_j x_j . (exp(seg - cum_j) B_j dh))
+//        dh    <- exp(seg) dh + sum_i exp(cum_i) C_i dy_i^T
+//      dx and d(init_state) are complete per tile. dB, dC, dcum and x . dxs are
+//      sums over the P tiles and (dB, dC) the heads, so each block writes its
+//      own f32 partial rows of them.
+//   2. ssd_scan_bwd_finish sums the partials in a fixed order: dB and dC over
+//      the P/32 * H (tile, head) rows, one element a thread; and, one block a
+//      head, the reverse cumsum of dcum within each 64-row chunk (a warp a
+//      chunk), ddt = x . dxs + A rc, and dA = sum over B*S of dt rc, the warps'
+//      sums added in warp order. No atomics: two runs give the same bits.
+// Why the states are recomputed and not kept by the forward: the forward kernel
+// (both designs) stays as serving runs it, and the training step keeps no
+// [B, nc, H, N, P] f32 state per layer through the step (84 MB a layer at
+// mamba2-2.7b's 2,048 tokens, 5.4 GB over 64 layers, on a step that fills most
+// of the card). The forward walk costs one state update a chunk, a fifth of the
+// reverse walk's products.
+// Overflow: exp(cum_i - cum_j) is formed only for j <= i, and every other
+// factor (exp(cum_i), exp(seg - cum_j)) is <= 1.
+// Rows at or past S are staged as zeros with dt = 0 (the forward's padding) and
+// get nothing written; the chunk's d(seg) goes on its last row inside S.
+// What bounds it on the H100: at the training shape (B=1, S=2048, H=80, P=64,
+// N=128, bf16) the gradient reads ~30 MB and writes ~30 MB (~0.02 ms at 3.35
+// TB/s) for ~21 GFLOP counted once (~0.02 ms on the bf16 tensor cores): bytes
+// and operations about even. This design sits far above that: its products run
+// as f32 FMAs on the CUDA cores (67 TFLOP/s), C.B^T and the readouts are
+// recomputed by every P tile and head, the partial rows of dB and dC (P/32 * H
+// of them, 168 MB each at the training shape) go through device memory, and one
+// 151 KB block an SM leaves the chunk loop's latency exposed.
+
+constexpr int XP = PT + 1;   // padded row of the x, dy and state tiles (floats)
+
+template <typename T>
+__device__ __forceinline__ float ldf(const T* p) {
+  if constexpr (sizeof(T) == 4) return *p;
+  else return __bfloat162float(*p);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 4) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const float* dt;
+  const float* A;
+  const T* bm;
+  const T* cm;
+  const float* init_state;   // null: a zero initial state
+  const T* dy;               // [B, S, H, P]
+  const float* d_final;      // null: zero
+  T* dx;                     // [B, S, H, P]
+  float* ddt;                // [B, S, H]
+  float* dA;                 // [H]
+  T* dbm;                    // [B, S, N]
+  T* dcm;
+  float* d_init;             // null: not wanted
+  float* states;             // scratch [B, H, nc, N, P]: the state entering each chunk
+  float* part_b;             // scratch [P/PT * H, B, S, N]: each (tile, head)'s dB rows
+  float* part_c;             // the same for dC
+  float* part_t;             // scratch [2, P/PT, B, S, H]: dcum and x . dxs per tile
+  int B, S, H, P;
+  long long sxb, sxs, sbb, sbs, scb, scs;
+};
+
+template <int N>
+constexpr size_t bwd_smem_floats() {
+  // sB, sC [Q][N+1]; sX, sDY [Q][XP]; sS, sW [Q][Q+1]; sH, sDH [N][XP];
+  // sDt, sCum, sIn, sOut, sR1, sR2, sR3 [Q]; sRed [16]
+  return 2 * (size_t)Q * (N + 1) + 2 * (size_t)Q * XP + 2 * (size_t)Q * (Q + 1) +
+         2 * (size_t)N * XP + 7 * (size_t)Q + 16;
+}
+
+// inclusive cumsum of dt * a over the Q = 64 rows of sDt into sCum, by warp 0
+__device__ __forceinline__ void chunk_cumsum(const float* sDt, float* sCum, float a) {
+  const int lane = threadIdx.x;
+  if (lane >= 32) return;
+  const float v0 = sDt[2 * lane] * a, v1 = sDt[2 * lane + 1] * a;
+  float s = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += t;
+  }
+  const float before = __shfl_up_sync(0xffffffffu, s, 1);
+  sCum[2 * lane] = lane ? before + v0 : v0;
+  sCum[2 * lane + 1] = lane ? before + v0 + v1 : v0 + v1;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_bwd_kernel(BwdArgs<T> g) {
+  static_assert(N % 16 == 0, "state dim must be a multiple of 16");
+  constexpr int NP = N + 1, QP = Q + 1, NPT = N / 16;
+  extern __shared__ float smem[];
+  float* sB = smem;
+  float* sC = sB + Q * NP;
+  float* sX = sC + Q * NP;
+  float* sDY = sX + Q * XP;
+  float* sS = sDY + Q * XP;
+  float* sW = sS + Q * QP;
+  float* sH = sW + Q * QP;
+  float* sDH = sH + N * XP;
+  float* sDt = sDH + N * XP;
+  float* sCum = sDt + Q;
+  float* sIn = sCum + Q;    // exp(cum_i)
+  float* sOut = sIn + Q;    // exp(cum_last - cum_j)
+  float* sR1 = sOut + Q;    // dy_i . y_i over the tile
+  float* sR2 = sR1 + Q;     // x_i . dxs_i
+  float* sR3 = sR2 + Q;     // x_i . (the state part of dxs_i)
+  float* sRed = sR3 + Q;    // the warps' partial sums of <h_c, dh>
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x, p0 = tile * PT, h = blockIdx.y, b = blockIdx.z;
+  const int S = g.S, H = g.H, P = g.P, NT = P / PT;
+  const int nc = (S + Q - 1) / Q;
+  const float a = g.A[h];
+  const size_t yrow = (size_t)H * P;
+  const T* xb = g.x + b * g.sxb + (size_t)h * P + p0;
+  const T* bb = g.bm + b * g.sbb;
+  const T* cb = g.cm + b * g.scb;
+  const T* dyb = g.dy + (size_t)b * S * yrow + (size_t)h * P + p0;
+  T* dxb = g.dx + (size_t)b * S * yrow + (size_t)h * P + p0;
+  const float* dtb = g.dt + (size_t)b * S * H + h;
+  const size_t st = ((size_t)b * H + h) * N * P + p0;            // [B,H,N,P] at p0
+  float* hs = g.states + ((size_t)b * H + h) * nc * N * P + p0;  // [nc][N][P] at p0
+  const size_t prow = ((size_t)(tile * H + h) * g.B + b) * S;    // partial rows [slot][b][.]
+  const size_t bsh = (size_t)g.B * S * H;
+
+  // stage chunk rows [c0, c0 + rows) of B (and C, dy), x and dt, zeros past S
+  auto stage = [&](int c0, int rows, bool all) {
+    for (int i = tid; i < Q * N; i += THREADS) {
+      const int r = i / N, n = i % N;
+      const bool ok = r < rows;
+      sB[r * NP + n] = ok ? ldf(bb + (c0 + r) * g.sbs + n) : 0.f;
+      if (all) sC[r * NP + n] = ok ? ldf(cb + (c0 + r) * g.scs + n) : 0.f;
+    }
+    for (int i = tid; i < Q * PT; i += THREADS) {
+      const int r = i / PT, p = i % PT;
+      const bool ok = r < rows;
+      sX[r * XP + p] = ok ? ldf(xb + (c0 + r) * g.sxs + p) : 0.f;
+      if (all) sDY[r * XP + p] = ok ? ldf(dyb + (size_t)(c0 + r) * yrow + p) : 0.f;
+    }
+    if (tid < Q) sDt[tid] = tid < rows ? dtb[(size_t)(c0 + tid) * H] : 0.f;
+  };
+
+  // ---- forward walk: h_c of every chunk into the scratch
+  for (int i = tid; i < N * PT; i += THREADS) {
+    const int n = i / PT, p = i % PT;
+    sH[n * XP + p] = g.init_state ? g.init_state[st + (size_t)n * P + p] : 0.f;
+  }
+  for (int c = 0; c < nc; ++c) {
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    __syncthreads();   // the last update of sH and every read of the stage are done
+    for (int i = tid; i < N * PT; i += THREADS) {
+      const int n = i / PT, p = i % PT;
+      hs[(size_t)c * N * P + (size_t)n * P + p] = sH[n * XP + p];
+    }
+    stage(c0, rows, false);
+    __syncthreads();
+    chunk_cumsum(sDt, sCum, a);
+    __syncthreads();
+    const float last = sCum[Q - 1], seg = expf(last);
+    float u[NPT][2];
+#pragma unroll
+    for (int k = 0; k < NPT; ++k) u[k][0] = u[k][1] = 0.f;
+    for (int j = 0; j < rows; ++j) {
+      const float w = expf(last - sCum[j]) * sDt[j];
+      const float x0 = sX[j * XP + tx] * w, x1 = sX[j * XP + tx + 16] * w;
+#pragma unroll
+      for (int k = 0; k < NPT; ++k) {
+        const float bv = sB[j * NP + ty * NPT + k];
+        u[k][0] = fmaf(bv, x0, u[k][0]);
+        u[k][1] = fmaf(bv, x1, u[k][1]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NPT; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* hp = sH + (ty * NPT + k) * XP + tx + 16 * e;
+        *hp = fmaf(seg, *hp, u[k][e]);
+      }
+  }
+
+  // ---- reverse walk
+  for (int i = tid; i < N * PT; i += THREADS) {
+    const int n = i / PT, p = i % PT;
+    sDH[n * XP + p] = g.d_final ? g.d_final[st + (size_t)n * P + p] : 0.f;
+  }
+  for (int c = nc - 1; c >= 0; --c) {
+    const int c0 = c * Q, rows = min(Q, S - c0);
+    __syncthreads();   // the previous chunk's reads of the stage and of sDH are done
+    stage(c0, rows, true);
+    for (int i = tid; i < N * PT; i += THREADS) {
+      const int n = i / PT, p = i % PT;
+      sH[n * XP + p] = hs[(size_t)c * N * P + (size_t)n * P + p];
+    }
+    __syncthreads();
+    chunk_cumsum(sDt, sCum, a);
+    __syncthreads();
+    const float last = sCum[Q - 1];
+    if (tid < Q) {
+      sIn[tid] = expf(sCum[tid]);
+      sOut[tid] = expf(last - sCum[tid]);
+    }
+
+    // S = (C.B^T) L and W = L dt_j (dy_i . x_j), rows ty*4+i, columns tx+16j, j <= i
+    {
+      float gs[4][4], ds[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gs[i][j] = ds[i][j] = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {
+        float cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cv[i] = sC[(ty * 4 + i) * NP + n];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = sB[(tx + 16 * j) * NP + n];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gs[i][j] = fmaf(cv[i], bv[j], gs[i][j]);
+      }
+#pragma unroll 4
+      for (int p = 0; p < PT; ++p) {
+        float dv[4], xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = sDY[(ty * 4 + i) * XP + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xv[j] = sX[(tx + 16 * j) * XP + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ds[i][j] = fmaf(dv[i], xv[j], ds[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;
+          const float l = col <= r ? expf(sCum[r] - sCum[col]) : 0.f;
+          sS[r * QP + col] = gs[i][j] * l;
+          sW[r * QP + col] = l * sDt[col] * ds[i][j];
+        }
+      }
+    }
+    __syncthreads();
+
+    // y and dxs at rows ty*4+i, columns tx+16e; their row dots; dx; <h_c, dh>
+    {
+      float yi[4][2], yh[4][2], di[4][2], dh2[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) yi[i][e] = yh[i][e] = di[i][e] = dh2[i][e] = 0.f;
+      for (int j = 0; j < ty * 4 + 4; ++j) {         // y: columns j <= row
+        float sv[4];
+        const float d = sDt[j];
+        const float x0 = sX[j * XP + tx] * d, x1 = sX[j * XP + tx + 16] * d;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sv[i] = sS[(ty * 4 + i) * QP + j];
+          yi[i][0] = fmaf(sv[i], x0, yi[i][0]);
+          yi[i][1] = fmaf(sv[i], x1, yi[i][1]);
+        }
+      }
+      for (int r = ty * 4; r < Q; ++r) {             // dxs: rows r >= column
+        const float d0 = sDY[r * XP + tx], d1 = sDY[r * XP + tx + 16];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sv = sS[r * QP + ty * 4 + i];
+          di[i][0] = fmaf(sv, d0, di[i][0]);
+          di[i][1] = fmaf(sv, d1, di[i][1]);
+        }
+      }
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {                   // the readouts of h_c and dh
+        const float h0 = sH[n * XP + tx], h1 = sH[n * XP + tx + 16];
+        const float g0 = sDH[n * XP + tx], g1 = sDH[n * XP + tx + 16];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float cv = sC[(ty * 4 + i) * NP + n], bv = sB[(ty * 4 + i) * NP + n];
+          yh[i][0] = fmaf(cv, h0, yh[i][0]);
+          yh[i][1] = fmaf(cv, h1, yh[i][1]);
+          dh2[i][0] = fmaf(bv, g0, dh2[i][0]);
+          dh2[i][1] = fmaf(bv, g1, dh2[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        float r1 = 0.f, r2 = 0.f, r3 = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = tx + 16 * e;
+          const float y = fmaf(sIn[r], yh[i][e], yi[i][e]);
+          const float st_part = sOut[r] * dh2[i][e];
+          const float dxs = di[i][e] + st_part;
+          const float xv = sX[r * XP + p];
+          r1 = fmaf(sDY[r * XP + p], y, r1);
+          r2 = fmaf(xv, dxs, r2);
+          r3 = fmaf(xv, st_part, r3);
+          if (r < rows) dxb[(size_t)(c0 + r) * yrow + p] = from_f<T>(sDt[r] * dxs);
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) {             // over the 16 lanes of the row
+          r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+          r2 += __shfl_xor_sync(0xffffffffu, r2, o);
+          r3 += __shfl_xor_sync(0xffffffffu, r3, o);
+        }
+        if (tx == 0) {
+          sR1[r] = r1;
+          sR2[r] = r2;
+          sR3[r] = r3;
+        }
+      }
+      float hd = 0.f;
+      for (int i = tid; i < N * PT; i += THREADS) {
+        const int n = i / PT, p = i % PT;
+        hd = fmaf(sH[n * XP + p], sDH[n * XP + p], hd);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
+      if (lane == 0) sRed[warp] = hd;
+    }
+    __syncthreads();
+
+    // partial dB and dC at rows ty*4+i, state columns tx+16k
+    {
+      float dcv[4][NPT], dbv[4][NPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < NPT; ++k) dcv[i][k] = dbv[i][k] = 0.f;
+      for (int j = 0; j < Q; ++j) {
+        float wr[4], wc[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          wr[i] = sW[(ty * 4 + i) * QP + j];   // W[row, j], j <= row: dC
+          wc[i] = sW[j * QP + ty * 4 + i];     // W[j, row], j >= row: dB
+        }
+#pragma unroll
+        for (int k = 0; k < NPT; ++k) {
+          const float bv = sB[j * NP + tx + 16 * k], cv = sC[j * NP + tx + 16 * k];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dcv[i][k] = fmaf(wr[i], bv, dcv[i][k]);
+            dbv[i][k] = fmaf(wc[i], cv, dbv[i][k]);
+          }
+        }
+      }
+      float fin[4], fout[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        fin[i] = sIn[r];
+        fout[i] = sOut[r] * sDt[r];
+      }
+#pragma unroll 4
+      for (int p = 0; p < PT; ++p) {
+        float dv[4], xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i] = sDY[(ty * 4 + i) * XP + p] * fin[i];
+          xv[i] = sX[(ty * 4 + i) * XP + p] * fout[i];
+        }
+#pragma unroll
+        for (int k = 0; k < NPT; ++k) {
+          const float hv = sH[(tx + 16 * k) * XP + p], gv = sDH[(tx + 16 * k) * XP + p];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dcv[i][k] = fmaf(dv[i], hv, dcv[i][k]);
+            dbv[i][k] = fmaf(xv[i], gv, dbv[i][k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        if (r >= rows) continue;
+        const size_t o = (prow + c0 + r) * N + tx;
+#pragma unroll
+        for (int k = 0; k < NPT; ++k) {
+          g.part_b[o + 16 * k] = dbv[i][k];
+          g.part_c[o + 16 * k] = dcv[i][k];
+        }
+      }
+    }
+    // dcum and x . dxs of each row inside S; d(seg) on the last of them
+    if (tid < rows) {
+      float dcum = sR1[tid] - sDt[tid] * sR2[tid];
+      if (tid == rows - 1) {
+        float hd = 0.f, sj = 0.f;
+        for (int w = 0; w < THREADS / 32; ++w) hd += sRed[w];
+        for (int j = 0; j < rows; ++j) sj = fmaf(sDt[j], sR3[j], sj);
+        dcum += expf(last) * hd + sj;
+      }
+      const size_t o = ((size_t)tile * g.B + b) * S * H + (size_t)(c0 + tid) * H + h;
+      g.part_t[o] = dcum;
+      g.part_t[(size_t)NT * bsh + o] = sR2[tid];
+    }
+    __syncthreads();   // every read of sDH for this chunk is done
+
+    // dh <- exp(seg) dh + sum_i exp(cum_i) C_i dy_i^T, rows ty*NPT+k, columns tx+16e
+    {
+      const float seg = expf(last);
+      float u[NPT][2];
+#pragma unroll
+      for (int k = 0; k < NPT; ++k) u[k][0] = u[k][1] = 0.f;
+      for (int i = 0; i < rows; ++i) {
+        const float f = sIn[i];
+        const float d0 = sDY[i * XP + tx] * f, d1 = sDY[i * XP + tx + 16] * f;
+#pragma unroll
+        for (int k = 0; k < NPT; ++k) {
+          const float cv = sC[i * NP + ty * NPT + k];
+          u[k][0] = fmaf(cv, d0, u[k][0]);
+          u[k][1] = fmaf(cv, d1, u[k][1]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NPT; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* gp = sDH + (ty * NPT + k) * XP + tx + 16 * e;
+          *gp = fmaf(seg, *gp, u[k][e]);
+        }
+    }
+  }
+  if (g.d_init) {
+    __syncthreads();
+    for (int i = tid; i < N * PT; i += THREADS) {
+      const int n = i / PT, p = i % PT;
+      g.d_init[st + (size_t)n * P + p] = sDH[n * XP + p];
+    }
+  }
+}
+
+// Blocks [0, n_bc): dB and dC, an element a thread, summed over the (tile, head)
+// partial rows in order. Blocks n_bc + h: head h's ddt and dA.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_bwd_finish(BwdArgs<T> g, int N, int n_bc) {
+  const int NT = g.P / PT, S = g.S, H = g.H;
+  if ((int)blockIdx.x < n_bc) {
+    const size_t total = (size_t)g.B * S * N;
+    const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
+    if (e >= total) return;
+    float sb = 0.f, sc = 0.f;
+    for (int t = 0; t < NT * H; ++t) {
+      sb += g.part_b[t * total + e];
+      sc += g.part_c[t * total + e];
+    }
+    g.dbm[e] = from_f<T>(sb);
+    g.dcm[e] = from_f<T>(sc);
+    return;
+  }
+  __shared__ float part[THREADS / 32];
+  const int h = blockIdx.x - n_bc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (S + Q - 1) / Q;
+  const float a = g.A[h];
+  const size_t bsh = (size_t)g.B * S * H;
+  float da = 0.f;
+  for (int k = warp; k < g.B * nc; k += THREADS / 32) {   // a warp a (batch, chunk)
+    const int b = k / nc, c0 = (k % nc) * Q;
+    float v[2], dd[2], dtv[2];
+    size_t idx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = c0 + 2 * lane + r;
+      idx[r] = ((size_t)b * S + s) * H + h;
+      v[r] = dd[r] = dtv[r] = 0.f;
+      if (s < S) {
+        dtv[r] = g.dt[idx[r]];
+        for (int t = 0; t < NT; ++t) {
+          v[r] += g.part_t[t * bsh + idx[r]];
+          dd[r] += g.part_t[(NT + t) * bsh + idx[r]];
+        }
+      }
+    }
+    // reverse inclusive cumsum over the chunk's 64 rows (lane l: rows 2l, 2l+1)
+    float sum = v[0] + v[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_down_sync(0xffffffffu, sum, o);
+      if (lane + o < 32) sum += t;
+    }
+    float after = __shfl_down_sync(0xffffffffu, sum, 1);   // the lanes above
+    if (lane == 31) after = 0.f;
+    const float rc[2] = {after + v[1] + v[0], after + v[1]};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (c0 + 2 * lane + r >= S) continue;
+      g.ddt[idx[r]] = fmaf(a, rc[r], dd[r]);
+      da = fmaf(dtv[r], rc[r], da);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+  if (lane == 0) part[warp] = da;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) s += part[w];
+    g.dA[h] = s;
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const BwdArgs<T>& g, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_floats<N>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_kernel<T, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_kernel<T, N><<<dim3(g.P / PT, g.H, g.B), THREADS, smem, stream>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)g.B * g.S * N;
+  const int n_bc = (int)((total + THREADS - 1) / THREADS);
+  ssd_scan_bwd_finish<T><<<n_bc + g.H, THREADS, 0, stream>>>(g, N, n_bc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_n(const BwdArgs<T>& g, int N, cudaStream_t s) {
+  switch (N) {
+    case 16: return launch_bwd<T, 16>(g, s);
+    case 32: return launch_bwd<T, 32>(g, s);
+    case 64: return launch_bwd<T, 64>(g, s);
+    case 128: return launch_bwd<T, 128>(g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int N>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* bm,
                    const void* cm, const float* init_state, void* y, float* final_state,
@@ -630,4 +1189,38 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
     case 128: return (int)launch<128>(x, dtf, Af, bm, cm, h0, y, hT, B, S, H, P, st, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The gradient of ssd_scan_fwd: dy (contiguous [B,S,H,P], x's dtype) and d_final
+// (f32 [B,H,N,P] or null: zero) -> dx (x's dtype), ddt (f32 [B,S,H]), dA (f32
+// [H]), dbm and dcm (x's dtype, contiguous [B,S,N]), d_init (f32, or null when
+// not wanted). Inputs as ssd_scan_fwd takes them. Scratch (f32, the caller's):
+// states [B, H, ceil(S/64), N, P]; part_b and part_c [P/32 * H, B, S, N]; part_t
+// [2, P/32, B, S, H]. Two launches on `stream`; returns the cudaError_t.
+extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* bm,
+                            const void* cm, const void* init_state, const void* dy,
+                            const void* d_final, void* dx, void* ddt, void* dA, void* dbm,
+                            void* dcm, void* d_init, void* states, void* part_b,
+                            void* part_c, void* part_t, int B, int S, int H, int P, int N,
+                            long long x_batch, long long x_row, long long b_batch,
+                            long long b_row, long long c_batch, long long c_row, int dtype,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % PT != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  auto args = [&](auto* t) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(t)>>;
+    return BwdArgs<T>{static_cast<const T*>(x), static_cast<const float*>(dt),
+                      static_cast<const float*>(A), static_cast<const T*>(bm),
+                      static_cast<const T*>(cm), static_cast<const float*>(init_state),
+                      static_cast<const T*>(dy), static_cast<const float*>(d_final),
+                      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(dA),
+                      static_cast<T*>(dbm), static_cast<T*>(dcm), static_cast<float*>(d_init),
+                      static_cast<float*>(states), static_cast<float*>(part_b),
+                      static_cast<float*>(part_c), static_cast<float*>(part_t), B, S, H, P,
+                      x_batch, x_row, b_batch, b_row, c_batch, c_row};
+  };
+  if (dtype == 1)
+    return (int)launch_bwd_n(args(static_cast<__nv_bfloat16*>(nullptr)), N, s);
+  return (int)launch_bwd_n(args(static_cast<float*>(nullptr)), N, s);
 }

@@ -6,12 +6,11 @@ no fallback from one to the other. ``attend_cache`` and ``ssd_decode_step`` have
 no kernel in the JAX package either and are plain PyTorch on both devices.
 
 Training: when autograd is recording and an input requires grad,
-``flash_attention``, ``rmsnorm``, ``add_rmsnorm`` and ``qk_norm_rope`` go through
-their autograd Function (``kernels/autograd.py``: the kernels both ways on the
-card, the plain forward and explicit backward on the CPU); otherwise, as on every
-serving call, they call the kernel directly, without ``Function.apply``'s host
-cost. ``ssd_scan`` and ``gated_rmsnorm`` have no backward yet (the ssm training
-slice): their kernel wrappers refuse inputs that require grad.
+``flash_attention``, ``rmsnorm``, ``add_rmsnorm``, ``gated_rmsnorm``,
+``qk_norm_rope`` and ``ssd_scan`` go through their autograd Function
+(``kernels/autograd.py``: the kernels both ways on the card, the plain forward and
+explicit backward on the CPU); otherwise, as on every serving call, they call the
+kernel directly, without ``Function.apply``'s host cost.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ NEG_INF = -1e30
 
 def _recording(*tensors) -> bool:
     """Autograd is recording and an input requires grad: take the Function."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -69,6 +69,10 @@ def add_rmsnorm(x, r, scale, *, eps: float = 1e-6):
 
 def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
     """mamba2's gated norm: rmsnorm(y * silu(z)), silu in f32."""
+    if _recording(y, z, scale):
+        if _on_card(y):
+            y, z, scale = y.contiguous(), z.contiguous(), scale.contiguous()
+        return AG.GatedRMSNorm.apply(y, z, scale, eps)
     if _on_card(y):
         return RN.gated_rmsnorm_cuda(y.contiguous(), z.contiguous(), scale.contiguous(),
                                      eps=eps)
@@ -123,7 +127,12 @@ def ssd_scan(x, dt, a, bm, cm, *, chunk: int = 256, init_state=None,
              return_state: bool = False):
     """Mamba-2 SSD chunked scan. x [B,S,H,P], dt [B,S,H], a [H], bm/cm [B,S,N],
     init_state [B,H,N,P] f32 or None -> y [B,S,H,P] (and the final state)."""
-    if _on_card(x):   # x, bm, cm are read in place: the model passes conv-output slices
+    if _recording(x, dt, a, bm, cm, init_state):
+        if _on_card(x):   # x, bm, cm are read in place, as below
+            dt, a = dt.contiguous(), a.contiguous()
+            init_state = None if init_state is None else init_state.contiguous()
+        y, h = AG.SSDScan.apply(x, dt, a, bm, cm, init_state, chunk)
+    elif _on_card(x):   # x, bm, cm are read in place: the model passes conv-output slices
         y, h = SS.ssd_scan_cuda(
             x, dt.contiguous(), a.contiguous(), bm, cm, chunk=chunk,
             init_state=None if init_state is None else init_state.contiguous())

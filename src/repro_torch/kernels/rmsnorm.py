@@ -15,15 +15,14 @@ before or after it, each fusion rounding where the unfused sequence rounds:
 Each ``*_plain`` is exactly the sequence of PyTorch ops the model ran before the
 fusion, so the CPU path computes bit for bit what it computed then.
 
-The backward of the three entry points the dense model trains through
-(``rmsnorm_bwd``, ``add_rmsnorm_bwd``, ``qk_norm_rope_bwd``) runs on the same
-kernel's row core, one launch each; each ``*_bwd_plain`` is its explicit
-formula, the gradient of ``rmsnorm_ref``'s exact casts (and of RoPE's, for
-qk_norm_rope) that autodiff of the JAX reference gives. The kernel sums
+The backward of every entry point (``rmsnorm_bwd``, ``add_rmsnorm_bwd``,
+``gated_rmsnorm_bwd``, ``qk_norm_rope_bwd``) runs on the same kernel's row core,
+one launch each; each ``*_bwd_plain`` is its explicit formula, the gradient of
+``rmsnorm_ref``'s exact casts (and of the gate's or RoPE's) that autodiff of the
+JAX reference gives. The kernel sums
 ``dscale`` over every row in f64 and deterministically inside the same launch
 (per-block partial rows folded by the blocks that finish last, in a fixed order;
 no atomics on values), through a scratch buffer kept for each stream.
-``gated_rmsnorm``'s backward comes with the ssm training slice.
 """
 from __future__ import annotations
 
@@ -52,7 +51,7 @@ def add_rmsnorm_plain(x, r, scale, *, eps: float = 1e-6):
 
 
 def gated_rmsnorm_plain(y, z, scale, *, eps: float = 1e-6):
-    return rmsnorm_ref(y * F.silu(z.float()).to(y.dtype), scale, eps=eps)
+    return rmsnorm_ref(y * F.silu(widen(z)).to(y.dtype), scale, eps=eps)
 
 
 def qk_norm_rope_plain(q, k, q_scale, k_scale, positions, theta: float, *,
@@ -93,6 +92,19 @@ def add_rmsnorm_bwd_plain(s, scale, ds, dn, *, eps: float = 1e-6):
     return (dx if ds is None else ds + dx), dscale
 
 
+def gated_rmsnorm_bwd_plain(y, z, scale, dout, *, eps: float = 1e-6):
+    """(dy, dz, dscale) of ``gated_rmsnorm`` for the cotangent dout, with the
+    JAX sequence's casts: t = y * T(silu(z)) rounded to T = y's dtype; dt = the
+    norm's dx on t, in T; dy = dt * T(silu(z)) in T; dz = silu'(z) * T(dt * y)
+    in f32 (silu' = sig (1 + z (1 - sig))), rounded to z's dtype."""
+    zf = widen(z)
+    silu = F.silu(zf).to(y.dtype)
+    dt, dscale = rmsnorm_bwd_plain(y * silu, scale, dout, eps=eps)
+    sig = torch.sigmoid(zf)
+    dz = widen(dt * y) * (sig * (1 + zf * (1 - sig)))
+    return dt * silu, dz.to(z.dtype), dscale
+
+
 def qk_norm_rope_bwd_plain(q, k, q_scale, k_scale, positions, theta: float, dq_out,
                            dk_out, *, eps: float = 1e-6):
     """(dq, dk, dq_scale, dk_scale) of ``qk_norm_rope`` for the cotangents of its
@@ -116,6 +128,7 @@ def _lib() -> ctypes.CDLL:
         "qk_norm_rope_fwd": [P] * 7 + [L, L, P] + [I] * 5 + tail,
         "rmsnorm_bwd": [P] * 6 + [I, L, I] + tail,
         "add_rmsnorm_bwd": [P] * 7 + [I, L, I] + tail,
+        "gated_rmsnorm_bwd": [P] * 8 + [I, L, I] + tail,
         "qk_norm_rope_bwd": [P] * 7 + [L, L] + [P] * 6 + [I] * 6 + tail,
     }
     for name, args in signatures.items():
@@ -196,8 +209,7 @@ def add_rmsnorm_cuda(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor, *,
 
 def gated_rmsnorm_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
                        eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm(y * silu(z)) on the card: y, z [..., D] of one shape. It has no
-    backward yet (the ssm training slice)."""
+    """rmsnorm(y * silu(z)) on the card: y, z [..., D] of one shape."""
     refuse_grad("gated_rmsnorm_cuda", y, z, scale)
     D = _norm_args("gated_rmsnorm_cuda", y, scale)
     if z.shape != y.shape:
@@ -347,6 +359,29 @@ def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Ten
     return dx, dscale
 
 
+def gated_rmsnorm_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                           dout: torch.Tensor, *, eps: float = 1e-6):
+    """(dy, dz, dscale) of gated_rmsnorm on the card for the cotangent dout of its
+    output; y, z are the forward's inputs. One launch, dscale folded in."""
+    refuse_grad("gated_rmsnorm_bwd_cuda", y, z, scale, dout)
+    D = _norm_args("gated_rmsnorm_bwd_cuda", y, scale)
+    if z.shape != y.shape or dout.shape != y.shape:
+        raise ValueError(f"gated_rmsnorm_bwd_cuda: y {tuple(y.shape)}, z {tuple(z.shape)} "
+                         f"and dout {tuple(dout.shape)} differ")
+    _check("gated_rmsnorm_bwd_cuda", D, y, z, scale, dout)
+    dy, dz, dscale = torch.empty_like(y), torch.empty_like(z), torch.empty_like(scale)
+    if not y.numel():
+        return dy, dz, dscale.zero_()
+    blocks, scratch = _scratch(y, D)
+    err = _lib().gated_rmsnorm_bwd(y.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                                   dout.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+                                   dscale.data_ptr(), scratch.data_ptr(), blocks,
+                                   y.numel() // D, D, eps, _DTYPE_CODE[y.dtype], y.device.index,
+                                   _stream(y))
+    _launched("gated_rmsnorm_bwd", gated_rmsnorm_bwd_cuda, err)
+    return dy, dz, dscale
+
+
 def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
                           k_scale: torch.Tensor, positions: torch.Tensor, theta: float,
                           dq_out: torch.Tensor, dk_out: torch.Tensor, *, eps: float = 1e-6):
@@ -373,5 +408,6 @@ def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tenso
 
 
 for _wrapper in (rmsnorm_cuda, add_rmsnorm_cuda, gated_rmsnorm_cuda, qk_norm_rope_cuda,
-                 rmsnorm_bwd_cuda, add_rmsnorm_bwd_cuda, qk_norm_rope_bwd_cuda):
+                 rmsnorm_bwd_cuda, add_rmsnorm_bwd_cuda, gated_rmsnorm_bwd_cuda,
+                 qk_norm_rope_bwd_cuda):
     _wrapper.launches = 0

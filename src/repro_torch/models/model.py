@@ -18,14 +18,13 @@ Every residual add runs fused with the norm that reads its sum
 un-added output ``d``, and the next block's ln1 (or the final norm in
 ``_unembed``) adds them as it normalises.
 
-Training (dense family): ``loss_fn`` is the twin of the JAX package's, masked CE
-by gather (with ``cfg.loss_chunk``, per-chunk CE under
-``torch.utils.checkpoint``). Autograd runs through the kernels' autograd
-Functions (``kernels/autograd.py``). The layer loop takes each layer's params as
-``unbind`` views of the stacked leaves, so their gradients are stacked once
-rather than summed from a full-size gradient per layer. ``cfg.remat`` is not
-ported (the Trainer forces "none"); the ssm family's ``loss_fn`` raises until
-the ssm training slice.
+Training (both families): ``loss_fn`` is the twin of the JAX package's, masked
+CE by gather (with ``cfg.loss_chunk``, per-chunk CE under
+``torch.utils.checkpoint``) over ``forward``. Autograd runs through the kernels'
+autograd Functions (``kernels/autograd.py``). The layer loop takes each layer's
+params as ``unbind`` views of the stacked leaves, so their gradients are stacked
+once rather than summed from a full-size gradient per layer. ``cfg.remat`` is
+not ported (the Trainer forces "none").
 """
 from __future__ import annotations
 
@@ -242,11 +241,6 @@ class Model:
         CE takes log p of the target by a gather, never a one-hot. With
         ``cfg.loss_chunk`` the [B,S,V] logits are never materialised: see
         ``_chunked_ce``. Twin of the JAX package's ``Model.loss_fn``."""
-        if self.cfg.family == "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the ssm family arrives with the ssm "
-                "training slice of the port (the backward of K3, the SSD scan, and of "
-                "gated_rmsnorm)")
         mask = batch["loss_mask"].float()
         denom = mask.sum().clamp_min(1.0)
         if self.cfg.loss_chunk:

@@ -6,7 +6,10 @@ the JAX package's arithmetic, leaf by leaf in its flatten order (dict keys
 sorted), under ``torch.no_grad()``; no fused or foreach optimizer of
 ``torch.optim``. Unlike the JAX package's functional update, the port updates the
 params, m, v and master tensors in place (the state is ~12 GB at qwen3-0.6b's
-full width: a second copy would double it) and returns the same trees.
+full width: a second copy would double it) and returns the same trees. It forms
+each leaf's update in place too, in the functional form's f32 ops and order, so
+the bits are the same: mamba2-2.7b's largest leaves are 3.4 GB in f32, and every
+temporary of the functional form is one more of them at the step's memory peak.
 """
 from __future__ import annotations
 
@@ -74,12 +77,13 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     for p, g, m, v, master in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
                                   _leaves(state["v"]), _leaves(state["master"])):
         g = g.float() * clip
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        mhat = m / bc1
-        vhat = v / bc2
-        master.copy_(master - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                                    + cfg.weight_decay * master))
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        # master - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * master), op by op
+        den = (v / bc2).sqrt_().add_(cfg.eps)
+        step_ = (m / bc1).div_(den)
+        del den
+        master.sub_(step_.add_(cfg.weight_decay * master).mul_(lr))
         p.copy_(master)                       # cast to the param's dtype
     new_state = {"m": state["m"], "v": state["v"], "master": state["master"],
                  "step": step}

@@ -112,6 +112,10 @@ class Trainer:
         caller guarantees the cache key matches; only per-run knobs differ."""
         if self.ckpt:
             self.ckpt.wait()             # bound the previous task's async save
+        # the previous task's state goes before the new one is built: at
+        # mamba2-2.7b's width (39.6 GB of params, m, v and master) two do not fit
+        # on one card together
+        self.state = None
         if cfg.seed != self._init_seed:
             self._init_params = self.model.init_params(cfg.seed)
             self._init_seed = cfg.seed

@@ -155,18 +155,21 @@ def _wrapper_calls(grad: bool) -> dict:
         "add_rmsnorm_cuda": lambda: RN.add_rmsnorm_cuda(q, q, sc),
         "add_rmsnorm_bwd_cuda": lambda: RN.add_rmsnorm_bwd_cuda(q, sc, q, q),
         "gated_rmsnorm_cuda": lambda: RN.gated_rmsnorm_cuda(q, q, sc),
+        "gated_rmsnorm_bwd_cuda": lambda: RN.gated_rmsnorm_bwd_cuda(q, q, sc, q),
         "qk_norm_rope_cuda": lambda: RN.qk_norm_rope_cuda(q, k, sc, sc, pos, 1e4),
         "qk_norm_rope_bwd_cuda":
             lambda: RN.qk_norm_rope_bwd_cuda(q, k, sc, sc, pos, 1e4, q, k),
         "ssd_scan_cuda": lambda: SS.ssd_scan_cuda(q, torch.rand(1, 8, 4), -torch.ones(4),
                                                   bm, bm, chunk=4),
+        "ssd_scan_bwd_cuda": lambda: SS.ssd_scan_bwd_cuda(
+            q, torch.rand(1, 8, 4), -torch.ones(4), bm, bm, None, q, None, chunk=4),
     }
 
 
 ALL_WRAPPERS = [FA.flash_attention_cuda, FA.flash_attention_bwd_cuda, RN.rmsnorm_cuda,
                 RN.rmsnorm_bwd_cuda, RN.add_rmsnorm_cuda, RN.add_rmsnorm_bwd_cuda,
-                RN.gated_rmsnorm_cuda, RN.qk_norm_rope_cuda, RN.qk_norm_rope_bwd_cuda,
-                SS.ssd_scan_cuda]
+                RN.gated_rmsnorm_cuda, RN.gated_rmsnorm_bwd_cuda, RN.qk_norm_rope_cuda,
+                RN.qk_norm_rope_bwd_cuda, SS.ssd_scan_cuda, SS.ssd_scan_bwd_cuda]
 
 
 @pytest.mark.parametrize("name", [fn.__name__ for fn in ALL_WRAPPERS])
@@ -180,16 +183,6 @@ def test_every_wrapper_refuses_an_input_that_requires_grad(name):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert all(fn.launches == 0 for fn in ALL_WRAPPERS)
-
-
-def test_ssm_loss_fn_names_its_slice():
-    cfg = configs.get("mamba2-2.7b").reduced()
-    model = Model(cfg, "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "targets": torch.zeros((1, 4), dtype=torch.int32),
-             "loss_mask": torch.ones((1, 4), dtype=torch.bfloat16)}
-    with pytest.raises(NotImplementedError, match="ssm training slice"):
-        model.loss_fn(model.init_params(0), batch)
 
 
 def test_local_sgd_names_its_roadmap_item():

@@ -104,7 +104,8 @@ def _f32(t):
 # dtypes and with the chunked CE; in f32 three more reduced dense archs:
 # gemma3-12b at S=80 past its reduced window of 64, so its five local layers mask
 # what its global layer sees (K1's windowed backward), phi4-mini-3.8b (no
-# qk-norm) and qwen3-32b
+# qk-norm) and qwen3-32b; mamba2-2.7b, the trained ssm arch, in both dtypes at
+# S=48, past one reduced chunk of 32, so the scan's ragged tail is differentiated
 LOSS_CASES = [
     pytest.param("qwen3-0.6b", 32, "float32", 0, id="float32-0"),
     pytest.param("qwen3-0.6b", 32, "float32", 8, id="float32-8"),
@@ -112,6 +113,8 @@ LOSS_CASES = [
     pytest.param("gemma3-12b", 80, "float32", 0, id="gemma3-12b-float32-0"),
     pytest.param("phi4-mini-3.8b", 32, "float32", 0, id="phi4-mini-3.8b-float32-0"),
     pytest.param("qwen3-32b", 32, "float32", 0, id="qwen3-32b-float32-0"),
+    pytest.param("mamba2-2.7b", 48, "float32", 0, id="mamba2-2.7b-float32-0"),
+    pytest.param("mamba2-2.7b", 48, "bfloat16", 0, id="mamba2-2.7b-bfloat16-0"),
 ]
 
 
@@ -146,15 +149,18 @@ def test_chunked_ce_needs_a_dividing_chunk():
 
 
 # ----------------------------------------------------------------------- train step
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_jax(microbatches):
+@pytest.mark.parametrize("arch,microbatches", [
+    pytest.param("qwen3-0.6b", 1, id="1"), pytest.param("qwen3-0.6b", 2, id="2"),
+    pytest.param("mamba2-2.7b", 1, id="mamba2-2.7b-1"),
+    pytest.param("mamba2-2.7b", 2, id="mamba2-2.7b-2")])
+def test_train_step_matches_jax(arch, microbatches):
     """One step from a converted JAX train state: loss, grad_norm, lr, tokens, and
     params, m, v, master leaf by leaf."""
     jax = _jax()
     from repro.launch.steps import init_train_state as j_init, make_train_step as j_step
     from repro.optim.adamw import AdamWConfig as JOpt
-    jm = _jax_model(dtype="float32")
-    tm = TModel(_cfg(dtype="float32"), "cpu")
+    jm = _jax_model(arch, dtype="float32")
+    tm = TModel(_cfg(arch, dtype="float32"), "cpu")
     jstate = j_init(jm, jax.random.PRNGKey(0))
     tstate = train_state_to_torch(_np_tree(jstate), "cpu")
     b = _batch(4, 16, jm.cfg.vocab_size, seed=3)

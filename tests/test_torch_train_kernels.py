@@ -1,5 +1,7 @@
 """PyTorch port, training slice, kernel level: the backward of K1 (flash attention)
-and of K2's three entry points on the dense path, through the autograd Functions
+and of K2's three entry points on the dense path (the ssm slice's, K3's and the
+gated norm's, are held against JAX in tests/test_torch_ssm_train.py; their
+gradchecks are here), through the autograd Functions
 as the CPU runs them (the plain forward and the plain explicit backward), against
 the JAX package's gradients on the same numpy inputs: ``jax.vjp`` of
 ``repro.kernels.ops.flash_attention(..., impl="blocked")`` (its custom VJP
@@ -233,6 +235,20 @@ GRADCHECKS = {
     "add_rmsnorm_norm_only": lambda: (
         lambda x, r, s: AG.AddRMSNorm.apply(x, r, s, 1e-6)[1],
         (_f64(3, 8), _f64(3, 8, seed=1), _f64(8, seed=2))),
+    "gated_rmsnorm": lambda: (lambda y, z, s: AG.GatedRMSNorm.apply(y, z, s, 1e-6),
+                              (_f64(3, 8), _f64(3, 8, seed=1), _f64(8, seed=2))),
+    # S=5 in chunks of 2: a ragged tail; both outputs, so d(final state) too
+    "ssd_scan_init_state": lambda: (
+        lambda x, dt, a, bm, cm, h0: AG.SSDScan.apply(x, dt, a, bm, cm, h0, 2),
+        (_f64(1, 5, 2, 3), _f64(1, 5, 2, seed=1).detach().abs().add(0.1).requires_grad_(True),
+         _f64(2, seed=2).detach().abs().neg().requires_grad_(True), _f64(1, 5, 2, seed=3),
+         _f64(1, 5, 2, seed=4), _f64(1, 2, 2, 3, seed=5))),
+    # no initial state, y alone: the final state's cotangent is None
+    "ssd_scan_y_only": lambda: (
+        lambda x, dt, a, bm, cm: AG.SSDScan.apply(x, dt, a, bm, cm, None, 3)[0],
+        (_f64(2, 4, 1, 2), _f64(2, 4, 1, seed=1).detach().abs().add(0.1).requires_grad_(True),
+         _f64(1, seed=2).detach().abs().neg().requires_grad_(True), _f64(2, 4, 3, seed=3),
+         _f64(2, 4, 3, seed=4))),
     "qk_norm_rope": lambda: (
         lambda q, k, a, b: AG.QkNormRope.apply(
             q, k, a, b, torch.tensor([[0, 5, 9]], dtype=torch.int32).expand(2, 3),
