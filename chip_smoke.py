@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout; needs one card
     python3 chip_smoke.py --k1-bwd-against DIR   # only K1's backward against DIR's
     python3 chip_smoke.py --k2-bwd-against DIR   # only K2's backward against DIR's
+    python3 chip_smoke.py --k3-bwd-against DIR   # only K3's backward against DIR's
 
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
@@ -32,9 +33,10 @@ Phases, each failing loudly (nonzero exit):
      the forward's LSE against the plain LSE, two runs of each bit-equal; then
      time each beside its bound, its plain version and a library yardstick
      (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
-     then the ssm slice's (K3's backward, with and without init_state and
-     d(final state), on the conv output's views too; gated_rmsnorm's), timed
-     at mamba2-2.7b's training shape (no library call for either);
+     then the ssm slice's (K3's backward on the SSD sweep, its own shapes and
+     the training shape, with and without init_state and d(final state), on the
+     conv output's views too; gated_rmsnorm's), timed at mamba2-2.7b's training
+     shape (no library call for either);
   6. one train step at full width, 2 layers, f32, on the card against the same
      step on the CPU (loss, grad_norm, master; every leaf gets a nonzero
      gradient): qwen3-0.6b, then mamba2-2.7b;
@@ -46,7 +48,8 @@ Phases, each failing loudly (nonzero exit):
   8. train mamba2-2.7b at full width and depth, bf16, through ``run_train_task``
      (2 steps of 2048 tokens), the counters read around it (every K2 and K3
      entry of the path, exactly so many a layer a step); time warm steps and
-     profile one; then its train task (4 steps, a checkpoint every 2) and a
+     profile one (K3's backward kernels, each at the training shape, by launch);
+     then its train task (4 steps, a checkpoint every 2) and a
      strict eval-task restore at full width and 4 layers (a 64-layer save is
      ~39.6 GB).
 
@@ -60,7 +63,10 @@ results bit-equal over the check sweep, bf16 results of both within the gate,
 and the bf16 times of both in turns (DIR's, this, this, DIR's).
 ``--k2-bwd-against DIR`` does the same for K2's three backward entry points (f32
 dx bit-equal; every output of both within the gate), and profiles each design
-once at the training shapes, kernel by kernel. The two flags may be given together.
+once at the training shapes, kernel by kernel. ``--k3-bwd-against DIR`` does the
+same for K3's backward (f32 results bit-equal over the backward sweep; bf16 of both
+within the gate; bf16 times in turns at the training shape; both designs profiled
+by kernel). The flags may be given together.
 """
 from __future__ import annotations
 
@@ -91,6 +97,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, bf16 inputs
               torch.float32: 67e12}     # CUDA cores, f32 without TF32
 
+# ``profile_breakdown``'s window: a pause at each end, and sentinel kernels
+# (``torch.cuda._sleep``, ~10 us each) before the profiled call; tries a call
+PROFILE_PAUSE_S, PROFILE_TRIES = 0.1, 3
+SPINS, SPIN_CYCLES, SPIN_KERNEL = 16, 20_000, "spin_kernel"
+
 SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
          "prompt_len": 512, "max_new": 32}
 # One serving path per ported family, at full width. ``min_launches``: what each
@@ -103,9 +114,10 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
 # ``toks``: the (batch, length) of the prefill + decode vs forward check; 601
 # makes mamba2's 600-token prefill cross two 256-token chunks and end ragged.
 # ``kernels``: the kernels of one profiled prefill (512 tokens) and decode step (4
-# slots), every one of them counted, as every run has counted them since the K2
-# fusions. These are the first profiles of a run: a profile after an earlier one
-# can miss the first kernels of its window.
+# slots), every one of them counted (see ``profile_breakdown`` for how its window
+# is kept whole). mamba2's were held at 2,629 and 3,459 until the profiler's
+# window was repaired: those counts had lost the call's first kernel, the
+# embedding gather; the same serving code counts 2,630 and 3,460 in a whole one.
 PATHS = [
     {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": (2, 64),
      "min_launches": {"flash_attention": 28 * 8},
@@ -114,7 +126,7 @@ PATHS = [
     {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
      "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8},
      "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64},
-     "kernels": {"prefill": 2_629, "decode": 3_459}},
+     "kernels": {"prefill": 2_630, "decode": 3_460}},
 ]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -190,6 +202,10 @@ SSM_TASK_LAYERS = 4
 # K3's backward: the check sweep (with and without init_state and d(final state))
 # and the training shape, at which it is timed
 SSD_BWD_MAIN = (1, 2048, 80, 64, 128, 256)
+# shapes the backward alone is checked at (tests/test_torch_ssm_train.py:SSD_BWD_SHAPES):
+# a ragged S, H not a multiple of the bf16 design's 10 heads a block, zamba2's N = 64
+SSD_BWD_SHAPES = [(1, 200, 14, 64, 128, 256), (2, 130, 6, 64, 64, 256)]
+SSD_BWD_SWEEP = SSD_SWEEP + SSD_BWD_SHAPES + [SSD_BWD_MAIN]
 # gates of K3's backward against the plain version evaluated in f64: relative, plus
 # a share of the gradient's largest element (each element sums S-long runs of terms
 # of that size, in another order and chunking); bf16 within one bf16 rounding of
@@ -201,8 +217,8 @@ SSD_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 SSD_DA_TIMES = 4
 # the gated norm's backward: K2's backward sweep and mamba2's training shape
 GATED_BWD_SWEEP = NORM_BWD_SWEEP + [(1, 2048, 5120)]
-# kernel names of K3's backward in profiler traces (two launches a call)
-K3_BWD_NAMES = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_finish")
+# kernel names of K3's bf16 backward in profiler traces (three launches a call)
+K3_BWD_NAMES = ("ssd_scan_bwd_states", "ssd_scan_bwd_grad", "ssd_scan_bwd_bf16_finish")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -404,15 +420,19 @@ def ptxas_kernels(log: str) -> list:
 
 def bwd_registers(kernels: list, strict: bool = True) -> list:
     """"name<args> registers" of each backward kernel that must not spill (K1's
-    bf16 ones and every instance of K2's two), failing on any that spills
-    (strict) or naming its spill stores."""
+    bf16 ones, every instance of K2's two and K3's bf16 ones), failing on any
+    that spills (strict) or naming its spill stores."""
     out = []
     for kernel, stores, r in kernels:
         k1 = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
         k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|fold)I(f|13__nv_bfloat16)"
                        r"Li(\d+)E(Li([012])E)?", kernel)
+        k3 = re.search(r"(ssd_scan_bwd_states|ssd_scan_bwd_grad)ILi(\d+)ELi(\d+)E"
+                       r"|(ssd_scan_bwd_bf16_finish)E", kernel)
         if k1:
             name = f"{k1.group(1)}<{k1.group(2)}>"
+        elif k3:
+            name = k3.group(4) or f"{k3.group(1)}<N={k3.group(2)}, P={k3.group(3)}>"
         elif k2:
             add = {"0": ", plain", "1": ", add", "2": ", gated"}.get(k2.group(5), "")
             dtype = "f32" if k2.group(2) == "f" else "bf16"
@@ -427,8 +447,8 @@ def bwd_registers(kernels: list, strict: bool = True) -> list:
 
 def phase_build() -> None:
     """Build every source; print each one's kernels, their registers, and every
-    kernel that spills, by name (from nvcc's -Xptxas -v log). K1's bf16 backward
-    kernels and every K2 backward kernel must not spill."""
+    kernel that spills, by name (from nvcc's -Xptxas -v log). K1's and K3's bf16
+    backward kernels and every K2 backward kernel must not spill."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -783,15 +803,35 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
     kernels"."""
     groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    # The profiler's device timestamps, put on the host's clock, can be off by
+    # milliseconds either way, and on some hosts the first kernels of a window
+    # go missing (one to three after a pause; with none, whole calls did). So
+    # the window opens and closes on a pause and leads with SPINS sentinel
+    # kernels, which take that loss and are not counted. A trace that kept none
+    # of them may have lost the call's own first kernels: it is taken again.
+    for _ in range(PROFILE_TRIES):
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(PROFILE_PAUSE_S)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S)
+            for _ in range(SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAUSE_S)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum(e.count for e in kernels if SPIN_KERNEL in e.key)
+        kernels = [e for e in kernels if SPIN_KERNEL not in e.key]
+        if spins != SPINS:
+            print(f"profile {tag}: {spins} of {SPINS} sentinel kernels in the trace")
+        if spins:
+            break
+    check(spins > 0, f"profile {tag}: {PROFILE_TRIES} traces lost every sentinel kernel")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {tag}: device busy {busy:.2f} ms of {wall:.2f} ms wall "
           f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in kernels)} kernels")
@@ -1019,22 +1059,46 @@ def f64(args):
             for a in args]
 
 
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dbm", "dcm", "d_init")
+
+
+def ssd_bwd_held(tag: str, got, want, plain_da, dtype) -> float:
+    """K3's backward outputs ``got`` against the plain version in f64 ``want``:
+    each within SSD_GRAD_TOL, dA within SSD_DA_TIMES the plain version's own
+    distance ``plain_da`` plus the share; returns the worst share of its gate."""
+    worst = 0.0
+    for name, g, w in zip(SSD_BWD_OUTPUTS, got, want):
+        if w is None:
+            check(g is None, f"{tag} {name}: given without an init_state")
+            continue
+        if name == "da":   # as a share of its gate, SSD_DA_TIMES x the plain's
+            share = SSD_GRAD_TOL[dtype][1] * w.abs().max().item()
+            ratio = max_err(g, w) / (SSD_DA_TIMES * max_err(plain_da, w) + share)
+        else:
+            ratio = gate_ratio(g, w, *SSD_GRAD_TOL[dtype])
+        check(ratio <= 1, f"{tag} {name}: {ratio:.3g} x the gate (max abs err "
+              f"{max_err(g, w):.3g}, |grad| max {w.abs().max().item():.3g})")
+        worst = max(worst, ratio)
+    return worst
+
+
 def phase_ssm_backward(gen) -> list:
     """The ssm training slice's backward kernels against their plain versions on
     the card, in f32 and bf16, each run twice for bit-equality: K3's backward
     against the plain version evaluated in f64 (SSD_GRAD_TOL, dA by SSD_DA_TIMES)
-    on the SSD sweep and the training shape, with
-    and without init_state and d(final state), and on the conv output's strided
-    views; gated_rmsnorm's backward on K2's backward sweep and the training
-    shape. Then each is timed at mamba2-2.7b's training shape beside its bound
-    and its plain version (no library call computes either). Returns their JSON
-    rows."""
+    on SSD_BWD_SWEEP (the SSD sweep, the backward's own shapes and the training
+    shape), with and without init_state and d(final state), and on the conv
+    output's strided views; gated_rmsnorm's backward on K2's backward sweep and
+    the training shape. Then each is timed at mamba2-2.7b's training shape beside
+    its bound and its plain version (no library call computes either); K3's
+    backward launch by launch is in the train step's profile (phase_ssm_train:
+    a profile here would not be the run's first, which serving's counts need).
+    Returns their JSON rows."""
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SS
     f32, bf16 = torch.float32, torch.bfloat16
-    names = ("dx", "ddt", "da", "dbm", "dcm", "d_init")
     worst = {f32: 0.0, bf16: 0.0}
-    for B, S, H, P, N, chunk in SSD_SWEEP + [SSD_BWD_MAIN]:
+    for B, S, H, P, N, chunk in SSD_BWD_SWEEP:
         for dtype in (f32, bf16):
             for with_state in (False, True):
                 tag = f"ssd_scan_bwd {B, S, H, P, N, chunk} {dtype} states={with_state}"
@@ -1043,21 +1107,11 @@ def phase_ssm_backward(gen) -> list:
                 again = SS.ssd_scan_bwd_cuda(*args, chunk=chunk)
                 want = SS.ssd_scan_bwd_plain(*f64(args), chunk=chunk)
                 plain_da = SS.ssd_scan_bwd_plain(*args, chunk=chunk)[2]
-                for name, g, w, r in zip(names, got, want, again):
-                    if w is None:
-                        check(g is None, f"{tag} {name}: given without an init_state")
-                        continue
-                    if name == "da":   # as a share of its gate, SSD_DA_TIMES x the plain's
-                        share = SSD_GRAD_TOL[dtype][1] * w.abs().max().item()
-                        ratio = max_err(g, w) / (SSD_DA_TIMES * max_err(plain_da, w) + share)
-                    else:
-                        ratio = gate_ratio(g, w, *SSD_GRAD_TOL[dtype])
-                    check(ratio <= 1, f"{tag} {name}: {ratio:.3g} x the gate (max abs err "
-                          f"{max_err(g, w):.3g}, |grad| max {w.abs().max().item():.3g})")
-                    check(torch.equal(g, r), f"{tag} {name}: two runs differ")
-                    worst[dtype] = max(worst[dtype], ratio)
+                worst[dtype] = max(worst[dtype], ssd_bwd_held(tag, got, want, plain_da, dtype))
+                for name, g, r in zip(SSD_BWD_OUTPUTS, got, again):
+                    check(g is None or torch.equal(g, r), f"{tag} {name}: two runs differ")
                 del got, again, want
-    print(f"ssd_scan_bwd: {len(SSD_SWEEP) + 1} shapes x f32/bf16 x with/without init_state "
+    print(f"ssd_scan_bwd: {len(SSD_BWD_SWEEP)} shapes x f32/bf16 x with/without init_state "
           f"and d(final state) match the plain backward (worst error as a share of its gate, "
           f"rel + share of the largest element {SSD_GRAD_TOL[f32]} / {SSD_GRAD_TOL[bf16]}: "
           f"f32 {worst[f32]:.3g}, bf16 {worst[bf16]:.3g}); two runs bit-equal")
@@ -1072,7 +1126,7 @@ def phase_ssm_backward(gen) -> list:
     views = (conv[..., :H * P].reshape(B, S, H, P), dt, a, conv[..., H * P:H * P + N],
              conv[..., H * P + N:], None, dy, None)
     on_views = SS.ssd_scan_bwd_cuda(*views, chunk=chunk)
-    for name, g, w in zip(names[:5], on_views[:5], got[:5]):
+    for name, g, w in zip(SSD_BWD_OUTPUTS[:5], on_views[:5], got[:5]):
         check(torch.equal(g, w), f"ssd_scan_bwd on conv-output views: {name} differs from "
               f"contiguous inputs by {max_err(g, w)}")
     ms = time_ms(lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk))
@@ -1081,7 +1135,7 @@ def phase_ssm_backward(gen) -> list:
     nbytes, flops = ssd_bwd_bytes(args), ssd_bwd_flops(B, S, H, P, N, chunk)
     bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
     print(f"ssd_scan_bwd B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: kernel {ms:.4f} ms "
-          f"(two launches), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms "
+          f"(three launches), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms "
           f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
           f"{flops / ms / 1e9:.2f} TFLOP/s, max abs err {err:.3g}; on the conv output's "
           f"strided views {views_ms:.4f} ms, bit-equal")
@@ -1372,9 +1426,8 @@ def phase_ssm_train(card: str) -> dict:
         every=True, groups={"K3 forward": ("ssd_scan_kernel", "ssd_scan_bf16_kernel"),
                             "K3 backward": K3_BWD_NAMES, "K2 forward": K2_KERNEL_NAMES,
                             "K2 backward": K2_BWD_NAMES})
-    # the backward kernels a step (the counters above hold the forward's launches;
-    # a profile after an earlier one can miss a step's first kernels)
-    for label, want in (("K3 backward", 2 * layers), ("K2 backward", 2 * layers + 1)):
+    # the backward kernels a step (the counters above hold the forward's launches)
+    for label, want in (("K3 backward", 3 * layers), ("K2 backward", 2 * layers + 1)):
         n = groups.get(label, (0.0, 0))[1]
         check(n == want, f"mamba2 train step profile: {n} {label} kernels, want {want}")
     del trainer, cache
@@ -1621,6 +1674,81 @@ def phase_k2_bwd_against(parent: Path, card: str) -> None:
                           top=3)
 
 
+def phase_k3_bwd_against(parent: Path, card: str) -> None:
+    """K3's backward of this checkout against the one of another checkout, in one
+    process on this card, through the same C entry point (the other called as its
+    own wrapper calls it, with the scratch of the design before the chunk-parallel
+    one: the states, f32 [B, H, ceil(S/64), N, P]; dB and dC rows for each
+    (32-column P tile, head); dcum and x.dxs for each P tile). Over
+    SSD_BWD_SWEEP, with and without init_state and d(final state), f32 results
+    must be bit-equal (one f32 design in both) and both bf16 results must hold
+    the gates; then the bf16 backward of each is timed in turns (other, this,
+    this, other) at SSD_BWD_MAIN and profiled once a design, kernel by kernel."""
+    from repro_torch.kernels import ssd_scan as SS
+    f32, bf16 = torch.float32, torch.bfloat16
+    lib, kernels = build_other(parent, "ssd_scan")
+    P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    other_fn = lib.ssd_scan_bwd
+    other_fn.argtypes, other_fn.restype = [P_] * 18 + [I_] * 5 + [L_] * 6 + [I_, P_], I_
+
+    def other(x, dt, a, bm, cm, h0, dy, dfin):
+        B, S, H, P = x.shape
+        N = bm.shape[-1]
+        dev = x.device
+        outs = (torch.empty_like(dy), torch.empty((B, S, H), dtype=f32, device=dev),
+                torch.empty((H,), dtype=f32, device=dev),
+                torch.empty((B, S, N), dtype=x.dtype, device=dev),
+                torch.empty((B, S, N), dtype=x.dtype, device=dev),
+                None if h0 is None else torch.empty((B, H, N, P), dtype=f32, device=dev))
+        states = torch.empty((B, H, -(-S // 64), N, P), dtype=f32, device=dev)
+        part_bc = torch.empty((2, P // 32 * H, B, S, N), dtype=f32, device=dev)
+        part_t = torch.empty((2, P // 32, B, S, H), dtype=f32, device=dev)
+        ptr = [None if t is None else t.data_ptr() for t in (x, dt, a, bm, cm, h0, dy, dfin)]
+        err = other_fn(*ptr, *(None if t is None else t.data_ptr() for t in outs),
+                       states.data_ptr(), part_bc[0].data_ptr(), part_bc[1].data_ptr(),
+                       part_t.data_ptr(), B, S, H, P, N, x.stride(0), x.stride(1),
+                       bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
+                       SS._DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the other checkout's ssd_scan_bwd: cudaError {err}")
+        return outs
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    worst = {"this": 0.0, "other": 0.0}
+    for B, S, H, P, N, chunk in SSD_BWD_SWEEP:
+        for dtype in (f32, bf16):
+            for with_state in (False, True):
+                tag = f"k3-bwd-against {B, S, H, P, N, chunk} {dtype} states={with_state}"
+                args = ssd_bwd_case(gen, B, S, H, P, N, dtype, with_state)
+                mine = SS.ssd_scan_bwd_cuda(*args, chunk=chunk)
+                theirs = other(*args)
+                if dtype == f32:
+                    check(all((a is None and b is None) or torch.equal(a, b)
+                              for a, b in zip(mine, theirs)),
+                          f"{tag}: f32 results differ between the checkouts")
+                    continue
+                want = SS.ssd_scan_bwd_plain(*f64(args), chunk=chunk)
+                plain_da = SS.ssd_scan_bwd_plain(*args, chunk=chunk)[2]
+                for who, got in (("this", mine), ("other", theirs)):
+                    worst[who] = max(worst[who],
+                                     ssd_bwd_held(f"{tag} {who}", got, want, plain_da, bf16))
+                del mine, theirs, want
+    print(f"k3-bwd-against: {len(SSD_BWD_SWEEP)} shapes x with/without init_state and "
+          f"d(final state): f32 bit-equal across the two checkouts; bf16 of both within "
+          f"the gate (worst share: this {worst['this']:.3g}, other {worst['other']:.3g})")
+    B, S, H, P, N, chunk = SSD_BWD_MAIN
+    args = ssd_bwd_case(gen, B, S, H, P, N, bf16, False)
+    t = [time_ms(lambda: other(*args)), time_ms(lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk)),
+         time_ms(lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk)), time_ms(lambda: other(*args))]
+    print(f"k3-bwd-against {SSD_BWD_MAIN} bf16, in turns: other {t[0]:.4f} ms, this "
+          f"{t[1]:.4f} ms, this {t[2]:.4f} ms, other {t[3]:.4f} ms [{card}]")
+    groups = {"K3 backward": ("ssd_scan_bwd",)}
+    profile_breakdown(f"k3-bwd-against {SSD_BWD_MAIN} bf16, other", lambda: other(*args),
+                      top=3, groups=groups)
+    profile_breakdown(f"k3-bwd-against {SSD_BWD_MAIN} bf16, this",
+                      lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk), top=3, groups=groups)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-bwd-against", type=Path, metavar="CHECKOUT",
@@ -1628,6 +1756,9 @@ def main(argv=None) -> int:
                          "of another checkout (its root directory), in turns on this card")
     ap.add_argument("--k2-bwd-against", type=Path, metavar="CHECKOUT",
                     help="only build the kernels and compare K2's backward with the one "
+                         "of another checkout (its root directory), in turns on this card")
+    ap.add_argument("--k3-bwd-against", type=Path, metavar="CHECKOUT",
+                    help="only build the kernels and compare K3's backward with the one "
                          "of another checkout (its root directory), in turns on this card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1638,11 +1769,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card()
     phase_build()
-    if args.k1_bwd_against is not None or args.k2_bwd_against is not None:
-        if args.k1_bwd_against is not None:
-            phase_k1_bwd_against(args.k1_bwd_against, card)
-        if args.k2_bwd_against is not None:
-            phase_k2_bwd_against(args.k2_bwd_against, card)
+    against = {"k1": phase_k1_bwd_against, "k2": phase_k2_bwd_against,
+               "k3": phase_k3_bwd_against}
+    chosen = {k: getattr(args, f"{k}_bwd_against") for k in against}
+    if any(v is not None for v in chosen.values()):
+        for k, checkout in chosen.items():
+            if checkout is not None:
+                against[k](checkout, card)
         print(card)
         return 0
     gen = torch.Generator(device="cuda")

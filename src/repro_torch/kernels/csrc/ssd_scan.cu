@@ -71,7 +71,6 @@
 
 #include <stddef.h>
 
-#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -577,78 +576,106 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
 }
 
 // ------------------------------------------------------------ backward
-// One design for both input dtypes: f32 math on the CUDA cores, inputs widened
-// from T (float or bf16) as they are staged, gradients of x, B and C rounded to
-// T once. Two launches:
+// The gradient of the scan for the cotangents dy of y and d_final of the final
+// state. Per chunk c of Q = 64 rows, with h_c the state entering it, dh_c the
+// cotangent of the state leaving it, G = C B^T, L_ij = exp(cum_i - cum_j) for
+// j <= i, S' = G o L, W'_ij = L_ij (dy_i . x_j), W_ij = W'_ij dt_j and
+// w_j = exp(seg - cum_j) dt_j:
+//   h_{c+1}  = exp(seg) h_c + B^T diag(w) X                  (forward walk)
+//   dh_{c-1} = exp(seg) dh_c + C^T diag(exp(cum)) dY         (reverse walk)
+//   dxs_j  = sum_i S'_ij dy_i + exp(seg - cum_j) B_j dh_c,   dx_j = dt_j dxs_j
+//   dC_i   = sum_j W_ij B_j + exp(cum_i) h_c dy_i
+//   dB_j   = sum_i W_ij C_i + w_j dh_c x_j
+//   dcum_i = dy_i . y_i - dt_i x_i . dxs_i  (+ <h_{c+1}, dh_c> on the last row)
+//   ddt = x . dxs + A rc (rc: the reverse cumsum of dcum in the chunk), dA = sum dt rc
+// dx and d(init_state) are per head; dB, dC and dA sum over heads (dB, dC) or
+// rows (dA), which cross blocks. Why the states are recomputed and not kept by
+// the forward: the forward kernels stay as serving runs them, and the training
+// step keeps no [B, nc, H, N, P] f32 state per layer through the step (84 MB a
+// layer at mamba2-2.7b's 2,048 tokens, 5.4 GB over 64 layers, on a step that
+// fills most of the card). Overflow: exp(cum_i - cum_j) is formed only for
+// j <= i, and every other factor (exp(cum_i), exp(seg - cum_j)) is <= 1. Rows at
+// or past S are staged as zeros with dt = 0 (the forward's padding) and get
+// nothing written; the chunk's d(seg) goes on its last row, whose rc every row
+// inside S includes. No atomics: two runs give the same bits.
+//
+// What bounds it on the H100: at the training shape (B=1, S=2048, H=80, P=64,
+// N=128, bf16) the gradient reads ~30 MB and writes ~30 MB (~0.02 ms at 3.35
+// TB/s) for ~16 GFLOP counted once (~0.02 ms on the bf16 tensor cores). A design
+// that parallelises over chunks must also keep h_c and dh_c for every chunk and
+// head between its passes: 84 MB each in f32, written once and read once
+// (~0.1 ms), and with the f32 operands split into bf16 hi + lo pairs its
+// products come to ~50 GFLOP on mma.sync. Measured on an H100 SXM at 700 W, at
+// that shape: the walk takes ~0.11 ms, set by its 168 MB of plane stores; the
+// gradients ~0.20 ms, set by instruction issue and latency at one 8-warp block
+// an SM (a variant without any mma.sync ran as fast), not by the tensor cores.
+//
+// bf16 (dtype 1), the training path: three launches, all products
+// mma.sync.m16n8k16 bf16 -> f32, with B, C, x and dy entering as they are and
+// every f32 operand (S', W, h_c, dh_c, w x, exp(cum) dy) as a bf16 hi + lo pair
+// (~16 bits of mantissa, two products instead of one rounding).
+//   1. ssd_scan_bwd_states, (a) and (b) fused: one block per (64-row tile of N,
+//      head, batch, direction) walks the chunks, forward from init_state with B
+//      and w x, or in reverse from d_final with C and exp(cum) dy, the [64, P]
+//      f32 state in registers as mma accumulators (the forward's state update,
+//      a warp per P/4 columns), and writes the state at each chunk boundary as
+//      bf16 hi and lo planes (h_c and dh_c, 84 MB each at the training shape;
+//      the reverse walk's last state is d(init_state)), staged in shared memory
+//      so that each thread stores 16 bytes (a warp's 4-byte pieces over 8 rows
+//      wrote at ~0.75 TB/s). The local terms of a chunk do not depend on the
+//      state, so each step is one accumulate; 2 * N/64 * H * B blocks (320).
+//   2. ssd_scan_bwd_grad, (c): one block per (chunk, group of 10 heads, batch),
+//      256 threads. C.B^T is formed once per block and kept in registers; per
+//      head, with x, dy (two stages) and the planes of h_c and dh_c (one each,
+//      each refilled for the next head as soon as its last reader is done) copied
+//      in by cp.async: D = dY X^T on the chunk's lower triangle, S' and W to
+//      shared memory as hi + lo; dC += exp(cum) (dY h_c^T) + W B and
+//      dB += w (X dh_c^T) + W^T C in registers across the block's heads (a warp
+//      per 16 rows and half of N: W B and W^T C take i >= j and j <= i blocks,
+//      which balance across a warp's two products); dxs = exp(seg - cum)
+//      (B dh_c) + S'^T dY and dx. dcum needs no y or dxs products:
+//      dy_i . y_i = sum_j G_ij W_ij + exp(cum_i) C_i . (dY h_c^T)_i and
+//      x_j . dxs_j = sum_i G_ij W'_ij + exp(seg - cum_j) B_j . (X dh_c^T)_j, and
+//      <h_{c+1}, dh_c> = exp(seg) <h_c, dh_c> + sum_j w_j B_j . (X dh_c^T)_j, so
+//      the block owns all of dcum, its reverse cumsum and ddt (one warp closes a
+//      head while the others start the next), and writes dA's part of the chunk.
+//      ~186 KB of shared memory at N = 128, P = 64: one block an SM; 10 heads a
+//      block give 256 blocks at the training shape, two waves of 132 SMs.
+//   3. ssd_scan_bwd_bf16_finish sums dB and dC over the ceil(H/10) groups' f32
+//      rows (21 MB at the training shape) and dA over the (batch, chunk) parts,
+//      in a fixed order.
+// f32 (dtype 0), the check path: the exact CUDA-core design (TF32 would break
+//   the f32 gates). Two launches:
 //   1. ssd_scan_bwd_kernel, one block per (32-column tile of P, head, batch), as
 //      the forward. It first walks the chunks forward and writes the state
 //      entering each chunk, h_c (its [N, 32] slice), to a scratch buffer, then
-//      walks them in reverse carrying dh (the cotangent of the state leaving the
-//      chunk) on chip and reads h_c back. Per chunk, with S = (C B^T) * L and
-//      W_ij = L_ij dt_j (dy_i . x_j), L_ij = exp(cum_i - cum_j) for j <= i:
-//        y_i    = sum_j S_ij dt_j x_j + exp(cum_i) C_i h_c        (recomputed, f32)
-//        dxs_j  = sum_i S_ij dy_i + exp(seg - cum_j) B_j dh,   dx_j = dt_j dxs_j
-//        dC_i   = sum_j W_ij B_j + exp(cum_i) h_c dy_i
-//        dB_j   = sum_i W_ij C_i + exp(seg - cum_j) dt_j dh x_j
-//        dcum_i = dy_i . y_i - dt_i x_i . dxs_i  (+ <h_{c+1}, dh> on the last row:
-//                 exp(seg) <h_c, dh> + sum_j dt_j x_j . (exp(seg - cum_j) B_j dh))
-//        dh    <- exp(seg) dh + sum_i exp(cum_i) C_i dy_i^T
-//      dx and d(init_state) are complete per tile. dB, dC, dcum and x . dxs are
+//      walks them in reverse carrying dh on chip and reads h_c back, forming y
+//      and dxs in f32 for dcum (the d(seg) term as
+//      exp(seg) <h_c, dh> + sum_j dt_j x_j . (exp(seg - cum_j) B_j dh)).
+//      dx and d(init_state) are complete per tile; dB, dC, dcum and x . dxs are
 //      sums over the P tiles and (dB, dC) the heads, so each block writes its
 //      own f32 partial rows of them.
 //   2. ssd_scan_bwd_finish sums the partials in a fixed order: dB and dC over
 //      the P/32 * H (tile, head) rows, one element a thread; and, one block a
 //      head, the reverse cumsum of dcum within each 64-row chunk (a warp a
 //      chunk), ddt = x . dxs + A rc, and dA = sum over B*S of dt rc, the warps'
-//      sums added in warp order. No atomics: two runs give the same bits.
-// Why the states are recomputed and not kept by the forward: the forward kernel
-// (both designs) stays as serving runs it, and the training step keeps no
-// [B, nc, H, N, P] f32 state per layer through the step (84 MB a layer at
-// mamba2-2.7b's 2,048 tokens, 5.4 GB over 64 layers, on a step that fills most
-// of the card). The forward walk costs one state update a chunk, a fifth of the
-// reverse walk's products.
-// Overflow: exp(cum_i - cum_j) is formed only for j <= i, and every other
-// factor (exp(cum_i), exp(seg - cum_j)) is <= 1.
-// Rows at or past S are staged as zeros with dt = 0 (the forward's padding) and
-// get nothing written; the chunk's d(seg) goes on its last row inside S.
-// What bounds it on the H100: at the training shape (B=1, S=2048, H=80, P=64,
-// N=128, bf16) the gradient reads ~30 MB and writes ~30 MB (~0.02 ms at 3.35
-// TB/s) for ~21 GFLOP counted once (~0.02 ms on the bf16 tensor cores): bytes
-// and operations about even. This design sits far above that: its products run
-// as f32 FMAs on the CUDA cores (67 TFLOP/s), C.B^T and the readouts are
-// recomputed by every P tile and head, the partial rows of dB and dC (P/32 * H
-// of them, 168 MB each at the training shape) go through device memory, and one
-// 151 KB block an SM leaves the chunk loop's latency exposed.
-
+//      sums added in warp order.
 constexpr int XP = PT + 1;   // padded row of the x, dy and state tiles (floats)
 
-template <typename T>
-__device__ __forceinline__ float ldf(const T* p) {
-  if constexpr (sizeof(T) == 4) return *p;
-  else return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v) {
-  if constexpr (sizeof(T) == 4) return v;
-  else return __float2bfloat16_rn(v);
-}
-
-template <typename T>
 struct BwdArgs {
-  const T* x;
+  const float* x;
   const float* dt;
   const float* A;
-  const T* bm;
-  const T* cm;
+  const float* bm;
+  const float* cm;
   const float* init_state;   // null: a zero initial state
-  const T* dy;               // [B, S, H, P]
+  const float* dy;           // [B, S, H, P]
   const float* d_final;      // null: zero
-  T* dx;                     // [B, S, H, P]
+  float* dx;                 // [B, S, H, P]
   float* ddt;                // [B, S, H]
   float* dA;                 // [H]
-  T* dbm;                    // [B, S, N]
-  T* dcm;
+  float* dbm;                // [B, S, N]
+  float* dcm;
   float* d_init;             // null: not wanted
   float* states;             // scratch [B, H, nc, N, P]: the state entering each chunk
   float* part_b;             // scratch [P/PT * H, B, S, N]: each (tile, head)'s dB rows
@@ -682,9 +709,9 @@ __device__ __forceinline__ void chunk_cumsum(const float* sDt, float* sCum, floa
   sCum[2 * lane + 1] = lane ? before + v0 + v1 : v0 + v1;
 }
 
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(THREADS)
-ssd_scan_bwd_kernel(BwdArgs<T> g) {
+ssd_scan_bwd_kernel(BwdArgs g) {
   static_assert(N % 16 == 0, "state dim must be a multiple of 16");
   constexpr int NP = N + 1, QP = Q + 1, NPT = N / 16;
   extern __shared__ float smem[];
@@ -712,11 +739,11 @@ ssd_scan_bwd_kernel(BwdArgs<T> g) {
   const int nc = (S + Q - 1) / Q;
   const float a = g.A[h];
   const size_t yrow = (size_t)H * P;
-  const T* xb = g.x + b * g.sxb + (size_t)h * P + p0;
-  const T* bb = g.bm + b * g.sbb;
-  const T* cb = g.cm + b * g.scb;
-  const T* dyb = g.dy + (size_t)b * S * yrow + (size_t)h * P + p0;
-  T* dxb = g.dx + (size_t)b * S * yrow + (size_t)h * P + p0;
+  const float* xb = g.x + b * g.sxb + (size_t)h * P + p0;
+  const float* bb = g.bm + b * g.sbb;
+  const float* cb = g.cm + b * g.scb;
+  const float* dyb = g.dy + (size_t)b * S * yrow + (size_t)h * P + p0;
+  float* dxb = g.dx + (size_t)b * S * yrow + (size_t)h * P + p0;
   const float* dtb = g.dt + (size_t)b * S * H + h;
   const size_t st = ((size_t)b * H + h) * N * P + p0;            // [B,H,N,P] at p0
   float* hs = g.states + ((size_t)b * H + h) * nc * N * P + p0;  // [nc][N][P] at p0
@@ -728,14 +755,14 @@ ssd_scan_bwd_kernel(BwdArgs<T> g) {
     for (int i = tid; i < Q * N; i += THREADS) {
       const int r = i / N, n = i % N;
       const bool ok = r < rows;
-      sB[r * NP + n] = ok ? ldf(bb + (c0 + r) * g.sbs + n) : 0.f;
-      if (all) sC[r * NP + n] = ok ? ldf(cb + (c0 + r) * g.scs + n) : 0.f;
+      sB[r * NP + n] = ok ? *(bb + (c0 + r) * g.sbs + n) : 0.f;
+      if (all) sC[r * NP + n] = ok ? *(cb + (c0 + r) * g.scs + n) : 0.f;
     }
     for (int i = tid; i < Q * PT; i += THREADS) {
       const int r = i / PT, p = i % PT;
       const bool ok = r < rows;
-      sX[r * XP + p] = ok ? ldf(xb + (c0 + r) * g.sxs + p) : 0.f;
-      if (all) sDY[r * XP + p] = ok ? ldf(dyb + (size_t)(c0 + r) * yrow + p) : 0.f;
+      sX[r * XP + p] = ok ? *(xb + (c0 + r) * g.sxs + p) : 0.f;
+      if (all) sDY[r * XP + p] = ok ? *(dyb + (size_t)(c0 + r) * yrow + p) : 0.f;
     }
     if (tid < Q) sDt[tid] = tid < rows ? dtb[(size_t)(c0 + tid) * H] : 0.f;
   };
@@ -900,7 +927,7 @@ ssd_scan_bwd_kernel(BwdArgs<T> g) {
           r1 = fmaf(sDY[r * XP + p], y, r1);
           r2 = fmaf(xv, dxs, r2);
           r3 = fmaf(xv, st_part, r3);
-          if (r < rows) dxb[(size_t)(c0 + r) * yrow + p] = from_f<T>(sDt[r] * dxs);
+          if (r < rows) dxb[(size_t)(c0 + r) * yrow + p] = sDt[r] * dxs;
         }
 #pragma unroll
         for (int o = 8; o > 0; o >>= 1) {             // over the 16 lanes of the row
@@ -1037,9 +1064,8 @@ ssd_scan_bwd_kernel(BwdArgs<T> g) {
 
 // Blocks [0, n_bc): dB and dC, an element a thread, summed over the (tile, head)
 // partial rows in order. Blocks n_bc + h: head h's ddt and dA.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_scan_bwd_finish(BwdArgs<T> g, int N, int n_bc) {
+ssd_scan_bwd_finish(BwdArgs g, int N, int n_bc) {
   const int NT = g.P / PT, S = g.S, H = g.H;
   if ((int)blockIdx.x < n_bc) {
     const size_t total = (size_t)g.B * S * N;
@@ -1050,8 +1076,8 @@ ssd_scan_bwd_finish(BwdArgs<T> g, int N, int n_bc) {
       sb += g.part_b[t * total + e];
       sc += g.part_c[t * total + e];
     }
-    g.dbm[e] = from_f<T>(sb);
-    g.dcm[e] = from_f<T>(sc);
+    g.dbm[e] = sb;
+    g.dcm[e] = sc;
     return;
   }
   __shared__ float part[THREADS / 32];
@@ -1106,28 +1132,832 @@ ssd_scan_bwd_finish(BwdArgs<T> g, int N, int n_bc) {
   }
 }
 
-template <typename T, int N>
-cudaError_t launch_bwd(const BwdArgs<T>& g, cudaStream_t stream) {
+template <int N>
+cudaError_t launch_bwd(const BwdArgs& g, cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_floats<N>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_kernel<T, N>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_kernel<N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_scan_bwd_kernel<T, N><<<dim3(g.P / PT, g.H, g.B), THREADS, smem, stream>>>(g);
+  ssd_scan_bwd_kernel<N><<<dim3(g.P / PT, g.H, g.B), THREADS, smem, stream>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)g.B * g.S * N;
   const int n_bc = (int)((total + THREADS - 1) / THREADS);
-  ssd_scan_bwd_finish<T><<<n_bc + g.H, THREADS, 0, stream>>>(g, N, n_bc);
+  ssd_scan_bwd_finish<<<n_bc + g.H, THREADS, 0, stream>>>(g, N, n_bc);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_n(const BwdArgs<T>& g, int N, cudaStream_t s) {
+cudaError_t launch_bwd_n(const BwdArgs& g, int N, cudaStream_t s) {
   switch (N) {
-    case 16: return launch_bwd<T, 16>(g, s);
-    case 32: return launch_bwd<T, 32>(g, s);
-    case 64: return launch_bwd<T, 64>(g, s);
-    case 128: return launch_bwd<T, 128>(g, s);
+    case 16: return launch_bwd<16>(g, s);
+    case 32: return launch_bwd<32>(g, s);
+    case 64: return launch_bwd<64>(g, s);
+    case 128: return launch_bwd<128>(g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------ backward, bf16: tensor cores
+constexpr int HG = 10;           // heads a gradient block
+constexpr int GR_THREADS = 256;  // the gradient block: 8 warps
+
+struct Bf16BwdArgs {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const __nv_bfloat16* bm;
+  const __nv_bfloat16* cm;
+  const float* init_state;   // null: a zero initial state
+  const __nv_bfloat16* dy;   // [B, S, H, P]
+  const float* d_final;      // null: zero
+  __nv_bfloat16* dx;         // [B, S, H, P]
+  float* ddt;                // [B, S, H]
+  float* dA;                 // [H]
+  __nv_bfloat16* dbm;        // [B, S, N]
+  __nv_bfloat16* dcm;
+  float* d_init;             // null: not wanted
+  // scratch: h_c and dh_c as bf16 hi and lo planes, [B, nc, H, 2, N, P] each
+  __nv_bfloat16* states;
+  __nv_bfloat16* dstates;
+  float* part_b;             // [ceil(H / HG), B, S, N]: dB summed over each block's heads
+  float* part_c;             // the same for dC
+  float* part_a;             // [B, nc, H]: dA of each chunk and head
+  int B, S, H;                // P and N are the kernels' template parameters
+  long long sxb, sxs, sbb, sbs, scb, scs;
+};
+
+// The hi + lo planes of chunk c's state (or cotangent) of head h.
+__device__ __forceinline__ size_t plane(int b, int c, int h, int nc, int H, int N, int P) {
+  return (((size_t)b * nc + c) * H + h) * 2 * N * P;
+}
+
+// ---- (a) + (b): the two state walks
+template <int N, int P>
+struct StSmem {
+  static constexpr int NS = N < 64 ? N : 64;   // state rows a block
+  static constexpr int WARPS = 4;              // each P / 4 columns of them
+  static constexpr int MR = NS + 8;            // padded row of the B (C) tile, elements
+  static constexpr int VR = P + 8;             // padded row of the x (dy) tile and the staged state
+  // a stage: B or C (bf16 [Q][NS]), x or dy (bf16 [Q][P]), dt (f32 [Q]); two
+  // stages; then the state's hi and lo copies (bf16 [NS][P]) twice, by the chunk's
+  // parity; then per warp two per-row factors (f32)
+  static constexpr size_t STAGE = ((size_t)Q * MR + (size_t)Q * VR) * 2 + Q * 4;
+  static constexpr size_t OUT = 2 * (size_t)NS * VR * 2;
+  static constexpr size_t bytes = 2 * STAGE + 2 * OUT + (size_t)WARPS * 2 * Q * 4;
+};
+
+template <int N, int P>
+__global__ void __launch_bounds__(StSmem<N, P>::WARPS * 32)
+ssd_scan_bwd_states(Bf16BwdArgs g) {
+  using L = StSmem<N, P>;
+  using bf16 = __nv_bfloat16;
+  constexpr int NS = L::NS, THREADS_ = L::WARPS * 32;
+  constexpr int MT = NS / 16, PW = P / L::WARPS, NT = PW / 8;   // a warp: MT x NT mma tiles
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * NS, h = blockIdx.y, b = blockIdx.z / 2, p0 = PW * warp;
+  const bool rev = blockIdx.z % 2;   // 0: h_c, walking forward; 1: dh_c, walking back
+  const int S = g.S, H = g.H, nc = (S + Q - 1) / Q;
+  const float a = g.A[h];
+  // this walk's inputs: B, x and w_j = exp(seg - cum_j) dt_j, or C, dy and exp(cum_i)
+  const bf16* mb = rev ? g.cm + b * g.scb : g.bm + b * g.sbb;
+  const long long ms = rev ? g.scs : g.sbs;
+  const bf16* vb = rev ? g.dy + (size_t)b * S * H * P + (size_t)h * P
+                       : g.x + b * g.sxb + (size_t)h * P;
+  const long long vs = rev ? (long long)H * P : g.sxs;
+  const float* dtb = g.dt + (size_t)b * S * H + h;
+  bf16* out = rev ? g.dstates : g.states;
+  float* cw = reinterpret_cast<float*>(smem_raw + 2 * L::STAGE + 2 * L::OUT) + warp * 2 * Q;
+  float* fw = cw + Q;
+
+  auto stage_m = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + s * L::STAGE); };
+  auto stage_v = [&](int s) { return stage_m(s) + Q * L::MR; };
+  auto stage_dt = [&](int s) { return reinterpret_cast<float*>(stage_v(s) + Q * L::VR); };
+  auto stage_out = [&](int k) {
+    return reinterpret_cast<bf16*>(smem_raw + 2 * L::STAGE + (k & 1) * L::OUT);
+  };
+  // the state staged at the k-th chunk to its planes: two runs of NS rows, 16 bytes a thread
+  auto store_state = [&](int k) {
+    bf16* pl = out + plane(b, rev ? nc - 1 - k : k, h, nc, H, N, P) + (size_t)n0 * P;
+    const bf16* st = stage_out(k);
+    for (int i = tid; i < 2 * NS * (P / 8); i += THREADS_) {
+      const int r = i / (P / 8), kk = i % (P / 8);   // r: row of the two stacked planes
+      *reinterpret_cast<uint4*>(pl + (size_t)(r / NS) * N * P + (size_t)(r % NS) * P + 8 * kk) =
+          *reinterpret_cast<const uint4*>(st + r * L::VR + 8 * kk);
+    }
+  };
+  auto load_chunk = [&](int k) {   // the k-th chunk of this walk, into stage k % 2
+    if (k >= nc) return;
+    const int s = k % 2, r0 = (rev ? nc - 1 - k : k) * Q;
+    for (int i = tid; i < Q * (NS / 8); i += THREADS_) {
+      const int r = i / (NS / 8), kk = i % (NS / 8);
+      const bool ok = r0 + r < S;
+      tc::cp_async16(stage_m(s) + r * L::MR + 8 * kk, mb + (ok ? r0 + r : 0) * ms + n0 + 8 * kk,
+                     ok);
+    }
+    for (int i = tid; i < Q * (P / 8); i += THREADS_) {
+      const int r = i / (P / 8), kk = i % (P / 8);
+      const bool ok = r0 + r < S;
+      tc::cp_async16(stage_v(s) + r * L::VR + 8 * kk, vb + (ok ? r0 + r : 0) * vs + 8 * kk, ok);
+    }
+    for (int i = tid; i < Q; i += THREADS_) {
+      const bool ok = r0 + i < S;
+      tc::cp_async4(stage_dt(s) + i, dtb + (size_t)(ok ? r0 + i : 0) * H, ok);
+    }
+  };
+
+  // the state: all NS rows of the block at this warp's PW columns, as mma
+  // accumulators: hs[mt][nt] holds rows 16 mt + gq (+ 8), columns p0 + 8 nt + 2t (+ 1)
+  float hs[MT][NT][4];
+  {
+    const float* s0 = rev ? g.d_final : g.init_state;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int n = n0 + 16 * mt + gq + 8 * half, p = p0 + 8 * nt + 2 * t;
+          const float2 v = s0 ? *reinterpret_cast<const float2*>(
+                                    s0 + (((size_t)b * H + h) * N + n) * P + p)
+                              : make_float2(0.f, 0.f);
+          hs[mt][nt][2 * half] = v.x;
+          hs[mt][nt][2 * half + 1] = v.y;
+        }
+  }
+
+  load_chunk(0);
+  tc::cp_async_commit();
+  for (int k = 0; k < nc; ++k) {
+    const int s = k % 2;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // chunk k is visible, and so is the state staged at chunk k - 1;
+                       // every warp is done with the other stage and the other staging
+    load_chunk(k + 1);
+    tc::cp_async_commit();
+    if (k > 0) store_state(k - 1);
+    const bf16* sM = stage_m(s);
+    const bf16* sV = stage_v(s);
+    {  // inclusive cumsum of dt * A over the 64 rows (lane l: rows 2l, 2l+1), per warp
+      const float2 d = *reinterpret_cast<const float2*>(stage_dt(s) + 2 * lane);
+      const float v0 = d.x * a, v1 = d.y * a;
+      float sum = v0 + v1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, sum, o);
+        if (lane >= o) sum += u;
+      }
+      const float before = __shfl_up_sync(0xffffffffu, sum, 1);
+      const float last = __shfl_sync(0xffffffffu, sum, 31);
+      const float c0 = lane ? before + v0 : v0;
+      const float c1 = lane ? before + v0 + v1 : v0 + v1;
+      *reinterpret_cast<float2*>(cw + 2 * lane) = make_float2(c0, c1);
+      *reinterpret_cast<float2*>(fw + 2 * lane) =
+          rev ? make_float2(exp2f(c0 * LOG2E), exp2f(c1 * LOG2E))
+              : make_float2(exp2f((last - c0) * LOG2E) * d.x, exp2f((last - c1) * LOG2E) * d.y);
+      __syncwarp();
+    }
+    // the state at the chunk's boundary (entering it; for dh, leaving it) as hi +
+    // lo, staged for store_state
+    bf16* so = stage_out(k);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int o = (16 * mt + gq + 8 * half) * L::VR + p0 + 8 * nt + 2 * t;
+          uint32_t hi, lo;
+          tc::split(hs[mt][nt][2 * half], hs[mt][nt][2 * half + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(so + o) = hi;
+          *reinterpret_cast<uint32_t*>(so + NS * L::VR + o) = lo;
+        }
+    // h <- exp(seg) h + B^T (w x), or dh <- exp(seg) dh + C^T (exp(cum) dy), the
+    // factor times the bf16 row entering as hi + lo
+    const float seg = exp2f(cw[Q - 1] * LOG2E);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hs[mt][nt][e] *= seg;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      // rows 32kp .. 32kp+31 of this warp's columns: B fragments of two k-steps
+      uint32_t vhi[NT][4], vlo[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t vr[4];
+        tc::ldsm_x4_t(vr, sV + (32 * kp + lane) * L::VR + p0 + 8 * nt);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = tc::unpack(vr[q]);
+          const float2 f = *reinterpret_cast<const float2*>(fw + 32 * kp + 8 * q + 2 * t);
+          tc::split(v.x * f.x, v.y * f.y, vhi[nt][q], vlo[nt][q]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t at[4];   // M^T: rows = state rows 16 mt.., k = chunk rows
+          tc::ldsm_x4_t(at, sM + (16 * (2 * kp + kk) + (lane % 8) + 8 * (lane / 16)) * L::MR +
+                                16 * mt + 8 * ((lane / 8) % 2));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            tc::mma(hs[mt][nt], at, vhi[nt][2 * kk], vhi[nt][2 * kk + 1]);
+            tc::mma(hs[mt][nt], at, vlo[nt][2 * kk], vlo[nt][2 * kk + 1]);
+          }
+        }
+    }
+  }
+  __syncthreads();
+  store_state(nc - 1);
+  if (rev && g.d_init) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int n = n0 + 16 * mt + gq + 8 * half, p = p0 + 8 * nt + 2 * t;
+          *reinterpret_cast<float2*>(g.d_init + (((size_t)b * H + h) * N + n) * P + p) =
+              make_float2(hs[mt][nt][2 * half], hs[mt][nt][2 * half + 1]);
+        }
+  }
+}
+
+// ---- (c): the gradients of a chunk and a group of heads
+template <int N, int P>
+struct GrSmem {
+  static constexpr int BR = N + 8;   // padded row of B and C, bf16 elements
+  static constexpr int XR = P + 8;   // padded row of x, dy and the state planes
+  static constexpr int QR = Q + 8;   // padded row of S' and W
+  static constexpr size_t B_OFF = 0, C_OFF = (size_t)Q * BR * 2;
+  static constexpr size_t XSTAGE = 2 * (size_t)Q * XR * 2 + Q * 4;  // x, dy, dt of a head
+  static constexpr size_t XD_OFF = 2 * C_OFF;                      // two such stages
+  static constexpr size_t PLANE = (size_t)N * XR * 2;
+  static constexpr size_t H_OFF = XD_OFF + 2 * XSTAGE;             // h_c hi, lo
+  static constexpr size_t DH_OFF = H_OFF + 2 * PLANE;              // dh_c hi, lo
+  static constexpr size_t SW_OFF = DH_OFF + 2 * PLANE;             // S' hi, lo, W hi, lo
+  static constexpr size_t SQ = (size_t)Q * QR * 2;
+  // f32, two of each (by the head's parity): the per-row factors of a head (cum, dt,
+  // exp(cum), exp(seg - cum), w, and [0] of a sixth: A), the P1 tiles' row and column
+  // sums, the two column halves' state dots C.(dY h^T) and B.(X dh^T), the warps'
+  // parts of <h_c, dh_c>
+  static constexpr size_t FAC_OFF = SW_OFF + 4 * SQ;
+  static constexpr size_t RS_OFF = FAC_OFF + 2 * 6 * Q * 4;
+  static constexpr size_t CS_OFF = RS_OFF + 2 * 10 * 16 * 4;
+  static constexpr size_t R2_OFF = CS_OFF + 2 * 10 * 16 * 4;
+  static constexpr size_t R3_OFF = R2_OFF + 2 * 2 * Q * 4;
+  static constexpr size_t HD_OFF = R3_OFF + 2 * 2 * Q * 4;
+  static constexpr size_t bytes = HD_OFF + 2 * 8 * 4;
+};
+
+template <int N, int P>
+__global__ void __launch_bounds__(GR_THREADS, 1)
+ssd_scan_bwd_grad(Bf16BwdArgs g) {
+  static_assert(N % 16 == 0 && (P == 32 || P == 64), "N a multiple of 16; P 32 or 64");
+  using L = GrSmem<N, P>;
+  using bf16 = __nv_bfloat16;
+  constexpr int NH = N / 2, NT8 = NH / 8;   // this warp's columns of dB and dC
+  constexpr int PH = P / 2, PT8 = PH / 8;   // this warp's columns of dx
+  constexpr int FIN = 7;                    // the warp that closes each head's rows
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sB = reinterpret_cast<bf16*>(smem_raw + L::B_OFF);
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw + L::C_OFF);
+  bf16* sHhi = reinterpret_cast<bf16*>(smem_raw + L::H_OFF);
+  bf16* sHlo = sHhi + N * L::XR;
+  bf16* sDhi = reinterpret_cast<bf16*>(smem_raw + L::DH_OFF);
+  bf16* sDlo = sDhi + N * L::XR;
+  bf16* sShi = reinterpret_cast<bf16*>(smem_raw + L::SW_OFF);
+  bf16* sSlo = sShi + Q * L::QR;
+  bf16* sWhi = sSlo + Q * L::QR;
+  bf16* sWlo = sWhi + Q * L::QR;
+  auto fac = [&](int par, int f) {
+    return reinterpret_cast<float*>(smem_raw + L::FAC_OFF) + (par * 6 + f) * Q;
+  };
+  auto rsum = [&](int par) { return reinterpret_cast<float*>(smem_raw + L::RS_OFF) + par * 160; };
+  auto csum = [&](int par) { return reinterpret_cast<float*>(smem_raw + L::CS_OFF) + par * 160; };
+  auto r2s = [&](int par) { return reinterpret_cast<float*>(smem_raw + L::R2_OFF) + par * 2 * Q; };
+  auto r3s = [&](int par) { return reinterpret_cast<float*>(smem_raw + L::R3_OFF) + par * 2 * Q; };
+  auto hds = [&](int par) { return reinterpret_cast<float*>(smem_raw + L::HD_OFF) + par * 8; };
+  auto xst = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + L::XD_OFF + s * L::XSTAGE); };
+  auto dyst = [&](int s) { return xst(s) + Q * L::XR; };
+  auto dtst = [&](int s) { return reinterpret_cast<float*>(dyst(s) + Q * L::XR); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int q = warp % 4, hf = warp / 4;   // P2: rows 16q.. and a column half
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int S = g.S, H = g.H, nc = (S + Q - 1) / Q, r0 = c * Q;
+  const int h0 = grp * HG, nh = min(HG, H - h0);
+  const size_t yrow = (size_t)H * P;
+
+  auto load_xd = [&](int k, int s) {   // x, dy (and, by warp 0, dt) of head h0 + k
+    const int h = h0 + k;
+    const bf16* xb = g.x + b * g.sxb + (size_t)h * P;
+    const bf16* yb = g.dy + (size_t)b * S * yrow + (size_t)h * P;
+    for (int i = tid; i < Q * (P / 8); i += GR_THREADS) {
+      const int r = i / (P / 8), kk = i % (P / 8);
+      const bool ok = r0 + r < S;
+      const long long row = ok ? r0 + r : 0;
+      tc::cp_async16(xst(s) + r * L::XR + 8 * kk, xb + row * g.sxs + 8 * kk, ok);
+      tc::cp_async16(dyst(s) + r * L::XR + 8 * kk, yb + row * (long long)yrow + 8 * kk, ok);
+    }
+    if (warp == 0)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * lane + e;
+        const bool ok = r0 + r < S;
+        tc::cp_async4(dtst(s) + r, g.dt + ((size_t)b * S + (ok ? r0 + r : 0)) * H + h, ok);
+      }
+  };
+  auto load_planes = [&](const bf16* src, bf16* hi, int k) {   // a state's hi and lo planes
+    const bf16* p0 = src + plane(b, c, h0 + k, nc, H, N, P);
+    for (int i = tid; i < 2 * N * (P / 8); i += GR_THREADS) {
+      const int r = i / (P / 8), kk = i % (P / 8);   // r: row of the two stacked planes
+      tc::cp_async16(hi + r * L::XR + 8 * kk, p0 + (size_t)r * P + 8 * kk, true);
+    }
+  };
+  // warp 0: the per-row factors of head k from its dt, once its copies have landed
+  auto factors = [&](int k) {
+    const int par = k & 1;
+    const float a = g.A[h0 + k];
+    const float2 d = *reinterpret_cast<const float2*>(dtst(par) + 2 * lane);
+    const float v0 = d.x * a, v1 = d.y * a;
+    float sum = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, sum, o);
+      if (lane >= o) sum += u;
+    }
+    const float before = __shfl_up_sync(0xffffffffu, sum, 1);
+    const float last = __shfl_sync(0xffffffffu, sum, 31);
+    const float c0 = lane ? before + v0 : v0;
+    const float c1 = lane ? before + v0 + v1 : v0 + v1;
+    const float o0 = exp2f((last - c0) * LOG2E), o1 = exp2f((last - c1) * LOG2E);
+    *reinterpret_cast<float2*>(fac(par, 0) + 2 * lane) = make_float2(c0, c1);
+    *reinterpret_cast<float2*>(fac(par, 1) + 2 * lane) = d;
+    *reinterpret_cast<float2*>(fac(par, 2) + 2 * lane) =
+        make_float2(exp2f(c0 * LOG2E), exp2f(c1 * LOG2E));
+    *reinterpret_cast<float2*>(fac(par, 3) + 2 * lane) = make_float2(o0, o1);
+    *reinterpret_cast<float2*>(fac(par, 4) + 2 * lane) = make_float2(o0 * d.x, o1 * d.y);
+    if (lane == 0) fac(par, 5)[0] = a;
+  };
+  // one warp: dcum, its reverse cumsum, ddt and the chunk's dA of head k, in a
+  // fixed order (lane l: rows 2l, 2l+1)
+  auto finish_head = [&](int k) {
+    const int par = k & 1, h = h0 + k;
+    const float* rs = rsum(par);
+    const float* cs = csum(par);
+    float dcum[2], xdxs[2], dtv[2], wr3 = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * lane + e, ib = i / 16;
+      float sr = 0.f, sc = 0.f;
+      for (int jb = 0; jb <= ib; ++jb) sr += rs[(ib * (ib + 1) / 2 + jb) * 16 + i % 16];
+      for (int jb = ib; jb < 4; ++jb) sc += cs[(jb * (jb + 1) / 2 + ib) * 16 + i % 16];
+      const float r3 = r3s(par)[i] + r3s(par)[Q + i];
+      dtv[e] = fac(par, 1)[i];
+      const float dyy = fmaf(fac(par, 2)[i], r2s(par)[i] + r2s(par)[Q + i], sr);
+      xdxs[e] = fmaf(fac(par, 3)[i], r3, sc);
+      dcum[e] = dyy - dtv[e] * xdxs[e];
+      wr3 = fmaf(fac(par, 4)[i], r3, wr3);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) wr3 += __shfl_xor_sync(0xffffffffu, wr3, o);
+    if (lane == 31) {   // d(seg) = <h_{c+1}, dh_c> = exp(seg) <h_c, dh_c> + sum_j w_j r3_j
+      float hd = 0.f;
+      for (int w = 0; w < 8; ++w) hd += hds(par)[w];
+      dcum[1] += fmaf(exp2f(fac(par, 0)[Q - 1] * LOG2E), hd, wr3);
+    }
+    float sum = dcum[0] + dcum[1];   // reverse inclusive cumsum over the 64 rows
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, sum, o);
+      if (lane + o < 32) sum += u;
+    }
+    float after = __shfl_down_sync(0xffffffffu, sum, 1);
+    if (lane == 31) after = 0.f;
+    const float rc[2] = {after + dcum[1] + dcum[0], after + dcum[1]};
+    const float a = fac(par, 5)[0];
+    float da = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + 2 * lane + e;
+      if (row < S) g.ddt[((size_t)b * S + row) * H + h] = fmaf(a, rc[e], xdxs[e]);
+      da = fmaf(dtv[e], rc[e], da);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+    if (lane == 0) g.part_a[((size_t)b * nc + c) * H + h] = da;
+  };
+
+  // ---- B and C of the chunk, and head 0's x, dy, dt, h_c, dh_c
+  for (int i = tid; i < Q * (N / 8); i += GR_THREADS) {
+    const int r = i / (N / 8), kk = i % (N / 8);
+    const bool ok = r0 + r < S;
+    const long long row = ok ? r0 + r : 0;
+    tc::cp_async16(sB + r * L::BR + 8 * kk, g.bm + b * g.sbb + row * g.sbs + 8 * kk, ok);
+    tc::cp_async16(sC + r * L::BR + 8 * kk, g.cm + b * g.scb + row * g.scs + 8 * kk, ok);
+  }
+  load_xd(0, 0);
+  tc::cp_async_commit();
+  load_planes(g.states, sHhi, 0);
+  tc::cp_async_commit();
+  load_planes(g.dstates, sDhi, 0);
+  tc::cp_async_commit();
+  if (warp == 0) {
+    tc::cp_async_wait<2>();
+    factors(0);
+  }
+
+  // P1's tiles of the chunk's lower triangle: tile t = (ib, jb), t = ib (ib + 1) / 2 + jb;
+  // this warp's are t = warp and t = warp + 8
+  int tib[2], tjb[2];
+  const int ntile = warp < 2 ? 2 : 1;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tt = warp + 8 * u;
+    tib[u] = tt < 1 ? 0 : tt < 3 ? 1 : tt < 6 ? 2 : 3;
+    tjb[u] = tt - tib[u] * (tib[u] + 1) / 2;
+  }
+  float G[2][2][4];   // C.B^T on this warp's tiles, for every head
+  float accC[NT8][4], accB[NT8][4];   // dC and dB of rows 16q.., columns NH*hf.., over the heads
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accC[nt][e] = accB[nt][e] = 0.f;
+
+  for (int k = 0; k < nh; ++k) {
+    const int s = k & 1, h = h0 + k;
+    const bf16* sX = xst(s);
+    const bf16* sDY = dyst(s);
+    const float* cum = fac(s, 0);
+    const float* dtr = fac(s, 1);
+    tc::cp_async_wait<2>();
+    __syncthreads();   // A: head k's x, dy and factors are visible
+    if (k + 1 < nh) load_xd(k + 1, s ^ 1);
+    tc::cp_async_commit();
+    if (k == 0)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == ntile) break;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) G[u][n][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < N / 16; ++ks) {
+          uint32_t af[4], bfr[4];
+          tc::ldsm_x4(af, sC + (16 * tib[u] + (lane % 8) + 8 * ((lane / 8) % 2)) * L::BR +
+                              16 * ks + 8 * (lane / 16));
+          tc::ldsm_x4(bfr, sB + (16 * tjb[u] + (lane % 8) + 8 * (lane / 16)) * L::BR + 16 * ks +
+                               8 * ((lane / 8) % 2));
+          tc::mma(G[u][0], af, bfr[0], bfr[1]);
+          tc::mma(G[u][1], af, bfr[2], bfr[3]);
+        }
+      }
+    if (k > 0 && warp == FIN) finish_head(k - 1);
+
+    // P1: D = dY X^T on this warp's tiles; S' = G o L and W = L o D dt_j to shared
+    // memory as hi + lo; the row sums of G o W and the column sums of G o L o D
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == ntile) break;
+      const int ib = tib[u], jb = tjb[u], tt = warp + 8 * u;
+      float D[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t af[4], bfr[4];
+        tc::ldsm_x4(af, sDY + (16 * ib + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + 16 * ks +
+                            8 * (lane / 16));
+        tc::ldsm_x4(bfr, sX + (16 * jb + (lane % 8) + 8 * (lane / 16)) * L::XR + 16 * ks +
+                             8 * ((lane / 8) % 2));
+        tc::mma(D[0], af, bfr[0], bfr[1]);
+        tc::mma(D[1], af, bfr[2], bfr[3]);
+      }
+      float rp[2] = {0.f, 0.f}, cp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 16 * ib + gq + 8 * r, j = 16 * jb + 8 * n + 2 * t;
+          float sp[2], wv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float l = j + e <= i ? exp2f((cum[i] - cum[j + e]) * LOG2E) : 0.f;
+            const float gv = G[u][n][2 * r + e], wp = l * D[n][2 * r + e];
+            sp[e] = gv * l;
+            wv[e] = wp * dtr[j + e];
+            rp[r] = fmaf(gv, wv[e], rp[r]);
+            cp[n][e] = fmaf(gv, wp, cp[n][e]);
+          }
+          uint32_t hi, lo;
+          tc::split(sp[0], sp[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sShi + i * L::QR + j) = hi;
+          *reinterpret_cast<uint32_t*>(sSlo + i * L::QR + j) = lo;
+          tc::split(wv[0], wv[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sWhi + i * L::QR + j) = hi;
+          *reinterpret_cast<uint32_t*>(sWlo + i * L::QR + j) = lo;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {   // over the quad: the tile's 16 columns
+        rp[r] += __shfl_xor_sync(0xffffffffu, rp[r], 1);
+        rp[r] += __shfl_xor_sync(0xffffffffu, rp[r], 2);
+        if (t == 0) rsum(s)[tt * 16 + gq + 8 * r] = rp[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {   // over the eight row groups: the tile's 16 rows
+          float v = cp[n][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (gq == 0) csum(s)[tt * 16 + 8 * n + 2 * t + e] = v;
+        }
+    }
+    tc::cp_async_wait<2>();
+    __syncthreads();   // B: S', W and head k's h_c are visible
+
+    // P2, h_c: dC += exp(cum_i) (dY h_c^T) + W B, rows 16q.., columns NH*hf..;
+    // the row dots C.(dY h_c^T) for dy.y
+    float tmp[NT8][4];
+    {
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t af[4];
+        tc::ldsm_x4(af, sDY + (16 * q + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + 16 * ks +
+                            8 * (lane / 16));
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          const int off = (NH * hf + 8 * nt + (lane % 8)) * L::XR + 16 * ks + 8 * ((lane / 8) % 2);
+          uint32_t bh[2], bl[2];
+          tc::ldsm_x2(bh, sHhi + off);
+          tc::ldsm_x2(bl, sHlo + off);
+          tc::mma(tmp[nt], af, bh[0], bh[1]);
+          tc::mma(tmp[nt], af, bl[0], bl[1]);
+        }
+      }
+      const float* ecum = fac(s, 2);
+      float rd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 16 * q + gq + 8 * r, n = NH * hf + 8 * nt + 2 * t;
+          const float2 cv = tc::unpack(*reinterpret_cast<const uint32_t*>(sC + i * L::BR + n));
+          rd[r] = fmaf(cv.x, tmp[nt][2 * r], fmaf(cv.y, tmp[nt][2 * r + 1], rd[r]));
+          accC[nt][2 * r] = fmaf(ecum[i], tmp[nt][2 * r], accC[nt][2 * r]);
+          accC[nt][2 * r + 1] = fmaf(ecum[i], tmp[nt][2 * r + 1], accC[nt][2 * r + 1]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 1);
+        rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 2);
+        if (t == 0) r2s(s)[hf * Q + 16 * q + gq + 8 * r] = rd[r];
+      }
+      for (int kb = 0; kb <= q; ++kb) {   // W B over the columns j <= i
+        uint32_t wh[4], wl[4];
+        const int off =
+            (16 * q + (lane % 8) + 8 * ((lane / 8) % 2)) * L::QR + 16 * kb + 8 * (lane / 16);
+        tc::ldsm_x4(wh, sWhi + off);
+        tc::ldsm_x4(wl, sWlo + off);
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          uint32_t bb[2];
+          tc::ldsm_x2_t(bb, sB + (16 * kb + (lane % 8) + 8 * ((lane / 8) % 2)) * L::BR + NH * hf +
+                                8 * nt);
+          tc::mma(accC[nt], wh, bb[0], bb[1]);
+          tc::mma(accC[nt], wl, bb[0], bb[1]);
+        }
+      }
+    }
+    tc::cp_async_wait<1>();
+    __syncthreads();   // D: head k's dh_c is visible
+    {  // <h_c, dh_c> over the planes, this warp's share
+      float hd = 0.f;
+      for (int i = tid; i < N * (P / 2); i += GR_THREADS) {
+        const int o = (i / (P / 2)) * L::XR + 2 * (i % (P / 2));
+        const float2 hh = tc::unpack(*reinterpret_cast<const uint32_t*>(sHhi + o));
+        const float2 hl = tc::unpack(*reinterpret_cast<const uint32_t*>(sHlo + o));
+        const float2 dh = tc::unpack(*reinterpret_cast<const uint32_t*>(sDhi + o));
+        const float2 dl = tc::unpack(*reinterpret_cast<const uint32_t*>(sDlo + o));
+        hd = fmaf(hh.x + hl.x, dh.x + dl.x, fmaf(hh.y + hl.y, dh.y + dl.y, hd));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
+      if (lane == 0) hds(s)[warp] = hd;
+    }
+    __syncthreads();   // E: every read of h_c is done
+    if (k + 1 < nh) load_planes(g.states, sHhi, k + 1);
+    tc::cp_async_commit();
+
+    // P2, dh_c: dB += w_j (X dh_c^T) + W^T C, rows 16q.., columns NH*hf..; the row
+    // dots B.(X dh_c^T) for x.dxs and d(seg)
+    {
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t af[4];
+        tc::ldsm_x4(af, sX + (16 * q + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + 16 * ks +
+                            8 * (lane / 16));
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          const int off = (NH * hf + 8 * nt + (lane % 8)) * L::XR + 16 * ks + 8 * ((lane / 8) % 2);
+          uint32_t bh[2], bl[2];
+          tc::ldsm_x2(bh, sDhi + off);
+          tc::ldsm_x2(bl, sDlo + off);
+          tc::mma(tmp[nt], af, bh[0], bh[1]);
+          tc::mma(tmp[nt], af, bl[0], bl[1]);
+        }
+      }
+      const float* wr = fac(s, 4);
+      float rd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 16 * q + gq + 8 * r, n = NH * hf + 8 * nt + 2 * t;
+          const float2 bv = tc::unpack(*reinterpret_cast<const uint32_t*>(sB + j * L::BR + n));
+          rd[r] = fmaf(bv.x, tmp[nt][2 * r], fmaf(bv.y, tmp[nt][2 * r + 1], rd[r]));
+          accB[nt][2 * r] = fmaf(wr[j], tmp[nt][2 * r], accB[nt][2 * r]);
+          accB[nt][2 * r + 1] = fmaf(wr[j], tmp[nt][2 * r + 1], accB[nt][2 * r + 1]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 1);
+        rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 2);
+        if (t == 0) r3s(s)[hf * Q + 16 * q + gq + 8 * r] = rd[r];
+      }
+      for (int kb = q; kb < 4; ++kb) {   // W^T C over the rows i >= j
+        uint32_t wh[4], wl[4];
+        const int off =
+            (16 * kb + (lane % 8) + 8 * (lane / 16)) * L::QR + 16 * q + 8 * ((lane / 8) % 2);
+        tc::ldsm_x4_t(wh, sWhi + off);
+        tc::ldsm_x4_t(wl, sWlo + off);
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt) {
+          uint32_t cc[2];
+          tc::ldsm_x2_t(cc, sC + (16 * kb + (lane % 8) + 8 * ((lane / 8) % 2)) * L::BR + NH * hf +
+                                8 * nt);
+          tc::mma(accB[nt], wh, cc[0], cc[1]);
+          tc::mma(accB[nt], wl, cc[0], cc[1]);
+        }
+      }
+    }
+    // dxs = exp(seg - cum_j) (B dh_c) + S'^T dY, rows 16q.., columns PH*hf..; dx = dt dxs
+    {
+      float ax[PT8][4];
+#pragma unroll
+      for (int nt = 0; nt < PT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ax[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < N / 16; ++ks) {
+        uint32_t af[4];
+        tc::ldsm_x4(af, sB + (16 * q + (lane % 8) + 8 * ((lane / 8) % 2)) * L::BR + 16 * ks +
+                            8 * (lane / 16));
+#pragma unroll
+        for (int pp = 0; pp < PT8 / 2; ++pp) {
+          const int off = (16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + PH * hf +
+                          16 * pp + 8 * (lane / 16);
+          uint32_t fh[4], fl[4];
+          tc::ldsm_x4_t(fh, sDhi + off);
+          tc::ldsm_x4_t(fl, sDlo + off);
+          tc::mma(ax[2 * pp], af, fh[0], fh[1]);
+          tc::mma(ax[2 * pp], af, fl[0], fl[1]);
+          tc::mma(ax[2 * pp + 1], af, fh[2], fh[3]);
+          tc::mma(ax[2 * pp + 1], af, fl[2], fl[3]);
+        }
+      }
+      const float* eout = fac(s, 3);
+#pragma unroll
+      for (int nt = 0; nt < PT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ax[nt][e] *= eout[16 * q + gq + 8 * (e / 2)];
+      for (int kb = q; kb < 4; ++kb) {   // S'^T dY over the rows i >= j
+        uint32_t sh[4], sl[4];
+        const int off =
+            (16 * kb + (lane % 8) + 8 * (lane / 16)) * L::QR + 16 * q + 8 * ((lane / 8) % 2);
+        tc::ldsm_x4_t(sh, sShi + off);
+        tc::ldsm_x4_t(sl, sSlo + off);
+#pragma unroll
+        for (int pp = 0; pp < PT8 / 2; ++pp) {
+          uint32_t f[4];
+          tc::ldsm_x4_t(f, sDY + (16 * kb + (lane % 8) + 8 * ((lane / 8) % 2)) * L::XR + PH * hf +
+                               16 * pp + 8 * (lane / 16));
+          tc::mma(ax[2 * pp], sh, f[0], f[1]);
+          tc::mma(ax[2 * pp], sl, f[0], f[1]);
+          tc::mma(ax[2 * pp + 1], sh, f[2], f[3]);
+          tc::mma(ax[2 * pp + 1], sl, f[2], f[3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 16 * q + gq + 8 * r, row = r0 + j;
+        if (row >= S) continue;
+        const float d = dtr[j];
+        uint32_t* o = reinterpret_cast<uint32_t*>(g.dx + ((size_t)b * S + row) * yrow +
+                                                  (size_t)h * P + PH * hf + 2 * t);
+#pragma unroll
+        for (int nt = 0; nt < PT8; ++nt)
+          o[4 * nt] = tc::pack(d * ax[nt][2 * r], d * ax[nt][2 * r + 1]);
+      }
+    }
+    __syncthreads();   // C: every read of dh_c, S', W and this stage is done
+    if (k + 1 < nh) load_planes(g.dstates, sDhi, k + 1);
+    tc::cp_async_commit();
+    if (warp == 0 && k + 1 < nh) {
+      tc::cp_async_wait<2>();
+      factors(k + 1);
+    }
+  }
+  __syncthreads();
+  if (warp == FIN) finish_head(nh - 1);
+  // this block's dB and dC rows, summed over its heads
+  const size_t prow = ((size_t)grp * g.B + b) * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * q + gq + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      const size_t o = (prow + row) * N + NH * hf + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(g.part_b + o) = make_float2(accB[nt][2 * r], accB[nt][2 * r + 1]);
+      *reinterpret_cast<float2*>(g.part_c + o) = make_float2(accC[nt][2 * r], accC[nt][2 * r + 1]);
+    }
+  }
+}
+
+// Blocks [0, n_bc): dB and dC, an element a thread, summed over the head groups'
+// rows in order. Block n_bc: dA, a head a thread, summed over (batch, chunk) in order.
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_bwd_bf16_finish(Bf16BwdArgs g, int N, int n_bc) {
+  const int S = g.S, H = g.H, nc = (S + Q - 1) / Q, groups = (H + HG - 1) / HG;
+  if ((int)blockIdx.x < n_bc) {
+    const size_t total = (size_t)g.B * S * N;
+    const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
+    if (e >= total) return;
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < groups; ++k) {
+      sb += g.part_b[k * total + e];
+      sc += g.part_c[k * total + e];
+    }
+    g.dbm[e] = __float2bfloat16_rn(sb);
+    g.dcm[e] = __float2bfloat16_rn(sc);
+    return;
+  }
+  for (int h = threadIdx.x; h < H; h += THREADS) {
+    float s = 0.f;
+    for (int k = 0; k < g.B * nc; ++k) s += g.part_a[(size_t)k * H + h];
+    g.dA[h] = s;
+  }
+}
+
+template <int N, int P>
+cudaError_t launch_bwd_bf16(const Bf16BwdArgs& g, cudaStream_t stream) {
+  using SL = StSmem<N, P>;
+  using GL = GrSmem<N, P>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_bwd_states<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SL::bytes);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_states<N, P>
+      <<<dim3(N / SL::NS, g.H, 2 * g.B), SL::WARPS * 32, SL::bytes, stream>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ssd_scan_bwd_grad<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GL::bytes);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_grad<N, P>
+      <<<dim3((g.S + Q - 1) / Q, (g.H + HG - 1) / HG, g.B), GR_THREADS, GL::bytes, stream>>>(g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)g.B * g.S * N;
+  const int n_bc = (int)((total + THREADS - 1) / THREADS);
+  ssd_scan_bwd_bf16_finish<<<n_bc + 1, THREADS, 0, stream>>>(g, N, n_bc);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_bwd_bf16_n(const Bf16BwdArgs& g, int N, cudaStream_t s) {
+  switch (N) {
+    case 16: return launch_bwd_bf16<16, P>(g, s);
+    case 32: return launch_bwd_bf16<32, P>(g, s);
+    case 64: return launch_bwd_bf16<64, P>(g, s);
+    case 128: return launch_bwd_bf16<128, P>(g, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1190,37 +2020,85 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
     default: return (int)cudaErrorInvalidValue;
   }
 }
+// Bytes of scratch that ssd_scan_bwd needs (256-byte aligned pieces). bf16: h_c
+// and dh_c as hi and lo planes, bf16 [B, ceil(S/64), H, 2, N, P] each; the head
+// groups' dB and dC rows, f32 [ceil(H/10), B, S, N] each; dA's parts, f32
+// [B, ceil(S/64), H]. f32: the states entering each chunk, f32
+// [B, H, ceil(S/64), N, P]; part_b and part_c [P/32 * H, B, S, N]; part_t
+// [2, P/32, B, S, H].
+namespace {
+size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+// the pieces of the scratch, in order
+void scratch_pieces(int B, int S, int H, int P, int N, int dtype, size_t (&sz)[5]) {
+  const size_t nc = (S + Q - 1) / Q, rows = (size_t)B * S;
+  if (dtype == 1) {
+    const size_t planes = (size_t)B * nc * H * 2 * N * P * 2, groups = (H + HG - 1) / HG;
+    sz[0] = sz[1] = align256(planes);
+    sz[2] = sz[3] = align256(groups * rows * N * 4);
+    sz[4] = align256((size_t)B * nc * H * 4);
+  } else {
+    sz[0] = align256((size_t)B * H * nc * N * P * 4);
+    sz[1] = sz[2] = align256((size_t)(P / PT) * H * rows * N * 4);
+    sz[3] = align256(2 * (size_t)(P / PT) * rows * H * 4);
+    sz[4] = 0;
+  }
+}
+}  // namespace
+
+extern "C" long long ssd_scan_bwd_scratch(int B, int S, int H, int P, int N, int dtype) {
+  size_t sz[5];
+  scratch_pieces(B, S, H, P, N, dtype, sz);
+  return (long long)(sz[0] + sz[1] + sz[2] + sz[3] + sz[4]);
+}
 
 // The gradient of ssd_scan_fwd: dy (contiguous [B,S,H,P], x's dtype) and d_final
 // (f32 [B,H,N,P] or null: zero) -> dx (x's dtype), ddt (f32 [B,S,H]), dA (f32
 // [H]), dbm and dcm (x's dtype, contiguous [B,S,N]), d_init (f32, or null when
-// not wanted). Inputs as ssd_scan_fwd takes them. Scratch (f32, the caller's):
-// states [B, H, ceil(S/64), N, P]; part_b and part_c [P/32 * H, B, S, N]; part_t
-// [2, P/32, B, S, H]. Two launches on `stream`; returns the cudaError_t.
+// not wanted). Inputs as ssd_scan_fwd takes them; bf16 takes P of 32 or 64.
+// scratch: ssd_scan_bwd_scratch bytes, 256-byte aligned. Launches on `stream`
+// (bf16: three, f32: two); returns the cudaError_t.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* bm,
                             const void* cm, const void* init_state, const void* dy,
                             const void* d_final, void* dx, void* ddt, void* dA, void* dbm,
-                            void* dcm, void* d_init, void* states, void* part_b,
-                            void* part_c, void* part_t, int B, int S, int H, int P, int N,
-                            long long x_batch, long long x_row, long long b_batch,
+                            void* dcm, void* d_init, void* scratch, int B, int S, int H, int P,
+                            int N, long long x_batch, long long x_row, long long b_batch,
                             long long b_row, long long c_batch, long long c_row, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % PT != 0 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % PT != 0 || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && P != 32 && P != 64))
     return (int)cudaErrorInvalidValue;
-  auto args = [&](auto* t) {
-    using T = std::remove_const_t<std::remove_pointer_t<decltype(t)>>;
-    return BwdArgs<T>{static_cast<const T*>(x), static_cast<const float*>(dt),
-                      static_cast<const float*>(A), static_cast<const T*>(bm),
-                      static_cast<const T*>(cm), static_cast<const float*>(init_state),
-                      static_cast<const T*>(dy), static_cast<const float*>(d_final),
-                      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(dA),
-                      static_cast<T*>(dbm), static_cast<T*>(dcm), static_cast<float*>(d_init),
-                      static_cast<float*>(states), static_cast<float*>(part_b),
-                      static_cast<float*>(part_c), static_cast<float*>(part_t), B, S, H, P,
-                      x_batch, x_row, b_batch, b_row, c_batch, c_row};
-  };
-  if (dtype == 1)
-    return (int)launch_bwd_n(args(static_cast<__nv_bfloat16*>(nullptr)), N, s);
-  return (int)launch_bwd_n(args(static_cast<float*>(nullptr)), N, s);
+  size_t sz[5];
+  scratch_pieces(B, S, H, P, N, dtype, sz);
+  char* w = static_cast<char*>(scratch);
+  char* piece[5];
+  for (int i = 0; i < 5; ++i) {
+    piece[i] = w;
+    w += sz[i];
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    const Bf16BwdArgs g{static_cast<const bf16*>(x), static_cast<const float*>(dt),
+                        static_cast<const float*>(A), static_cast<const bf16*>(bm),
+                        static_cast<const bf16*>(cm), static_cast<const float*>(init_state),
+                        static_cast<const bf16*>(dy), static_cast<const float*>(d_final),
+                        static_cast<bf16*>(dx), static_cast<float*>(ddt), static_cast<float*>(dA),
+                        static_cast<bf16*>(dbm), static_cast<bf16*>(dcm),
+                        static_cast<float*>(d_init), reinterpret_cast<bf16*>(piece[0]),
+                        reinterpret_cast<bf16*>(piece[1]), reinterpret_cast<float*>(piece[2]),
+                        reinterpret_cast<float*>(piece[3]), reinterpret_cast<float*>(piece[4]),
+                        B, S, H, x_batch, x_row, b_batch, b_row, c_batch, c_row};
+    return (int)(P == 32 ? launch_bwd_bf16_n<32>(g, N, s) : launch_bwd_bf16_n<64>(g, N, s));
+  }
+  const BwdArgs g{static_cast<const float*>(x), static_cast<const float*>(dt),
+                  static_cast<const float*>(A), static_cast<const float*>(bm),
+                  static_cast<const float*>(cm), static_cast<const float*>(init_state),
+                  static_cast<const float*>(dy), static_cast<const float*>(d_final),
+                  static_cast<float*>(dx), static_cast<float*>(ddt), static_cast<float*>(dA),
+                  static_cast<float*>(dbm), static_cast<float*>(dcm), static_cast<float*>(d_init),
+                  reinterpret_cast<float*>(piece[0]), reinterpret_cast<float*>(piece[1]),
+                  reinterpret_cast<float*>(piece[2]), reinterpret_cast<float*>(piece[3]), B, S,
+                  H, P, x_batch, x_row, b_batch, b_row, c_batch, c_row};
+  return (int)launch_bwd_n(g, N, s);
 }

@@ -21,10 +21,12 @@ CUDA-core design that the f32 checks hold at 2e-4.
 
 The backward (``ssd_scan_bwd_cuda``, the ssm training path; reference: the
 gradient ``jax.vjp`` takes of ``_ssd_blocked``, which ``ssd_scan_bwd_plain``
-writes out explicitly) runs f32 math on the CUDA cores for both dtypes in two
-launches: the states entering each chunk recomputed and the chunks walked in
-reverse with d(state) on chip, then a fixed-order sum of the partial rows that
-the P tiles and heads share (dB, dC, ddt, dA). Deterministic.
+writes out explicitly) is parallel over chunks for bf16, on the tensor cores in
+three launches: the states entering each 64-row chunk and their cotangents
+walked forward and back over [N, P] and kept as bf16 hi + lo planes, then every
+chunk's gradients for groups of 10 heads from them, then a fixed-order sum of
+what crosses blocks (dB, dC over the groups, dA over the chunks). f32 inputs run
+the exact CUDA-core design in two launches. Deterministic.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.kernels.ref import widen
 
 STATE_DIMS = (16, 32, 64, 128)   # N the kernel is instantiated for
 P_TILE = 32                      # P must be a multiple of this
+BWD_BF16_P = (32, 64)            # P the bf16 backward is instantiated for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -163,10 +166,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in {"ssd_scan_fwd": [P] * 8 + [I] * 5 + [L] * 6 + [I, P],
-                       "ssd_scan_bwd": [P] * 18 + [I] * 5 + [L] * 6 + [I, P]}.items():
+                       "ssd_scan_bwd": [P] * 15 + [I] * 5 + [L] * 6 + [I, P]}.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = I
+    lib.ssd_scan_bwd_scratch.argtypes = [I] * 6
+    lib.ssd_scan_bwd_scratch.restype = L
     return lib
 
 
@@ -247,13 +252,17 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       d_final, *, chunk: int):
     """The gradient of ``ssd_scan_cuda`` on the card, as ``ssd_scan_bwd_plain``
     returns it: (dx, ddt, da, dbm, dcm, d_init_state or None). The inputs as the
-    forward takes them; dy contiguous in x's dtype, d_final f32 contiguous or
-    None (zero). Two launches (the source note says why); the scratch they use
-    (the states entering each 64-row chunk, f32 [B,H,ceil(S/64),N,P], and f32
-    partial rows of dB, dC and the row sums) is allocated here and freed with
-    the call."""
+    forward takes them (bf16: P of 32 or 64); dy contiguous in x's dtype, d_final
+    f32 contiguous or None (zero). bf16 takes three launches, f32 two (the source
+    note says why); the scratch they use (bf16: the states at every 64-row chunk
+    boundary and their cotangents, 84 MB each at mamba2-2.7b's 2,048 tokens, and
+    f32 rows of dB and dC for each group of 10 heads; the C side sizes it) is
+    allocated here and freed with the call."""
     refuse_grad("ssd_scan_bwd_cuda", x, dt, a, bm, cm, init_state, dy, d_final)
     B, S, H, P, N, strides = _check("ssd_scan_bwd_cuda", x, dt, a, bm, cm, init_state, chunk)
+    if x.dtype == torch.bfloat16 and P not in BWD_BF16_P:
+        raise ValueError(f"ssd_scan_bwd_cuda takes bf16 inputs with P in {BWD_BF16_P}, "
+                         f"got x {tuple(x.shape)}")
     if not (dy.is_cuda and dy.device == x.device and dy.dtype == x.dtype
             and dy.shape == x.shape and dy.is_contiguous()):
         raise ValueError(f"ssd_scan_bwd_cuda needs dy contiguous {tuple(x.shape)} "
@@ -264,26 +273,25 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             and d_final.shape == (B, H, N, P) and d_final.is_contiguous()):
         raise ValueError(f"ssd_scan_bwd_cuda needs d_final contiguous f32 {(B, H, N, P)} "
                          f"on {x.device}, got {tuple(d_final.shape)} {d_final.dtype}")
-    dev, f32 = x.device, torch.float32
+    dev, f32, code = x.device, torch.float32, _DTYPE_CODE[x.dtype]
     dx = torch.empty_like(dy)
     ddt = torch.empty((B, S, H), dtype=f32, device=dev)
     da = torch.empty((H,), dtype=f32, device=dev)
     dbm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
     dcm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
     d_init = None if init_state is None else torch.empty((B, H, N, P), dtype=f32, device=dev)
-    states = torch.empty((B, H, -(-S // 64), N, P), dtype=f32, device=dev)
-    part_bc = torch.empty((2, P // P_TILE * H, B, S, N), dtype=f32, device=dev)
-    part_t = torch.empty((2, P // P_TILE, B, S, H), dtype=f32, device=dev)
+    lib = _lib()
+    scratch = torch.empty((lib.ssd_scan_bwd_scratch(B, S, H, P, N, code),), dtype=torch.uint8,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _lib().ssd_scan_bwd(
+        err = lib.ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
             None if init_state is None else init_state.data_ptr(), dy.data_ptr(),
             None if d_final is None else d_final.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-            None if d_init is None else d_init.data_ptr(), states.data_ptr(),
-            part_bc[0].data_ptr(), part_bc[1].data_ptr(), part_t.data_ptr(), B, S, H, P, N,
-            *strides, _DTYPE_CODE[x.dtype], stream)
+            None if d_init is None else d_init.data_ptr(), scratch.data_ptr(), B, S, H, P, N,
+            *strides, code, stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
     ssd_scan_bwd_cuda.launches += 1

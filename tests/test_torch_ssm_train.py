@@ -125,6 +125,141 @@ def test_ssd_scan_bwd_state_only_cotangent():
         _close_scaled(g, w, SSD_GRAD_RTOL, SSD_GRAD_ATOL, name)
 
 
+def _bwd_by_chunks(x, dt, a, bm, cm, h0, dy, dfin, *, rows: int, heads: int,
+                   emulate: bool = False):
+    """The bf16 backward kernels' algebra (csrc/ssd_scan.cu) in f64 plain PyTorch,
+    at their chunk of ``rows`` rows and ``heads`` heads a gradient block:
+    (a) each chunk's local state S_c = B^T diag(w) X and injection
+    I_c = C^T diag(exp(cum)) dY; (b) the recurrences h_{c+1} = exp(seg) h_c + S_c
+    and dh_{c-1} = exp(seg) dh_c + I_c; (c) per chunk and head, from h_c and dh_c,
+    the gradients, with dB and dC summed over each group of ``heads`` heads and
+    then over the groups, and dcum, its reverse cumsum and d(seg) formed inside the
+    chunk (dy.y and x.dxs from the row and column sums of G o W', and the state
+    terms C.(dY h^T), B.(X dh^T)). Returns what ssd_scan_bwd_plain returns.
+    With ``emulate``, the kernels' roundings: each product's and walk's result
+    rounded to f32, and each f32 operand of a product (w x, exp(cum) dy, h_c,
+    dh_c, S', W) entering as a bf16 hi + lo pair."""
+    f64, F = torch.float64, torch.nn.functional
+
+    def f32(v):
+        return v.float().double() if emulate else v
+
+    def pair(v):
+        if not emulate:
+            return v
+        hi = v.to(torch.bfloat16).double()
+        return hi + (v - hi).to(torch.bfloat16).double()
+
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    Q, pad = rows, (-S) % rows
+    x, dy = (F.pad(t.to(f64), (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+    dt = F.pad(dt.to(f64), (0, 0, 0, pad))
+    bm, cm = (F.pad(t.to(f64), (0, 0, 0, pad)) for t in (bm, cm))
+    nc = (S + pad) // Q
+    x, dy = (t.reshape(B, nc, Q, H, P) for t in (x, dy))
+    dt = dt.reshape(B, nc, Q, H)
+    bm, cm = (t.reshape(B, nc, Q, N) for t in (bm, cm))
+    a = a.to(f64)
+    cum = f32(torch.cumsum(dt * a, 2))                              # [B,nc,Q,H]
+    seg = cum[:, :, -1]
+    ecum, eout = torch.exp(cum), torch.exp(seg[:, :, None] - cum)
+    w = eout * dt
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    L = torch.exp(torch.where(tri[None, None, :, :, None],
+                              cum[:, :, :, None] - cum[:, :, None], -torch.inf))
+    # (a) the chunk-local terms, (b) the two recurrences over [N, P]
+    local = torch.einsum("bcjn,bcjhp->bchnp", bm, pair(w[..., None] * x))
+    inject = torch.einsum("bcin,bcihp->bchnp", cm, pair(ecum[..., None] * dy))
+    h = torch.zeros(B, H, N, P, dtype=f64) if h0 is None else h0.to(f64)
+    dh = torch.zeros(B, H, N, P, dtype=f64) if dfin is None else dfin.to(f64)
+    hs, dhs = [], [None] * nc
+    for c in range(nc):
+        hs.append(h)
+        h = f32(torch.exp(seg[:, c])[..., None, None] * h + local[:, c])
+    for c in reversed(range(nc)):
+        dhs[c] = dh
+        dh = f32(torch.exp(seg[:, c])[..., None, None] * dh + inject[:, c])
+    hs, dhs = pair(torch.stack(hs, 1)), pair(torch.stack(dhs, 1))   # [B,nc,H,N,P]
+    # (c) the gradients of each chunk and head
+    G = f32(torch.einsum("bcin,bcjn->bcij", cm, bm))
+    Wp = L * f32(torch.einsum("bcihp,bcjhp->bcijh", dy, x))         # W' = L o (dY X^T)
+    W = Wp * dt[:, :, None]                                         # W_ij = W'_ij dt_j
+    dxs = (torch.einsum("bcijh,bcihp->bcjhp", pair(G[..., None] * L), dy)
+           + eout[..., None] * torch.einsum("bcjn,bchnp->bcjhp", bm, dhs))
+    dyh = f32(torch.einsum("bcihp,bchnp->bcihn", dy, hs))           # dY h^T
+    xdh = f32(torch.einsum("bcjhp,bchnp->bcjhn", x, dhs))           # X dh^T
+    dc_h = torch.einsum("bcijh,bcjn->bcihn", pair(W), bm) + ecum[..., None] * dyh
+    db_h = torch.einsum("bcijh,bcin->bcjhn", pair(W), cm) + w[..., None] * xdh
+    groups = range(0, H, heads)
+    dcm = sum(dc_h[:, :, :, g:g + heads].sum(3) for g in groups)
+    dbm = sum(db_h[:, :, :, g:g + heads].sum(3) for g in groups)
+    r3 = f32(torch.einsum("bcjn,bcjhn->bcjh", bm, xdh))
+    dyy = (f32((G[..., None] * W).sum(3))
+           + ecum * f32(torch.einsum("bcin,bcihn->bcih", cm, dyh)))
+    xdxs = f32((G[..., None] * Wp).sum(2)) + eout * r3
+    dcum = dyy - dt * xdxs
+    dcum[:, :, -1] += torch.exp(seg) * (hs * dhs).sum((-2, -1)) + (w * r3).sum(2)
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+
+    def cut(v):
+        return v.reshape((B, nc * Q) + v.shape[3:])[:, :S]
+
+    return (cut(dt[..., None] * dxs), cut(xdxs + a * rc), (dt * rc).sum((0, 1, 2)), cut(dbm),
+            cut(dcm), None if h0 is None else dh)
+
+
+# the shapes the bf16 backward kernels add to the sweep: a ragged S, H not a
+# multiple of their 10 heads a block, and zamba2's N = 64
+SSD_BWD_SHAPES = [(1, 200, 14, 64, 128, 256), (2, 130, 6, 64, 64, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP + SSD_BWD_SHAPES)
+@pytest.mark.parametrize("init", [False, True], ids=["zero-init", "init-state"])
+def test_ssd_scan_bwd_chunk_parallel_algebra(B, S, H, P, N, chunk, init):
+    """The bf16 backward kernels' decomposition (64-row chunks, 10 heads a block),
+    written out in f64, against ssd_scan_bwd_plain at the model's chunk in f64:
+    the same gradient up to f64 rounding (1e-12 of each output's largest element;
+    the two differ by ~1e-14 on these shapes)."""
+    x, dt, a, bm, cm, h0, dy, dh = (torch.from_numpy(v).double()
+                                    for v in _scan_inputs(B, S, H, P, N, seed=7))
+    args = (x, dt, a, bm, cm, h0 if init else None, dy, dh if init else None)
+    got = _bwd_by_chunks(*args, rows=64, heads=10)
+    want = SS.ssd_scan_bwd_plain(*args, chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "da", "dbm", "dcm", "d_init"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            _close_scaled(g, w, 0.0, 1e-12, name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP + SSD_BWD_SHAPES)
+@pytest.mark.parametrize("init", [False, True], ids=["zero-init", "init-state"])
+def test_ssd_scan_bwd_bf16_roundings_hold_the_gates(B, S, H, P, N, chunk, init):
+    """The bf16 kernels' roundings, emulated in their algebra on bf16 inputs (and
+    dx, dB, dC rounded to bf16 as the kernels write them), within the gates the
+    card holds them to (SSD_CARD_TOL below) against the plain version in f64; dA
+    within 4 times the plain version's own f32 distance plus the share."""
+    x, dt, a, bm, cm, h0, dy, dh = (torch.from_numpy(v).double()
+                                    for v in _scan_inputs(B, S, H, P, N, seed=9))
+    x, bm, cm, dy = (t.to(torch.bfloat16).double() for t in (x, bm, cm, dy))
+    args = (x, dt, a, bm, cm, h0 if init else None, dy, dh if init else None)
+    got = list(_bwd_by_chunks(*args, rows=64, heads=10, emulate=True))
+    for i in (0, 3, 4):
+        got[i] = got[i].to(torch.bfloat16)
+    want = SS.ssd_scan_bwd_plain(*args, chunk=chunk)
+    plain_da = SS.ssd_scan_bwd_plain(*(None if t is None else t.float() for t in args),
+                                     chunk=chunk)[2]
+    rtol, share = SSD_CARD_TOL["bfloat16"]
+    for name, g, w in zip(("dx", "ddt", "da", "dbm", "dcm", "d_init"), got, want):
+        if w is None:
+            continue
+        if name == "da":
+            err, plain_err = (float((t.double() - w).abs().max()) for t in (g, plain_da))
+            assert err <= 4 * plain_err + share * float(w.abs().max())
+        else:
+            _close_scaled(g, w, rtol, share, name)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_scan_bwd_keeps_dtypes(dtype):
     """dx, dbm and dcm in x's dtype; ddt, da and d(init_state) in f32, as the
@@ -234,7 +369,7 @@ def _f64(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP)
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP + SSD_BWD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_scan_bwd_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk, dtype):
     """With and without init_state and d(final state); twice in a row, bit-equal."""
@@ -255,6 +390,22 @@ def test_ssd_scan_bwd_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk, d
                 assert err <= 4 * plain_err + SSD_CARD_TOL[dtype][1] * float(w.abs().max())
             elif w is not None:
                 _close_scaled(g, w, *SSD_CARD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_bf16_kernel_is_deterministic_on_card(cuda):
+    """Two bf16 runs give the same bits, at a size with many chunks, two head
+    groups (one partial) and a ragged last chunk: every cross-block sum (dB, dC
+    over head groups, dA over chunks) is taken in a fixed order."""
+    x, dt, a, bm, cm, h0, dy, dh = (torch.from_numpy(v).to(cuda)
+                                    for v in _scan_inputs(2, 1000, 14, 64, 128, seed=8))
+    x, bm, cm, dy = (t.to(torch.bfloat16) for t in (x, bm, cm, dy))
+    args = (x, dt, a, bm, cm, h0, dy, dh)
+    first = SS.ssd_scan_bwd_cuda(*args, chunk=256)
+    for _ in range(2):
+        for name, g, r in zip(("dx", "ddt", "da", "dbm", "dcm", "d_init"), first,
+                              SS.ssd_scan_bwd_cuda(*args, chunk=256)):
+            assert torch.equal(g, r), name
 
 
 @pytest.mark.cuda
