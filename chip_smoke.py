@@ -13,20 +13,26 @@ Phases, each failing loudly (nonzero exit):
      kernel's registers and spills;
   3. hold every kernel against its plain PyTorch version on the card at the
      serving paths' shapes and the test sweeps', in f32 and bf16 (the two
-     designs of K1 and K3), K2 through each of its four entry points (rmsnorm,
+     designs of K1 and K3; K1 at head dim 256 too, with and without a sliding
+     window, at gemma3-12b's prefill shapes), K2 through each of its four entry
+     points (rmsnorm,
      add_rmsnorm, gated_rmsnorm, qk_norm_rope), and the SSD scan on the conv
      output's strided views; time kernel, plain version and the PyTorch library
      call that computes the same function (F.rms_norm, SDPA; none for the fused
      norms and the SSD scan);
   4. serve each model of the port at full width through ``run_serve_task``
      (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
-     qwen3-0.6b (dense: K1, K2), then mamba2-2.7b (ssm: K2, K3), each with the
-     launch counters set to 0 just before and read just after, and the previous
-     server released first. Then check prefill + one decode step against
-     ``forward`` at full width (f32 at every layer to 1e-4; bf16 at 0.08 at 4
-     layers, see ``phase_serve``), time prefill, decode and the warm task, and
-     profile one prefill and one decode step (kernels per call, each held at
-     its known count; device busy; K2's device time a launch);
+     qwen3-0.6b (dense: K1, K2), mamba2-2.7b (ssm: K2, K3), then gemma3-12b
+     (dense, 5:1 local:global: K1 at head dim 256 with a 1,024-token window, K2,
+     the ring cache), each with the launch counters set to 0 just before and
+     read just after, and the previous server released first. Then check
+     prefill + one decode step against ``forward`` at full width (f32 to 1e-4
+     at every layer, gemma3 at 6; bf16 at 0.08 at 4 layers, gemma3 at 6; see
+     ``phase_serve``), time prefill, decode and the warm task, and profile one
+     prefill and one decode step (kernels per call, each held at its known
+     count; device busy; K2's device time a launch); gemma3 also serves one
+     2,048-token prompt (2W: every decode step wraps the ring) and profiles
+     its prefill;
   5. the backward kernels (K1's, and K2's for rmsnorm, add_rmsnorm and
      qk_norm_rope, one launch each with dscale folded in) against their plain
      versions on the card in f32 and bf16,
@@ -111,22 +117,40 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
 # add_rmsnorm: every other norm, each with the residual add before it;
 # qk_norm_rope once a layer; gated_rmsnorm once a layer). ``f32_leaves``: params
 # kept in f32.
-# ``toks``: the (batch, length) of the prefill + decode vs forward check; 601
-# makes mamba2's 600-token prefill cross two 256-token chunks and end ragged.
-# ``kernels``: the kernels of one profiled prefill (512 tokens) and decode step (4
-# slots), every one of them counted (see ``profile_breakdown`` for how its window
-# is kept whole). mamba2's were held at 2,629 and 3,459 until the profiler's
-# window was repaired: those counts had lost the call's first kernel, the
-# embedding gather; the same serving code counts 2,630 and 3,460 in a whole one.
+# ``toks``: the (batch, length) of each prefill + decode vs forward check; 601
+# makes mamba2's 600-token prefill cross two 256-token chunks and end ragged, and
+# gemma3's stay inside its 1,024-token window (the ring padded); 2049 fills
+# gemma3's ring from a 2W prefill and wraps it with the decode step.
+# ``check_layers``: the depth of the f32 check (None: every layer; gemma3: one
+# local:global group, since an f32 copy of all 48 layers would take ~51 GB beside
+# the 25.5 GB of bf16 params) and of the bf16 check at the JAX suite's 0.08 (see
+# ``phase_serve``); ``deep_prefill_tol``: the gate of the bf16 prefill at full depth
+# (None: printed only). ``long_prompt``: a served prompt of that many tokens, then
+# ``max_new`` - 1 decode steps (gemma3: 2W, so every decode step writes over the
+# ring's oldest slot).
+# ``kernels``: the kernels of one profiled prefill (512 tokens; "prefill long": the
+# long prompt) and decode step (4 slots), every one of them counted (see
+# ``profile_breakdown`` for how its window is kept whole). mamba2's were held at
+# 2,629 and 3,459 until the profiler's window was repaired: those counts had lost
+# the call's first kernel, the embedding gather; the same serving code counts 2,630
+# and 3,460 in a whole one. gemma3's were counted on the card when its path was
+# added (a 512-token prefill pads its 40 rings to W; a 2,048-token one takes views).
 PATHS = [
-    {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": (2, 64),
+    {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": [(2, 64)],
+     "check_layers": (None, 4), "deep_prefill_tol": 0.08,
      "min_launches": {"flash_attention": 28 * 8},
      "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28, "qk_norm_rope": 28},
      "kernels": {"prefill": 432, "decode": 1_265}},
     {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
-     "toks": (2, 601), "min_launches": {"ssd_scan": 64 * 8},
+     "toks": [(2, 601)], "check_layers": (None, 4), "deep_prefill_tol": 0.08,
+     "min_launches": {"ssd_scan": 64 * 8},
      "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64},
      "kernels": {"prefill": 2_630, "decode": 3_460}},
+    {"arch": "gemma3-12b", "params": 12_772_052_736, "f32_leaves": (),
+     "toks": [(2, 601), (1, 2049)], "check_layers": (6, 6), "deep_prefill_tol": None,
+     "long_prompt": 2048, "min_launches": {"flash_attention": 48 * 8},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 48, "qk_norm_rope": 48},
+     "kernels": {"prefill": 902, "decode": 2_421, "prefill long": 838}},
 ]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -135,6 +159,16 @@ FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
 # twins of tests/test_torch_kernels.py:SHORT_Q: B, Sq, Skv, H, K, D, causal, window
 SHORT_Q = [(1, 32, 96, 4, 2, 64, True, 0), (2, 17, 80, 4, 1, 32, True, 24),
            (1, 40, 72, 2, 2, 80, False, 0)]
+# K1's forward at head dim 256 (gemma3-12b): B, Sq, Skv, H, K, causal, window. Causal
+# with and without a window, GQA 2:1 and 1:1, ragged S (1000), Sq < Skv with and
+# without a window, and not causal
+FLASH_256_SWEEP = [(1, 128, 128, 4, 4, True, 0), (2, 256, 256, 4, 2, True, 64),
+                   (1, 1000, 1000, 4, 2, True, 0), (1, 1000, 1000, 2, 1, True, 300),
+                   (1, 96, 200, 4, 2, True, 0), (2, 40, 130, 4, 2, True, 48),
+                   (1, 130, 130, 4, 2, False, 0)]
+# gemma3-12b's prefill attention (B=1, H=16, K=8, D=256, causal): (S, window) of a
+# global layer (0) and a local one (1024), at the served prompt and at 2W
+GEMMA_ATTN = [(512, 0), (512, 1024), (2048, 0), (2048, 1024)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # K2's check sweep: twins of tests/test_torch_kernels.py's rmsnorm shapes and more
@@ -418,13 +452,15 @@ def ptxas_kernels(log: str) -> list:
     return kernels
 
 
-def bwd_registers(kernels: list, strict: bool = True) -> list:
-    """"name<args> registers" of each backward kernel that must not spill (K1's
-    bf16 ones, every instance of K2's two and K3's bf16 ones), failing on any
-    that spills (strict) or naming its spill stores."""
+def gated_registers(kernels: list, strict: bool = True) -> list:
+    """"name<args> registers" of each kernel that must not spill (K1's forward in
+    both designs at every head dim, its bf16 backward ones, every instance of K2's
+    two backward kernels and K3's bf16 backward ones), failing on any that spills
+    (strict) or naming its spill stores."""
     out = []
     for kernel, stores, r in kernels:
-        k1 = re.search(r"(bwd_\w+_bf16_kernel)ILi(\d+)E", kernel)
+        k1 = re.search(r"(bwd_\w+_bf16_kernel|flash_fwd_bf16_kernel|flash_fwd_kernel)ILi(\d+)E",
+                       kernel)
         k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|fold)I(f|13__nv_bfloat16)"
                        r"Li(\d+)E(Li([012])E)?", kernel)
         k3 = re.search(r"(ssd_scan_bwd_states|ssd_scan_bwd_grad)ILi(\d+)ELi(\d+)E"
@@ -447,8 +483,9 @@ def bwd_registers(kernels: list, strict: bool = True) -> list:
 
 def phase_build() -> None:
     """Build every source; print each one's kernels, their registers, and every
-    kernel that spills, by name (from nvcc's -Xptxas -v log). K1's and K3's bf16
-    backward kernels and every K2 backward kernel must not spill."""
+    kernel that spills, by name (from nvcc's -Xptxas -v log). K1's forward
+    kernels, K1's and K3's bf16 backward kernels and every K2 backward kernel
+    must not spill."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -463,9 +500,9 @@ def phase_build() -> None:
               f"{len(spills)} spilling")
         for kernel, stores, r in spills:
             print(f"    spills {stores} bytes at {r} registers: {kernel}")
-        bwd = bwd_registers(kernels)
-        if bwd:
-            print(f"    backward kernels, registers (no spill stores): {', '.join(bwd)}")
+        gated = gated_registers(kernels)
+        if gated:
+            print(f"    gated kernels, registers (no spill stores): {', '.join(gated)}")
 
 
 def phase_flash(gen) -> dict:
@@ -523,7 +560,77 @@ def phase_flash(gen) -> dict:
                    "replaces": "src/repro/kernels/flash_attention.py:27",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    row["head_dim_256"] = phase_flash_256(gen, qkv)
     return row
+
+
+def sdpa_backend(*args, **kw) -> str:
+    """The backend SDPA's dispatcher picks for these arguments."""
+    from torch.nn.attention import SDPBackend
+    names = {b.value: n for n, b in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(*args, **kw)), "unknown")
+
+
+def phase_flash_256(gen, qkv) -> list:
+    """K1's forward at head dim 256 against its plain version over its sweep in
+    both dtypes (f32: the CUDA-core design, bf16: the tensor-core one with 32-row kv
+    tiles), then timed at gemma3-12b's prefill shapes beside its bound, its plain
+    version and SDPA (with a boolean band mask where a window applies, which takes
+    SDPA off its flash backend; the backend it ran is printed). Returns one entry
+    per shape of GEMMA_ATTN."""
+    from repro_torch.kernels import flash_attention as FA
+    D = 256
+    for B, Sq, Skv, H, K, causal, window in FLASH_256_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(B, Sq, Skv, H, K, D, dtype)
+            got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+            check(close(got, want, TOL[dtype]),
+                  f"flash D=256 {B, Sq, Skv, H, K, causal, window} {dtype}: max err "
+                  f"{max_err(got, want)}")
+    print(f"flash_attention D=256: {len(FLASH_256_SWEEP)} sweep cases match in f32 (2e-5) "
+          f"and bf16 (2e-2)")
+    out = []
+    for S, window in GEMMA_ATTN:
+        B, H, K, dtype = 1, 16, 8, torch.bfloat16
+        q, k, v = qkv(B, S, S, H, K, D, dtype)
+        f32 = [t.float() for t in (q, k, v)]
+        got32 = FA.flash_attention_cuda(*f32, window=window)
+        want32 = FA.flash_attention_plain(*f32, window=window)
+        check(close(got32, want32, TOL[torch.float32]),
+              f"flash D=256 S={S} window={window} f32: max err {max_err(got32, want32)}")
+        got = FA.flash_attention_cuda(q, k, v, window=window)
+        want = FA.flash_attention_plain(q, k, v, window=window)
+        err = max_err(got, want)
+        check(close(got, want, TOL[dtype]), f"flash D=256 S={S} window={window} bf16: "
+              f"max err {err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window:
+            i = torch.arange(S, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            lib_kw = {"attn_mask": band, "enable_gqa": True}
+        else:
+            lib_kw = {"is_causal": True, "enable_gqa": True}
+        backend = sdpa_backend(qt, kt, vt, **lib_kw)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        check(close(lib.transpose(1, 2), want, TOL[dtype]),
+              f"SDPA disagrees with plain at D=256 S={S} window={window}")
+        ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v, window=window))
+        plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, window=window))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B * H * D * attn_pairs(S, S, True, window)
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+        print(f"flash_attention B=1 S={S} H=16 K=8 D=256 bf16 causal window={window}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+              f"({backend}), bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, max abs err "
+              f"{err:.3g} (f32 {max_err(got32, want32):.3g})")
+        out.append({"S": S, "window": window, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "library_backend": backend})
+        del f32, got32, want32
+    return out
 
 
 def phase_rmsnorm(gen) -> list:
@@ -550,13 +657,15 @@ def phase_rmsnorm(gen) -> list:
         "rmsnorm": (
             lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
             norm_case, RMS_SWEEP,
-            [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560)],
+            [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560),
+             (1, 512, 3840), (4, 1, 3840)],
             lambda x, r, sc: (2 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 4 * x.numel(),
             lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
         "add_rmsnorm": (
             RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP,
-            [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560)],
+            [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560), (1, 512, 3840),
+             (4, 1, 3840)],
             lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 5 * x.numel(), None),
         "gated_rmsnorm": (
@@ -567,7 +676,8 @@ def phase_rmsnorm(gen) -> list:
         "qk_norm_rope": (
             RN.qk_norm_rope_cuda, RN.qk_norm_rope_plain, qk_case,
             [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256)],
-            [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128)],
+            [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128), (1, 512, 16, 8, 256),
+             (4, 1, 16, 8, 256)],
             lambda q, k, qs, ks, pos, th: ((2 * (q.numel() + k.numel()) + 2 * qs.numel())
                                            * q.element_size() + pos.numel() * 4
                                            + qs.numel() // 2 * 4),
@@ -734,32 +844,48 @@ def phase_serve(card: str, path: dict) -> dict:
     # two paths agree to ~2e-5 at every layer. In bf16 their rounding drifts
     # apart with depth (qwen3: max ~0.03 at 4 layers, ~0.15 at 28 on random
     # weights), so the JAX suite's bf16 tolerance 0.08, set on 4-layer reduced
-    # configs, is held at that depth; the full-depth bf16 error is printed.
+    # configs (6 for gemma3: one local:global group), is held at that depth; the
+    # full-depth bf16 decode error is printed.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    toks = torch.randint(0, model.cfg.vocab_size, path["toks"], generator=gen, device="cuda")
     L = model.cfg.num_layers
+    f32_layers, bf16_layers = (n or L for n in path["check_layers"])
+
+    def cut(n):
+        return lambda: dict(params, layers=tree_map(lambda t: t[:n], params["layers"]))
+
     cases = [
-        (f"f32, {L} layers", dataclasses.replace(model.cfg, dtype="float32"),
-         lambda: tree_map(lambda t: t.float(), params), {"prefill": 1e-4, "decode": 1e-4}),
-        ("bf16, 4 layers", dataclasses.replace(model.cfg, num_layers=4),
-         lambda: dict(params, layers=tree_map(lambda t: t[:4], params["layers"])),
-         {"prefill": 0.08, "decode": 0.08}),
-        (f"bf16, {L} layers", model.cfg, lambda: params, {"prefill": 0.08, "decode": None})]
+        (f"f32, {f32_layers} layers",
+         dataclasses.replace(model.cfg, dtype="float32", num_layers=f32_layers),
+         lambda: tree_map(lambda t: t.float(), cut(f32_layers)()),
+         {"prefill": 1e-4, "decode": 1e-4}),
+        (f"bf16, {bf16_layers} layers", dataclasses.replace(model.cfg, num_layers=bf16_layers),
+         cut(bf16_layers), {"prefill": 0.08, "decode": 0.08}),
+        (f"bf16, {L} layers", model.cfg, lambda: params,
+         {"prefill": path["deep_prefill_tol"], "decode": None})]
+    all_toks = [torch.randint(0, model.cfg.vocab_size, shape, generator=gen, device="cuda")
+                for shape in path["toks"]]
     for tag, cfg, make_params, tols in cases:
-        for name, (got, want) in decode_vs_forward(Model(cfg, "cuda"), make_params(),
-                                                   toks).items():
-            err = max_err(got, want)
-            print(f"{arch} {name} vs forward logits (full width, {tag}): max abs err "
-                  f"{err:.4g}, |logit| max {want.float().abs().max().item():.3g}")
-            check(bool(torch.isfinite(got).all()), f"{arch} {name} ({tag}): non-finite logits")
-            if tols[name] is not None:
-                check(close(got, want, tols[name]), f"{arch} {name} vs forward ({tag}): "
-                      f"max err {err} > tolerance {tols[name]}")
+        case_params = make_params()
+        for toks in all_toks:
+            for name, (got, want) in decode_vs_forward(Model(cfg, "cuda"), case_params,
+                                                       toks).items():
+                err = max_err(got, want)
+                print(f"{arch} {name} vs forward logits (full width, {tag}, toks "
+                      f"{tuple(toks.shape)}): max abs err {err:.4g}, |logit| max "
+                      f"{want.float().abs().max().item():.3g}")
+                check(bool(torch.isfinite(got).all()), f"{arch} {name} ({tag}): non-finite "
+                      f"logits")
+                if tols[name] is not None:
+                    check(close(got, want, tols[name]), f"{arch} {name} vs forward ({tag}, "
+                          f"toks {tuple(toks.shape)}): max err {err} > tolerance {tols[name]}")
+            gc.collect()
+        del case_params
         gc.collect()
         torch.cuda.empty_cache()
 
     # throughput: one 512-token prefill; decode steps of all 4 slots
+    toks = all_toks[0]
     prompt = toks.new_tensor([list(range(payload["prompt_len"]))])
     slots, max_len = payload["slots"], payload["max_len"]
     with torch.inference_mode():
@@ -774,13 +900,17 @@ def phase_serve(card: str, path: dict) -> dict:
                 lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len)),
             "decode": profile_breakdown(f"{arch} decode step, 4 slots",
                                         lambda: model.decode_step(params, slot_toks, dcache))}
-    for call, want in path["kernels"].items():
-        n = counted[call]["all kernels"][1]
-        check(n == want, f"{arch} {call}: {n} kernels a call, want {want}")
+        del dcache
     print(f"{arch} prefill 512 tokens: {t_pre:.2f} ms = "
           f"{payload['prompt_len'] / t_pre * 1e3:.0f} tokens/s [{card}]")
     print(f"{arch} decode step, 4 slots, cache {max_len}: {t_dec:.2f} ms = "
           f"{slots / t_dec * 1e3:.0f} tokens/s [{card}]")
+    if path.get("long_prompt"):
+        counted["prefill long"] = serve_long_prompt(card, srv, path["long_prompt"],
+                                                    payload["max_new"] + 1)
+    for call, want in path["kernels"].items():
+        n = counted[call]["all kernels"][1]
+        check(n == want, f"{arch} {call}: {n} kernels a call, want {want}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -792,6 +922,51 @@ def phase_serve(card: str, path: dict) -> dict:
           f"{res['generated_tokens'] / warm_s:.1f} generated tokens/s end to end [{card}]; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def serve_long_prompt(card: str, srv, prompt_len: int, max_new: int) -> dict:
+    """One request of ``prompt_len`` tokens through a one-slot ``Server`` that shares
+    ``srv``'s params, with ``max_new`` new tokens (the first from the prefill, the
+    rest one decode step each); then a profile of that prompt's prefill. Returns
+    the profile's groups."""
+    from repro_torch.runtime.serve_loop import Server
+    long_srv = Server(dataclasses.replace(srv.cfg, slots=1,
+                                          max_len=2 * (prompt_len + max_new)),
+                      params=srv.params)
+    arch = srv.cfg.arch
+    prompt = [(7 * j) % srv.arch_cfg.vocab_size for j in range(prompt_len)]
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = long_srv.submit(prompt, max_new=max_new)
+    done = long_srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+    got = long_srv.requests[rid].generated
+    print(f"serve {arch} long prompt: {prompt_len} tokens + {len(got)} new in {wall:.2f} s "
+          f"({long_srv.steps} decode steps); launches {launches}; tokens {got} [{card}]")
+    check(len(done) == 1 and len(got) == max_new and long_srv.steps == max_new - 1,
+          f"{arch} long prompt: {len(got)} tokens in {long_srv.steps} decode steps")
+    layers = srv.arch_cfg.num_layers
+    check(launches.get("flash_attention") == layers, f"{arch} long prompt: K1 launched "
+          f"{launches.get('flash_attention')} times, want {layers} (one prefill)")
+    check(all(0 <= t < srv.arch_cfg.vocab_size for t in got), f"{arch} long prompt: "
+          f"tokens out of range {got}")
+    toks = torch.tensor([prompt], device="cuda")
+    with torch.inference_mode():
+        t_pre = wall_ms(lambda: long_srv.model.prefill(long_srv.params, {"tokens": toks},
+                                                       max_len=long_srv.cfg.max_len), n=5)
+        prof = profile_breakdown(f"{arch} prefill {prompt_len} tokens",
+                                 lambda: long_srv.model.prefill(
+                                     long_srv.params, {"tokens": toks},
+                                     max_len=long_srv.cfg.max_len))
+    print(f"{arch} prefill {prompt_len} tokens: {t_pre:.2f} ms = "
+          f"{prompt_len / t_pre * 1e3:.0f} tokens/s [{card}]")
+    del long_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
 
 
 def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = False) -> dict:
@@ -1592,7 +1767,7 @@ def phase_k2_bwd_against(parent: Path, card: str) -> None:
     f32, bf16 = torch.float32, torch.bfloat16
     lib, kernels = build_other(parent, "rmsnorm")
     print("k2-bwd-against: the other checkout's K2 backward kernels, registers: "
-          + ", ".join(bwd_registers(kernels, strict=False)))
+          + ", ".join(gated_registers(kernels, strict=False)))
     fns = {}
     for name in K2_BWD_ENTRIES:
         fns[name] = getattr(lib, name)
@@ -1761,6 +1936,7 @@ def main(argv=None) -> int:
                     help="only build the kernels and compare K3's backward with the one "
                          "of another checkout (its root directory), in turns on this card")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1801,6 +1977,7 @@ def main(argv=None) -> int:
                                    if n[row["name"]]}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{row['name']} was never launched on a main path")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

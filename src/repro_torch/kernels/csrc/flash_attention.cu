@@ -22,7 +22,10 @@
 // ~6*S*H*D bytes of bf16 in and out (GQA with K = H/2): S/3 flops per byte. On
 // the bf16 tensor cores (989 TFLOP/s, 3.35 TB/s: ~295 flops/byte) the least time
 // is set by bytes below S ~ 900 and by operations above. At the serving prompt
-// (B=1, S=512, H=16, K=8, D=128) that is 6.3 MB and 1.08 GFLOP: 0.0019 ms.
+// (B=1, S=512, H=16, K=8, D=128) that is 6.3 MB and 1.08 GFLOP: 0.0019 ms. At
+// gemma3-12b's (D=256) 12.6 MB: 0.0038 ms; its prefill of 2,048 tokens is 34.4
+// GFLOP in a global layer (0.035 ms) and 25.8 in a local one, whose 1,024-token
+// window hides about half the causal pairs (0.026 ms), both bound by operations.
 //
 // bf16 (dtype 1), the serving path: tensor cores, FlashAttention-2 style.
 //   4 warps; each owns 16 query rows. Q is loaded once into mma fragments
@@ -37,8 +40,10 @@
 //   the 0.08 gate; chip_smoke.py on an H100) for ~10% less time. V's B fragments come from ldmatrix.trans. Only tiles
 //   that cross the diagonal, the window edge or the ragged end are masked.
 //   Shared-memory rows are padded by 16 bytes, which
-//   makes every ldmatrix conflict-free for D in {32, 64, 80, 128}: Q plus two
-//   stages of K and V is 85 KB at D = 128, so two blocks fit on an SM. The q
+//   makes every ldmatrix conflict-free for D in {32, 64, 80, 128, 256}: Q plus two
+//   stages of K and V is 85 KB at D = 128, so two blocks fit on an SM. At D = 256
+//   (gemma3) the plan changes to 32-row kv tiles with Q's fragments read from
+//   shared memory at each k-step (`TcPlan`, below, says why). The q
 //   tiles are launched heaviest first (the last causal tile sees every kv tile),
 //   so the last wave is the shortest. At the serving prompt (S = 512) the 128
 //   blocks are one wave of 4 warps an SM, bound by the latency of the heaviest
@@ -50,7 +55,9 @@
 //   rows, each thread a 4x4 piece of the 64x64 score tile and a 4 x D/16 piece of
 //   the output; f32 FMAs (67 TFLOP/s) keep f32 inputs within 2e-5 of the
 //   reference, which TF32 tensor cores would not. Shared-memory rows are padded
-//   by one float so the per-row and per-column reads hit distinct banks.
+//   by one float so the per-row and per-column reads hit distinct banks. At
+//   D = 256 the staged tiles take 213,760 bytes (one block an SM, under the
+//   232,448 a block may have) and a thread's accumulator is 4 x 16 floats.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -225,21 +232,42 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------ bf16: tensor cores
 constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 
+// The bf16 forward's plan for a head dim: BN kv rows a tile, and whether Q's mma
+// fragments are held in registers for the whole kv loop (QREG) or read from sQ
+// at each k-step. D <= 128: 64-row tiles, Q held (the plan described above).
+// D = 256 (gemma3): a warp's O accumulator alone is 128 f32 registers a thread,
+// and holding Q's fragments would add 64 more, with the S tile (32 at BN = 64)
+// and P's hi + lo pair on top: past the 255-register limit before any
+// addressing, so it would spill. And Q plus two stages of 64-row K and V tiles
+// is 168,960 bytes of shared memory: one 4-warp block an SM. So at D = 256 Q's
+// fragments come from sQ by ldmatrix at each k-step (one ldmatrix.x4 beside
+// the two for K's fragments of a 16 x 32 S slab), and the kv tiles are 32 rows:
+// S is 16 registers a thread, the O accumulator 128, ~200 in all under the
+// 255 cap that two blocks an SM allow; Q plus two stages of 32-row K and V is
+// 101,376 bytes, so two blocks (8 warps) share an SM and one block's loads
+// overlap the other's math, as at D <= 128. Twice the tiles mean twice the
+// barriers and online-softmax rescales of O per kv row, against the one
+// block an SM the 64-row tiles would leave.
+template <int D> struct TcPlan {
+  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr bool QREG = D <= 128;
+};
+
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  // sQ [BQ][D+8], sK [2][BKV][D+8], sV [2][BKV][D+8], all bf16
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BKV) * (D + 8);
+  // sQ [BQ][D+8], sK [2][BN][D+8], sV [2][BN][D+8], all bf16
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * TcPlan<D>::BN) * (D + 8);
 }
 
-// Rows r0 .. r0+63 of a [rows, D] bf16 matrix with row stride `stride` into a
-// [64][D+8] tile; rows at or past `limit` are zero-filled.
-template <int D>
+// Rows r0 .. r0+ROWS-1 of a [rows, D] bf16 matrix with row stride `stride` into a
+// [ROWS][D+8] tile; rows at or past `limit` are zero-filled.
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            size_t stride, int r0, int limit, int tid) {
   constexpr int CH = D / 8;  // 16-byte pieces per row
-  static_assert(BKV * CH % TC_THREADS == 0, "whole pieces per thread");
+  static_assert(ROWS * CH % TC_THREADS == 0, "whole pieces per thread");
 #pragma unroll
-  for (int j = 0; j < BKV * CH / TC_THREADS; ++j) {
+  for (int j = 0; j < ROWS * CH / TC_THREADS; ++j) {
     const int i = tid + j * TC_THREADS;
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < limit;
@@ -255,14 +283,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       float* __restrict__ lse, int Sq, int Skv, int H, int K, int causal,
                       int window, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int BN = TcPlan<D>::BN;   // kv rows a tile
+  constexpr bool QREG = TcPlan<D>::QREG;
   constexpr int RS = D + 8;   // padded smem row, bf16 elements
   constexpr int KS = D / 16;  // k-steps of Q.K^T
   constexpr int NT = D / 8;   // n-tiles of the output
+  constexpr int SN = BN / 8;  // n-tiles of S
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * RS;    // [2][BKV][RS]
-  __nv_bfloat16* sV = sK + 2 * BKV * RS;
+  __nv_bfloat16* sK = sQ + BQ * RS;    // [2][BN][RS]
+  __nv_bfloat16* sV = sK + 2 * BN * RS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -283,22 +314,25 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int q_last = min(q0 + BQ, Sq) - 1 + offset;
   const int kv_hi = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int t_lo = kv_lo / BKV;
-  const int n_tiles = kv_hi > 0 ? (kv_hi + BKV - 1) / BKV - t_lo : 0;
+  const int t_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > 0 ? (kv_hi + BN - 1) / BN - t_lo : 0;
 
-  tile_async<D>(sQ, qb, q_stride, q0, Sq, tid);
+  tile_async<D, BQ>(sQ, qb, q_stride, q0, Sq, tid);
   if (n_tiles > 0) {
-    tile_async<D>(sK, kb, kv_stride, t_lo * BKV, Skv, tid);
-    tile_async<D>(sV, vb, kv_stride, t_lo * BKV, Skv, tid);
+    tile_async<D, BN>(sK, kb, kv_stride, t_lo * BN, Skv, tid);
+    tile_async<D, BN>(sV, vb, kv_stride, t_lo * BN, Skv, tid);
   }
   tc::cp_async_commit();
   if (n_tiles > 1) {
-    tile_async<D>(sK + BKV * RS, kb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
-    tile_async<D>(sV + BKV * RS, vb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
+    tile_async<D, BN>(sK + BN * RS, kb, kv_stride, (t_lo + 1) * BN, Skv, tid);
+    tile_async<D, BN>(sV + BN * RS, vb, kv_stride, (t_lo + 1) * BN, Skv, tid);
   }
   tc::cp_async_commit();
 
-  uint32_t qf[KS][4];
+  // this warp's 16 rows of sQ, at k-step ks, as ldmatrix row addresses
+  const __nv_bfloat16* q_frag = sQ + (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * RS +
+                                8 * (lane / 16);
+  uint32_t qf[QREG ? KS : 1][4];
   float acc[NT][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -307,38 +341,44 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   for (int it = 0; it < n_tiles; ++it) {
     tc::cp_async_wait<1>();
     __syncthreads();  // this tile (and on the first pass Q) has landed for every thread
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        tc::ldsm_x4(qf[ks], sQ + (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * RS +
-                                16 * ks + 8 * (lane / 16));
+        for (int ks = 0; ks < KS; ++ks) tc::ldsm_x4(qf[ks], q_frag + 16 * ks);
+      }
     }
     const int buf = it & 1;
-    const int k0 = (t_lo + it) * BKV;
-    const __nv_bfloat16* cK = sK + buf * BKV * RS;
-    const __nv_bfloat16* cV = sV + buf * BKV * RS;
+    const int k0 = (t_lo + it) * BN;
+    const __nv_bfloat16* cK = sK + buf * BN * RS;
+    const __nv_bfloat16* cV = sV + buf * BN * RS;
 
-    // S = Q K^T: 16 rows x 64 kv columns per warp
-    float s[8][4];
+    // S = Q K^T: 16 rows x BN kv columns per warp
+    float s[SN][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+        a[0] = qf[ks][0]; a[1] = qf[ks][1]; a[2] = qf[ks][2]; a[3] = qf[ks][3];
+      } else {
+        tc::ldsm_x4(a, q_frag + 16 * ks);
+      }
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < SN / 2; ++np) {
         uint32_t kf[4];
         tc::ldsm_x4(kf, cK + (16 * np + (lane % 8) + 8 * (lane / 16)) * RS + 16 * ks +
                             8 * ((lane / 8) % 2));
-        tc::mma(s[2 * np], qf[ks], kf[0], kf[1]);
-        tc::mma(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+        tc::mma(s[2 * np], a, kf[0], kf[1]);
+        tc::mma(s[2 * np + 1], a, kf[2], kf[3]);
       }
     }
 
-    const bool need_mask = k0 + BKV > Skv || (causal && k0 + BKV - 1 > q_first) ||
+    const bool need_mask = k0 + BN > Skv || (causal && k0 + BN - 1 > q_first) ||
                            (window > 0 && k0 <= q_last - window);
     if (need_mask) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < SN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + 8 * n + 2 * t + (e & 1);
@@ -354,7 +394,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      for (int n = 0; n < SN; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
@@ -364,7 +404,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       m[r] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < SN; ++n)
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
           s[n][e] = exp2f(fmaf(s[n][e], sl2, -shift));
@@ -380,7 +420,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
     // O += P V, P from the S accumulators as bf16 hi + lo A fragments
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < BN / 16; ++ks) {
       uint32_t phi[4], plo[4];
       tc::split(s[2 * ks][0], s[2 * ks][1], phi[0], plo[0]);
       tc::split(s[2 * ks][2], s[2 * ks][3], phi[1], plo[1]);
@@ -400,8 +440,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
     __syncthreads();  // every warp is done with this stage before it is refilled
     if (it + 2 < n_tiles) {
-      tile_async<D>(sK + buf * BKV * RS, kb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
-      tile_async<D>(sV + buf * BKV * RS, vb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
+      tile_async<D, BN>(sK + buf * BN * RS, kb, kv_stride, (t_lo + it + 2) * BN, Skv, tid);
+      tile_async<D, BN>(sV + buf * BN * RS, vb, kv_stride, (t_lo + it + 2) * BN, Skv, tid);
     }
     tc::cp_async_commit();
   }
@@ -1247,6 +1287,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch<64>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 80: return (int)launch<80>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 128: return (int)launch<128>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 256: return (int)launch<256>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,9 @@ The forward kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 its source comment gives the design and what bounds it on the H100: bf16 inputs
 run a tensor-core design (mma.sync, cp.async double buffering), f32 inputs the
 exact CUDA-core design that the f32 checks hold at 2e-5. With ``return_lse`` it
-also writes each row's log-sum-exp, the residual of the backward.
+also writes each row's log-sum-exp, the residual of the backward. It is built for
+the head dims of ``HEAD_DIMS``; at 256 (gemma3-12b) the bf16 design takes 32-row
+kv tiles and reads Q's fragments from shared memory (the source says why).
 
 The backward kernel computes what the JAX package's custom VJP
 ``_flash_bwd_blocked`` (``src/repro/kernels/ops.py:90``) computes, from the
@@ -16,7 +18,9 @@ the GQA group inside one block, and a dQ pass over q tiles), and the source give
 their bound and counts. bf16 inputs, the training path, run a tensor-core design:
 all seven tile products on mma.sync, bf16 tiles loaded by cp.async two stages
 deep, P and dS rounded once to bf16 as operands. f32 inputs run the exact
-CUDA-core design that the f32 checks hold at 1e-3.
+CUDA-core design that the f32 checks hold at 1e-3. It is built for the head dims
+of ``BWD_HEAD_DIMS`` and raises at 256 (gemma3-12b serves on one card; its
+training is a later slice).
 
 Both directions follow the JAX package's reference semantics: end-aligned causal /
 sliding-window masks (q row i at absolute position i + Skv - Sq), GQA by kv head
@@ -36,7 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import widen
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 80, 128)   # head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 80, 128, 256)   # head dims the forward kernel is instantiated for
+# head dims the backward kernel is instantiated for; 256 (gemma3-12b) arrives
+# with the gemma3 training slice
+BWD_HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -143,9 +150,11 @@ def _bwd_fn():
     return fn
 
 
-def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest) -> None:
-    """Raise on anything the kernels do not take. ``rest``: tensors of q's shape
-    and dtype (o and dO of the backward)."""
+def _check(name: str, head_dims, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *rest) -> None:
+    """Raise on anything the kernels do not take. ``head_dims``: those the kernel
+    is built for. ``rest``: tensors of q's shape and dtype (o and dO of the
+    backward)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} needs q, k, v on one CUDA device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -158,8 +167,11 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest) 
     Bk, Skv, K, Dk = k.shape
     if Bk != B or Dk != D or K == 0 or H % K:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not match")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the kernel (have {HEAD_DIMS})")
+    if D not in head_dims:
+        later = (" (head dim 256 arrives with the gemma3 training slice of the port)"
+                 if D in HEAD_DIMS else "")
+        raise ValueError(f"{name}: head dim {D} not supported by the kernel (have "
+                         f"{head_dims}){later}")
     if min(B, Sq, Skv) == 0:
         raise ValueError(f"{name} needs non-empty q and k/v")
     for t in rest:
@@ -179,7 +191,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream. Raises on anything the kernel does not take. ``return_lse``: returns
     (o, lse) with the f32 log-sum-exp [B,H,Sq] that the backward takes."""
     refuse_grad("flash_attention_cuda", q, k, v)
-    _check("flash_attention_cuda", q, k, v)
+    _check("flash_attention_cuda", HEAD_DIMS, q, k, v)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -204,7 +216,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward kernel: (dq, dk, dv) in the inputs' dtype from the
     forward's contiguous q, k, v, o, its f32 lse [B,H,Sq] and dO of o's shape."""
     refuse_grad("flash_attention_bwd_cuda", q, k, v, o, lse, do)
-    _check("flash_attention_bwd_cuda", q, k, v, o, do)
+    _check("flash_attention_bwd_cuda", BWD_HEAD_DIMS, q, k, v, o, do)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous() \

@@ -2,8 +2,9 @@
 
 A CUDA tensor goes to the hand-written Hopper kernel (which launches or raises);
 a CPU tensor goes to the kernel's plain PyTorch version. There is no switch and
-no fallback from one to the other. ``attend_cache`` and ``ssd_decode_step`` have
-no kernel in the JAX package either and are plain PyTorch on both devices.
+no fallback from one to the other. ``attend_cache``, ``attend_cache_ring`` and
+``ssd_decode_step`` have no kernel in the JAX package either and are plain
+PyTorch on both devices.
 
 Training: when autograd is recording and an input requires grad,
 ``flash_attention``, ``rmsnorm``, ``add_rmsnorm``, ``gated_rmsnorm``,
@@ -119,6 +120,26 @@ def attend_cache(q, k_cache, v_cache, pos, *, window: int = 0,
     mask = k_pos <= pos
     if window > 0:
         mask = mask & (pos - k_pos < window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def attend_cache_ring(q, k_cache, v_cache, pos):
+    """Decode attention against a ring-buffer window cache of size W.
+
+    Slot s holds absolute position p_s = pos - ((pos - s) mod W); every live slot
+    is inside the window by construction, so the only mask is p_s >= 0 (cold
+    start). q [B,1,H,D]; k/v [B,W,K,D]; pos [B] (the position just written).
+    Accumulates in f32, as the JAX package's."""
+    B, _, H, D = q.shape
+    _, W, K, _ = k_cache.shape
+    group = H // K
+    kk = k_cache.float().repeat_interleave(group, dim=2)
+    vv = v_cache.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(D)
+    slots = torch.arange(W, device=q.device)[None, :]
+    p_slot = pos[:, None] - torch.remainder(pos[:, None] - slots, W)    # [B, W]
+    mask = (p_slot >= 0)[:, None, None, :]
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
 

@@ -1,7 +1,8 @@
 """Model facade of the PyTorch port, twin of ``repro.models.model``.
 
 Two families are ported: dense (``[attn -> mlp] x L`` with the local:global
-period of ``_period``/``_window_for``) and ssm (``[mamba2 SSD] x L``). PyTorch
+period of ``_period``/``_window_for``; gemma3's windowed layers keep a ring-buffer
+cache of W slots, slot = position mod W) and ssm (``[mamba2 SSD] x L``). PyTorch
 runs eagerly, so ``lax.scan`` over the stacked layer params becomes a Python
 loop over the leading "layers" dim. Three entry points: ``forward`` (full
 sequence), ``prefill`` (cache build + last-token logits) and ``decode_step``
@@ -9,9 +10,10 @@ sequence), ``prefill`` (cache build + last-token logits) and ``decode_step``
 ``TensorDef`` tree (``cache_defs``) that ``init_cache`` and the server's
 batch-axis search both read.
 
-The cache is updated in place: ``decode_step`` writes the new token's k/v (dense)
-or the new conv tail and SSD state (ssm) into the tensors of the cache it is
-given and returns them in the new cache.
+The cache is updated in place: ``decode_step`` writes the new token's k/v (dense;
+at slot pos mod W in a windowed layer's ring) or the new conv tail and SSD state
+(ssm) into the tensors of the cache it is given and returns them in the new
+cache.
 
 Every residual add runs fused with the norm that reads its sum
 (``ops.add_rmsnorm``): a block returns the residual stream ``x`` and its
@@ -68,6 +70,19 @@ def _window_for(cfg: ArchConfig, j: int) -> int:
     return 0
 
 
+def _ring_slice(k: torch.Tensor, W: int) -> torch.Tensor:
+    """Full-sequence K/V [B,S,...] to the ring layout [B,W,...] (slot = pos % W):
+    zero-padded to W when S < W; otherwise the last W positions, which sit at
+    their slots only when S is a multiple of W."""
+    S = k.shape[1]
+    if S < W:
+        return torch.nn.functional.pad(k, (0, 0) * (k.dim() - 2) + (0, W - S))
+    if S % W:
+        raise ValueError(f"prefill length {S} must be below the window {W} or a "
+                         f"multiple of it (the ring cache's slot of position p is p % {W})")
+    return k[:, -W:]
+
+
 def _unstack(params_layers: dict) -> list:
     """The stacked layer params as one dict per layer, of ``unbind`` views."""
     if isinstance(params_layers, dict):
@@ -98,15 +113,20 @@ def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
 
 
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
-                  cache: dict, pos: torch.Tensor):
-    """Decode variant of ``_block`` against a full-length {"k","v"} cache."""
+                  cache: dict, pos: torch.Tensor, window: int):
+    """Decode variant of ``_block``; cache is {"k","v"}: a ring of W slots when
+    window > 0, else full-length."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
                                      theta=cfg.rope_theta, eps=cfg.norm_eps)
-    k_c = LY._cache_update(cache["k"], k_new, pos)
-    v_c = LY._cache_update(cache["v"], v_new, pos)
-    o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
-                         packed=cfg.packed_decode)
+    at = torch.remainder(pos, cache["k"].shape[1]) if window > 0 else pos   # ring slot
+    k_c = LY._cache_update(cache["k"], k_new, at)
+    v_c = LY._cache_update(cache["v"], v_new, at)
+    if window > 0:
+        o = ops.attend_cache_ring(q, k_c, v_c, pos)
+    else:
+        o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
+                             packed=cfg.packed_decode)
     x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
     return x, LY.swiglu(p["mlp"], h)
 
@@ -115,7 +135,7 @@ def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.T
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, want_kv: bool = False):
     """Returns (x, d, kvs): the stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]}
-    per period position j."""
+    per period position j, [G,B,W,K,hd] in ring layout where j is windowed."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     kvs = [[] for _ in range(period)]
@@ -125,6 +145,8 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
         for j in range(period):
             p = layers[g * period + j]
             x, d, kv = _block(cfg, p, x, d, positions, windows[j], want_kv)
+            if want_kv and windows[j] > 0:
+                kv = {n: _ring_slice(t, windows[j]) for n, t in kv.items()}
             kvs[j].append(kv)
     if not want_kv:
         return x, d, None
@@ -136,13 +158,14 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   cache_layers: tuple, pos: torch.Tensor):
     """Returns (x, d): the stream is x + d."""
     period = _period(cfg)
+    windows = [_window_for(cfg, j) for j in range(period)]
     d = None
     layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
         for j in range(period):
             p = layers[g * period + j]
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
-            x, d = _block_decode(cfg, p, x, d, cache, pos)
+            x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j])
     return x, d
 
 
@@ -190,12 +213,6 @@ class Model:
 
     def init_params(self, seed: int = 0) -> dict:
         return init_params(self.cfg, seed, self.device)
-
-    def _require_full_caches(self) -> None:
-        if any(_window_for(self.cfg, j) for j in range(_period(self.cfg))):
-            raise NotImplementedError(
-                f"{self.cfg.name}: windowed decode (ring cache) arrives with the "
-                "gemma3 slice of the port")
 
     # --------------------------------------------------------------------- embedding
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -283,8 +300,9 @@ class Model:
     # ----------------------------------------------------------------------- prefill
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
-        """Build the decode cache from a full prompt; returns (last_logits, cache)."""
-        self._require_full_caches()
+        """Build the decode cache from a full prompt; returns (last_logits, cache).
+        A windowed layer's cache is its ring of W slots; a full layer's is padded
+        to ``max_len``."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
@@ -297,7 +315,10 @@ class Model:
             x, d, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S),
                                    want_kv=True)
             layers = []
-            for kv in kvs:
+            for j, kv in enumerate(kvs):
+                if _window_for(self.cfg, j):             # ring layout already
+                    layers.append(kv)
+                    continue
                 padded = {}
                 for n, t in kv.items():                  # [G,B,S,K,hd]
                     full = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
@@ -313,7 +334,6 @@ class Model:
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
         """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place."""
-        self._require_full_caches()
         pos = cache["pos"]
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
