@@ -39,13 +39,18 @@ Phases, each failing loudly (nonzero exit):
      the forward's LSE against the plain LSE, two runs of each bit-equal; then
      time each beside its bound, its plain version and a library yardstick
      (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
+     K1's at head dim 256 too, over the forward's D=256 sweep and at gemma3-12b's
+     training shapes (S=2048, with and without the 1,024-token window), timed
+     there beside SDPA's backward (its backend printed);
      then the ssm slice's (K3's backward on the SSD sweep, its own shapes and
      the training shape, with and without init_state and d(final state), on the
      conv output's views too; gated_rmsnorm's), timed at mamba2-2.7b's training
      shape (no library call for either);
-  6. one train step at full width, 2 layers, f32, on the card against the same
-     step on the CPU (loss, grad_norm, master; every leaf gets a nonzero
-     gradient): qwen3-0.6b, then mamba2-2.7b;
+  6. one train step in f32 on the card against the same step on the CPU (loss,
+     grad_norm, m, master; every leaf gets a nonzero gradient): qwen3-0.6b and
+     mamba2-2.7b at full width, 2 layers; gemma3-12b at its attention shape
+     (16 q / 8 kv heads of 256, window 1,024), 6 layers, with d_model, d_ff and
+     the vocabulary narrowed, on 1,100 tokens;
   7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
      (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
      counters set to 0 just before and read just after; evaluate it through a
@@ -57,7 +62,13 @@ Phases, each failing loudly (nonzero exit):
      profile one (K3's backward kernels, each at the training shape, by launch);
      then its train task (4 steps, a checkpoint every 2) and a
      strict eval-task restore at full width and 4 layers (a 64-layer save is
-     ~39.6 GB).
+     ~39.6 GB);
+  9. train gemma3-12b at full width, cut to one local:global group of 6 layers,
+     bf16, through ``run_train_task`` (2 steps of one 2,048-token sequence), the
+     counters read around it (every K1 and K2 entry, exactly so many a layer a
+     step); time 3 warm steps and profile one (each of K1's backward kernels at
+     head dim 256 once a layer, no other K1 backward kernel). No checkpointed
+     task: a 6-layer save is ~47 GB, and the task code is the same as qwen3's.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -65,8 +76,9 @@ device, or outside a checkout, it exits nonzero and prints no result.
 
 ``--k1-bwd-against DIR`` runs phases 1-2, then only K1's backward against the one
 of the checkout at DIR (built from DIR's source into a library of its own): f32
-results bit-equal over the check sweep, bf16 results of both within the gate,
-and the bf16 times of both in turns (DIR's, this, this, DIR's).
+results bit-equal over the check sweep, bf16 results of both within the gate
+(and how many bit-equal), and the bf16 times of both in turns (DIR's, this,
+this, DIR's); at head dim 256 too, where DIR's has it.
 ``--k2-bwd-against DIR`` does the same for K2's three backward entry points (f32
 dx bit-equal; every output of both within the gate), and profiles each design
 once at the training shapes, kernel by kernel. ``--k3-bwd-against DIR`` does the
@@ -186,11 +198,18 @@ SSD_MAIN = (1, 512, 80, 64, 128, 256)   # mamba2-2.7b prefill of 512 tokens
 TRAIN = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
          "microbatches": 1, "steps": 4, "checkpoint_every": 2}
 TRAIN_PATH = "qwen3-0.6b train"
-# K1 and K2 launches in each train step: forward and backward alike (rmsnorm: ln1
-# of layer 0; add_rmsnorm: every other norm, the final one included)
-TRAIN_PER_STEP = {"flash_attention": 28, "flash_attention_bwd": 28, "qk_norm_rope": 28,
-                  "qk_norm_rope_bwd": 28, "rmsnorm": 1, "rmsnorm_bwd": 1,
-                  "add_rmsnorm": 56, "add_rmsnorm_bwd": 56}
+
+
+def dense_per_step(layers: int) -> dict:
+    """K1 and K2 launches in each dense train step of ``layers`` layers, forward and
+    backward alike (rmsnorm: ln1 of layer 0; add_rmsnorm: every other norm, the
+    final one included)."""
+    return {"flash_attention": layers, "flash_attention_bwd": layers,
+            "qk_norm_rope": layers, "qk_norm_rope_bwd": layers, "rmsnorm": 1,
+            "rmsnorm_bwd": 1, "add_rmsnorm": 2 * layers, "add_rmsnorm_bwd": 2 * layers}
+
+
+TRAIN_PER_STEP = dense_per_step(28)
 # K1's backward check sweep: the forward's sweep, its Sq < Skv cases, qwen3's D=128,
 # and D=128 with Sq < Skv, ragged lengths and a window (the masks at qwen3's width)
 FLASH_BWD_SWEEP = ([(B, S, S, H, K, D, c, w) for B, S, H, K, D, c, w in FLASH_SWEEP]
@@ -202,12 +221,15 @@ FLASH_BWD_TIMED = [(1, 512), (1, 2048), (4, 2048)]
 # the JAX suite's flash-gradient tolerance for f32 (tests/test_kernels.py:71); bf16
 # gradients are rounded to bf16 once, held at the forward's bf16 tolerance
 FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
-# K2's backward check sweeps: the forward's, the training shape, and the edges of
-# the one-launch dscale fold: one row; rows fewer than blocks; rows not a multiple
-# of a block's; wide rows (a block a row); one token of qwen3's q and k
-NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), (1, 1, 1024), (600, 1024), (2, 3, 2560)]
+# K2's backward check sweeps: the forward's, the training shapes (qwen3-0.6b's and
+# gemma3-12b's), and the edges of the one-launch dscale fold: one row; rows fewer
+# than blocks; rows not a multiple of a block's; wide rows (a block a row); one
+# token of qwen3's q and k
+GEMMA_NORM_BWD, GEMMA_QK_BWD = (1, 2048, 3840), (1, 2048, 16, 8, 256)
+NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), GEMMA_NORM_BWD, (1, 1, 1024), (600, 1024),
+                              (2, 3, 2560)]
 QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128),
-                (1, 1, 16, 8, 128)]
+                GEMMA_QK_BWD, (1, 1, 16, 8, 128)]
 # kernel names of the backward kernels in profiler traces
 K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel")
 K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel")
@@ -253,6 +275,28 @@ SSD_DA_TIMES = 4
 GATED_BWD_SWEEP = NORM_BWD_SWEEP + [(1, 2048, 5120)]
 # kernel names of K3's bf16 backward in profiler traces (three launches a call)
 K3_BWD_NAMES = ("ssd_scan_bwd_states", "ssd_scan_bwd_grad", "ssd_scan_bwd_bf16_finish")
+# K1's f32 (CUDA-core) backward kernels in profiler traces: none on a bf16 path
+K1_BWD_F32_NAMES = ("bwd_dq_kernel", "bwd_dkdv_kernel")
+# K1's bf16 backward kernels at head dim 256: the dK/dV pass is the split kernel
+K1_BWD_256_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_split_bf16_kernel")
+
+# K1's backward at head dim 256: the forward's D=256 sweep, then gemma3-12b's
+# training attention (B=1, H=16, K=8, causal, S=2048 = 2W): a global layer (window
+# 0) and a local one (1024), at which it is timed
+GEMMA_BWD = [(2048, 0), (2048, 1024)]
+# training gemma3-12b at full width, cut to one local:global group (6 layers; a
+# depth off the period is refused), bf16, one sequence of 2,048 tokens (2W) a step
+GEMMA_TRAIN = {"arch": "gemma3-12b", "reduced": False, "seq_len": 2048, "global_batch": 1,
+               "microbatches": 1}
+GEMMA_TRAIN_PATH = "gemma3-12b train"
+GEMMA_TRAIN_LAYERS = 6
+GEMMA_TRAIN_PER_STEP = dense_per_step(GEMMA_TRAIN_LAYERS)
+# gemma3's f32 train step on the card against the CPU's: its attention shape (16 q /
+# 8 kv heads of 256, window 1,024) over one group of 6 layers, with d_model, d_ff and
+# the vocabulary narrowed (6 f32 layers at full width are ~67 GB on each side); 1,100
+# tokens, past the window and ragged for 64-row tiles
+GEMMA_PARITY = {"num_layers": 6, "d_model": 512, "d_ff": 1024, "vocab_size": 8192}
+GEMMA_PARITY_SEQ = 1100
 
 
 def check(cond: bool, msg: str) -> None:
@@ -503,6 +547,11 @@ def phase_build() -> None:
         gated = gated_registers(kernels)
         if gated:
             print(f"    gated kernels, registers (no spill stores): {', '.join(gated)}")
+        if name == "flash_attention":
+            d256 = [g for g in gated if re.match(r"bwd_\w+_bf16_kernel<256> ", g)]
+            check(len(d256) == 2, f"build: K1's bf16 backward kernels at head dim 256 are "
+                  f"not both in the ptxas log: {d256}")
+            print(f"    K1's backward at head dim 256 (no spill): {', '.join(d256)}")
 
 
 def phase_flash(gen) -> dict:
@@ -571,6 +620,16 @@ def sdpa_backend(*args, **kw) -> str:
     return names.get(int(torch._fused_sdp_choice(*args, **kw)), "unknown")
 
 
+def sdpa_kw(S: int, window: int) -> dict:
+    """SDPA's arguments for causal GQA attention over S tokens: ``is_causal``, or
+    with a window a boolean band mask (which takes SDPA off its flash backend)."""
+    if not window:
+        return {"is_causal": True, "enable_gqa": True}
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    return {"attn_mask": band, "enable_gqa": True}
+
+
 def phase_flash_256(gen, qkv) -> list:
     """K1's forward at head dim 256 against its plain version over its sweep in
     both dtypes (f32: the CUDA-core design, bf16: the tensor-core one with 32-row kv
@@ -605,12 +664,7 @@ def phase_flash_256(gen, qkv) -> list:
         check(close(got, want, TOL[dtype]), f"flash D=256 S={S} window={window} bf16: "
               f"max err {err}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if window:
-            i = torch.arange(S, device="cuda")
-            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-            lib_kw = {"attn_mask": band, "enable_gqa": True}
-        else:
-            lib_kw = {"is_causal": True, "enable_gqa": True}
+        lib_kw = sdpa_kw(S, window)
         backend = sdpa_backend(qt, kt, vt, **lib_kw)
         lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
         check(close(lib.transpose(1, 2), want, TOL[dtype]),
@@ -975,7 +1029,7 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
     the device time and launches of each group of kernel names (default: K2's
     forward kernels); ``every``: also each kernel name's launches, by name.
     Returns {group: (ms, launches)}, with every kernel of the call under "all
-    kernels"."""
+    kernels", and {kernel name: launches} under "by name"."""
     groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
     # The profiler's device timestamps, put on the host's clock, can be off by
@@ -1016,7 +1070,8 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
         print(f"  every kernel by name ({len(kernels)} names):")
         for e in sorted(kernels, key=lambda e: e.key):
             print(f"    x{e.count:<5} {e.self_device_time_total / 1e3:8.3f} ms  {e.key[:100]}")
-    out = {"all kernels": (busy, sum(e.count for e in kernels))}
+    out = {"all kernels": (busy, sum(e.count for e in kernels)),
+           "by name": {e.key: e.count for e in kernels}}
     for label, names in groups.items():
         mine = [e for e in kernels if any(n in e.key for n in names)]
         n = sum(e.count for e in mine)
@@ -1104,6 +1159,7 @@ def phase_backward(gen) -> list:
             rows[-1]["at_training_shape"] = {
                 "B": B, "S": S, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    rows[0]["head_dim_256"] = phase_flash_bwd_256(gen)
 
     def norm_case(shape, dtype):
         return norm_bwd_case(gen, shape, dtype)
@@ -1135,20 +1191,26 @@ def phase_backward(gen) -> list:
     }
     for name, (kernel, plain, make, sweep, main_shape, nbytes, flops, lib) in entries.items():
         worst = 0.0
+        errs = {}     # (shape, dtype) -> max err over the outputs
         for shape in sweep:
             for dtype in (f32, bf16):
                 args = make(*shape, dtype) if name == "qk_norm_rope_bwd" else make(shape, dtype)
                 got, again = kernel(*args), kernel(*args)
                 want = plain(*(exact(args) if dtype == f32 else args))
                 for i, (g, w, a) in enumerate(zip(got, want, again)):
+                    err = max_err(g, w)
                     check(close(g, w, RMS_TOL[dtype]), f"{name} {shape} {dtype} output {i}: "
-                          f"max err {max_err(g, w)}")
+                          f"max err {err}")
                     check(torch.equal(g, a), f"{name} {shape} {dtype} output {i}: two runs "
                           "differ")
+                    errs[shape, dtype] = max(errs.get((shape, dtype), 0.0), err)
                     if shape == main_shape and dtype == bf16:
-                        worst = max(worst, max_err(g, w))
+                        worst = max(worst, err)
         print(f"{name}: matches its plain version on {len(sweep)} shapes (f32 against its "
-              f"f64 evaluation, bf16; dscale included), two runs bit-equal")
+              f"f64 evaluation, bf16; dscale included), two runs bit-equal; max err "
+              + ", ".join(f"{shape} {str(dtype)[6:]} {err:.3e}"
+                          for (shape, dtype), err in errs.items()
+                          if shape in (main_shape, GEMMA_NORM_BWD, GEMMA_QK_BWD)))
         args = make(*main_shape, bf16) if name == "qk_norm_rope_bwd" else make(main_shape, bf16)
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
@@ -1168,6 +1230,82 @@ def phase_backward(gen) -> list:
                      "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     return rows
+
+def phase_flash_bwd_256(gen) -> list:
+    """K1's backward at head dim 256 against its plain version over the forward's
+    D=256 sweep and gemma3-12b's training shapes (GEMMA_BWD), in both dtypes (bf16:
+    the tensor-core design with dK and dV on separate warps; f32: the CUDA-core one
+    with 32-row tiles), with the forward's LSE against the plain LSE and two runs
+    bit-equal; then the bf16 kernel timed at the training shapes beside its bound,
+    its plain version and SDPA's backward (with a boolean band mask where a window
+    applies; the backend SDPA took is printed). Returns one entry a shape of
+    GEMMA_BWD."""
+    from repro_torch.kernels import flash_attention as FA
+    f32, bf16 = torch.float32, torch.bfloat16
+    D = 256
+    cases = FLASH_256_SWEEP + [(1, S, S, 16, 8, True, w) for S, w in GEMMA_BWD]
+    worst = {f32: 0.0, bf16: 0.0}
+    for B, Sq, Skv, H, K, causal, window in cases:
+        for dtype in (f32, bf16):
+            tag = f"flash bwd D=256 {B, Sq, Skv, H, K, causal, window} {dtype}"
+            q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype)
+            o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            _, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                    return_lse=True)
+            check(close(lse, plain_lse, TOL[f32]), f"{tag}: lse max err "
+                  f"{max_err(lse, plain_lse)}")
+            got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+            again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+            for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+                check(close(g, w, FLASH_GRAD_TOL[dtype]), f"{tag} {name}: max err "
+                      f"{max_err(g, w)}")
+                check(torch.equal(g, a), f"{tag} {name}: two runs differ")
+                worst[dtype] = max(worst[dtype], max_err(g, w))
+            del q, k, v, do, o, lse, got, again, want
+    print(f"flash_attention_bwd D=256: {len(cases)} cases x f32/bf16 match the plain backward "
+          f"(max abs err f32 {worst[f32]:.3g} at tol {FLASH_GRAD_TOL[f32]}, bf16 "
+          f"{worst[bf16]:.3g} at tol {FLASH_GRAD_TOL[bf16]}); the forward's LSE matches the "
+          f"plain LSE at {TOL[f32]} in both; two runs bit-equal")
+    out = []
+    for S, window in GEMMA_BWD:
+        B, H, K = 1, 16, 8
+        q, k, v, do = flash_bwd_inputs(gen, B, S, S, H, K, D, bf16)
+        o, lse = FA.flash_attention_cuda(q, k, v, window=window, return_lse=True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        ms = time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window))
+        plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                window=window), n=5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib_kw = sdpa_kw(S, window)
+        backend = sdpa_backend(qt, kt, vt, **lib_kw)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        dot = do.transpose(1, 2)
+        lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+        check(all(close(g.transpose(1, 2), w, FLASH_GRAD_TOL[bf16]) for g, w in zip(lib, want)),
+              f"SDPA's backward disagrees with plain at D=256 S={S} window={window}")
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                     retain_graph=True))
+        # as phase_backward counts them: q, o, dO read and dq written; k, v read and
+        # dk, dv written; lse read, delta written and read
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + 3 * B * H * S * 4
+        flops = 10 * B * H * D * attn_pairs(S, S, True, window)
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
+        print(f"flash_attention_bwd B=1 S={S} H=16 K=8 D=256 bf16 causal window={window}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms "
+              f"({backend}), bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g}")
+        out.append({"S": S, "window": window, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "library_backend": backend})
+        del q, k, v, do, o, lse, got, want, qt, kt, vt, lib_out, lib
+    return out
+
 
 def ssd_bwd_case(gen, B, S, H, P, N, dtype, with_state: bool):
     """x, dt, a, bm, cm, init_state, dy, d(final state) of one K3 backward case;
@@ -1359,13 +1497,14 @@ def phase_ssm_backward(gen) -> list:
     return rows
 
 
-def phase_train_step_parity(arch: str, seq: int, per_step: dict) -> None:
-    """One train step of ``arch`` at full width, 2 layers, in f32, on the card
-    (the kernels, forward and backward) and on the CPU (their plain versions),
-    from the same params and a batch of 2 x ``seq`` tokens. Every parameter leaf
-    must get a nonzero gradient on the card: a kernel that dropped a gradient
-    would leave the leaves before it without one. Every kernel of ``per_step``
-    must be launched."""
+def phase_train_step_parity(arch: str, seq: int, per_step: dict, batch_size: int = 2,
+                            cut: dict = None) -> None:
+    """One train step of ``arch`` in f32, on the card (the kernels, forward and
+    backward) and on the CPU (their plain versions), from the same params and a
+    batch of ``batch_size`` x ``seq`` tokens; the config cut by ``cut`` (default:
+    full width, 2 layers). Every parameter leaf must get a nonzero gradient on the
+    card: a kernel that dropped a gradient would leave the leaves before it without
+    one. Every kernel of ``per_step`` must be launched."""
     from repro_torch import configs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import Model
@@ -1373,13 +1512,16 @@ def phase_train_step_parity(arch: str, seq: int, per_step: dict) -> None:
     from repro_torch.runtime.train_loop import TrainJobConfig
     from repro_torch.tree import tree_flatten_sorted, tree_map
 
-    cfg = dataclasses.replace(configs.get(arch), num_layers=2, dtype="float32", remat="none")
+    cut = cut or {"num_layers": 2}
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32", remat="none", **cut)
+    shape = "full width, 2 layers" if cut == {"num_layers": 2} else \
+        ", ".join(f"{k} {v}" for k, v in cut.items())
     opt = TrainJobConfig().opt
     params = Model(cfg, "cpu").init_params(0)
     gen = torch.Generator().manual_seed(11)
-    toks = torch.randint(0, cfg.vocab_size, (2, seq + 1), generator=gen).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1), generator=gen).to(torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous(),
-             "loss_mask": torch.ones((2, seq), dtype=torch.bfloat16)}
+             "loss_mask": torch.ones((batch_size, seq), dtype=torch.bfloat16)}
     card_params = tree_map(lambda t: t.cuda(), params)
     card = {"params": card_params, "opt": init_opt_state(card_params)}
     host = {"params": params, "opt": init_opt_state(params)}
@@ -1419,7 +1561,7 @@ def phase_train_step_parity(arch: str, seq: int, per_step: dict) -> None:
               f"train step: master of {name} max err {diff.max().item()}")
         beyond += int((diff > plain_tol).sum())
         m_err, master_err = max(m_err, max_err(m, m_cpu)), max(master_err, diff.max().item())
-    print(f"train step, {arch} full width, 2 layers, f32, B=2 S={seq}: card loss {loss:.6f} "
+    print(f"train step, {arch} {shape}, f32, B={batch_size} S={seq}: card loss {loss:.6f} "
           f"grad_norm {gnorm:.6f}, CPU {want_loss:.6f} {want_gnorm:.6f} ({cpu_s:.1f} s); "
           f"max abs err m {m_err:.3g} (at 1e-6), master {master_err:.3g} ({beyond} elements "
           f"beyond 1e-4, each within lr * dg / eps of Adam's first step, lr {lr:.3g}); "
@@ -1611,6 +1753,96 @@ def phase_ssm_train(card: str) -> dict:
     return launches
 
 
+def phase_gemma3_train(card: str) -> dict:
+    """Train gemma3-12b at full width, cut to GEMMA_TRAIN_LAYERS layers (one
+    local:global group: 5 windowed, 1 global), bf16, through run_train_task (2
+    steps of one 2,048-token sequence, no checkpoint directory), the launch
+    counters set to 0 just before and read just after: every K1 and K2 entry of the
+    path, exactly GEMMA_TRAIN_PER_STEP a step. Then 3 warm steps of the same
+    trainer timed and one profiled: each of K1's bf16 backward kernels at head dim
+    256 launched once a layer, and no other K1 backward kernel. Returns each
+    kernel's launches in the task."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    steps = 2
+    with arch_depth(GEMMA_TRAIN["arch"], GEMMA_TRAIN_LAYERS):
+        torch.cuda.reset_peak_memory_stats()
+        cache = TrainerCache(1)
+        t0 = time.perf_counter()
+        trainer = cache.get(TrainJobConfig.from_job({"payload": dict(GEMMA_TRAIN)}))  # cold
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        res = run_train_task(cache, dict(GEMMA_TRAIN, steps=steps))        # a warm hit: rebound
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = trainer.metrics.series("loss")
+    vocab, layers = trainer.arch_cfg.vocab_size, trainer.arch_cfg.num_layers
+    print(f"train task {GEMMA_TRAIN['arch']} full width, {layers} layers, bf16, "
+          f"{GEMMA_TRAIN['global_batch']} x {GEMMA_TRAIN['seq_len']} tokens a step: {res} in "
+          f"{wall:.2f} s (trainer built in {build_s:.2f} s before: {state_gib:.2f} GiB "
+          f"allocated); losses {losses}; launches {launches}; peak memory {peak_gib:.2f} GiB "
+          f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{card}]")
+    check(layers == GEMMA_TRAIN_LAYERS, f"gemma3 train: {layers} layers, want "
+          f"{GEMMA_TRAIN_LAYERS}")
+    check(res["steps"] == steps and res["ran_steps"] == steps and len(losses) == steps,
+          f"gemma3 train task: {res}")
+    check(all(math.isfinite(v) for v in losses), f"gemma3 train task: losses {losses}")
+    expected = math.log(vocab) + 0.5          # random weights: see phase_train
+    check(abs(losses[0] - expected) < 0.5,
+          f"gemma3 train: step 1 loss {losses[0]} not within 0.5 of ln({vocab}) + 1/2 = "
+          f"{expected:.3f} on random weights")
+    for name, n in launches.items():
+        want = GEMMA_TRAIN_PER_STEP.get(name, 0) * steps
+        check(n == want, f"gemma3 train task: {name} launched {n} times, want {want}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    tokens = GEMMA_TRAIN["global_batch"] * GEMMA_TRAIN["seq_len"]
+    print(f"train step {GEMMA_TRAIN['arch']} full width, {layers} layers, {tokens} tokens: "
+          f"{step_ms:.1f} ms (median of warm steps {[round(t, 1) for t in times]}) = "
+          f"{tokens / step_ms * 1e3:.0f} training tokens/s [{card}]; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    groups = profile_breakdown(
+        f"{GEMMA_TRAIN['arch']} train step, {layers} layers, {tokens} tokens",
+        trainer.step_once, top=12, every=True,
+        groups={"K1 forward": ("flash_fwd",),
+                "K1 backward": K1_BWD_NAMES + K1_BWD_256_NAMES + K1_BWD_F32_NAMES,
+                "K2 forward": K2_KERNEL_NAMES, "K2 backward": K2_BWD_NAMES,
+                **{name: (name,) for name in K1_BWD_256_NAMES}})
+    # the backward kernels a step (the counters above hold the wrappers' calls)
+    n = groups.get("K1 backward", (0.0, 0))[1]
+    check(n == 3 * layers, f"gemma3 train step profile: {n} K1 backward kernels, want "
+          f"{3 * layers} (three a layer, no other)")
+    for name in K1_BWD_256_NAMES:
+        n = groups.get(name, (0.0, 0))[1]
+        check(n == layers, f"gemma3 train step profile: {name} launched {n} times, want {layers}")
+    for key, n in groups["by name"].items():
+        if re.search(r"\bbwd_(dq|dkdv_split)_bf16_kernel", key):
+            check("<256>" in key, f"gemma3 train step profile: {key} is not the head-dim-256 "
+                  "instance")
+    n = groups.get("K2 backward", (0.0, 0))[1]
+    want = sum(GEMMA_TRAIN_PER_STEP[name] for name in K2_BWD_ENTRIES)
+    check(n == want, f"gemma3 train step profile: {n} K2 backward kernels, want {want}")
+    del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def arch_depth(arch: str, layers: int):
     """``configs.get(arch)`` with ``num_layers`` cut to ``layers`` (full width),
@@ -1699,14 +1931,20 @@ def phase_k1_bwd_against(parent: Path, card: str) -> None:
     """K1's backward of this checkout against the one of another checkout, in one
     process on this card, through the same C entry point. Over the check sweep,
     f32 results must be bit-equal (one f32 design in both) and both bf16 results
-    must hold the plain version's gate; then the bf16 backward of each is timed
-    in turns (other, this, this, other) at FLASH_BWD_TIMED's shapes."""
+    must hold the plain version's gate; where the other has head dim 256, both
+    bf16 results must hold it at GEMMA_BWD's shapes too. Then the bf16 backward of
+    each is timed in turns (other, this, this, other) at FLASH_BWD_TIMED's shapes
+    and, at head dim 256, at GEMMA_BWD's."""
     from repro_torch.kernels import flash_attention as FA
     f32, bf16 = torch.float32, torch.bfloat16
-    other_fn = build_other(parent, "flash_attention")[0].flash_attention_bwd
+    lib, kernels = build_other(parent, "flash_attention")
+    print("k1-bwd-against: the other checkout's K1 bf16 kernels, registers: "
+          + ", ".join(gated_registers(kernels, strict=False)))
+    other_fn = lib.flash_attention_bwd
     other_fn.argtypes, other_fn.restype = FA._bwd_fn().argtypes, ctypes.c_int
 
-    def other(q, k, v, o, lse, do, causal=True, window=0):
+    def other(q, k, v, o, lse, do, causal=True, window=0, probe=False):
+        """dq, dk, dv of the other checkout; with ``probe``, its error code."""
         B, Sq, H, D = q.shape
         Skv, K = k.shape[1], k.shape[2]
         delta = torch.empty((B, H, Sq), dtype=f32, device=q.device)
@@ -1716,11 +1954,14 @@ def phase_k1_bwd_against(parent: Path, card: str) -> None:
                        dv.data_ptr(), B, Sq, Skv, H, K, D, int(causal), int(window),
                        1.0 / math.sqrt(D), FA._DTYPE_CODE[q.dtype],
                        torch.cuda.current_stream().cuda_stream)
+        if probe:
+            return err
         check(err == 0, f"the other checkout's flash_attention_bwd: cudaError {err}")
         return dq, dk, dv
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    bf16_equal = 0
     for B, Sq, Skv, H, K, D, causal, window in FLASH_BWD_SWEEP:
         for dtype in (f32, bf16):
             tag = f"{B, Sq, Skv, H, K, D, causal, window} {dtype}"
@@ -1734,6 +1975,7 @@ def phase_k1_bwd_against(parent: Path, card: str) -> None:
                 check(all(torch.equal(a, b) for a, b in zip(mine, theirs)),
                       f"k1-bwd-against {tag}: f32 results differ between the checkouts")
                 continue
+            bf16_equal += all(torch.equal(a, b) for a, b in zip(mine, theirs))
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                                 window=window)
             for who, got in (("this", mine), ("other", theirs)):
@@ -1741,24 +1983,53 @@ def phase_k1_bwd_against(parent: Path, card: str) -> None:
                     check(close(g, w, FLASH_GRAD_TOL[bf16]), f"k1-bwd-against {tag} {who}: "
                           f"max err {max_err(g, w)}")
     print(f"k1-bwd-against: {len(FLASH_BWD_SWEEP)} cases: f32 bit-equal across the two "
-          "checkouts; bf16 of both within the plain version's gate")
-    for B, S in FLASH_BWD_TIMED:
-        q, k, v, do = flash_bwd_inputs(gen, B, S, S, 16, 8, 128, bf16)
-        o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
-        t = [time_ms(lambda: other(q, k, v, o, lse, do)),
-             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)),
-             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)),
-             time_ms(lambda: other(q, k, v, o, lse, do))]
-        print(f"k1-bwd-against B={B} S={S} H=16 K=8 D=128 bf16 causal, in turns: other "
-              f"{t[0]:.4f} ms, this {t[1]:.4f} ms, this {t[2]:.4f} ms, other {t[3]:.4f} ms "
-              f"[{card}]")
+          f"checkouts; bf16 of both within the plain version's gate, bit-equal in "
+          f"{bf16_equal} of {len(FLASH_BWD_SWEEP)}")
+    timed = [(B, S, 128, 0) for B, S in FLASH_BWD_TIMED]
+    # head dim 256, where the other checkout has it: bf16 of both within the gate at
+    # gemma3-12b's training shapes, then timed there too
+    q, k, v, do = flash_bwd_inputs(gen, 1, 64, 64, 2, 1, 256, bf16)
+    o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+    # a head dim the other's switch does not build returns cudaErrorInvalidValue (1),
+    # on valid arguments; any other error fails
+    err = other(q, k, v, o, lse, do, probe=True)
+    torch.cuda.synchronize()
+    check(err in (0, 1), f"the other checkout's flash_attention_bwd at head dim 256: "
+          f"cudaError {err}")
+    has_256 = err == 0
+    if not has_256:
+        print("k1-bwd-against: the other checkout has no backward at head dim 256")
+    if has_256:
+        for S, window in GEMMA_BWD:
+            q, k, v, do = flash_bwd_inputs(gen, 1, S, S, 16, 8, 256, bf16)
+            o, lse = FA.flash_attention_cuda(q, k, v, window=window, return_lse=True)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+            for who, got in (("this", FA.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                  window=window)),
+                             ("other", other(q, k, v, o, lse, do, window=window))):
+                for g, w in zip(got, want):
+                    check(close(g, w, FLASH_GRAD_TOL[bf16]), f"k1-bwd-against D=256 S={S} "
+                          f"window={window} {who}: max err {max_err(g, w)}")
+            timed.append((1, S, 256, window))
+        print("k1-bwd-against: at head dim 256 bf16 of both within the plain version's gate")
+    for B, S, D, window in timed:
+        q, k, v, do = flash_bwd_inputs(gen, B, S, S, 16, 8, D, bf16)
+        o, lse = FA.flash_attention_cuda(q, k, v, window=window, return_lse=True)
+        t = [time_ms(lambda: other(q, k, v, o, lse, do, window=window)),
+             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)),
+             time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)),
+             time_ms(lambda: other(q, k, v, o, lse, do, window=window))]
+        print(f"k1-bwd-against B={B} S={S} H=16 K=8 D={D} bf16 causal window={window}, in "
+              f"turns: other {t[0]:.4f} ms, this {t[1]:.4f} ms, this {t[2]:.4f} ms, other "
+              f"{t[3]:.4f} ms [{card}]")
 
 
 def phase_k2_bwd_against(parent: Path, card: str) -> None:
     """K2's three backward entry points of this checkout against those of another
     checkout, in one process on this card, through the same C entry points (the
-    other called as its own wrapper calls it: the two-launch design takes 4
-    partial rows an SM and sums them in a second launch). Over the check sweeps,
+    other called as its own wrapper calls it: one launch, dscale folded through a
+    zeroed f64 scratch of tickets and rows, one of its own a width, which each
+    launch leaves with its tickets at 0). Over the check sweeps,
     f32 dx (dq, dk) must be bit-equal between the two, and every output of both
     must hold the plain version's gate (f32 against the plain version in f64);
     then each bf16 entry is timed at the training shapes in turns (other, this,
@@ -1772,7 +2043,14 @@ def phase_k2_bwd_against(parent: Path, card: str) -> None:
     for name in K2_BWD_ENTRIES:
         fns[name] = getattr(lib, name)
         fns[name].argtypes, fns[name].restype = getattr(RN._lib(), name).argtypes, ctypes.c_int
-    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = RN._max_blocks(torch.device("cuda"))
+    scratches = {}
+
+    def scratch(W):
+        if W not in scratches:
+            scratches[W] = torch.zeros(RN._TICKETS + (blocks + math.isqrt(blocks - 1) + 2) * W,
+                                       dtype=torch.float64, device="cuda")
+        return scratches[W].data_ptr()
 
     def call(name, *args):
         err = fns[name](*args, torch.cuda.current_stream().cuda_stream)
@@ -1781,25 +2059,23 @@ def phase_k2_bwd_against(parent: Path, card: str) -> None:
     def other_norm(x, sc, dy, ds):
         D = x.shape[-1]
         dx, dscale = torch.empty_like(x), torch.empty_like(sc)
-        partial = torch.empty((blocks, D), dtype=torch.float64, device=x.device)
         tail = (blocks, x.numel() // D, D, 1e-6, RN._DTYPE_CODE[x.dtype], x.device.index)
         if ds is None:
             call("rmsnorm_bwd", x.data_ptr(), sc.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 dscale.data_ptr(), partial.data_ptr(), *tail)
+                 dscale.data_ptr(), scratch(D), *tail)
         else:
             call("add_rmsnorm_bwd", x.data_ptr(), sc.data_ptr(), ds.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), dscale.data_ptr(), partial.data_ptr(), *tail)
+                 dx.data_ptr(), dscale.data_ptr(), scratch(D), *tail)
         return dx, dscale
 
     def other_qk(q, k, qs, ks, pos, theta, dq_out, dk_out):
         B, S, H, hd = q.shape
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(qs),
                 torch.empty_like(ks))
-        partial = torch.empty((2 * blocks, hd), dtype=torch.float64, device=q.device)
         freqs = RN._inv_freq(q.device, hd, float(theta))
         call("qk_norm_rope_bwd", *(t.data_ptr() for t in (q, k, qs, ks, dq_out, dk_out, pos)),
              pos.stride(0), pos.stride(1), freqs.data_ptr(), *(t.data_ptr() for t in outs),
-             partial.data_ptr(), blocks, B, S, H, k.shape[2], hd, 1e-6,
+             scratch(2 * hd), blocks, B, S, H, k.shape[2], hd, 1e-6,
              RN._DTYPE_CODE[q.dtype], q.device.index)
         return outs
 
@@ -1961,6 +2237,8 @@ def main(argv=None) -> int:
     phase_train_step_parity("qwen3-0.6b", 256, TRAIN_PER_STEP)
     # 300 tokens: ragged for the kernel's 64-row chunks and the model's 256
     phase_train_step_parity("mamba2-2.7b", 300, SSM_TRAIN_PER_STEP)
+    phase_train_step_parity("gemma3-12b", GEMMA_PARITY_SEQ, GEMMA_TRAIN_PER_STEP,
+                            batch_size=1, cut=GEMMA_PARITY)
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {}
@@ -1971,6 +2249,7 @@ def main(argv=None) -> int:
     by_path[TRAIN_PATH] = phase_train(card)
     by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
     phase_ssm_tasks()
+    by_path[GEMMA_TRAIN_PATH] = phase_gemma3_train(card)
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()

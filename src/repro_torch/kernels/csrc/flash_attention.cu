@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <type_traits>
 #include <stddef.h>
 
 #include "tensor_core.cuh"
@@ -261,14 +262,14 @@ constexpr size_t tc_smem_bytes() {
 
 // Rows r0 .. r0+ROWS-1 of a [rows, D] bf16 matrix with row stride `stride` into a
 // [ROWS][D+8] tile; rows at or past `limit` are zero-filled.
-template <int D, int ROWS = 64>
+template <int D, int ROWS = 64, int NTHREADS = TC_THREADS>
 __device__ __forceinline__ void tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            size_t stride, int r0, int limit, int tid) {
   constexpr int CH = D / 8;  // 16-byte pieces per row
-  static_assert(ROWS * CH % TC_THREADS == 0, "whole pieces per thread");
+  static_assert(ROWS * CH % NTHREADS == 0, "whole pieces per thread");
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / TC_THREADS; ++j) {
-    const int i = tid + j * TC_THREADS;
+  for (int j = 0; j < ROWS * CH / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < limit;
     tc::cp_async16(dst + r * (D + 8) + c * 8, src + (size_t)(ok ? r0 + r : 0) * stride + c * 8,
@@ -516,10 +517,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // per visible (q, k) pair and head: 2.5x the forward's flops on ~2x its bytes, so
 // from S ~ 1000 it is bound by operations. At the training shape (B=4, S=2048,
 // H=16, K=8, D=128, causal) that is 172 GFLOP: 0.174 ms on the bf16 tensor cores
-// (989 TFLOP/s); at B=1, 43 GFLOP: 0.043 ms.
+// (989 TFLOP/s); at B=1, 43 GFLOP: 0.043 ms. gemma3-12b's (B=1, S=2048, H=16,
+// K=8, D=256) is 85.9 GFLOP causal (0.0869 ms) and 64.4 with the 1,024-token window
+// (0.0652 ms) on ~101 MB (0.030 ms): bound by operations too.
 //
-// bf16 (dtype 1), the training path: tensor cores (bwd_dkdv_bf16_kernel,
-//   bwd_dq_bf16_kernel). Every tile product is mma.sync.m16n8k16 bf16 -> f32.
+// bf16 (dtype 1), the training path: tensor cores (bwd_dkdv_bf16_kernel, at
+//   D = 256 bwd_dkdv_split_bf16_kernel, and bwd_dq_bf16_kernel). Every tile
+//   product is mma.sync.m16n8k16 bf16 -> f32.
 //   Tiles sit in shared memory as bf16, rows padded by 16 bytes (conflict-free
 //   ldmatrix, as the forward), loaded by 16-byte cp.async with zero fill past Sq
 //   or Skv, two stages deep over the loop axis (q tiles in the dK/dV pass, kv
@@ -551,13 +555,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 //     rounded outputs, so the forward's hi + lo split of P would buy nothing here.
 //   - Blocks are launched heaviest first: under the causal mask the first kv
 //     tiles see the most q tiles, the last q tiles the most kv tiles.
+//   - D = 256 (gemma3-12b's training) takes the plan of `BwdPlan` below: dK and
+//     dV on separate warps of an 8-warp block, and 32-row kv tiles in the dQ pass.
 //   `wgmma` with TMA and warp specialisation (FlashAttention-3) is the next step.
 // f32 (dtype 0), the check path: the exact CUDA-core design (bwd_dkdv_kernel,
 //   bwd_dq_kernel). Every product and sum is an f32 FMA (67 TFLOP/s f32 peak),
 //   which keeps the f32 gradients within 1e-3 of the reference and the card's
-//   2-layer f32 train step on the CPU's. 256 threads as 16 row groups x 16 column
+//   f32 train steps on the CPU's. 256 threads as 16 row groups x 16 column
 //   lanes, as the f32 forward; every staged tile is f32 with rows padded by one
 //   float, so the per-row and per-column reads of the products hit distinct banks.
+//   At D = 256 the loop's tiles are 32 rows (`F32BwdPlan`).
 constexpr int BWD_THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -566,12 +573,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
-// rows r0 .. r0+63 of a [rows, D] matrix with row stride `stride` into a [64][D+1]
-// f32 tile; rows at or past `limit` are zero
-template <typename T, int D>
+// rows r0 .. r0+ROWS-1 of a [rows, D] matrix with row stride `stride` into a
+// [ROWS][D+1] f32 tile; rows at or past `limit` are zero
+template <typename T, int D, int ROWS = 64>
 __device__ __forceinline__ void stage(float* dst, const T* src, size_t stride, int r0,
                                       int limit, int tid) {
-  for (int i = tid; i < 64 * D; i += BWD_THREADS) {
+  for (int i = tid; i < ROWS * D; i += BWD_THREADS) {
     const int r = i / D, d = i % D;
     dst[r * (D + 1) + d] = r0 + r < limit ? to_f32(src[(size_t)(r0 + r) * stride + d]) : 0.f;
   }
@@ -597,49 +604,62 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __r
   }
 }
 
-// s = scale * Q.K^T and dp = dO.V^T of rows ty*4+i (q) and columns tx+16j (kv);
-// then P and dS into sP / sS (sP may be null: the dq pass needs only dS)
-template <int D>
+// The f32 backward's tiles: the dK/dV pass stages QR q rows at a time beside its 64
+// kv rows, the dQ pass KR kv rows beside its 64 q rows. D <= 128: 64 and 64. At
+// D = 256, 64-row tiles of Q, dO, K and V alone would take 263,168 bytes, past the
+// 232,448 a block may have, so the loop's tiles are 32 rows: 214,272 bytes for the
+// dK/dV pass and 206,336 for the dQ pass, one block an SM. A thread then scores 2 x 4
+// (dK/dV) or 4 x 2 (dQ) pairs of a tile instead of 4 x 4.
+template <int D> struct F32BwdPlan {
+  static constexpr int QR = D > 128 ? 32 : 64;
+  static constexpr int KR = D > 128 ? 32 : 64;
+};
+
+// s = scale * Q.K^T and dp = dO.V^T of the QR x KR tile, rows ty*RQ+i (q) and
+// columns tx+16j (kv); then P and dS into sP / sS [QR][KR+1] (sP may be null: the
+// dq pass needs only dS)
+template <int D, int QR = 64, int KR = 64>
 __device__ __forceinline__ void bwd_tile_scores(const float* sQ, const float* sO,
                                                 const float* sK, const float* sV,
                                                 const float* sL, const float* sD, float* sP,
                                                 float* sS, int q0, int k0, int Sq, int Skv,
                                                 int offset, int causal, int window,
                                                 float scale, int tx, int ty) {
-  constexpr int DP = D + 1, PP = BKV + 1;
-  float s[RPT][CPT], dp[RPT][CPT];
+  constexpr int DP = D + 1, PP = KR + 1;
+  constexpr int RQ = QR / 16, CK = KR / 16;   // q rows and kv columns a thread scores
+  float s[RQ][CK], dp[RQ][CK];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+    float qv[RQ], ov[RQ], kv[CK], vv[CK];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      qv[i] = sQ[(ty * RPT + i) * DP + d];
-      ov[i] = sO[(ty * RPT + i) * DP + d];
+    for (int i = 0; i < RQ; ++i) {
+      qv[i] = sQ[(ty * RQ + i) * DP + d];
+      ov[i] = sO[(ty * RQ + i) * DP + d];
     }
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
+    for (int j = 0; j < CK; ++j) {
       kv[j] = sK[(tx + 16 * j) * DP + d];
       vv[j] = sV[(tx + 16 * j) * DP + d];
     }
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
+      for (int j = 0; j < CK; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int r = ty * RQ + i;
     const int qi = q0 + r;
     const int qa = qi + offset;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
+    for (int j = 0; j < CK; ++j) {
       const int c = tx + 16 * j;
       const int kj = k0 + c;
       const bool ok = qi < Sq && kj < Skv && (!causal || kj <= qa) &&
@@ -653,8 +673,10 @@ __device__ __forceinline__ void bwd_tile_scores(const float* sQ, const float* sO
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  // sK, sV, sQ, sO [64][D+1]; sP, sS [64][65]; sL, sD [64]
-  return sizeof(float) * (4 * 64 * (size_t)(D + 1) + 2 * 64 * (BKV + 1) + 2 * 64);
+  // sK, sV [64][D+1]; sQ, sO [QR][D+1]; sP, sS [QR][65]; sL, sD [QR]
+  constexpr size_t QR = F32BwdPlan<D>::QR;
+  return sizeof(float) * (2 * 64 * (size_t)(D + 1) + 2 * QR * (D + 1) + 2 * QR * (BKV + 1) +
+                          2 * QR);
 }
 
 template <typename T, int D>
@@ -663,16 +685,17 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 int Sq, int Skv, int H, int K, int causal, int window, float scale) {
+  constexpr int QR = F32BwdPlan<D>::QR;   // q rows a staged tile
   constexpr int DP = D + 1, PP = BKV + 1, DPT = D / 16;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + 64 * DP;
   float* sQ = sV + 64 * DP;
-  float* sO = sQ + 64 * DP;
-  float* sP = sO + 64 * DP;
-  float* sS = sP + 64 * PP;
-  float* sL = sS + 64 * PP;
-  float* sD = sL + 64;
+  float* sO = sQ + QR * DP;
+  float* sP = sO + QR * DP;
+  float* sS = sP + QR * PP;
+  float* sL = sS + QR * PP;
+  float* sD = sL + QR;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
@@ -697,22 +720,22 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const T* ob = dout + (size_t)b * Sq * q_stride + (size_t)h * D;
     const float* lb = lse + ((size_t)b * H + h) * Sq;
     const float* db = delta + ((size_t)b * H + h) * Sq;
-    for (int q0 = (qi_lo / BQ) * BQ; q0 <= qi_hi; q0 += BQ) {
+    for (int q0 = (qi_lo / QR) * QR; q0 <= qi_hi; q0 += QR) {
       __syncthreads();   // the previous tile's sQ, sO, sP, sS are read
-      stage<T, D>(sQ, qb, q_stride, q0, Sq, tid);
-      stage<T, D>(sO, ob, q_stride, q0, Sq, tid);
-      if (tid < 64) {
+      stage<T, D, QR>(sQ, qb, q_stride, q0, Sq, tid);
+      stage<T, D, QR>(sO, ob, q_stride, q0, Sq, tid);
+      if (tid < QR) {
         sL[tid] = q0 + tid < Sq ? lb[q0 + tid] : 0.f;
         sD[tid] = q0 + tid < Sq ? db[q0 + tid] : 0.f;
       }
       __syncthreads();
-      bwd_tile_scores<D>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, Skv, offset, causal,
-                         window, scale, tx, ty);
+      bwd_tile_scores<D, QR, BKV>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, Sq, Skv, offset,
+                                  causal, window, scale, tx, ty);
       __syncthreads();
-      // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows; this thread owns
+      // dV += P^T dO and dK += dS^T Q over the tile's QR q rows; this thread owns
       // kv rows ty*4+a and columns tx+16e
 #pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
+      for (int r = 0; r < QR; ++r) {
         float pv[RPT], sv[RPT], ov[DPT], qv[DPT];
 #pragma unroll
         for (int a = 0; a < RPT; ++a) {
@@ -751,8 +774,9 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // sQ, sO, sK, sV [64][D+1]; sS [64][65]; sL, sD [64]
-  return sizeof(float) * (4 * 64 * (size_t)(D + 1) + 64 * (BKV + 1) + 2 * 64);
+  // sQ, sO [64][D+1]; sK, sV [KR][D+1]; sS [64][KR+1]; sL, sD [64]
+  constexpr size_t KR = F32BwdPlan<D>::KR;
+  return sizeof(float) * (2 * 64 * (size_t)(D + 1) + 2 * KR * (D + 1) + 64 * (KR + 1) + 2 * 64);
 }
 
 template <typename T, int D>
@@ -761,13 +785,14 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int H,
               int K, int causal, int window, float scale) {
-  constexpr int DP = D + 1, PP = BKV + 1, DPT = D / 16;
+  constexpr int KR = F32BwdPlan<D>::KR;   // kv rows a staged tile
+  constexpr int DP = D + 1, PP = KR + 1, DPT = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sO = sQ + 64 * DP;
   float* sK = sO + 64 * DP;
-  float* sV = sK + 64 * DP;
-  float* sS = sV + 64 * DP;
+  float* sV = sK + KR * DP;
+  float* sS = sV + KR * DP;
   float* sL = sS + 64 * PP;
   float* sD = sL + 64;
 
@@ -797,17 +822,17 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int kv_hi = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
 
-  for (int k0 = (kv_lo / BKV) * BKV; k0 < kv_hi; k0 += BKV) {
+  for (int k0 = (kv_lo / KR) * KR; k0 < kv_hi; k0 += KR) {
     __syncthreads();   // sQ, sO are written / the previous tile's sK, sS are read
-    stage<T, D>(sK, kb, kv_stride, k0, Skv, tid);
-    stage<T, D>(sV, vb, kv_stride, k0, Skv, tid);
+    stage<T, D, KR>(sK, kb, kv_stride, k0, Skv, tid);
+    stage<T, D, KR>(sV, vb, kv_stride, k0, Skv, tid);
     __syncthreads();
-    bwd_tile_scores<D>(sQ, sO, sK, sV, sL, sD, nullptr, sS, q0, k0, Sq, Skv, offset, causal,
-                       window, scale, tx, ty);
+    bwd_tile_scores<D, BQ, KR>(sQ, sO, sK, sV, sL, sD, nullptr, sS, q0, k0, Sq, Skv, offset,
+                               causal, window, scale, tx, ty);
     __syncthreads();
-    // dQ += dS K over the tile's 64 kv rows; rows ty*4+i, columns tx+16e
+    // dQ += dS K over the tile's KR kv rows; rows ty*4+i, columns tx+16e
 #pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
+    for (int c = 0; c < KR; ++c) {
       float sv[RPT], kv[DPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) sv[i] = sS[(ty * RPT + i) * PP + c];
@@ -833,6 +858,46 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // ------------------------------------------------------- backward, bf16: tensor cores
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The bf16 backward's plan for a head dim. D <= 128: the plan described above.
+// D = 256 (gemma3): a warp's dK and dV accumulators for its 16 kv rows would be 256
+// f32 registers a thread, past the 255-register limit before any other value, so
+// - dK/dV pass (SPLIT, bwd_dkdv_split_bf16_kernel): 8 warps a block, the 64-row kv
+//   tile cut into the same four 16-row strips; warps 0-3 accumulate dK of theirs
+//   and warps 4-7 dV, each in one 128-register accumulator. A dK warp computes S^T
+//   and dP^T, a dV warp S^T again: 5 tile products in the pass instead of 4 (8 in
+//   the backward instead of 7, 14% more mma work), against the 6 that splitting
+//   dK's and dV's columns between warps would take (S^T and dP^T in each half) and
+//   the shared-memory exchange of partial S^T and dP^T that splitting the
+//   contraction would need. The eight warps share the block's K, V and two stages
+//   of Q, dO, lse and delta (203,776 bytes at D = 256): each tile is read from
+//   device memory once for both accumulators, one block (8 warps) an SM. Each
+//   warp runs a body compiled for its role, so a dV warp holds no dP^T or dS^T:
+//   with one body for both roles, ptxas spilled 136 bytes at 255 registers; with
+//   the two, 255 and no spill. Taking the q tile 16 columns a pass instead of 32
+//   also fits, but ran 7-9% slower (0.708 against 0.660 ms at B=1, S=2048, H=16,
+//   K=8, causal; 0.658 against 0.606 with the window: `chip_smoke.py
+//   --k1-bwd-against` on an H100 80GB HBM3 at 700 W). It is a kernel of its own:
+//   the D <= 128 kernel, given the roles as a template parameter, grew by 336
+//   instructions at D = 128 and ran 3% slower; kept apart, its code is as it was.
+// - dQ pass: the forward's answer (`TcPlan`): 32-row kv tiles, so S and dP are 16 +
+//   16 registers beside dQ's 128 (ptxas: 244, no spill); Q's and dO's fragments are
+//   read from shared memory at each k-step, as at every D. Q, dO and two stages of
+//   32-row K and V take 135,168 bytes, one 4-warp block an SM (the launch bound's
+//   2 blocks hold for D <= 128 only; at 128 threads it caps no register). 16-row
+//   kv tiles (101,376 bytes, two blocks an SM; ptxas: 239, no spill) ran 4% faster
+//   causal but 2.5% slower with the window (0.627 against 0.656 ms and 0.617
+//   against 0.602 at B=1, S=2048, H=16, K=8, the whole backward: `chip_smoke.py
+//   --k1-bwd-against` on an H100 80GB HBM3 at 700 W); gemma3 runs five windowed
+//   layers to one causal, so 32 rows stay.
+// At gemma3-12b's training shape both passes together take 0.657 ms causal and
+// 0.608 with the window (7.6x and 9.3x the bound; SDPA's backward on cuDNN 0.362
+// without a mask, 0.947 with the band mask); in the training step the dK/dV pass
+// takes 375 us, the dQ pass 227 (an H100 80GB HBM3 at 700 W, chip_smoke.py).
+template <int D> struct BwdPlan {
+  static constexpr bool SPLIT = D > 128;          // dK/dV pass: bwd_dkdv_split_bf16_kernel
+  static constexpr int BN = D > 128 ? 32 : 64;    // dQ pass: kv rows a tile
+};
+
 template <int D>
 constexpr size_t dkdv_tc_smem_bytes() {
   // sK, sV [BKV][D+8], sQ, sO [2][BQ][D+8] bf16; sL, sDl [2][BQ] f32
@@ -841,8 +906,8 @@ constexpr size_t dkdv_tc_smem_bytes() {
 
 template <int D>
 constexpr size_t dq_tc_smem_bytes() {
-  // sQ, sO [BQ][D+8], sK, sV [2][BKV][D+8] bf16
-  return sizeof(__nv_bfloat16) * 6 * 64 * (size_t)(D + 8);
+  // sQ, sO [BQ][D+8], sK, sV [2][BN][D+8] bf16
+  return sizeof(__nv_bfloat16) * (2 * BQ + 4 * BwdPlan<D>::BN) * (size_t)(D + 8);
 }
 
 template <int D>
@@ -1024,6 +1089,205 @@ bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// The dK/dV pass of the SPLIT plan (`BwdPlan`): 8 warps a block over one 64-row kv
+// tile; warps 0-3 accumulate dK of the four 16-row strips and warps 4-7 dV, each in
+// one accumulator. Loads, masks and roundings are those of bwd_dkdv_bf16_kernel;
+// each warp runs the half of its q-tile loop that its accumulator needs.
+template <int D>
+__global__ void __launch_bounds__(2 * TC_THREADS, 1)
+bwd_dkdv_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int Sq, int Skv, int H, int K, int causal, int window,
+                           float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int NTHREADS = 2 * TC_THREADS;
+  constexpr int RS = D + 8;   // padded smem row, bf16 elements
+  constexpr int KS = D / 16;  // k-steps of K Q^T and V dO^T
+  constexpr int NT = D / 8;   // n-tiles of dK and dV
+  constexpr int QC = 32;      // q columns of a tile a pass
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + BKV * RS;
+  __nv_bfloat16* sQ = sV + BKV * RS;       // [2][BQ][RS]
+  __nv_bfloat16* sO = sQ + 2 * BQ * RS;    // dO, [2][BQ][RS]
+  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * RS);   // lse [2][BQ]
+  float* sDl = sL + 2 * BQ;                                  // delta [2][BQ]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int strip = warp % 4;          // this warp's 16 kv rows of the tile
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;     // the first kv tiles see the most causal q tiles
+  const int group = H / K, offset = Skv - Sq;
+  const float sl2 = scale * LOG2E;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+
+  // q rows that see at least one kv row of this tile: [qi_lo, qi_hi]; the loop
+  // walks (q head of the group, q tile) pairs, head-major
+  const int k_last = min(k0 + BKV, Skv) - 1;
+  const int qi_lo = causal ? max(0, k0 - offset) : 0;
+  const int qi_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - offset) : Sq - 1;
+  const int qt_lo = qi_lo / BQ;
+  const int n_qt = qi_hi >= qi_lo ? qi_hi / BQ - qt_lo + 1 : 0;
+  const int n_it = group * n_qt;
+
+  // Q, dO, lse and delta of step `it` into stage `buf`; rows past Sq are zero
+  auto load_q = [&](int it, int buf) {
+    const int h = kvh * group + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    tile_async<D, BQ, NTHREADS>(sQ + buf * BQ * RS,
+                                q + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0,
+                                Sq, tid);
+    tile_async<D, BQ, NTHREADS>(sO + buf * BQ * RS,
+                                dout + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride,
+                                q0, Sq, tid);
+    if (tid < 2 * BQ) {                // threads 0..63 load lse, 64..127 delta
+      const int r = tid % BQ;
+      const bool ok = q0 + r < Sq;
+      const float* src = (tid < BQ ? lse : delta) + ((size_t)b * H + h) * Sq;
+      tc::cp_async4((tid < BQ ? sL : sDl) + buf * BQ + r, src + (ok ? q0 + r : 0), ok);
+    }
+  };
+
+  tile_async<D, BKV, NTHREADS>(sK, kb, kv_stride, k0, Skv, tid);
+  tile_async<D, BKV, NTHREADS>(sV, vb, kv_stride, k0, Skv, tid);
+  if (n_it > 0) load_q(0, 0);
+  tc::cp_async_commit();
+  if (n_it > 1) load_q(1, 1);
+  tc::cp_async_commit();
+
+  // dK (warps 0-3) or dV (warps 4-7) of this warp's strip
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // One q tile for this warp: DK, S^T and dP^T, then acc += dS^T Q; else S^T, then
+  // acc += P^T dO. The q tile is taken QC columns at a time to fit the registers.
+  auto tile = [&](auto role, const __nv_bfloat16* cQ, const __nv_bfloat16* cO,
+                  const float* cL, const float* cD, int q0, bool need_mask) {
+    constexpr bool DK = decltype(role)::value;
+    constexpr int SN = QC / 8;    // n-tiles of S^T and dP^T
+#pragma unroll
+    for (int part = 0; part < BQ / QC; ++part) {
+      const int c0 = QC * part;   // q columns c0 .. c0+QC-1 of the tile
+      // S^T = K Q^T (and dP^T = V dO^T): this warp's 16 kv rows x QC q columns
+      float s[SN][4], dp[DK ? SN : 1][4];
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = 0.f;
+          if constexpr (DK) dp[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kf[4], vf[4];
+        const int a_off = (16 * strip + (lane % 8) + 8 * ((lane / 8) % 2)) * RS + 16 * ks +
+                          8 * (lane / 16);
+        tc::ldsm_x4(kf, sK + a_off);
+        if constexpr (DK) tc::ldsm_x4(vf, sV + a_off);
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t qf[4], of[4];
+          const int b_off = (c0 + 16 * np + (lane % 8) + 8 * (lane / 16)) * RS + 16 * ks +
+                            8 * ((lane / 8) % 2);
+          tc::ldsm_x4(qf, cQ + b_off);
+          if constexpr (DK) tc::ldsm_x4(of, cO + b_off);
+          tc::mma(s[2 * np], kf, qf[0], qf[1]);
+          tc::mma(s[2 * np + 1], kf, qf[2], qf[3]);
+          if constexpr (DK) {
+            tc::mma(dp[2 * np], vf, of[0], of[1]);
+            tc::mma(dp[2 * np + 1], vf, of[2], of[3]);
+          }
+        }
+      }
+
+      // P^T (dS^T) on the accumulators (kv row 16 strip + g + 8(e/2), q column
+      // c0 + 8n + 2t + e%2), rounded once to bf16 A fragments over the q columns
+      uint32_t af[SN / 2][4];
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+        const int c = c0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(cL + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(cD + c);
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if (need_mask) {
+            const int kj = k0 + 16 * strip + g + 8 * (e >> 1);
+            const int qi = q0 + c + (e & 1);
+            const int qa = qi + offset;
+            ok = qi < Sq && kj < Skv && (!causal || kj <= qa) && (window <= 0 || qa - kj < window);
+          }
+          const float l = (e & 1) ? l2.y : l2.x;
+          const float p = ok ? exp2f(fmaf(s[n][e], sl2, -l * LOG2E)) : 0.f;
+          if constexpr (DK) {
+            x[e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+          } else {
+            x[e] = p;
+          }
+        }
+        af[n / 2][2 * (n % 2)] = tc::pack(x[0], x[1]);
+        af[n / 2][2 * (n % 2) + 1] = tc::pack(x[2], x[3]);
+      }
+
+      // acc += dS^T Q (DK) or P^T dO over the part's QC q rows
+      const __nv_bfloat16* cB = DK ? cQ : cO;
+#pragma unroll
+      for (int ks = 0; ks < QC / 16; ++ks) {
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t bf[4];
+          tc::ldsm_x4_t(bf, cB + (c0 + 16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * RS +
+                                16 * nd + 8 * (lane / 16));
+          tc::mma(acc[2 * nd], af[ks], bf[0], bf[1]);
+          tc::mma(acc[2 * nd + 1], af[ks], bf[2], bf[3]);
+        }
+      }
+    }
+  };
+
+  for (int it = 0; it < n_it; ++it) {
+    tc::cp_async_wait<1>();
+    __syncthreads();  // this step's Q, dO, lse, delta (and on the first, K and V) have landed
+    const int buf = it & 1;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const bool need_mask = q0 + BQ > Sq || k0 + BKV > Skv ||
+                           (causal && k0 + BKV - 1 > q0 + offset) ||
+                           (window > 0 && q0 + BQ - 1 + offset - k0 >= window);
+    const __nv_bfloat16* cQ = sQ + buf * BQ * RS;
+    const __nv_bfloat16* cO = sO + buf * BQ * RS;
+    if (warp < 4)
+      tile(std::true_type{}, cQ, cO, sL + buf * BQ, sDl + buf * BQ, q0, need_mask);
+    else
+      tile(std::false_type{}, cQ, cO, sL + buf * BQ, sDl + buf * BQ, q0, need_mask);
+
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (it + 2 < n_it) load_q(it + 2, buf);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<0>();
+
+  __nv_bfloat16* out = (warp < 4 ? dk : dv) + (size_t)b * Skv * kv_stride + (size_t)kvh * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + 16 * strip + g + 8 * r;
+    if (kj >= Skv) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(out + (size_t)kj * kv_stride + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) row[4 * n] = tc::pack(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -1032,15 +1296,17 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
                    __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int K, int causal,
                    int window, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int BN = BwdPlan<D>::BN;   // kv rows a tile
   constexpr int RS = D + 8;   // padded smem row, bf16 elements
   constexpr int KS = D / 16;  // k-steps of Q K^T and dO V^T
   constexpr int NT = D / 8;   // n-tiles of dQ
+  constexpr int SN = BN / 8;  // n-tiles of S and dP
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sO = sQ + BQ * RS;        // dO
-  __nv_bfloat16* sK = sO + BQ * RS;        // [2][BKV][RS]
-  __nv_bfloat16* sV = sK + 2 * BKV * RS;   // [2][BKV][RS]
+  __nv_bfloat16* sK = sO + BQ * RS;        // [2][BN][RS]
+  __nv_bfloat16* sV = sK + 2 * BN * RS;    // [2][BN][RS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1059,19 +1325,19 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int q_last = min(q0 + BQ, Sq) - 1 + offset;
   const int kv_hi = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int t_lo = kv_lo / BKV;
-  const int n_tiles = kv_hi > 0 ? (kv_hi + BKV - 1) / BKV - t_lo : 0;
+  const int t_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > 0 ? (kv_hi + BN - 1) / BN - t_lo : 0;
 
   tile_async<D>(sQ, q + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
   tile_async<D>(sO, dout + (size_t)b * Sq * q_stride + (size_t)h * D, q_stride, q0, Sq, tid);
   if (n_tiles > 0) {
-    tile_async<D>(sK, kb, kv_stride, t_lo * BKV, Skv, tid);
-    tile_async<D>(sV, vb, kv_stride, t_lo * BKV, Skv, tid);
+    tile_async<D, BN>(sK, kb, kv_stride, t_lo * BN, Skv, tid);
+    tile_async<D, BN>(sV, vb, kv_stride, t_lo * BN, Skv, tid);
   }
   tc::cp_async_commit();
   if (n_tiles > 1) {
-    tile_async<D>(sK + BKV * RS, kb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
-    tile_async<D>(sV + BKV * RS, vb, kv_stride, (t_lo + 1) * BKV, Skv, tid);
+    tile_async<D, BN>(sK + BN * RS, kb, kv_stride, (t_lo + 1) * BN, Skv, tid);
+    tile_async<D, BN>(sV + BN * RS, vb, kv_stride, (t_lo + 1) * BN, Skv, tid);
   }
   tc::cp_async_commit();
 
@@ -1093,14 +1359,14 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     tc::cp_async_wait<1>();
     __syncthreads();  // this tile (and on the first pass Q and dO) has landed
     const int buf = it & 1;
-    const int k0 = (t_lo + it) * BKV;
-    const __nv_bfloat16* cK = sK + buf * BKV * RS;
-    const __nv_bfloat16* cV = sV + buf * BKV * RS;
+    const int k0 = (t_lo + it) * BN;
+    const __nv_bfloat16* cK = sK + buf * BN * RS;
+    const __nv_bfloat16* cV = sV + buf * BN * RS;
 
-    // S = Q K^T and dP = dO V^T: 16 q rows x 64 kv columns per warp
-    float s[8][4], dp[8][4];
+    // S = Q K^T and dP = dO V^T: 16 q rows x BN kv columns per warp
+    float s[SN][4], dp[SN][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < SN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
@@ -1111,7 +1377,7 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       tc::ldsm_x4(qf, sQ + a_off);
       tc::ldsm_x4(of, sO + a_off);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < SN / 2; ++np) {
         uint32_t kf[4], vf[4];
         const int b_off = (16 * np + (lane % 8) + 8 * (lane / 16)) * RS + 16 * ks +
                           8 * ((lane / 8) % 2);
@@ -1126,11 +1392,11 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
     // dS on the accumulators (q row 16w + g + 8(e/2), kv column k0 + 8n + 2t + e%2),
     // rounded once to bf16 A fragments over the kv columns
-    const bool need_mask = k0 + BKV > Skv || (causal && k0 + BKV - 1 > q_first) ||
+    const bool need_mask = k0 + BN > Skv || (causal && k0 + BN - 1 > q_first) ||
                            (window > 0 && k0 <= q_last - window);
-    uint32_t df[4][4];
+    uint32_t df[SN / 2][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < SN; ++n) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1149,7 +1415,7 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
     // dQ += dS K, K's B fragments through ldmatrix.trans
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < BN / 16; ++ks) {
 #pragma unroll
       for (int nd = 0; nd < NT / 2; ++nd) {
         uint32_t kf[4];
@@ -1162,8 +1428,8 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
     __syncthreads();  // every warp is done with this stage before it is refilled
     if (it + 2 < n_tiles) {
-      tile_async<D>(sK + buf * BKV * RS, kb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
-      tile_async<D>(sV + buf * BKV * RS, vb, kv_stride, (t_lo + it + 2) * BKV, Skv, tid);
+      tile_async<D, BN>(sK + buf * BN * RS, kb, kv_stride, (t_lo + it + 2) * BN, Skv, tid);
+      tile_async<D, BN>(sV + buf * BN * RS, vb, kv_stride, (t_lo + it + 2) * BN, Skv, tid);
     }
     tc::cp_async_commit();
   }
@@ -1214,12 +1480,22 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const v
   if (err != cudaSuccess) return err;
 
   constexpr size_t kv_smem = dkdv_tc_smem_bytes<D>();
-  err = cudaFuncSetAttribute(bwd_dkdv_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_bf16_kernel<D><<<dim3(K, B, (Skv + BKV - 1) / BKV), TC_THREADS, kv_smem, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H,
-      K, causal, window, scale);
+  const dim3 kv_grid(K, B, (Skv + BKV - 1) / BKV);
+  if constexpr (BwdPlan<D>::SPLIT) {
+    err = cudaFuncSetAttribute(bwd_dkdv_split_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+    if (err != cudaSuccess) return err;
+    bwd_dkdv_split_bf16_kernel<D><<<kv_grid, 2 * TC_THREADS, kv_smem, stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv,
+        H, K, causal, window, scale);
+  } else {
+    err = cudaFuncSetAttribute(bwd_dkdv_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+    if (err != cudaSuccess) return err;
+    bwd_dkdv_bf16_kernel<D><<<kv_grid, TC_THREADS, kv_smem, stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv,
+        H, K, causal, window, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -1310,6 +1586,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch_bwd_dtype<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 80: return (int)launch_bwd_dtype<80>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 128: return (int)launch_bwd_dtype<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 256: return (int)launch_bwd_dtype<256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -398,8 +398,10 @@ qk_norm_rope_kernel(QkArgs<T> a) {
 // there: each f32 term carries ~7e-8 of its size in rounding, which adds up to
 // ~2.5e-5 over 131,072 rows, in the products as much as in the adds. So their row
 // math is f64 wherever dw reads it: the row's sum of squares, rstd, each dy x rstd
-// term and every partial sum (dx keeps f32, as the forward; its bits are those of
-// the earlier two-launch design). For bf16 the same f32 error is ~1e-4 of the
+// term, qk_norm_rope's RoPE transpose of dy (taken in f32, it put dq_scale past
+// the gate near zero at 4 x 2048 tokens of qwen3's q on some draws of the inputs)
+// and every partial sum (dx keeps f32, as the forward; its bits are those of the
+// earlier two-launch design). For bf16 the same f32 error is ~1e-4 of the
 // bf16 rounding of dw and of its 2e-2 gate, while the f32 -> f64 conversions (two
 // an element, at 16 an SM a clock) and f64 shared-memory traffic were the costliest
 // steps of the pass; so bf16 takes the row's sum of squares, rstd (rsqrtf, as the
@@ -826,9 +828,11 @@ qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr, Fold fold_) {
           for (int k = 0; k < VEC; ++k) d[v][k] = 0.f;
         }
       }
-      // RoPE's transpose: first half d1 cos + d2 sin, second half d2 cos - d1 sin
+      // RoPE's transpose: first half d1 cos + d2 sin, second half d2 cos - d1 sin;
+      // dw's terms take it in Acc (f64 for f32 inputs: see above), dx in f32
       const int base = tt * hh;
       float du[NV][VEC];
+      Acc duw[NV][VEC];
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int i = v * tpr + lane;
@@ -846,6 +850,12 @@ qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr, Fold fold_) {
           }
           const float own_c = __fmul_rn(d[v][k], cs), other_s = __fmul_rn(partner, sn);
           du[v][k] = round_to<T>(first ? __fadd_rn(own_c, other_s) : __fsub_rn(own_c, other_s));
+          if constexpr (sizeof(Acc) == sizeof(double)) {
+            const double oc = (double)d[v][k] * cs, os = (double)partner * sn;
+            duw[v][k] = first ? oc + os : oc - os;
+          } else {
+            duw[v][k] = du[v][k];
+          }
         }
       }
       float xf[NV][VEC];
@@ -881,7 +891,7 @@ qk_norm_rope_bwd_kernel(QkArgs<T> a, QkGrad<T> gr, Fold fold_) {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           o[k] = rstd * du[v][k] * w[k] - xf[v][k] * coef;
-          if (live) mine[k * nvec + i] += (Acc)du[v][k] * xf[v][k] * rstd_a;
+          if (live) mine[k * nvec + i] += duw[v][k] * xf[v][k] * rstd_a;
         }
         if (live) put16(dx, (long long)row * nvec + i, pack<T>(o));
       }

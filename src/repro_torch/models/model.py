@@ -208,6 +208,12 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family arrives with "
                 f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
+        period = _period(cfg)
+        if cfg.family == "dense" and cfg.num_layers % period:
+            raise ValueError(
+                f"{cfg.name}: num_layers {cfg.num_layers} must be a multiple of the "
+                f"local:global period {period} (the dense stack runs whole groups of "
+                f"{period} layers, as the JAX package's _grouped asserts)")
         self.cfg = cfg
         self.device = devices.resolve(device)
 

@@ -1,16 +1,18 @@
 """Trainer: the training loop of the PyTorch port on one card, twin of
 ``repro.runtime.train_loop`` in its "sync" mode (one synchronous step per
 batch). ``mode="local_sgd"`` is not ported yet (ROADMAP, "Modules to port",
-item 7) and raises.
+the local SGD item) and raises.
 
 Deterministic restart: checkpoint = (train state, data step, seed); the data
 pipeline is a pure function of step, so kill/restore resumes exactly. The
 checkpoint is the JAX package's on-disk format.
 
 The train step updates the state in place (``optim/adamw.py``), so ``rebind``
-cannot hand back the initial tree as the JAX package does: the trainer keeps a
-pristine copy of the initial params (the initial optimizer state is a function
-of them) and rebuilds the state from it.
+cannot hand back the initial tree as the JAX package does: it draws the initial
+params again from the seed (``init_params`` is a pure function of the config,
+the seed and the device) and rebuilds the state from them (the initial optimizer
+state is a function of the params). No second copy of the params is kept on the
+card: at gemma3-12b's width one would take 6.25 GiB.
 """
 from __future__ import annotations
 
@@ -25,10 +27,9 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.local_sgd import LocalSGDConfig
 from repro_torch.runtime.telemetry import MetricsLog, StepTimer
-from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -63,17 +64,13 @@ class TrainJobConfig:
         return cls(**{k: v for k, v in payload.items() if k in known})
 
 
-def _copy(params: dict) -> dict:
-    return tree_map(lambda t: t.detach().clone(), params)
-
-
 class Trainer:
     def __init__(self, cfg: TrainJobConfig,
                  on_checkpoint: Optional[Callable[[int, str], None]] = None):
         if cfg.mode == "local_sgd":
             raise NotImplementedError(
                 "Trainer mode 'local_sgd' is not ported yet: ROADMAP, 'Modules to "
-                "port', item 7 (local SGD)")
+                "port', the local SGD item (optim/local_sgd.py and optim/compression.py)")
         if cfg.mode != "sync":
             raise ValueError(f"unknown trainer mode {cfg.mode!r}")
         self.cfg = cfg
@@ -87,8 +84,6 @@ class Trainer:
         self.step = 0
         self.state = init_train_state(self.model, cfg.seed)
         self.step_fn = make_train_step(self.model, cfg.opt, cfg.microbatches)
-        self._init_params = _copy(self.state["params"])
-        self._init_seed = cfg.seed
         self._arm(cfg, on_checkpoint)
 
     def _arm(self, cfg: TrainJobConfig,
@@ -116,11 +111,7 @@ class Trainer:
         # mamba2-2.7b's width (39.6 GB of params, m, v and master) two do not fit
         # on one card together
         self.state = None
-        if cfg.seed != self._init_seed:
-            self._init_params = self.model.init_params(cfg.seed)
-            self._init_seed = cfg.seed
-        params = _copy(self._init_params)
-        self.state = {"params": params, "opt": init_opt_state(params)}
+        self.state = init_train_state(self.model, cfg.seed)
         self.cfg = cfg
         self.step = 0
         self._arm(cfg, on_checkpoint)

@@ -1,10 +1,13 @@
-"""PyTorch port, gemma3 serving slice: the ring-buffer KV cache of the sliding-window
+"""PyTorch port, gemma3 slices: the ring-buffer KV cache of the sliding-window
 layers (``_ring_slice``, ``attend_cache_ring``, the window branch of the decode
 step), K1's plain version at head dim 256, and reduced gemma3-12b's prefill, decode
 steps across the ring's wrap and Server, run on ``device="cpu"`` against the JAX
-package on the same converted params and numpy inputs. Tests marked ``cuda`` hold
-K1's D=256 forward kernel against its plain version on the card and skip without
-one.
+package on the same converted params and numpy inputs; the dense stack's refusal of
+a depth that is not a multiple of the local:global period, as the JAX package's;
+and a train task of reduced gemma3 on the CPU. Tests marked ``cuda`` hold K1's D=256
+forward kernel against its plain version on the card (the backward's D=256 cases are
+in tests/test_torch_train_kernels.py) and check that both directions refuse head dim
+112; they skip without a card.
 
 Tolerances: f32 1e-5 for one decode attention (the JAX and PyTorch einsums sum in
 another order), 1e-4 for model logits and caches (tests/test_torch_model.py's
@@ -25,6 +28,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
+from repro_torch.runtime.step_cache import run_train_task  # noqa: E402
 
 ARCH = "gemma3-12b"
 F32_TOL = 1e-4
@@ -174,12 +178,15 @@ def test_flash_kernel_head_dim_256_vs_plain_on_card(cuda, B, Sq, Skv, H, K, caus
 
 
 @pytest.mark.cuda
-def test_flash_bwd_kernel_refuses_head_dim_256_on_card(cuda):
-    q = torch.zeros((1, 64, 4, 256), dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device=cuda)
-    o, lse = FA.flash_attention_cuda(q, k, k, return_lse=True)
-    with pytest.raises(ValueError, match="gemma3 training slice"):
-        FA.flash_attention_bwd_cuda(q, k, k, o, lse, q)
+def test_flash_kernels_refuse_head_dim_112_on_card(cuda):
+    """zamba2-7b's head dim 112 is built in neither direction yet."""
+    q = torch.zeros((1, 64, 4, 112), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 64, 2, 112), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((1, 4, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="hybrid slice"):
+        FA.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="hybrid slice"):
+        FA.flash_attention_bwd_cuda(q, k, k, q, lse, q)
 
 
 # --------------------------------------------------------------------- the model
@@ -256,3 +263,47 @@ def test_greedy_tokens_match_jax_server(monkeypatch):
         logits, _ = jax.jit(jsv.model.forward)(jsv.params, {"tokens": toks})
         top2 = np.sort(np.asarray(logits[0, -1], np.float32))[-2:]
         assert top2[1] - top2[0] < F32_TOL, (prompt, w, g)
+
+
+# ----------------------------------------------------- depth and the local:global period
+@pytest.mark.parametrize("layers", [7, 12])
+def test_model_takes_only_whole_local_global_groups(layers):
+    """Reduced gemma3 (period 6): 7 layers are refused, naming the period, where the
+    stack would drop the seventh; 12 (two groups) build and run ``forward``."""
+    cfg = dataclasses.replace(tconfigs.get(ARCH).reduced(), num_layers=layers,
+                              dtype="float32")
+    if layers % 6:
+        with pytest.raises(ValueError, match="period 6"):
+            TM.Model(cfg, "cpu")
+        return
+    tm = TM.Model(cfg, "cpu")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 1, 16, 0))
+    logits, _ = tm.forward(tm.init_params(0), {"tokens": toks})
+    assert logits.shape == (1, 16, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert tm.cache_defs(1, 16)["layers"][0]["k"].shape[0] == 2
+
+
+def test_jax_model_refuses_the_same_depth():
+    """The JAX package's dense stack refuses 7 layers of reduced gemma3 as well: its
+    ``_grouped`` asserts whole groups."""
+    jax = _jax()
+    from repro.configs import base as jconfigs
+    from repro.models.model import Model as JModel
+    from repro.parallel.sharding import MeshPlan
+    jm = JModel(dataclasses.replace(jconfigs.get(ARCH).reduced(), num_layers=7,
+                                    dtype="float32", remat="none"),
+                MeshPlan(mesh=_auto_mesh(), fsdp=False))
+    params = jm.init_params(jax.random.PRNGKey(0))
+    toks = jax.numpy.asarray(_tokens(jm.cfg.vocab_size, 1, 16, 0))
+    with pytest.raises(AssertionError):
+        jm.forward(params, {"tokens": toks})
+
+
+# ------------------------------------------------------------------------ training
+def test_train_task_runs_reduced_gemma3_on_cpu():
+    """``run_train_task`` of reduced gemma3 (bf16, 6 layers) on the CPU, over
+    sequences past its window of 64: finite losses, every step run."""
+    res = run_train_task(None, {"arch": ARCH, "seq_len": 80, "global_batch": 2,
+                                "steps": 2, "device": "cpu"})
+    assert res["steps"] == 2 and res["ran_steps"] == 2 and res["resumed_from"] == 0
+    assert np.isfinite(res["loss"])

@@ -186,7 +186,7 @@ def test_every_wrapper_refuses_an_input_that_requires_grad(name):
 
 
 def test_local_sgd_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="the local SGD item"):
         Trainer(TrainJobConfig(mode="local_sgd", device="cpu"))
 
 

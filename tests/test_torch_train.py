@@ -100,30 +100,33 @@ def _f32(t):
 
 
 # ------------------------------------------------------------------------- loss_fn
-# (arch, sequence length, dtype, loss_chunk): qwen3-0.6b, the trained arch, in both
-# dtypes and with the chunked CE; in f32 three more reduced dense archs:
-# gemma3-12b at S=80 past its reduced window of 64, so its five local layers mask
-# what its global layer sees (K1's windowed backward), phi4-mini-3.8b (no
-# qk-norm) and qwen3-32b; mamba2-2.7b, the trained ssm arch, in both dtypes at
-# S=48, past one reduced chunk of 32, so the scan's ragged tail is differentiated
+# (arch, sequence length, dtype, loss_chunk, config overrides): qwen3-0.6b, the
+# trained arch, in both dtypes and with the chunked CE; in f32 three more reduced
+# dense archs: gemma3-12b at S=80 past its reduced window of 64, so its five local
+# layers mask what its global layer sees (K1's windowed backward), also at its
+# real head dim 256, phi4-mini-3.8b (no qk-norm) and qwen3-32b; mamba2-2.7b, the
+# trained ssm arch, in both dtypes at S=48, past one reduced chunk of 32, so the
+# scan's ragged tail is differentiated
 LOSS_CASES = [
-    pytest.param("qwen3-0.6b", 32, "float32", 0, id="float32-0"),
-    pytest.param("qwen3-0.6b", 32, "float32", 8, id="float32-8"),
-    pytest.param("qwen3-0.6b", 32, "bfloat16", 0, id="bfloat16-0"),
-    pytest.param("gemma3-12b", 80, "float32", 0, id="gemma3-12b-float32-0"),
-    pytest.param("phi4-mini-3.8b", 32, "float32", 0, id="phi4-mini-3.8b-float32-0"),
-    pytest.param("qwen3-32b", 32, "float32", 0, id="qwen3-32b-float32-0"),
-    pytest.param("mamba2-2.7b", 48, "float32", 0, id="mamba2-2.7b-float32-0"),
-    pytest.param("mamba2-2.7b", 48, "bfloat16", 0, id="mamba2-2.7b-bfloat16-0"),
+    pytest.param("qwen3-0.6b", 32, "float32", 0, {}, id="float32-0"),
+    pytest.param("qwen3-0.6b", 32, "float32", 8, {}, id="float32-8"),
+    pytest.param("qwen3-0.6b", 32, "bfloat16", 0, {}, id="bfloat16-0"),
+    pytest.param("gemma3-12b", 80, "float32", 0, {}, id="gemma3-12b-float32-0"),
+    pytest.param("gemma3-12b", 80, "float32", 0, {"head_dim": 256},
+                 id="gemma3-12b-head_dim_256-float32-0"),
+    pytest.param("phi4-mini-3.8b", 32, "float32", 0, {}, id="phi4-mini-3.8b-float32-0"),
+    pytest.param("qwen3-32b", 32, "float32", 0, {}, id="qwen3-32b-float32-0"),
+    pytest.param("mamba2-2.7b", 48, "float32", 0, {}, id="mamba2-2.7b-float32-0"),
+    pytest.param("mamba2-2.7b", 48, "bfloat16", 0, {}, id="mamba2-2.7b-bfloat16-0"),
 ]
 
 
-@pytest.mark.parametrize("arch,S,dtype,loss_chunk", LOSS_CASES)
-def test_loss_fn_matches_jax(arch, S, dtype, loss_chunk):
+@pytest.mark.parametrize("arch,S,dtype,loss_chunk,overrides", LOSS_CASES)
+def test_loss_fn_matches_jax(arch, S, dtype, loss_chunk, overrides):
     """Loss and metrics, and (f32) the gradient of every leaf."""
     jax = _jax()
-    jm = _jax_model(arch, dtype=dtype, loss_chunk=loss_chunk)
-    tm = TModel(_cfg(arch, dtype=dtype, loss_chunk=loss_chunk), "cpu")
+    jm = _jax_model(arch, dtype=dtype, loss_chunk=loss_chunk, **overrides)
+    tm = TModel(_cfg(arch, dtype=dtype, loss_chunk=loss_chunk, **overrides), "cpu")
     jp = jm.init_params(jax.random.PRNGKey(2))
     tp = to_torch(_np_tree(jp), "cpu")
     b = _batch(2, S, jm.cfg.vocab_size, seed=1)
@@ -149,13 +152,14 @@ def test_chunked_ce_needs_a_dividing_chunk():
 
 
 # ----------------------------------------------------------------------- train step
-@pytest.mark.parametrize("arch,microbatches", [
-    pytest.param("qwen3-0.6b", 1, id="1"), pytest.param("qwen3-0.6b", 2, id="2"),
-    pytest.param("mamba2-2.7b", 1, id="mamba2-2.7b-1"),
-    pytest.param("mamba2-2.7b", 2, id="mamba2-2.7b-2")])
-def test_train_step_matches_jax(arch, microbatches):
+@pytest.mark.parametrize("arch,microbatches,S", [
+    pytest.param("qwen3-0.6b", 1, 16, id="1"), pytest.param("qwen3-0.6b", 2, 16, id="2"),
+    pytest.param("mamba2-2.7b", 1, 16, id="mamba2-2.7b-1"),
+    pytest.param("mamba2-2.7b", 2, 16, id="mamba2-2.7b-2"),
+    pytest.param("gemma3-12b", 1, 80, id="gemma3-12b-1")])
+def test_train_step_matches_jax(arch, microbatches, S):
     """One step from a converted JAX train state: loss, grad_norm, lr, tokens, and
-    params, m, v, master leaf by leaf."""
+    params, m, v, master leaf by leaf. gemma3 at S=80, past its reduced window."""
     jax = _jax()
     from repro.launch.steps import init_train_state as j_init, make_train_step as j_step
     from repro.optim.adamw import AdamWConfig as JOpt
@@ -163,7 +167,7 @@ def test_train_step_matches_jax(arch, microbatches):
     tm = TModel(_cfg(arch, dtype="float32"), "cpu")
     jstate = j_init(jm, jax.random.PRNGKey(0))
     tstate = train_state_to_torch(_np_tree(jstate), "cpu")
-    b = _batch(4, 16, jm.cfg.vocab_size, seed=3)
+    b = _batch(4, S, jm.cfg.vocab_size, seed=3)
     jnew, jmet = jax.jit(j_step(jm, JOpt(**OPT), microbatches))(jstate, _jbatch(b))
     tnew, tmet = tsteps.make_train_step(tm, tadamw.AdamWConfig(**OPT), microbatches)(
         tstate, _tbatch(b))

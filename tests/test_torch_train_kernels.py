@@ -21,7 +21,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 
 # tests/test_kernels.py's FLASH_SWEEP (GQA, MQA, bidirectional, window, ragged
-# D=80), q shorter than k/v (end-aligned masks), and both at qwen3's head dim
+# D=80), q shorter than k/v (end-aligned masks), both at qwen3's head dim, and
+# gemma3-12b's head dim 256 (causal with a window; Sq < Skv, ragged)
 FLASH_CASES = [
     # B, Sq, Skv, H, K, D, causal, window
     (1, 128, 128, 4, 4, 64, True, 0),
@@ -34,6 +35,8 @@ FLASH_CASES = [
     (2, 17, 80, 4, 1, 32, True, 24),
     (1, 40, 72, 2, 2, 80, False, 0),
     (1, 200, 328, 16, 8, 128, True, 128),    # qwen3's D=128: Sq < Skv, ragged, window
+    (1, 128, 128, 4, 2, 256, True, 32),      # gemma3's D=256: causal, window
+    (1, 40, 100, 4, 2, 256, True, 0),        # D=256: Sq < Skv, ragged
 ]
 # tests/test_kernels.py:test_flash_custom_vjp_matches_autodiff_oracle's gradient
 # tolerance, for f32; bf16 gradients are rounded to bf16 (2^-8 relative), held at
@@ -116,7 +119,7 @@ def test_flash_plain_lse_matches_jax(B, Sq, Skv, H, K, D, causal, window):
     _close(got, want, 2e-5)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES[:3])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES[:3] + FLASH_CASES[-2:])
 def test_flash_bwd_plain_matches_jax_bwd(B, Sq, Skv, H, K, D, causal, window):
     """flash_attention_bwd_plain against _flash_bwd_blocked on the same residuals."""
     pytest.importorskip("jax")
@@ -264,11 +267,22 @@ def test_function_gradcheck_float64(name):
 
 
 # ------------------------------------------------------------------ on the card
+# Besides FLASH_CASES, gemma3-12b's heads at head dim 256 past its window of 1,024
+# and ragged for the 64-row tiles, with and without the window, Sq < Skv with a
+# window, and a bidirectional one (too large for the CPU's jax.vjp tests)
+FLASH_CARD_CASES = FLASH_CASES + [
+    (1, 1100, 1100, 16, 8, 256, True, 0), (1, 1100, 1100, 16, 8, 256, True, 1024),
+    (2, 200, 328, 4, 2, 256, True, 128), (1, 130, 130, 4, 2, 256, False, 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CARD_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, K, D, causal, window,
                                                dtype):
+    """At D=256 f32 runs the CUDA-core design with 32-row tiles, bf16 the
+    tensor-core one (dK and dV on separate warps, 32-row kv tiles in the dQ pass);
+    the forward's LSE, which serving never reads, is the plain version's there too."""
     q, k, v, do = (_torch(a, dtype).to(cuda) for a in _flash_inputs(B, Sq, Skv, H, K, D))
     o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
     _, plse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -289,12 +303,13 @@ def _exact(t):
     return t.double() if t.dtype == torch.float32 else t
 
 
-# Besides the CPU shapes and the training shape, the edges of the kernels' one-launch
-# dscale fold: one row, rows fewer than the blocks, rows not a multiple of a
-# block's (600), and wide rows that take a block each (mamba2's 2560 and 5120).
-NORM_CARD_SHAPES = NORM_SHAPES + [(4, 2048, 1024), (1, 1, 1024), (600, 1024), (2, 3, 2560),
-                                  (1, 5, 5120)]
-QK_CARD_SHAPES = QK_SHAPES + [(4, 2048, 16, 8, 128), (1, 1, 16, 8, 128)]
+# Besides the CPU shapes and the training shapes (qwen3-0.6b's and gemma3-12b's), the
+# edges of the kernels' one-launch dscale fold: one row, rows fewer than the blocks,
+# rows not a multiple of a block's (600), and wide rows that take a block each
+# (mamba2's 2560 and 5120).
+NORM_CARD_SHAPES = NORM_SHAPES + [(4, 2048, 1024), (1, 2048, 3840), (1, 1, 1024), (600, 1024),
+                                  (2, 3, 2560), (1, 5, 5120)]
+QK_CARD_SHAPES = QK_SHAPES + [(4, 2048, 16, 8, 128), (1, 2048, 16, 8, 256), (1, 1, 16, 8, 128)]
 
 
 @pytest.mark.cuda
