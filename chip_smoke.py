@@ -5,26 +5,31 @@
     python3 chip_smoke.py --k1-bwd-against DIR   # only K1's backward against DIR's
     python3 chip_smoke.py --k2-bwd-against DIR   # only K2's backward against DIR's
     python3 chip_smoke.py --k3-bwd-against DIR   # only K3's backward against DIR's
+    python3 chip_smoke.py --sass-against DIR     # only K1's SASS against DIR's
 
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together) into ``build/kernels``, printing each
-     kernel's registers and spills;
+     kernel's registers and spills (K1's bf16 kernels at head dims 112 and 256
+     must be there, none spilling);
   3. hold every kernel against its plain PyTorch version on the card at the
      serving paths' shapes and the test sweeps', in f32 and bf16 (the two
      designs of K1 and K3; K1 at head dim 256 too, with and without a sliding
-     window, at gemma3-12b's prefill shapes), K2 through each of its four entry
-     points (rmsnorm,
+     window, at gemma3-12b's prefill shapes, and at 112, at zamba2-7b's, where it
+     is also timed padded to 128 as the TPU route runs it; K3 at zamba2's too), K2
+     through each of its four entry points (rmsnorm,
      add_rmsnorm, gated_rmsnorm, qk_norm_rope), and the SSD scan on the conv
      output's strided views; time kernel, plain version and the PyTorch library
      call that computes the same function (F.rms_norm, SDPA; none for the fused
      norms and the SSD scan);
   4. serve each model of the port at full width through ``run_serve_task``
      (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
-     qwen3-0.6b (dense: K1, K2), mamba2-2.7b (ssm: K2, K3), then gemma3-12b
+     qwen3-0.6b (dense: K1, K2), mamba2-2.7b (ssm: K2, K3), gemma3-12b
      (dense, 5:1 local:global: K1 at head dim 256 with a 1,024-token window, K2,
-     the ring cache), each with the launch counters set to 0 just before and
+     the ring cache), then zamba2-7b (hybrid, all 81 layers: K3, K2, and K1 at
+     head dim 112 in its shared block), each with the launch counters set to 0
+     just before and
      read just after, and the previous server released first. Then check
      prefill + one decode step against ``forward`` at full width (f32 to 1e-4
      at every layer, gemma3 at 6; bf16 at 0.08 at 4 layers, gemma3 at 6; see
@@ -41,7 +46,8 @@ Phases, each failing loudly (nonzero exit):
      (SDPA's and F.rms_norm's backward), K1's at B=1 and at the training shape;
      K1's at head dim 256 too, over the forward's D=256 sweep and at gemma3-12b's
      training shapes (S=2048, with and without the 1,024-token window), timed
-     there beside SDPA's backward (its backend printed);
+     there beside SDPA's backward (its backend printed); at head dim 112 over its
+     sweep and at zamba2-7b's training shape (S=2048, H=K=32), timed there;
      then the ssm slice's (K3's backward on the SSD sweep, its own shapes and
      the training shape, with and without init_state and d(final state), on the
      conv output's views too; gated_rmsnorm's), timed at mamba2-2.7b's training
@@ -50,7 +56,8 @@ Phases, each failing loudly (nonzero exit):
      grad_norm, m, master; every leaf gets a nonzero gradient): qwen3-0.6b and
      mamba2-2.7b at full width, 2 layers; gemma3-12b at its attention shape
      (16 q / 8 kv heads of 256, window 1,024), 6 layers, with d_model, d_ff and
-     the vocabulary narrowed, on 1,100 tokens;
+     the vocabulary narrowed, on 1,100 tokens; zamba2-7b at its attention shape
+     (32 heads of 112), 9 layers (one group and the tail), narrowed so, on 600;
   7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
      (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
      counters set to 0 just before and read just after; evaluate it through a
@@ -64,11 +71,13 @@ Phases, each failing loudly (nonzero exit):
      strict eval-task restore at full width and 4 layers (a 64-layer save is
      ~39.6 GB);
   9. train gemma3-12b at full width, cut to one local:global group of 6 layers,
+     then zamba2-7b at full width, cut to two groups and the tail (15 layers),
      bf16, through ``run_train_task`` (2 steps of one 2,048-token sequence), the
-     counters read around it (every K1 and K2 entry, exactly so many a layer a
-     step); time 3 warm steps and profile one (each of K1's backward kernels at
-     head dim 256 once a layer, no other K1 backward kernel). No checkpointed
-     task: a 6-layer save is ~47 GB, and the task code is the same as qwen3's.
+     counters read around it (every K1, K2 and K3 entry, exactly so many a step);
+     time 3 warm steps and profile one (each of K1's backward kernels at the
+     path's head dim, 256 or 112, once an attention layer, no other K1 backward
+     kernel). No checkpointed task: saves at these depths are ~22-47 GB, and the
+     task code is the same as qwen3's and mamba2's.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -84,7 +93,9 @@ dx bit-equal; every output of both within the gate), and profiles each design
 once at the training shapes, kernel by kernel. ``--k3-bwd-against DIR`` does the
 same for K3's backward (f32 results bit-equal over the backward sweep; bf16 of both
 within the gate; bf16 times in turns at the training shape; both designs profiled
-by kernel). The flags may be given together.
+by kernel). ``--sass-against DIR`` checks that every kernel of DIR's
+``csrc/flash_attention.cu`` compiles to the same SASS here (``cuobjdump -sass``)
+and names the kernels this checkout adds. The flags may be given together.
 """
 from __future__ import annotations
 
@@ -146,7 +157,11 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
 # 2,629 and 3,459 until the profiler's window was repaired: those counts had lost
 # the call's first kernel, the embedding gather; the same serving code counts 2,630
 # and 3,460 in a whole one. gemma3's were counted on the card when its path was
-# added (a 512-token prefill pads its 40 rings to W; a 2,048-token one takes views).
+# added (a 512-token prefill pads its 40 rings to W; a 2,048-token one takes views),
+# and zamba2-7b's likewise. zamba2-7b (hybrid): 81 mamba2 layers, the shared
+# attention block after every 6th (13 times; K1 at head dim 112, no qk-norm), a
+# tail of 3; its f32 check at every layer (27 GB of f32 params beside 12.6 of
+# bf16), bf16 at one group and the tail (9 layers).
 PATHS = [
     {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": [(2, 64)],
      "check_layers": (None, 4), "deep_prefill_tol": 0.08,
@@ -163,6 +178,11 @@ PATHS = [
      "long_prompt": 2048, "min_launches": {"flash_attention": 48 * 8},
      "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 48, "qk_norm_rope": 48},
      "kernels": {"prefill": 902, "decode": 2_421, "prefill long": 838}},
+    {"arch": "zamba2-7b", "params": 6_750_539_856, "f32_leaves": ("a_log", "dt_bias"),
+     "toks": [(2, 601)], "check_layers": (None, 9), "deep_prefill_tol": None,
+     "min_launches": {"flash_attention": 13 * 8, "ssd_scan": 81 * 8},
+     "per_call": {"rmsnorm": 1, "add_rmsnorm": 80 + 2 * 13 + 1, "gated_rmsnorm": 81},
+     "kernels": {"prefill": 4_255, "decode": 5_687}},
 ]
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -181,11 +201,22 @@ FLASH_256_SWEEP = [(1, 128, 128, 4, 4, True, 0), (2, 256, 256, 4, 2, True, 64),
 # gemma3-12b's prefill attention (B=1, H=16, K=8, D=256, causal): (S, window) of a
 # global layer (0) and a local one (1024), at the served prompt and at 2W
 GEMMA_ATTN = [(512, 0), (512, 1024), (2048, 0), (2048, 1024)]
+# K1 at head dim 112 (zamba2-7b's shared block): B, Sq, Skv, H, K, causal, window.
+# Causal MHA (H = K, as zamba2), GQA 2:1, ragged S (1000), Sq < Skv, not causal,
+# and zamba2's 512-token prefill (its 2,048-token one is ZAMBA_ATTN's and the
+# backward's timed shape)
+FLASH_112_SWEEP = [(1, 256, 256, 4, 4, True, 0), (2, 256, 256, 4, 2, True, 0),
+                   (1, 1000, 1000, 4, 2, True, 0), (1, 96, 200, 4, 2, True, 0),
+                   (2, 40, 130, 4, 4, True, 48), (1, 130, 130, 4, 4, False, 0),
+                   (1, 512, 512, 32, 32, True, 0)]
+# zamba2-7b's prefill attention (B=1, H=K=32, D=112, causal) at S = 512 and 2,048
+ZAMBA_ATTN = [512, 2048]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # K2's check sweep: twins of tests/test_torch_kernels.py's rmsnorm shapes and more
 RMS_SWEEP = [(3, 5, 80), (2, 64, 128), (1, 7, 256), (4, 1, 512), (2, 16, 1024),
-             (4 * 1024, 1024), (1, 2048, 16, 128), (4, 1, 5120)]
+             (4 * 1024, 1024), (1, 2048, 16, 128), (4, 1, 5120), (1, 2048, 3584),
+             (1, 2048, 7168)]
 QWEN3_THETA = 1e6
 # kernel names of K2 in profiler traces (csrc/rmsnorm.cu's two kernels)
 K2_KERNEL_NAMES = ("rows_kernel", "qk_norm_rope_kernel")
@@ -193,6 +224,7 @@ K2_KERNEL_NAMES = ("rows_kernel", "qk_norm_rope_kernel")
 SSD_SWEEP = [(1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32)]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 SSD_MAIN = (1, 512, 80, 64, 128, 256)   # mamba2-2.7b prefill of 512 tokens
+SSD_ZAMBA = (1, 512, 112, 64, 64, 256)  # zamba2-7b prefill of 512 tokens
 
 # training: qwen3-0.6b at full width and depth, bf16, 8,192 tokens a step
 TRAIN = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
@@ -226,6 +258,7 @@ FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # than blocks; rows not a multiple of a block's; wide rows (a block a row); one
 # token of qwen3's q and k
 GEMMA_NORM_BWD, GEMMA_QK_BWD = (1, 2048, 3840), (1, 2048, 16, 8, 256)
+ZAMBA_NORM_BWD = (1, 2048, 3584)     # in RMS_SWEEP, as zamba2's gated (1, 2048, 7168)
 NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), GEMMA_NORM_BWD, (1, 1, 1024), (600, 1024),
                               (2, 3, 2560)]
 QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128),
@@ -261,7 +294,9 @@ SSD_BWD_MAIN = (1, 2048, 80, 64, 128, 256)
 # shapes the backward alone is checked at (tests/test_torch_ssm_train.py:SSD_BWD_SHAPES):
 # a ragged S, H not a multiple of the bf16 design's 10 heads a block, zamba2's N = 64
 SSD_BWD_SHAPES = [(1, 200, 14, 64, 128, 256), (2, 130, 6, 64, 64, 256)]
-SSD_BWD_SWEEP = SSD_SWEEP + SSD_BWD_SHAPES + [SSD_BWD_MAIN]
+# zamba2-7b's training scan: H=112, N=64 over 2,048 tokens
+SSD_BWD_ZAMBA = (1, 2048, 112, 64, 64, 256)
+SSD_BWD_SWEEP = SSD_SWEEP + SSD_BWD_SHAPES + [SSD_BWD_MAIN, SSD_BWD_ZAMBA]
 # gates of K3's backward against the plain version evaluated in f64: relative, plus
 # a share of the gradient's largest element (each element sums S-long runs of terms
 # of that size, in another order and chunking); bf16 within one bf16 rounding of
@@ -271,7 +306,8 @@ SSD_BWD_SWEEP = SSD_SWEEP + SSD_BWD_SHAPES + [SSD_BWD_MAIN]
 # the f64 value, plus the share.
 SSD_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 SSD_DA_TIMES = 4
-# the gated norm's backward: K2's backward sweep and mamba2's training shape
+# the gated norm's backward: K2's backward sweep (zamba2's d_inner 7168 in it) and
+# mamba2's training shape
 GATED_BWD_SWEEP = NORM_BWD_SWEEP + [(1, 2048, 5120)]
 # kernel names of K3's bf16 backward in profiler traces (three launches a call)
 K3_BWD_NAMES = ("ssd_scan_bwd_states", "ssd_scan_bwd_grad", "ssd_scan_bwd_bf16_finish")
@@ -288,7 +324,6 @@ GEMMA_BWD = [(2048, 0), (2048, 1024)]
 # depth off the period is refused), bf16, one sequence of 2,048 tokens (2W) a step
 GEMMA_TRAIN = {"arch": "gemma3-12b", "reduced": False, "seq_len": 2048, "global_batch": 1,
                "microbatches": 1}
-GEMMA_TRAIN_PATH = "gemma3-12b train"
 GEMMA_TRAIN_LAYERS = 6
 GEMMA_TRAIN_PER_STEP = dense_per_step(GEMMA_TRAIN_LAYERS)
 # gemma3's f32 train step on the card against the CPU's: its attention shape (16 q /
@@ -297,6 +332,42 @@ GEMMA_TRAIN_PER_STEP = dense_per_step(GEMMA_TRAIN_LAYERS)
 # tokens, past the window and ragged for 64-row tiles
 GEMMA_PARITY = {"num_layers": 6, "d_model": 512, "d_ff": 1024, "vocab_size": 8192}
 GEMMA_PARITY_SEQ = 1100
+
+
+def hybrid_per_step(layers: int, every: int) -> dict:
+    """K1, K2 and K3 launches in each zamba2 train step of ``layers`` layers with the
+    shared block after every ``every``-th, forward and backward alike (rmsnorm: ln1
+    of layer 0; add_rmsnorm: every other mamba2 layer's ln1, the shared block's two
+    norms, the final norm; K1 once a shared block; no qk-norm)."""
+    G = layers // every
+    per = {"flash_attention": G, "ssd_scan": layers, "gated_rmsnorm": layers, "rmsnorm": 1,
+           "add_rmsnorm": layers - 1 + 2 * G + 1}
+    return {**per, **{f"{name}_bwd": n for name, n in per.items()}}
+
+
+# training zamba2-7b at full width, cut to 15 layers: two groups of 6 mamba2 layers
+# with the shared block after each, and the 3-layer tail (81 layers of state are ~94
+# GB), bf16, one sequence of 2,048 tokens a step
+ZAMBA_TRAIN = {"arch": "zamba2-7b", "reduced": False, "seq_len": 2048, "global_batch": 1,
+               "microbatches": 1}
+ZAMBA_TRAIN_LAYERS = 15
+ZAMBA_TRAIN_PER_STEP = hybrid_per_step(ZAMBA_TRAIN_LAYERS, 6)
+# zamba2's f32 train step on the card against the CPU's: its attention shape (32 heads
+# of 112) over one group and the tail (9 layers), d_model, d_ff and the vocabulary
+# narrowed (d_inner 1024: 16 SSD heads); 600 tokens, past two 256-token chunks and
+# ragged for 64-row tiles
+ZAMBA_PARITY = {"num_layers": 9, "d_model": 512, "d_ff": 1024, "vocab_size": 8192}
+ZAMBA_PARITY_SEQ = 600
+# the train phases cut in depth: job, layers, launches a step, and the head dim and
+# names of K1's backward kernels there
+CUT_TRAINS = {
+    "gemma3-12b train": {"job": GEMMA_TRAIN, "layers": GEMMA_TRAIN_LAYERS,
+                         "per_step": GEMMA_TRAIN_PER_STEP, "head_dim": 256,
+                         "k1_bwd": K1_BWD_256_NAMES},
+    "zamba2-7b train": {"job": ZAMBA_TRAIN, "layers": ZAMBA_TRAIN_LAYERS,
+                        "per_step": ZAMBA_TRAIN_PER_STEP, "head_dim": 112,
+                        "k1_bwd": K1_BWD_NAMES},
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -547,11 +618,13 @@ def phase_build() -> None:
         gated = gated_registers(kernels)
         if gated:
             print(f"    gated kernels, registers (no spill stores): {', '.join(gated)}")
-        if name == "flash_attention":
-            d256 = [g for g in gated if re.match(r"bwd_\w+_bf16_kernel<256> ", g)]
-            check(len(d256) == 2, f"build: K1's bf16 backward kernels at head dim 256 are "
-                  f"not both in the ptxas log: {d256}")
-            print(f"    K1's backward at head dim 256 (no spill): {', '.join(d256)}")
+        if name == "flash_attention":      # forward, dK/dV pass, dQ pass at each
+            for D in (112, 256):
+                at_d = [g for g in gated
+                        if re.match(rf"(bwd_\w+_bf16_kernel|flash_fwd_bf16_kernel)<{D}> ", g)]
+                check(len(at_d) == 3, f"build: K1's three bf16 kernels at head dim {D} are "
+                      f"not all in the ptxas log: {at_d}")
+                print(f"    K1's bf16 kernels at head dim {D} (no spill): {', '.join(at_d)}")
 
 
 def phase_flash(gen) -> dict:
@@ -609,7 +682,10 @@ def phase_flash(gen) -> dict:
                    "replaces": "src/repro/kernels/flash_attention.py:27",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-    row["head_dim_256"] = phase_flash_256(gen, qkv)
+    row["head_dim_256"] = phase_flash_head_dim(
+        gen, qkv, 256, FLASH_256_SWEEP, [(1, S, 16, 8, w) for S, w in GEMMA_ATTN])
+    row["head_dim_112"] = phase_flash_head_dim(
+        gen, qkv, 112, FLASH_112_SWEEP, [(1, S, 32, 32, 0) for S in ZAMBA_ATTN])
     return row
 
 
@@ -630,61 +706,103 @@ def sdpa_kw(S: int, window: int) -> dict:
     return {"attn_mask": band, "enable_gqa": True}
 
 
-def phase_flash_256(gen, qkv) -> list:
-    """K1's forward at head dim 256 against its plain version over its sweep in
-    both dtypes (f32: the CUDA-core design, bf16: the tensor-core one with 32-row kv
-    tiles), then timed at gemma3-12b's prefill shapes beside its bound, its plain
-    version and SDPA (with a boolean band mask where a window applies, which takes
-    SDPA off its flash backend; the backend it ran is printed). Returns one entry
-    per shape of GEMMA_ATTN."""
+def phase_flash_head_dim(gen, qkv, D: int, sweep: list, timed: list) -> list:
+    """K1's forward at head dim D against its plain version over ``sweep`` in both
+    dtypes (f32: the CUDA-core design; bf16: the tensor-core one, at 256 with 32-row
+    kv tiles), then at each (B, S, H, K, window) of ``timed`` (causal) in both dtypes
+    and timed there in bf16 beside its bound, its plain version and SDPA (with a
+    boolean band mask where a window applies, which takes SDPA off its flash
+    backend; the backend it ran is printed). Where D is below 128 it is also timed
+    as the TPU route runs it (``pad_to_128_ms``). Returns one entry per
+    shape of ``timed``."""
     from repro_torch.kernels import flash_attention as FA
-    D = 256
-    for B, Sq, Skv, H, K, causal, window in FLASH_256_SWEEP:
+    for B, Sq, Skv, H, K, causal, window in sweep:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(B, Sq, Skv, H, K, D, dtype)
             got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
             want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
             check(close(got, want, TOL[dtype]),
-                  f"flash D=256 {B, Sq, Skv, H, K, causal, window} {dtype}: max err "
+                  f"flash D={D} {B, Sq, Skv, H, K, causal, window} {dtype}: max err "
                   f"{max_err(got, want)}")
-    print(f"flash_attention D=256: {len(FLASH_256_SWEEP)} sweep cases match in f32 (2e-5) "
+    print(f"flash_attention D={D}: {len(sweep)} sweep cases match in f32 (2e-5) "
           f"and bf16 (2e-2)")
     out = []
-    for S, window in GEMMA_ATTN:
-        B, H, K, dtype = 1, 16, 8, torch.bfloat16
+    for B, S, H, K, window in timed:
+        dtype = torch.bfloat16
         q, k, v = qkv(B, S, S, H, K, D, dtype)
         f32 = [t.float() for t in (q, k, v)]
         got32 = FA.flash_attention_cuda(*f32, window=window)
         want32 = FA.flash_attention_plain(*f32, window=window)
         check(close(got32, want32, TOL[torch.float32]),
-              f"flash D=256 S={S} window={window} f32: max err {max_err(got32, want32)}")
+              f"flash D={D} S={S} window={window} f32: max err {max_err(got32, want32)}")
         got = FA.flash_attention_cuda(q, k, v, window=window)
         want = FA.flash_attention_plain(q, k, v, window=window)
         err = max_err(got, want)
-        check(close(got, want, TOL[dtype]), f"flash D=256 S={S} window={window} bf16: "
+        check(close(got, want, TOL[dtype]), f"flash D={D} S={S} window={window} bf16: "
               f"max err {err}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_kw = sdpa_kw(S, window)
         backend = sdpa_backend(qt, kt, vt, **lib_kw)
         lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
         check(close(lib.transpose(1, 2), want, TOL[dtype]),
-              f"SDPA disagrees with plain at D=256 S={S} window={window}")
+              f"SDPA disagrees with plain at D={D} S={S} window={window}")
         ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v, window=window))
         plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, window=window))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw))
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * B * H * D * attn_pairs(S, S, True, window)
         bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
-        print(f"flash_attention B=1 S={S} H=16 K=8 D=256 bf16 causal window={window}: "
+        entry = {"B": B, "S": S, "H": H, "K": K, "window": window, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms, "library_backend": backend}
+        padded = ""
+        if D < 128:
+            entry.update(pad_to_128(q, k, v, want, window))
+            padded = (f"; padded to 128 as the TPU route runs it: kernel "
+                      f"{entry['pad_to_128_kernel_ms']:.4f} ms on padded inputs, "
+                      f"{entry['pad_to_128_ms']:.4f} ms with the pads and the slice, max abs "
+                      f"err {entry['pad_to_128_max_abs_err']:.3g}")
+        print(f"flash_attention B={B} S={S} H={H} K={K} D={D} bf16 causal window={window}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
               f"({backend}), bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, max abs err "
-              f"{err:.3g} (f32 {max_err(got32, want32):.3g})")
-        out.append({"S": S, "window": window, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "library_backend": backend})
+              f"{err:.3g} (f32 {max_err(got32, want32):.3g}){padded}")
+        out.append(entry)
         del f32, got32, want32
     return out
+
+
+def pad_to_128(q, k, v, want, window: int) -> dict:
+    """K1's forward as the TPU route runs a head dim below 128 (src/repro/kernels/
+    ops.py:148-171): q, k and v zero-padded to 128 outside the kernel, the D=128
+    instance launched through the C entry point with the true dim's scale
+    1/sqrt(D), the output sliced back. Held against ``want`` (the plain version
+    at the true dim) at the bf16 gate; returns its times."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    fn = FA._kernel_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(qp, kp, vp):
+        out = torch.empty_like(qp)
+        err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), B, S, S, H, K,
+                 128, 1, int(window), 1.0 / math.sqrt(D), FA._DTYPE_CODE[q.dtype], stream,
+                 None)
+        check(err == 0, f"flash_attention_fwd at head dim 128 (padded): cudaError {err}")
+        return out
+
+    def padded_call():
+        qp, kp, vp = (F.pad(t, (0, 128 - D)) for t in (q, k, v))
+        return run(qp, kp, vp)[..., :D]
+
+    got = padded_call()
+    check(close(got, want, TOL[q.dtype]), f"flash padded to 128 (D={D}, S={S}): max err "
+          f"{max_err(got, want)}")
+    qp, kp, vp = (F.pad(t, (0, 128 - D)) for t in (q, k, v))
+    return {"pad_to_128_kernel_ms": time_ms(lambda: run(qp, kp, vp)),
+            "pad_to_128_ms": time_ms(padded_call),
+            "pad_to_128_max_abs_err": max_err(got, want)}
 
 
 def phase_rmsnorm(gen) -> list:
@@ -712,19 +830,19 @@ def phase_rmsnorm(gen) -> list:
             lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
             norm_case, RMS_SWEEP,
             [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560),
-             (1, 512, 3840), (4, 1, 3840)],
+             (1, 512, 3840), (4, 1, 3840), (1, 512, 3584), (4, 1, 3584)],
             lambda x, r, sc: (2 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 4 * x.numel(),
             lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
         "add_rmsnorm": (
             RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP,
             [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560), (1, 512, 3840),
-             (4, 1, 3840)],
+             (4, 1, 3840), (1, 512, 3584), (4, 1, 3584)],
             lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 5 * x.numel(), None),
         "gated_rmsnorm": (
             RN.gated_rmsnorm_cuda, RN.gated_rmsnorm_plain, norm_case, RMS_SWEEP,
-            [(1, 512, 5120), (4, 1, 5120)],
+            [(1, 512, 5120), (4, 1, 5120), (1, 512, 7168), (4, 1, 7168)],
             lambda y, z, sc: (3 * y.numel() + sc.numel()) * y.element_size(),
             lambda y, z, sc: 9 * y.numel(), None),
         "qk_norm_rope": (
@@ -808,6 +926,29 @@ def phase_ssd(gen) -> dict:
     held("split 100+156", (torch.cat([y1, y2], dim=1), h2), (y, h), 2e-4)
     print("ssd_scan: sweep (f32, bf16, ragged S, init_state) and split scan match")
 
+    # zamba2-7b's prefill: H=112, N=64. f32 against the plain version in f64: over
+    # a 256-row chunk the plain f32 cumsum of dt * A reaches ~-200, where an f32
+    # ulp is 1.5e-5, which alone can cost the plain f32 version most of the gate
+    # (the kernel's cumsum restarts every 64 rows)
+    zamba = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = inputs(*SSD_ZAMBA[:5], dtype)
+        got = SS.ssd_scan_cuda(*args, chunk=SSD_ZAMBA[5])
+        want = SS.ssd_scan_plain(*(f64(args) if dtype == torch.float32 else args),
+                                 chunk=SSD_ZAMBA[5])
+        held(f"{SSD_ZAMBA} {dtype}", got, want, SSD_TOL[dtype])
+    zamba["max_abs_err"] = max(max_err(g, w) for g, w in zip(got, want))
+    zamba["ms"] = time_ms(lambda: SS.ssd_scan_cuda(*args, chunk=SSD_ZAMBA[5]))
+    zamba["plain_ms"] = time_ms(lambda: SS.ssd_scan_plain(*args, chunk=SSD_ZAMBA[5]))
+    B, S, H, P, N, chunk = SSD_ZAMBA
+    nbytes = (2 * args[0].numel() + args[3].numel() + args[4].numel()) * 2 \
+        + (args[1].numel() + args[2].numel() + B * H * N * P) * 4
+    zamba["bound_ms"], zamba["bound_by"] = bound(nbytes, ssd_flops(*SSD_ZAMBA), PEAK_FLOPS[dtype])
+    print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16 (zamba2-7b): kernel "
+          f"{zamba['ms']:.4f} ms, plain {zamba['plain_ms']:.4f} ms, library none, bound "
+          f"{zamba['bound_ms']:.5f} ms ({zamba['bound_by']}; {nbytes / 1e6:.2f} MB), max abs "
+          f"err {zamba['max_abs_err']:.3g}; f32 and bf16 within the gates")
+
     B, S, H, P, N, chunk = SSD_MAIN
     dtype = torch.bfloat16
     args = inputs(B, S, H, P, N, dtype)
@@ -840,7 +981,7 @@ def phase_ssd(gen) -> dict:
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:27",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "zamba2": zamba}
 
 
 def decode_vs_forward(model, params, toks) -> dict:
@@ -1159,7 +1300,10 @@ def phase_backward(gen) -> list:
             rows[-1]["at_training_shape"] = {
                 "B": B, "S": S, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-    rows[0]["head_dim_256"] = phase_flash_bwd_256(gen)
+    rows[0]["head_dim_256"] = phase_flash_bwd_head_dim(
+        gen, 256, FLASH_256_SWEEP, [(1, S, 16, 8, w) for S, w in GEMMA_BWD])
+    rows[0]["head_dim_112"] = phase_flash_bwd_head_dim(
+        gen, 112, FLASH_112_SWEEP, [(1, ZAMBA_ATTN[-1], 32, 32, 0)])
 
     def norm_case(shape, dtype):
         return norm_bwd_case(gen, shape, dtype)
@@ -1210,7 +1354,7 @@ def phase_backward(gen) -> list:
               f"f64 evaluation, bf16; dscale included), two runs bit-equal; max err "
               + ", ".join(f"{shape} {str(dtype)[6:]} {err:.3e}"
                           for (shape, dtype), err in errs.items()
-                          if shape in (main_shape, GEMMA_NORM_BWD, GEMMA_QK_BWD)))
+                          if shape in (main_shape, GEMMA_NORM_BWD, GEMMA_QK_BWD, ZAMBA_NORM_BWD)))
         args = make(*main_shape, bf16) if name == "qk_norm_rope_bwd" else make(main_shape, bf16)
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
@@ -1231,23 +1375,22 @@ def phase_backward(gen) -> list:
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     return rows
 
-def phase_flash_bwd_256(gen) -> list:
-    """K1's backward at head dim 256 against its plain version over the forward's
-    D=256 sweep and gemma3-12b's training shapes (GEMMA_BWD), in both dtypes (bf16:
-    the tensor-core design with dK and dV on separate warps; f32: the CUDA-core one
-    with 32-row tiles), with the forward's LSE against the plain LSE and two runs
-    bit-equal; then the bf16 kernel timed at the training shapes beside its bound,
-    its plain version and SDPA's backward (with a boolean band mask where a window
-    applies; the backend SDPA took is printed). Returns one entry a shape of
-    GEMMA_BWD."""
+def phase_flash_bwd_head_dim(gen, D: int, sweep: list, timed: list) -> list:
+    """K1's backward at head dim D against its plain version over the forward's
+    sweep at that dim and the training shapes ``timed`` (B, S, H, K, window;
+    causal), in both dtypes (bf16: the tensor-core design, at 256 with dK and dV on
+    separate warps; f32: the CUDA-core one, at 256 with 32-row tiles), with the
+    forward's LSE against the plain LSE and two runs bit-equal; then the bf16
+    kernel timed at the training shapes beside its bound, its plain version and
+    SDPA's backward (with a boolean band mask where a window applies; the backend
+    SDPA took is printed). Returns one entry a shape of ``timed``."""
     from repro_torch.kernels import flash_attention as FA
     f32, bf16 = torch.float32, torch.bfloat16
-    D = 256
-    cases = FLASH_256_SWEEP + [(1, S, S, 16, 8, True, w) for S, w in GEMMA_BWD]
+    cases = sweep + [(B, S, S, H, K, True, w) for B, S, H, K, w in timed]
     worst = {f32: 0.0, bf16: 0.0}
     for B, Sq, Skv, H, K, causal, window in cases:
         for dtype in (f32, bf16):
-            tag = f"flash bwd D=256 {B, Sq, Skv, H, K, causal, window} {dtype}"
+            tag = f"flash bwd D={D} {B, Sq, Skv, H, K, causal, window} {dtype}"
             q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype)
             o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                              return_lse=True)
@@ -1266,13 +1409,12 @@ def phase_flash_bwd_256(gen) -> list:
                 check(torch.equal(g, a), f"{tag} {name}: two runs differ")
                 worst[dtype] = max(worst[dtype], max_err(g, w))
             del q, k, v, do, o, lse, got, again, want
-    print(f"flash_attention_bwd D=256: {len(cases)} cases x f32/bf16 match the plain backward "
+    print(f"flash_attention_bwd D={D}: {len(cases)} cases x f32/bf16 match the plain backward "
           f"(max abs err f32 {worst[f32]:.3g} at tol {FLASH_GRAD_TOL[f32]}, bf16 "
           f"{worst[bf16]:.3g} at tol {FLASH_GRAD_TOL[bf16]}); the forward's LSE matches the "
           f"plain LSE at {TOL[f32]} in both; two runs bit-equal")
     out = []
-    for S, window in GEMMA_BWD:
-        B, H, K = 1, 16, 8
+    for B, S, H, K, window in timed:
         q, k, v, do = flash_bwd_inputs(gen, B, S, S, H, K, D, bf16)
         o, lse = FA.flash_attention_cuda(q, k, v, window=window, return_lse=True)
         got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
@@ -1288,7 +1430,7 @@ def phase_flash_bwd_256(gen) -> list:
         dot = do.transpose(1, 2)
         lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
         check(all(close(g.transpose(1, 2), w, FLASH_GRAD_TOL[bf16]) for g, w in zip(lib, want)),
-              f"SDPA's backward disagrees with plain at D=256 S={S} window={window}")
+              f"SDPA's backward disagrees with plain at D={D} S={S} window={window}")
         lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                                      retain_graph=True))
         # as phase_backward counts them: q, o, dO read and dq written; k, v read and
@@ -1296,12 +1438,12 @@ def phase_flash_bwd_256(gen) -> list:
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + 3 * B * H * S * 4
         flops = 10 * B * H * D * attn_pairs(S, S, True, window)
         bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
-        print(f"flash_attention_bwd B=1 S={S} H=16 K=8 D=256 bf16 causal window={window}: "
+        print(f"flash_attention_bwd B={B} S={S} H={H} K={K} D={D} bf16 causal window={window}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms "
               f"({backend}), bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g}")
-        out.append({"S": S, "window": window, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        out.append({"B": B, "S": S, "H": H, "K": K, "window": window, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms, "library_backend": backend})
         del q, k, v, do, o, lse, got, want, qt, kt, vt, lib_out, lib
     return out
@@ -1458,6 +1600,20 @@ def phase_ssm_backward(gen) -> list:
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None}]
     del got, want, on_views, conv, views, args, x, dy
+
+    # zamba2-7b's training scan (held in the sweep above), timed
+    B, S, H, P, N, chunk = SSD_BWD_ZAMBA
+    args = ssd_bwd_case(gen, B, S, H, P, N, bf16, False)
+    zamba = {"ms": time_ms(lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk)),
+             "plain_ms": time_ms(lambda: SS.ssd_scan_bwd_plain(*args, chunk=chunk), n=5)}
+    nbytes, flops = ssd_bwd_bytes(args), ssd_bwd_flops(B, S, H, P, N, chunk)
+    zamba["bound_ms"], zamba["bound_by"] = bound(nbytes, flops, PEAK_FLOPS[bf16])
+    print(f"ssd_scan_bwd B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16 (zamba2-7b): kernel "
+          f"{zamba['ms']:.4f} ms (three launches), plain {zamba['plain_ms']:.4f} ms, library "
+          f"none, bound {zamba['bound_ms']:.5f} ms ({zamba['bound_by']}; {flops / 1e9:.2f} "
+          f"GFLOP, {nbytes / 1e6:.2f} MB)")
+    rows[0]["zamba2"] = zamba
+    del args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1753,54 +1909,56 @@ def phase_ssm_train(card: str) -> dict:
     return launches
 
 
-def phase_gemma3_train(card: str) -> dict:
-    """Train gemma3-12b at full width, cut to GEMMA_TRAIN_LAYERS layers (one
-    local:global group: 5 windowed, 1 global), bf16, through run_train_task (2
-    steps of one 2,048-token sequence, no checkpoint directory), the launch
-    counters set to 0 just before and read just after: every K1 and K2 entry of the
-    path, exactly GEMMA_TRAIN_PER_STEP a step. Then 3 warm steps of the same
-    trainer timed and one profiled: each of K1's bf16 backward kernels at head dim
-    256 launched once a layer, and no other K1 backward kernel. Returns each
-    kernel's launches in the task."""
+def phase_cut_train(card: str, path: str) -> dict:
+    """Train one arch of CUT_TRAINS at full width, cut in depth, bf16, through
+    run_train_task (2 steps of one 2,048-token sequence, no checkpoint directory),
+    the launch counters set to 0 just before and read just after: every K1, K2 and
+    K3 entry of the path, exactly its per_step a step. Then 3 warm steps of the same
+    trainer timed and one profiled: each of K1's bf16 backward kernels at the path's
+    head dim once a shared attention block (gemma3: each layer), and no other K1
+    backward kernel; K2's and K3's backward kernels once an entry. No checkpointed
+    task: a save at these depths is ~22-47 GB, and the task code is qwen3's and
+    mamba2's. Returns each kernel's launches in the task."""
     from repro_torch.runtime.step_cache import TrainerCache, run_train_task
     from repro_torch.runtime.train_loop import TrainJobConfig
 
-    steps = 2
-    with arch_depth(GEMMA_TRAIN["arch"], GEMMA_TRAIN_LAYERS):
+    spec = CUT_TRAINS[path]
+    job, per_step, steps = spec["job"], spec["per_step"], 2
+    arch = job["arch"]
+    with arch_depth(arch, spec["layers"]):
         torch.cuda.reset_peak_memory_stats()
         cache = TrainerCache(1)
         t0 = time.perf_counter()
-        trainer = cache.get(TrainJobConfig.from_job({"payload": dict(GEMMA_TRAIN)}))  # cold
+        trainer = cache.get(TrainJobConfig.from_job({"payload": dict(job)}))  # cold
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         state_gib = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         wrappers = reset_launches()
         t0 = time.perf_counter()
-        res = run_train_task(cache, dict(GEMMA_TRAIN, steps=steps))        # a warm hit: rebound
+        res = run_train_task(cache, dict(job, steps=steps))        # a warm hit: rebound
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = trainer.metrics.series("loss")
     vocab, layers = trainer.arch_cfg.vocab_size, trainer.arch_cfg.num_layers
-    print(f"train task {GEMMA_TRAIN['arch']} full width, {layers} layers, bf16, "
-          f"{GEMMA_TRAIN['global_batch']} x {GEMMA_TRAIN['seq_len']} tokens a step: {res} in "
+    print(f"train task {arch} full width, {layers} layers, bf16, "
+          f"{job['global_batch']} x {job['seq_len']} tokens a step: {res} in "
           f"{wall:.2f} s (trainer built in {build_s:.2f} s before: {state_gib:.2f} GiB "
           f"allocated); losses {losses}; launches {launches}; peak memory {peak_gib:.2f} GiB "
           f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{card}]")
-    check(layers == GEMMA_TRAIN_LAYERS, f"gemma3 train: {layers} layers, want "
-          f"{GEMMA_TRAIN_LAYERS}")
+    check(layers == spec["layers"], f"{path}: {layers} layers, want {spec['layers']}")
     check(res["steps"] == steps and res["ran_steps"] == steps and len(losses) == steps,
-          f"gemma3 train task: {res}")
-    check(all(math.isfinite(v) for v in losses), f"gemma3 train task: losses {losses}")
+          f"{path} task: {res}")
+    check(all(math.isfinite(v) for v in losses), f"{path} task: losses {losses}")
     expected = math.log(vocab) + 0.5          # random weights: see phase_train
     check(abs(losses[0] - expected) < 0.5,
-          f"gemma3 train: step 1 loss {losses[0]} not within 0.5 of ln({vocab}) + 1/2 = "
+          f"{path}: step 1 loss {losses[0]} not within 0.5 of ln({vocab}) + 1/2 = "
           f"{expected:.3f} on random weights")
     for name, n in launches.items():
-        want = GEMMA_TRAIN_PER_STEP.get(name, 0) * steps
-        check(n == want, f"gemma3 train task: {name} launched {n} times, want {want}")
+        want = per_step.get(name, 0) * steps
+        check(n == want, f"{path} task: {name} launched {n} times, want {want}")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1811,32 +1969,38 @@ def phase_gemma3_train(card: str) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(times)
-    tokens = GEMMA_TRAIN["global_batch"] * GEMMA_TRAIN["seq_len"]
-    print(f"train step {GEMMA_TRAIN['arch']} full width, {layers} layers, {tokens} tokens: "
+    tokens = job["global_batch"] * job["seq_len"]
+    print(f"train step {arch} full width, {layers} layers, {tokens} tokens: "
           f"{step_ms:.1f} ms (median of warm steps {[round(t, 1) for t in times]}) = "
           f"{tokens / step_ms * 1e3:.0f} training tokens/s [{card}]; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     groups = profile_breakdown(
-        f"{GEMMA_TRAIN['arch']} train step, {layers} layers, {tokens} tokens",
-        trainer.step_once, top=12, every=True,
+        f"{arch} train step, {layers} layers, {tokens} tokens", trainer.step_once, top=12,
+        every=True,
         groups={"K1 forward": ("flash_fwd",),
                 "K1 backward": K1_BWD_NAMES + K1_BWD_256_NAMES + K1_BWD_F32_NAMES,
                 "K2 forward": K2_KERNEL_NAMES, "K2 backward": K2_BWD_NAMES,
-                **{name: (name,) for name in K1_BWD_256_NAMES}})
+                "K3 forward": ("ssd_scan_kernel", "ssd_scan_bf16_kernel"),
+                "K3 backward": K3_BWD_NAMES,
+                **{name: (name,) for name in spec["k1_bwd"]}})
     # the backward kernels a step (the counters above hold the wrappers' calls)
+    attn = per_step["flash_attention"]          # attention layers a step
     n = groups.get("K1 backward", (0.0, 0))[1]
-    check(n == 3 * layers, f"gemma3 train step profile: {n} K1 backward kernels, want "
-          f"{3 * layers} (three a layer, no other)")
-    for name in K1_BWD_256_NAMES:
+    check(n == 3 * attn, f"{path} step profile: {n} K1 backward kernels, want {3 * attn} "
+          f"(three an attention layer, no other)")
+    for name in spec["k1_bwd"]:
         n = groups.get(name, (0.0, 0))[1]
-        check(n == layers, f"gemma3 train step profile: {name} launched {n} times, want {layers}")
+        check(n == attn, f"{path} step profile: {name} launched {n} times, want {attn}")
     for key, n in groups["by name"].items():
-        if re.search(r"\bbwd_(dq|dkdv_split)_bf16_kernel", key):
-            check("<256>" in key, f"gemma3 train step profile: {key} is not the head-dim-256 "
-                  "instance")
+        if re.search(r"\bbwd_(dq|dkdv|dkdv_split)_bf16_kernel", key):
+            check(f"<{spec['head_dim']}>" in key, f"{path} step profile: {key} is not the "
+                  f"head-dim-{spec['head_dim']} instance")
     n = groups.get("K2 backward", (0.0, 0))[1]
-    want = sum(GEMMA_TRAIN_PER_STEP[name] for name in K2_BWD_ENTRIES)
-    check(n == want, f"gemma3 train step profile: {n} K2 backward kernels, want {want}")
+    want = sum(per_step.get(name, 0) for name in K2_BWD_ENTRIES + ("gated_rmsnorm_bwd",))
+    check(n == want, f"{path} step profile: {n} K2 backward kernels, want {want}")
+    n = groups.get("K3 backward", (0.0, 0))[1]
+    check(n == 3 * per_step.get("ssd_scan_bwd", 0), f"{path} step profile: {n} K3 backward "
+          f"kernels, want {3 * per_step.get('ssd_scan_bwd', 0)}")
     del trainer, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -1925,6 +2089,42 @@ def build_other(checkout: Path, name: str):
                          check=True, capture_output=True, text=True, timeout=600)
     print(f"built {src}")
     return ctypes.CDLL(str(lib)), ptxas_kernels(out.stdout + out.stderr)
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled kernel name: its SASS} of a built library, from ``cuobjdump -sass``
+    (instruction offsets are relative to each function, so equal code prints equal);
+    the anonymous namespace's prefix, which the compiler derives from the file, is
+    cut from each name."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                         text=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", m.group(1))
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(line.strip())
+    return {n: "\n".join(lines) for n, lines in funcs.items()}
+
+
+def phase_sass_against(other: Path, card: str) -> None:
+    """Every kernel of the other checkout's csrc/flash_attention.cu (built with this
+    checkout's flags) must compile to the same SASS here; the kernels this checkout
+    adds are named."""
+    from repro_torch.kernels import _build
+    build_other(other, "flash_attention")
+    theirs = sass_functions(_build.BUILD_DIR / "other-flash_attention.so")
+    mine = sass_functions(_build.library_path("flash_attention"))
+    differ = [n for n in theirs if mine.get(n) != theirs[n]]
+    added = sorted(n for n in mine if n not in theirs)
+    print(f"sass-against: {len(theirs) - len(differ)} of {len(theirs)} kernels of the other "
+          f"checkout SASS-identical here ({sum(len(t.splitlines()) for t in theirs.values())} "
+          f"lines); {len(added)} added: {', '.join(added)}")
+    check(not differ, f"sass-against: SASS differs or is missing for {differ}")
 
 
 def phase_k1_bwd_against(parent: Path, card: str) -> None:
@@ -2211,6 +2411,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k3-bwd-against", type=Path, metavar="CHECKOUT",
                     help="only build the kernels and compare K3's backward with the one "
                          "of another checkout (its root directory), in turns on this card")
+    ap.add_argument("--sass-against", type=Path, metavar="CHECKOUT",
+                    help="only build the kernels and check that every K1 kernel of another "
+                         "checkout compiles to the same SASS here")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2221,9 +2424,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card()
     phase_build()
-    against = {"k1": phase_k1_bwd_against, "k2": phase_k2_bwd_against,
-               "k3": phase_k3_bwd_against}
-    chosen = {k: getattr(args, f"{k}_bwd_against") for k in against}
+    against = {"k1_bwd_against": phase_k1_bwd_against, "k2_bwd_against": phase_k2_bwd_against,
+               "k3_bwd_against": phase_k3_bwd_against, "sass_against": phase_sass_against}
+    chosen = {k: getattr(args, k) for k in against}
     if any(v is not None for v in chosen.values()):
         for k, checkout in chosen.items():
             if checkout is not None:
@@ -2239,6 +2442,9 @@ def main(argv=None) -> int:
     phase_train_step_parity("mamba2-2.7b", 300, SSM_TRAIN_PER_STEP)
     phase_train_step_parity("gemma3-12b", GEMMA_PARITY_SEQ, GEMMA_TRAIN_PER_STEP,
                             batch_size=1, cut=GEMMA_PARITY)
+    phase_train_step_parity("zamba2-7b", ZAMBA_PARITY_SEQ,
+                            hybrid_per_step(ZAMBA_PARITY["num_layers"], 6), batch_size=1,
+                            cut=ZAMBA_PARITY)
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {}
@@ -2249,7 +2455,8 @@ def main(argv=None) -> int:
     by_path[TRAIN_PATH] = phase_train(card)
     by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
     phase_ssm_tasks()
-    by_path[GEMMA_TRAIN_PATH] = phase_gemma3_train(card)
+    for path in CUT_TRAINS:
+        by_path[path] = phase_cut_train(card, path)
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()

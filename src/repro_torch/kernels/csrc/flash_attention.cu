@@ -26,6 +26,8 @@
 // gemma3-12b's (D=256) 12.6 MB: 0.0038 ms; its prefill of 2,048 tokens is 34.4
 // GFLOP in a global layer (0.035 ms) and 25.8 in a local one, whose 1,024-token
 // window hides about half the causal pairs (0.026 ms), both bound by operations.
+// zamba2-7b's shared attention block (H = K = 32, D = 112) moves 14.7 MB at S = 512
+// (0.0044 ms, bound by bytes) and does 30.1 GFLOP at S = 2,048 (0.030 ms).
 //
 // bf16 (dtype 1), the serving path: tensor cores, FlashAttention-2 style.
 //   4 warps; each owns 16 query rows. Q is loaded once into mma fragments
@@ -40,7 +42,7 @@
 //   the 0.08 gate; chip_smoke.py on an H100) for ~10% less time. V's B fragments come from ldmatrix.trans. Only tiles
 //   that cross the diagonal, the window edge or the ragged end are masked.
 //   Shared-memory rows are padded by 16 bytes, which
-//   makes every ldmatrix conflict-free for D in {32, 64, 80, 128, 256}: Q plus two
+//   makes every ldmatrix conflict-free for D in {32, 64, 80, 112, 128, 256}: Q plus two
 //   stages of K and V is 85 KB at D = 128, so two blocks fit on an SM. At D = 256
 //   (gemma3) the plan changes to 32-row kv tiles with Q's fragments read from
 //   shared memory at each k-step (`TcPlan`, below, says why). The q
@@ -157,7 +159,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+    // unrolled 2 deep at D = 112 (here and over P V): ptxas holds this kernel at 80
+    // registers, and 4 deep it spilled 16 bytes there (the build gate refuses a spill)
+#pragma unroll (D == 112 ? 2 : 4)
     for (int d = 0; d < D; ++d) {
       float qv[RPT], kv[CPT];
 #pragma unroll
@@ -204,7 +208,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // acc += P V
-#pragma unroll 4
+#pragma unroll (D == 112 ? 2 : 4)
     for (int c = 0; c < BKV; ++c) {
       float pv[RPT], vv[DPT];
 #pragma unroll
@@ -249,6 +253,11 @@ constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 // overlap the other's math, as at D <= 128. Twice the tiles mean twice the
 // barriers and online-softmax rescales of O per kv row, against the one
 // block an SM the 64-row tiles would leave.
+// D = 112 (zamba2-7b) is built as it is, not padded to 128 as the TPU route pads it
+// (src/repro/kernels/ops.py:148-171): Q . K^T takes 7 k-steps of 16, the output 14
+// n-tiles of 8 (P . V 7 pairs of them), and a bf16 row of 224 bytes is 14 16-byte
+// cp.async pieces, 7 a thread for a 64-row tile. Its 240-byte padded rows keep
+// ldmatrix conflict-free, and it takes the D <= 128 plan: Q in 28 registers, O in 56.
 template <int D> struct TcPlan {
   static constexpr int BN = D > 128 ? 32 : 64;
   static constexpr bool QREG = D <= 128;
@@ -858,7 +867,9 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // ------------------------------------------------------- backward, bf16: tensor cores
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The bf16 backward's plan for a head dim. D <= 128: the plan described above.
+// The bf16 backward's plan for a head dim. D <= 128: the plan described above; at
+// D = 112 (zamba2-7b) a warp's dK and dV accumulators are 112 registers a thread,
+// 16 fewer than at 128, and the dQ pass keeps 64-row kv tiles.
 // D = 256 (gemma3): a warp's dK and dV accumulators for its 16 kv rows would be 256
 // f32 registers a thread, past the 255-register limit before any other value, so
 // - dK/dV pass (SPLIT, bwd_dkdv_split_bf16_kernel): 8 warps a block, the 64-row kv
@@ -1562,6 +1573,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 32: return (int)launch<32>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 64: return (int)launch<64>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 80: return (int)launch<80>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 112: return (int)launch<112>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 128: return (int)launch<128>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 256: return (int)launch<256>(q, k, v, o, l, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
@@ -1585,6 +1597,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 32: return (int)launch_bwd_dtype<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 64: return (int)launch_bwd_dtype<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 80: return (int)launch_bwd_dtype<80>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
+    case 112: return (int)launch_bwd_dtype<112>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 128: return (int)launch_bwd_dtype<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     case 256: return (int)launch_bwd_dtype<256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, K, causal, window, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;

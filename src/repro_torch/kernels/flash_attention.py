@@ -21,8 +21,9 @@ deep, P and dS rounded once to bf16 as operands. f32 inputs run the exact
 CUDA-core design that the f32 checks hold at 1e-3. It is built for the head dims
 of ``BWD_HEAD_DIMS``; at 256 (gemma3-12b's training) the bf16 dK/dV pass gives dK
 and dV to separate warps and the dQ pass takes 32-row kv tiles, and the f32
-design stages 32-row tiles (the source says why). Both directions raise at head
-dim 112 (zamba2-7b), which arrives with the hybrid slice.
+design stages 32-row tiles (the source says why). At 112 (zamba2-7b's shared
+attention block) both directions run the D <= 128 plans as they are, with 7
+k-steps of 16: the head dim is not padded to 128 as the TPU route pads it.
 
 Both directions follow the JAX package's reference semantics: end-aligned causal /
 sliding-window masks (q row i at absolute position i + Skv - Sq), GQA by kv head
@@ -42,8 +43,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import widen
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 80, 128, 256)   # head dims the forward kernel is instantiated for
-BWD_HEAD_DIMS = (32, 64, 80, 128, 256)   # and the backward kernel
+HEAD_DIMS = (32, 64, 80, 112, 128, 256)   # head dims the forward kernel is instantiated for
+BWD_HEAD_DIMS = (32, 64, 80, 112, 128, 256)   # and the backward kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -168,10 +169,8 @@ def _check(name: str, head_dims, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     if Bk != B or Dk != D or K == 0 or H % K:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not match")
     if D not in head_dims:
-        later = (" (head dim 112, zamba2-7b's, arrives with the hybrid slice of the port)"
-                 if D == 112 else "")
         raise ValueError(f"{name}: head dim {D} not supported by the kernel (have "
-                         f"{head_dims}){later}")
+                         f"{head_dims})")
     if min(B, Sq, Skv) == 0:
         raise ValueError(f"{name} needs non-empty q and k/v")
     for t in rest:

@@ -1,32 +1,35 @@
 """Model facade of the PyTorch port, twin of ``repro.models.model``.
 
-Two families are ported: dense (``[attn -> mlp] x L`` with the local:global
+Three families are ported: dense (``[attn -> mlp] x L`` with the local:global
 period of ``_period``/``_window_for``; gemma3's windowed layers keep a ring-buffer
-cache of W slots, slot = position mod W) and ssm (``[mamba2 SSD] x L``). PyTorch
-runs eagerly, so ``lax.scan`` over the stacked layer params becomes a Python
-loop over the leading "layers" dim. Three entry points: ``forward`` (full
+cache of W slots, slot = position mod W), ssm (``[mamba2 SSD] x L``) and hybrid
+(zamba2: ``[[mamba2 SSD] x k -> shared attn+mlp block] x G``, then the
+``L - G*k`` tail layers; the one shared block's params serve every group).
+PyTorch runs eagerly, so ``lax.scan`` over the stacked layer params becomes a
+Python loop over the leading "layers" dim. Three entry points: ``forward`` (full
 sequence), ``prefill`` (cache build + last-token logits) and ``decode_step``
 (one token against the cache). The cache layout is declared once as a
 ``TensorDef`` tree (``cache_defs``) that ``init_cache`` and the server's
 batch-axis search both read.
 
-The cache is updated in place: ``decode_step`` writes the new token's k/v (dense;
-at slot pos mod W in a windowed layer's ring) or the new conv tail and SSD state
-(ssm) into the tensors of the cache it is given and returns them in the new
-cache.
+The cache is updated in place: ``decode_step`` writes the new token's k/v (dense
+and the hybrid's shared block; at slot pos mod W in a windowed layer's ring) and
+the new conv tail and SSD state (ssm and the hybrid's mamba2 layers) into the
+tensors of the cache it is given and returns them in the new cache.
 
 Every residual add runs fused with the norm that reads its sum
 (``ops.add_rmsnorm``): a block returns the residual stream ``x`` and its
 un-added output ``d``, and the next block's ln1 (or the final norm in
 ``_unembed``) adds them as it normalises.
 
-Training (both families): ``loss_fn`` is the twin of the JAX package's, masked
+Training (every family ported): ``loss_fn`` is the twin of the JAX package's, masked
 CE by gather (with ``cfg.loss_chunk``, per-chunk CE under
 ``torch.utils.checkpoint``) over ``forward``. Autograd runs through the kernels'
 autograd Functions (``kernels/autograd.py``). The layer loop takes each layer's
 params as ``unbind`` views of the stacked leaves, so their gradients are stacked
-once rather than summed from a full-size gradient per layer. ``cfg.remat`` is
-not ported (the Trainer forces "none").
+once rather than summed from a full-size gradient per layer; the hybrid's shared
+block gets the sum of its G applications' gradients. ``cfg.remat`` is not
+ported (the Trainer forces "none").
 """
 from __future__ import annotations
 
@@ -47,7 +50,6 @@ from repro_torch.tree import tree_map
 # family -> the port slice that brings it
 _LATER_SLICES = {
     "moe": "the MoE slice",
-    "hybrid": "the hybrid slice (zamba2: shared attention block, K1 at head dim 112)",
     "encdec": "the encoder-decoder and VLM slice",
     "vlm": "the encoder-decoder and VLM slice",
 }
@@ -81,6 +83,13 @@ def _ring_slice(k: torch.Tensor, W: int) -> torch.Tensor:
         raise ValueError(f"prefill length {S} must be below the window {W} or a "
                          f"multiple of it (the ring cache's slot of position p is p % {W})")
     return k[:, -W:]
+
+
+def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
+    """K/V [G,B,S,K,hd] zero-padded along S to n."""
+    full = t.new_zeros(t.shape[:2] + (n,) + t.shape[3:])
+    full[:, :, :t.shape[2]] = t
+    return full
 
 
 def _unstack(params_layers: dict) -> list:
@@ -170,6 +179,30 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------- ssm stacks
+def _ssm_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, d: Optional[torch.Tensor],
+               state: Optional[dict] = None):
+    """One mamba2 layer on the stream x + d. Returns (x, its un-added output, its
+    new state {"conv", "ssd"}); with ``state`` (decode) the new state is also
+    written into it in place."""
+    x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
+    y, new = SSM.ssm_block(cfg, lp["ssm"], h, state=state)
+    if state is not None:
+        for n in ("conv", "ssd"):
+            state[n].copy_(new[n])
+    return x, y, new
+
+
+def _stack_states(cfg: ArchConfig, states: list, lead: Tuple[int, ...], x: torch.Tensor):
+    """The per-layer states {"conv", "ssd"} of a batch like x's stacked to
+    ``lead`` + their shape; no states (a hybrid tail of 0 layers): empty leaves of
+    the cache's layout."""
+    if not states:
+        return {n: torch.empty(shape, dtype=dt, device=x.device) for n, (shape, dt)
+                in SSM.ssm_state_defs(cfg, x.shape[0], *lead).items()}
+    return {n: torch.stack([st[n] for st in states]).reshape(lead + states[0][n].shape)
+            for n in ("conv", "ssd")}
+
+
 def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
              want_state: bool = False):
     """Returns (x, d, states): the stream is x + d; states = {"conv": [L,B,W-1,C],
@@ -177,13 +210,12 @@ def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     states = []
     d = None
     for lp in _unstack(params["layers"]):
-        x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
-        d, st = SSM.ssm_block(cfg, lp["ssm"], h)
+        x, d, st = _ssm_layer(cfg, lp, x, d)
         if want_state:
             states.append(st)
     if not want_state:
         return x, d, None
-    return x, d, {n: torch.stack([st[n] for st in states]) for n in ("conv", "ssd")}
+    return x, d, _stack_states(cfg, states, (cfg.num_layers,), x)
 
 
 def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict):
@@ -191,20 +223,72 @@ def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict):
     ``states`` in place. Returns (x, d): the stream is x + d."""
     d = None
     for i, lp in enumerate(_unstack(params["layers"])):
-        x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
-        d, new = SSM.ssm_block(cfg, lp["ssm"], h,
-                               state={n: states[n][i] for n in ("conv", "ssd")})
-        for n in ("conv", "ssd"):
-            states[n][i].copy_(new[n])
+        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: states[n][i] for n in ("conv", "ssd")})
+    return x, d
+
+
+# ------------------------------------------------------------------ hybrid stack
+def _hybrid_split(cfg: ArchConfig, params: dict):
+    """(groups, tail): the per-layer params (``_unstack`` views) as the G =
+    L // k groups of k = ``shared_block_every`` layers and the L - G*k after them."""
+    k = cfg.shared_block_every
+    G = cfg.num_layers // k
+    layers = _unstack(params["layers"])
+    return [layers[g * k:(g + 1) * k] for g in range(G)], layers[G * k:]
+
+
+def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                positions: torch.Tensor, want_state: bool = False):
+    """Returns (x, d, states): the stream is x + d; states = (main {"conv", "ssd":
+    [G,k,B,...]}, shared {"k", "v": [G,B,S,K,hd]}, tail {"conv", "ssd":
+    [L-G*k,B,...]}). The shared block is ``_block`` with window 0 (causal, full),
+    the JAX package's ``_shared_block_fwd``, on the same params in every group."""
+    groups, tail = _hybrid_split(cfg, params)
+    shared = params["shared_block"]
+    main_states, kvs, tail_states = [], [], []
+    d = None
+    for group in groups:
+        for lp in group:
+            x, d, st = _ssm_layer(cfg, lp, x, d)
+            main_states.append(st)
+        x, d, kv = _block(cfg, shared, x, d, positions, 0, want_state)
+        kvs.append(kv)
+    for lp in tail:
+        x, d, st = _ssm_layer(cfg, lp, x, d)
+        tail_states.append(st)
+    if not want_state:
+        return x, d, None
+    return x, d, (_stack_states(cfg, main_states, (len(groups), cfg.shared_block_every), x),
+                  {n: torch.stack([kv[n] for kv in kvs]) for n in ("k", "v")},
+                  _stack_states(cfg, tail_states, (len(tail),), x))
+
+
+def _hybrid_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
+                   pos: torch.Tensor):
+    """One token through the groups and the tail; writes the new states of
+    ``cache["main"]`` and ``cache["tail"]`` and the shared block's k/v at ``pos``
+    of ``cache["shared"]`` in place (the shared block: ``_block_decode`` with
+    window 0, the JAX package's ``_shared_decode``). Returns (x, d)."""
+    groups, tail = _hybrid_split(cfg, params)
+    shared = params["shared_block"]
+    d = None
+    for g, group in enumerate(groups):
+        for j, lp in enumerate(group):
+            x, d, _ = _ssm_layer(cfg, lp, x, d,
+                                 {n: cache["main"][n][g, j] for n in ("conv", "ssd")})
+        x, d = _block_decode(cfg, shared, x, d,
+                             {n: cache["shared"][n][g] for n in ("k", "v")}, pos, 0)
+    for i, lp in enumerate(tail):
+        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: cache["tail"][n][i] for n in ("conv", "ssd")})
     return x, d
 
 
 # =============================================================================== Model
 class Model:
-    """Dense- or ssm-family model bound to an ArchConfig and a device."""
+    """Dense-, ssm- or hybrid-family model bound to an ArchConfig and a device."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family arrives with "
                 f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
@@ -250,6 +334,8 @@ class Model:
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
             x, d, _ = _ssm_fwd(self.cfg, params, x)
+        elif self.cfg.family == "hybrid":
+            x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S))
         else:
             x, d, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -307,35 +393,35 @@ class Model:
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """Build the decode cache from a full prompt; returns (last_logits, cache).
-        A windowed layer's cache is its ring of W slots; a full layer's is padded
-        to ``max_len``."""
+        A windowed layer's cache is its ring of W slots; a full layer's (and the
+        hybrid's shared block's) is padded to ``max_len``."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
         if max_len < S:
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
         x = self._embed(params, tokens)
+        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         if self.cfg.family == "ssm":
             x, d, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
+            cache = {"pos": pos, "layers": layers}
+        elif self.cfg.family == "hybrid":
+            x, d, (main, kv, tail) = _hybrid_fwd(self.cfg, params, x,
+                                                 self._positions(B, S), want_state=True)
+            cache = {"pos": pos, "main": main,
+                     "shared": {n: _pad_seq(t, max_len) for n, t in kv.items()},
+                     "tail": tail}
         else:
             x, d, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S),
                                    want_kv=True)
-            layers = []
-            for j, kv in enumerate(kvs):
-                if _window_for(self.cfg, j):             # ring layout already
-                    layers.append(kv)
-                    continue
-                padded = {}
-                for n, t in kv.items():                  # [G,B,S,K,hd]
-                    full = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
-                    full[:, :, :S] = t
-                    padded[n] = full
-                layers.append(padded)
-            layers = tuple(layers)
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+            # a windowed layer's kv is in ring layout already
+            cache = {"pos": pos, "layers": tuple(
+                kv if _window_for(self.cfg, j) else
+                {n: _pad_seq(t, max_len) for n, t in kv.items()}
+                for j, kv in enumerate(kvs))}
         last_logits = self._unembed(params, x[:, -1:],
                                     None if d is None else d[:, -1:])[:, 0]
-        return last_logits, {"pos": pos, "layers": layers}
+        return last_logits, cache
 
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
@@ -344,30 +430,39 @@ class Model:
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
             x, d = _ssm_decode(self.cfg, params, x, cache["layers"])
+        elif self.cfg.family == "hybrid":
+            x, d = _hybrid_decode(self.cfg, params, x, cache, pos)
         else:
             x, d = _stack_decode(self.cfg, params, x, cache["layers"], pos)
         logits = self._unembed(params, x, d)[:, 0]
-        return logits, {"pos": pos + 1, "layers": cache["layers"]}
+        return logits, dict(cache, pos=pos + 1)
 
     # ------------------------------------------------------------------- cache views
     def cache_defs(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
         pos = TensorDef((batch,), torch.int32)
-        if cfg.family == "ssm":
-            return {"pos": pos, "layers": {
-                n: TensorDef(*d)
-                for n, d in SSM.ssm_state_defs(cfg, batch, cfg.num_layers).items()}}
         dt = getattr(torch, cfg.dtype)
         K, hd = cfg.num_kv_heads, cfg.head_dim
-        period = _period(cfg)
-        G = cfg.num_layers // period
 
-        def kv(S):
+        def kv(G, S):
             return {"k": TensorDef((G, batch, S, K, hd), dt),
                     "v": TensorDef((G, batch, S, K, hd), dt)}
 
+        def ssm_state(*lead):
+            return {n: TensorDef(*d)
+                    for n, d in SSM.ssm_state_defs(cfg, batch, *lead).items()}
+
+        if cfg.family == "ssm":
+            return {"pos": pos, "layers": ssm_state(cfg.num_layers)}
+        if cfg.family == "hybrid":
+            k = cfg.shared_block_every
+            G = cfg.num_layers // k
+            return {"pos": pos, "main": ssm_state(G, k), "shared": kv(G, max_len),
+                    "tail": ssm_state(cfg.num_layers - G * k)}
+        period = _period(cfg)
+        G = cfg.num_layers // period
         return {"pos": pos,
-                "layers": tuple(kv(_window_for(cfg, j) or max_len)
+                "layers": tuple(kv(G, _window_for(cfg, j) or max_len)
                                 for j in range(period))}
 
     def init_cache(self, batch: int, max_len: int) -> dict:

@@ -6,8 +6,8 @@ package on the same converted params and numpy inputs; the dense stack's refusal
 a depth that is not a multiple of the local:global period, as the JAX package's;
 and a train task of reduced gemma3 on the CPU. Tests marked ``cuda`` hold K1's D=256
 forward kernel against its plain version on the card (the backward's D=256 cases are
-in tests/test_torch_train_kernels.py) and check that both directions refuse head dim
-112; they skip without a card.
+in tests/test_torch_train_kernels.py) and check that both directions refuse a head dim
+that is not built; they skip without a card.
 
 Tolerances: f32 1e-5 for one decode attention (the JAX and PyTorch einsums sum in
 another order), 1e-4 for model logits and caches (tests/test_torch_model.py's
@@ -178,14 +178,15 @@ def test_flash_kernel_head_dim_256_vs_plain_on_card(cuda, B, Sq, Skv, H, K, caus
 
 
 @pytest.mark.cuda
-def test_flash_kernels_refuse_head_dim_112_on_card(cuda):
-    """zamba2-7b's head dim 112 is built in neither direction yet."""
-    q = torch.zeros((1, 64, 4, 112), dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros((1, 64, 2, 112), dtype=torch.bfloat16, device=cuda)
+def test_flash_kernels_refuse_an_unbuilt_head_dim_on_card(cuda):
+    """A head dim that no config uses (96) is built in neither direction: both
+    wrappers raise, naming the head dims they have."""
+    q = torch.zeros((1, 64, 4, 96), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=cuda)
     lse = torch.zeros((1, 4, 64), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match="hybrid slice"):
+    with pytest.raises(ValueError, match="head dim 96 not supported"):
         FA.flash_attention_cuda(q, k, k)
-    with pytest.raises(ValueError, match="hybrid slice"):
+    with pytest.raises(ValueError, match="head dim 96 not supported"):
         FA.flash_attention_bwd_cuda(q, k, k, q, lse, q)
 
 

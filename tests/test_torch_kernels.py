@@ -31,6 +31,11 @@ SHORT_Q = [
     (2, 17, 80, 4, 1, 32, True, 24),
     (1, 40, 72, 2, 2, 80, False, 0),
 ]
+# zamba2-7b's head dim 112 (the card only: the Pallas path pads it to 128 and rounds
+# q once more in bf16): causal MHA, GQA 2:1, a ragged S, not causal; Sq < Skv
+FLASH_112 = [(1, 256, 4, 4, 112, True, 0), (2, 256, 4, 2, 112, True, 0),
+             (1, 1000, 4, 2, 112, True, 0), (1, 130, 4, 4, 112, False, 0)]
+SHORT_Q_112 = [(1, 96, 200, 4, 2, 112, True, 0), (2, 40, 130, 4, 4, 112, True, 48)]
 RMS_SHAPES = [(2, 64, 128), (1, 7, 256), (4, 1, 512)]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -88,7 +93,7 @@ def test_flash_plain_short_q_vs_attention_ref(B, Sq, Skv, H, K, D, causal, windo
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,K,D,causal,window", FLASH_SWEEP)
+@pytest.mark.parametrize("B,S,H,K,D,causal,window", FLASH_SWEEP + FLASH_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_vs_plain_on_card(cuda, B, S, H, K, D, causal, window, dtype):
     q, k, v = (_torch(_np(s, i), dtype, cuda) for i, s in
@@ -100,7 +105,7 @@ def test_flash_kernel_vs_plain_on_card(cuda, B, S, H, K, D, causal, window, dtyp
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", SHORT_Q)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", SHORT_Q + SHORT_Q_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_short_q_on_card(cuda, B, Sq, Skv, H, K, D, causal, window, dtype):
     """f32 runs the CUDA-core design, bf16 the tensor-core one: both against
@@ -114,10 +119,14 @@ def test_flash_kernel_short_q_on_card(cuda, B, Sq, Skv, H, K, D, causal, window,
 
 
 @pytest.mark.cuda
-def test_flash_kernel_serving_shape_bf16_on_card(cuda):
-    """qwen3-0.6b's prefill of 512 tokens: B=1, H=16, K=8, D=128, causal."""
+@pytest.mark.parametrize("S,H,K,D", [(512, 16, 8, 128), (512, 32, 32, 112),
+                                     (2048, 32, 32, 112)],
+                         ids=["qwen3-0.6b", "zamba2-7b", "zamba2-7b-2048"])
+def test_flash_kernel_serving_shape_bf16_on_card(cuda, S, H, K, D):
+    """A prefill of S tokens, B=1, causal: qwen3-0.6b's (H=16, K=8, D=128) and
+    zamba2-7b's shared block (H=K=32, D=112)."""
     q, k, v = (_torch(_np(s, 20 + i), "bfloat16", cuda) for i, s in
-               enumerate([(1, 512, 16, 128), (1, 512, 8, 128), (1, 512, 8, 128)]))
+               enumerate([(1, S, H, D), (1, S, K, D), (1, S, K, D)]))
     got = FA.flash_attention_cuda(q, k, v)
     want = FA.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()

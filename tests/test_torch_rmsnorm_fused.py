@@ -153,7 +153,7 @@ def _close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 512, 1024), (4, 1, 1024), (1, 512, 2560),
-                                   (4, 1, 2560), (3, 5, 80)])
+                                   (4, 1, 2560), (3, 5, 80), (1, 2048, 3584)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_add_rmsnorm_kernel_vs_plain_on_card(cuda, shape, dtype):
     x, r = _torch(_np(shape, 90), dtype, cuda), _torch(_np(shape, 91), dtype, cuda)
@@ -166,7 +166,8 @@ def test_add_rmsnorm_kernel_vs_plain_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 512, 5120), (4, 1, 5120), (3, 5, 80)])
+@pytest.mark.parametrize("shape", [(1, 512, 5120), (4, 1, 5120), (3, 5, 80),
+                                   (1, 2048, 7168)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_gated_rmsnorm_kernel_vs_plain_on_card(cuda, shape, dtype):
     y, z = _torch(_np(shape, 93), dtype, cuda), _torch(_np(shape, 94), dtype, cuda)
@@ -191,7 +192,8 @@ def test_qk_norm_rope_kernel_vs_plain_on_card(cuda, B, S, H, K, hd, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 512, 1024), (4, 1, 1024), (1, 512, 5120)])
+@pytest.mark.parametrize("shape", [(1, 512, 1024), (4, 1, 1024), (1, 512, 5120),
+                                   (1, 512, 3584), (4, 1, 3584)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_serving_shapes_on_card(cuda, shape, dtype):
     x, sc = _torch(_np(shape, 100), dtype, cuda), _torch(_np(shape[-1:], 101), dtype, cuda)

@@ -255,9 +255,11 @@ def test_ssd_kernel_reads_conv_output_views_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_serving_shape_bf16_on_card(cuda):
-    """mamba2-2.7b's prefill of 512 tokens: B=1, H=80, P=64, N=128, chunk 256."""
-    args = _scan_args(_inputs(1, 512, 80, 64, 128, seed=10), "bfloat16", cuda)
+@pytest.mark.parametrize("H,N", [(80, 128), (112, 64)], ids=["mamba2-2.7b", "zamba2-7b"])
+def test_ssd_kernel_serving_shape_bf16_on_card(cuda, H, N):
+    """The prefill of 512 tokens: B=1, P=64, chunk 256; mamba2-2.7b's H=80, N=128
+    and zamba2-7b's H=112, N=64."""
+    args = _scan_args(_inputs(1, 512, H, 64, N, seed=10), "bfloat16", cuda)
     y, h = SS.ssd_scan_cuda(*args, chunk=256)
     y_want, h_want = SS.ssd_scan_plain(*args, chunk=256)
     torch.cuda.synchronize()

@@ -369,7 +369,8 @@ def _f64(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP + SSD_BWD_SHAPES)
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP + SSD_BWD_SHAPES
+                         + [(1, 2048, 112, 64, 64, 256)])   # zamba2-7b's training scan
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_scan_bwd_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk, dtype):
     """With and without init_state and d(final state); twice in a row, bit-equal."""
@@ -430,7 +431,8 @@ def test_ssd_scan_bwd_kernel_reads_conv_views_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", GATED_SHAPES + [(1, 2048, 5120), (1, 1, 5120)])
+@pytest.mark.parametrize("shape", GATED_SHAPES + [(1, 2048, 5120), (1, 1, 5120),
+                                   (1, 2048, 7168)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_gated_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, shape, dtype):
     """f32 against the gradient in f64 from the forward's f32 gate (the kernel sums

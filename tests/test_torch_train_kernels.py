@@ -269,10 +269,15 @@ def test_function_gradcheck_float64(name):
 # ------------------------------------------------------------------ on the card
 # Besides FLASH_CASES, gemma3-12b's heads at head dim 256 past its window of 1,024
 # and ragged for the 64-row tiles, with and without the window, Sq < Skv with a
-# window, and a bidirectional one (too large for the CPU's jax.vjp tests)
+# window, and a bidirectional one (too large for the CPU's jax.vjp tests); and
+# zamba2-7b's head dim 112: causal MHA, GQA 2:1, a ragged S, Sq < Skv, not causal,
+# and its training attention (B=1, S=2,048, H=K=32)
 FLASH_CARD_CASES = FLASH_CASES + [
     (1, 1100, 1100, 16, 8, 256, True, 0), (1, 1100, 1100, 16, 8, 256, True, 1024),
-    (2, 200, 328, 4, 2, 256, True, 128), (1, 130, 130, 4, 2, 256, False, 0)]
+    (2, 200, 328, 4, 2, 256, True, 128), (1, 130, 130, 4, 2, 256, False, 0),
+    (1, 256, 256, 4, 4, 112, True, 0), (2, 256, 256, 4, 2, 112, True, 0),
+    (1, 1000, 1000, 4, 2, 112, True, 0), (1, 96, 200, 4, 2, 112, True, 0),
+    (1, 130, 130, 4, 4, 112, False, 0), (1, 2048, 2048, 32, 32, 112, True, 0)]
 
 
 @pytest.mark.cuda
@@ -282,7 +287,8 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, K, D, causa
                                                dtype):
     """At D=256 f32 runs the CUDA-core design with 32-row tiles, bf16 the
     tensor-core one (dK and dV on separate warps, 32-row kv tiles in the dQ pass);
-    the forward's LSE, which serving never reads, is the plain version's there too."""
+    at D=112 the D <= 128 designs with 7 k-steps; the forward's LSE, which serving
+    never reads, is the plain version's there too."""
     q, k, v, do = (_torch(a, dtype).to(cuda) for a in _flash_inputs(B, Sq, Skv, H, K, D))
     o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
     _, plse = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -303,12 +309,13 @@ def _exact(t):
     return t.double() if t.dtype == torch.float32 else t
 
 
-# Besides the CPU shapes and the training shapes (qwen3-0.6b's and gemma3-12b's), the
+# Besides the CPU shapes and the training shapes (qwen3-0.6b's, gemma3-12b's and
+# zamba2-7b's), the
 # edges of the kernels' one-launch dscale fold: one row, rows fewer than the blocks,
 # rows not a multiple of a block's (600), and wide rows that take a block each
 # (mamba2's 2560 and 5120).
 NORM_CARD_SHAPES = NORM_SHAPES + [(4, 2048, 1024), (1, 2048, 3840), (1, 1, 1024), (600, 1024),
-                                  (2, 3, 2560), (1, 5, 5120)]
+                                  (2, 3, 2560), (1, 5, 5120), (1, 2048, 3584)]
 QK_CARD_SHAPES = QK_SHAPES + [(4, 2048, 16, 8, 128), (1, 2048, 16, 8, 256), (1, 1, 16, 8, 128)]
 
 
