@@ -9,9 +9,9 @@
 //   rmsnorm_fwd        y = rmsnorm(x)
 //   add_rmsnorm_fwd    s = x + r, rounded to the dtype and written out (the new
 //                      residual stream); y = rmsnorm(s)
-//   gated_rmsnorm_fwd  t = y * silu(z): silu in f32 (expf as PyTorch's silu; a
-//                      2-ulp division), rounded to the dtype, the product
-//                      rounded; out = rmsnorm(t)
+//   gated_rmsnorm_fwd  t = y * silu(z): silu in f32 (expf as PyTorch's silu; in
+//                      f32 its IEEE division, in bf16 a 2-ulp one), rounded to
+//                      the dtype, the product rounded; out = rmsnorm(t)
 //   qk_norm_rope_fwd   q [B,S,H,hd] and k [B,S,K,hd] in one launch: every (token,
 //                      head) row normalised with q_norm / k_norm and rounded, then
 //                      split-half RoPE in f32 at positions[b, s], rounded again.
@@ -113,6 +113,19 @@ __device__ __forceinline__ float round_to(float v) {
   else return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// silu(g) = g / (1 + expf(-g)), PyTorch's, rounded to T. In f32 the IEEE division,
+// to the bit: the gated backward's dscale sums t over every row, and an f32 t off
+// by a 2-ulp division in a quarter of its elements moved dscale past its 1e-5 gate
+// against the exact sum over 32,768 rows on some draws of the inputs. In bf16,
+// rounded to 8 bits right after, __fdividef (2 ulp; 0 once the divisor passes
+// 2^126, where silu is below 1e-36) takes the place of the IEEE division, whose
+// slow-path check is the costliest step of the gated row
+template <typename T>
+__device__ __forceinline__ float gate_silu(float g) {
+  if constexpr (sizeof(T) == 4) return g / (1.0f + expf(-g));
+  else return round_to<T>(__fdividef(g, 1.0f + expf(-g)));
+}
+
 // sum over an aligned group of `width` lanes (a power of two <= 32); every lane
 // of the warp takes part, and every lane of a group gets the same sum
 __device__ __forceinline__ float group_sum(float v, int width) {
@@ -185,11 +198,14 @@ struct GatedOp {
     widen<T>(raw[1], g);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      // PyTorch's silu is g / (1 + expf(-g)). __fdividef (2 ulp; 0 once the
-      // divisor passes 2^126, where silu is below 1e-36) takes the place of the
-      // IEEE division, whose slow-path check is the costliest step here
-      const float silu = round_to<T>(__fdividef(g[k], 1.0f + expf(-g[k])));
-      a[k] = __fmul_rn(a[k], silu);
+      if constexpr (sizeof(T) == 4) {
+        a[k] = __fmul_rn(a[k], gate_silu<T>(g[k]));
+      } else {
+        // gate_silu<T>'s expression written out: called through gate_silu, the
+        // compiler schedules this row otherwise
+        const float silu = round_to<T>(__fdividef(g[k], 1.0f + expf(-g[k])));
+        a[k] = __fmul_rn(a[k], silu);
+      }
     }
     return pack<T>(a);
   }
@@ -595,12 +611,6 @@ struct RowsBwd {
 };
 
 constexpr int BWD_THREADS = 512;   // largest block of the backward row pass
-
-// silu(g) as GatedOp::pre forms it, rounded to T
-template <typename T>
-__device__ __forceinline__ float gate_silu(float g) {
-  return round_to<T>(__fdividef(g, 1.0f + expf(-g)));
-}
 
 // Rows as rows_kernel assigns them, up to BWD_THREADS threads a block (a block
 // an SM: the fewer blocks, the fewer rows the fold reads at the end, and a second

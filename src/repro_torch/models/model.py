@@ -1,8 +1,10 @@
 """Model facade of the PyTorch port, twin of ``repro.models.model``.
 
-Three families are ported: dense (``[attn -> mlp] x L`` with the local:global
+Four families are ported: dense (``[attn -> mlp] x L`` with the local:global
 period of ``_period``/``_window_for``; gemma3's windowed layers keep a ring-buffer
-cache of W slots, slot = position mod W), ssm (``[mamba2 SSD] x L``) and hybrid
+cache of W slots, slot = position mod W), moe (``[attn -> moe] x L``, the dense
+stack with ``_ff``'s MoE branch; the layers' load-balance losses summed into
+``forward``'s aux), ssm (``[mamba2 SSD] x L``) and hybrid
 (zamba2: ``[[mamba2 SSD] x k -> shared attn+mlp block] x G``, then the
 ``L - G*k`` tail layers; the one shared block's params serve every group).
 PyTorch runs eagerly, so ``lax.scan`` over the stacked layer params becomes a
@@ -43,13 +45,13 @@ from repro_torch import device as devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as LY
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import init_params
 from repro_torch.tree import tree_map
 
 # family -> the port slice that brings it
 _LATER_SLICES = {
-    "moe": "the MoE slice",
     "encdec": "the encoder-decoder and VLM slice",
     "vlm": "the encoder-decoder and VLM slice",
 }
@@ -110,15 +112,28 @@ def _add_norm(x: torch.Tensor, d: Optional[torch.Tensor], scale: torch.Tensor,
     return ops.add_rmsnorm(x, d, scale, eps=eps)
 
 
+def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool):
+    """Feed-forward: MoE where the layer has one, else SwiGLU. Returns (y, aux):
+    aux is the MoE load-balance loss of a full-sequence call, else None (so the
+    other families launch nothing for it)."""
+    if "moe" in p:
+        if decode:
+            return MOE.moe_block_decode(cfg, p["moe"], h), None
+        return MOE.moe_block(cfg, p["moe"], h)
+    return LY.swiglu(p["mlp"], h), None
+
+
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
            positions: torch.Tensor, window: int, want_kv: bool):
-    """attn -> mlp on the stream x + d. Returns (x, the mlp's un-added output, kv)."""
+    """attn -> ff on the stream x + d. Returns (x, the ff's un-added output, kv,
+    the ff's aux or None)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k, v = LY.qkv_project(p["attn"], h, positions=positions,
                              theta=cfg.rope_theta, eps=cfg.norm_eps)
     o = ops.flash_attention(q, k, v, causal=True, window=window)
     x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
-    return x, LY.swiglu(p["mlp"], h), ({"k": k, "v": v} if want_kv else None)
+    y, aux = _ff(cfg, p, h, decode=False)
+    return x, y, ({"k": k, "v": v} if want_kv else None), aux
 
 
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
@@ -137,30 +152,34 @@ def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.T
         o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
                              packed=cfg.packed_decode)
     x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
-    return x, LY.swiglu(p["mlp"], h)
+    return x, _ff(cfg, p, h, decode=True)[0]
 
 
 # ------------------------------------------------------------------- dense stacks
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, want_kv: bool = False):
-    """Returns (x, d, kvs): the stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]}
-    per period position j, [G,B,W,K,hd] in ring layout where j is windowed."""
+    """dense / moe stack. Returns (x, d, kvs, aux): the stream is x + d; kvs[j] =
+    {"k","v": [G,B,S,K,hd]} per period position j, [G,B,W,K,hd] in ring layout
+    where j is windowed; aux the sum of the layers' MoE load-balance losses (the
+    JAX package's scan carry), None where no layer has one."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     kvs = [[] for _ in range(period)]
-    d = None
+    d = aux = None
     layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
         for j in range(period):
             p = layers[g * period + j]
-            x, d, kv = _block(cfg, p, x, d, positions, windows[j], want_kv)
+            x, d, kv, a = _block(cfg, p, x, d, positions, windows[j], want_kv)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if want_kv and windows[j] > 0:
                 kv = {n: _ring_slice(t, windows[j]) for n, t in kv.items()}
             kvs[j].append(kv)
     if not want_kv:
-        return x, d, None
+        return x, d, None, aux
     return x, d, tuple({n: torch.stack([kv[n] for kv in kvs[j]]) for n in ("k", "v")}
-                       for j in range(period))
+                       for j in range(period)), aux
 
 
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
@@ -251,7 +270,7 @@ def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
         for lp in group:
             x, d, st = _ssm_layer(cfg, lp, x, d)
             main_states.append(st)
-        x, d, kv = _block(cfg, shared, x, d, positions, 0, want_state)
+        x, d, kv, _ = _block(cfg, shared, x, d, positions, 0, want_state)
         kvs.append(kv)
     for lp in tail:
         x, d, st = _ssm_layer(cfg, lp, x, d)
@@ -285,10 +304,11 @@ def _hybrid_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
 
 # =============================================================================== Model
 class Model:
-    """Dense-, ssm- or hybrid-family model bound to an ArchConfig and a device."""
+    """Dense-, moe-, ssm- or hybrid-family model bound to an ArchConfig and a
+    device."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family arrives with "
                 f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
@@ -332,13 +352,15 @@ class Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
+        aux = None
         if self.cfg.family == "ssm":
             x, d, _ = _ssm_fwd(self.cfg, params, x)
         elif self.cfg.family == "hybrid":
             x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S))
         else:
-            x, d, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S))
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            x, d, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S))
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if return_hidden:
             return self._final_norm(params, x, d), aux
         return self._unembed(params, x, d), aux
@@ -412,8 +434,8 @@ class Model:
                      "shared": {n: _pad_seq(t, max_len) for n, t in kv.items()},
                      "tail": tail}
         else:
-            x, d, kvs = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                   want_kv=True)
+            x, d, kvs, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                      want_kv=True)
             # a windowed layer's kv is in ring layout already
             cache = {"pos": pos, "layers": tuple(
                 kv if _window_for(self.cfg, j) else

@@ -169,8 +169,9 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
             if log != "layers":  # stacked layer dims are not fan-in dims
                 fan_in *= s
     std = d.scale / max(fan_in, 1) ** 0.5
+    # scaled in place: deepseek-moe-16b's stacked expert leaves are 19.3 GiB in f32
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:

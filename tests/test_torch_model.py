@@ -102,7 +102,7 @@ def test_param_defs_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS if tconfigs.get(a).family
-                                  not in ("dense", "ssm", "hybrid")])
+                                  not in ("dense", "moe", "ssm", "hybrid")])
 def test_other_families_name_their_slice(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         TModel(tconfigs.get(arch).reduced(), "cpu")
