@@ -67,7 +67,9 @@ Phases, each failing loudly (nonzero exit):
      deepseek-moe-16b at its attention and expert layout (16 heads of 128; 64
      experts, top-6, 2 shared), 4 layers, d_model, the experts' width and the
      vocabulary narrowed, on 600 tokens, its routers' top-k picks on the card
-     and the CPU exactly equal at every layer;
+     and the CPU exactly equal at every layer; then one f32 local-SGD round of
+     qwen3-0.6b at full width and 2 layers (2 pods, H = 2, int8 compression on
+     and off) on the card against the CPU's (``phase_local_sgd_parity``);
   7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
      (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
      counters set to 0 just before and read just after; evaluate it through a
@@ -89,7 +91,16 @@ Phases, each failing loudly (nonzero exit):
      one (each of K1's backward kernels at the path's head dim, 256, 112 or 128,
      once an attention layer, no other K1 backward kernel). No checkpointed
      task: saves at these depths are ~22-47 GB, and the task code is the same as
-     qwen3's and mamba2's.
+     qwen3's and mamba2's;
+ 10. train qwen3-0.6b at full width and depth in local_sgd mode (the Titchener
+     mode: 2 pods, H = 4 inner steps a round, 2 x 2048 tokens a pod, bf16)
+     through ``run_train_task`` (8 steps, 2 rounds), the counters read around it
+     (every K1 and K2 entry, exactly so many a pod-step), every pod's params
+     bit-equal to the master after each round; time 3 warm rounds and the outer
+     step alone, profile one of each, print the bytes a round crosses the pod
+     boundary; then its checkpointed task (8 steps, a checkpoint every 8) and a
+     strict eval-task restore at full width and 4 layers (a 28-layer save is
+     30.8 GiB).
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -119,6 +130,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -434,6 +446,23 @@ CUT_TRAINS = {
                                "per_step": MOE_TRAIN_PER_STEP, "head_dim": 128,
                                "k1_bwd": K1_BWD_NAMES},
 }
+
+# local SGD, the Titchener mode: qwen3-0.6b at full width and depth, bf16, 2 pods of
+# H = 4 inner steps a round on 2 x 2048 tokens each (32,768 tokens a round), 2 rounds
+# through run_train_task; its checkpointed task at 4 layers (a 28-layer save is
+# 30.8 GiB of state)
+LOCAL_SGD = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
+             "mode": "local_sgd", "n_pods": 2, "local_sgd": {"inner_steps": 4}, "steps": 8}
+LOCAL_SGD_PATH = "qwen3-0.6b local_sgd"
+LOCAL_SGD_TASK_LAYERS = 4
+# the f32 round on the card against the CPU's: full width, 2 layers, 2 pods, H = 2,
+# 1 x 256 tokens a pod and inner step
+LOCAL_SGD_PARITY = {"n_pods": 2, "inner_steps": 2, "seq": 256}
+# the share of the parity round's int8 delta elements that may round to the next
+# int8 value on the card than on the CPU, where the two sides' deltas lie less than
+# half a step apart across a rounding boundary (on an H100 80GB HBM3: 200,756 of
+# 685,255,680 elements, 2.93e-4)
+LOCAL_SGD_FLIP_SHARE = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2185,6 +2214,319 @@ def phase_cut_train(card: str, path: str) -> dict:
     return launches
 
 
+def pods_synced(state) -> bool:
+    """Every pod's params are the master cast to their dtype, bit for bit."""
+    from repro_torch.tree import tree_flatten_sorted
+    return all(torch.equal(pods[p], master.to(pods.dtype))
+               for (_, pods), (_, master) in zip(tree_flatten_sorted(state["pod_params"]),
+                                                 tree_flatten_sorted(state["master"]))
+               for p in range(pods.shape[0]))
+
+
+def phase_local_sgd_parity() -> None:
+    """One f32 local-SGD round of qwen3-0.6b at full width and 2 layers, 2 pods, H =
+    2, on the card (the kernels, both ways) and on the CPU (their plain versions),
+    from the same params and batches, with int8 compression on and off; the round
+    is ``make_round_fn``'s, its outer step watched for the state it starts from.
+    Held at the sync step's gates (phase_train_step_parity), with Adam's term over
+    the H steps: the pods' m at 1e-6; their masters before the outer step at 1e-4
+    plus H lr dg / eps; momentum and master at 1e-4 plus that term's pod mean
+    through the outer step. With compression, each int8 delta element is formed on
+    both sides from their own inputs. Where the two lie less than half a step
+    apart, one may round to the next value (never further) across a rounding
+    boundary, in at most LOCAL_SGD_FLIP_SHARE of the elements; where Adam's term
+    set the pods' masters further apart, the int8 values differ by as many steps
+    as lie between them. Where they differ, and only there, the gates of ef,
+    momentum and master take one int8 step more. Every kernel of the path is
+    launched, exactly so many times a round."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.optim import local_sgd as LS
+    from repro_torch.optim.compression import quantize_int8
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.runtime.train_loop import TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted, tree_map
+
+    P, H, S = (LOCAL_SGD_PARITY[k] for k in ("n_pods", "inner_steps", "seq"))
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), dtype="float32", remat="none",
+                              num_layers=2)
+    opt = TrainJobConfig().opt
+    params = Model(cfg, "cpu").init_params(0)
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (H, P, 1, S + 1), generator=gen).to(torch.int32)
+    batches = {"tokens": toks[..., :-1].contiguous(), "targets": toks[..., 1:].contiguous(),
+               "loss_mask": torch.ones((H, P, 1, S), dtype=torch.bfloat16)}
+    # the inner lr rises through the warmup: its last step's is each step's bound
+    lr = float(warmup_cosine(H, peak_lr=opt.peak_lr, warmup_steps=opt.warmup_steps,
+                             total_steps=opt.total_steps))
+    leaves = lambda tree: [t for _, t in tree_flatten_sorted(tree)]  # noqa: E731
+    for compress in (True, False):
+        lcfg = LS.LocalSGDConfig(inner_steps=H, compress=compress)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = LS.init_local_sgd_state(tree_map(lambda t: t.to(dev), params), P)
+            start = {}
+            real = LS.outer_step
+
+            def watched(st, c, start=start, real=real):
+                start.update(pod_master=tree_map(torch.clone, st["pod_opt"]["master"]),
+                             master=tree_map(torch.clone, st["master"]),
+                             ef=tree_map(torch.clone, st["ef"]))
+                return real(st, c)
+
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            with swapped(LS, "outer_step", watched):
+                state, m = LS.make_round_fn(Model(cfg, dev), opt, lcfg)(
+                    state, {k: v.to(dev) for k, v in batches.items()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+            runs[dev] = (state, start, float(m["delta_norm"]), time.perf_counter() - t0)
+        (card, c0, c_norm, card_s), (host, h0, h_norm, cpu_s) = runs["cuda"], runs["cpu"]
+        gain = lcfg.outer_lr * (1 + lcfg.outer_momentum) if lcfg.nesterov else lcfg.outer_lr
+        err = dict.fromkeys(("m", "pod masters", "ef", "momentum", "master"), 0.0)
+        beyond = flips = wide = total = 0
+        for (path, m_c), m_h, pm_c, pm_h, w0, ef0_c, ef0_h, ef_c, ef_h, mo_c, mo_h, w_c, w_h, \
+                pods in zip(tree_flatten_sorted(card["pod_opt"]["m"]), *(leaves(t) for t in (
+                    host["pod_opt"]["m"], c0["pod_master"], h0["pod_master"], c0["master"],
+                    c0["ef"], h0["ef"], card["ef"], host["ef"], card["momentum"],
+                    host["momentum"], card["master"], host["master"], card["pod_params"]))):
+            name = "/".join(map(str, path))
+            m_h, pm_h, ef0_h, ef_h, mo_h, w_h = (t.cuda() for t in (m_h, pm_h, ef0_h, ef_h,
+                                                                    mo_h, w_h))
+            check(bool(m_c.abs().max() > 0), f"local SGD round: leaf {name} got no gradient")
+            check(close(m_c, m_h, 1e-6), f"local SGD round: m of {name} max err "
+                  f"{max_err(m_c, m_h)}")
+            adam = H * lr * (m_c - m_h).abs() / (1 - opt.b1) / opt.eps
+            plain = 1e-4 * (1 + pm_h.abs())
+            diff = (pm_c - pm_h).abs()
+            check(bool((diff <= plain + adam).all()), f"local SGD round: pod masters of {name} "
+                  f"max err {diff.max().item()}")
+            beyond += int((diff > plain).sum())
+            step = torch.zeros_like(adam)             # one int8 step where one rounded otherwise
+            if compress:
+                for p in range(P):
+                    v_c, v_h = w0 - pm_c[p] + ef0_c[p], w0 - pm_h[p] + ef0_h[p]
+                    (q_c, s_c), (q_h, s_h) = quantize_int8(v_c), quantize_int8(v_h)
+                    dq = (q_c.int() - q_h.int()).abs()
+                    # less than half a step apart, the two sides' deltas round to the same
+                    # or the next int8 value: the next one only across a rounding boundary
+                    near = (v_c - v_h).abs() < s_h / 2
+                    check(bool((dq[near] <= 1).all()) and bool(
+                        (dq <= (v_c / s_c - v_h / s_h).abs() + 1).all()),
+                        f"local SGD round: int8 delta of {name} pod {p} off by {int(dq.max())} "
+                        f"steps")
+                    step[p] = (dq > 0) * 1.01 * s_h
+                    flips += int((near & (dq == 1)).sum())
+                    wide += int((~near & (dq > 0)).sum())
+            total += pm_c.numel()
+            diff = (ef_c - ef_h).abs()
+            check(bool((diff <= plain + adam + step).all()),
+                  f"local SGD round: ef of {name} max err {diff.max().item()}")
+            term = (adam + step).mean(0)
+            for key, got, want, allow in (("momentum", mo_c, mo_h, term),
+                                          ("master", w_c, w_h, gain * term)):
+                diff = (got - want).abs()
+                check(bool((diff <= 1e-4 * (1 + want.abs()) + allow).all()),
+                      f"local SGD round: {key} of {name} max err {diff.max().item()}")
+                err[key] = max(err[key], diff.max().item())
+            for key, a, b in (("m", m_c, m_h), ("pod masters", pm_c, pm_h), ("ef", ef_c, ef_h)):
+                err[key] = max(err[key], max_err(a, b))
+            check(all(torch.equal(pods[p], w_c) for p in range(P)),
+                  f"local SGD round: a pod's params of {name} are not the master")
+        check(flips <= LOCAL_SGD_FLIP_SHARE * total,
+              f"local SGD round: {flips} of {total} int8 elements rounded otherwise")
+        check(abs(c_norm - h_norm) <= 1e-4 * h_norm,
+              f"local SGD round: delta_norm {c_norm} vs CPU {h_norm}")
+        per_round = {n: k * P * H for n, k in dense_per_step(cfg.num_layers).items()}
+        check(launches == per_round, f"local SGD round: launches {launches}, want {per_round}")
+        print(f"local SGD round, qwen3-0.6b full width, 2 layers, f32, {P} pods x H={H} x "
+              f"1 x {S} tokens, {'int8 + error feedback' if compress else 'f32 exchange'}: "
+              f"card delta_norm {c_norm:.6f}, CPU {h_norm:.6f} (card {card_s:.1f} s, CPU "
+              f"{cpu_s:.1f} s); max abs err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+              + f"; {beyond} pod-master elements beyond 1e-4, each within H lr dg / eps "
+              f"(lr {lr:.3g}); {flips} of {total} int8 elements rounded to the next value "
+              f"across a rounding boundary ({flips / total:.2e}, allowed "
+              f"{LOCAL_SGD_FLIP_SHARE:g}), {wide} more where the pods' masters differ by half "
+              f"an int8 step or more; pods bit-equal to the master; launches {launches}")
+        del card, host, c0, h0, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_local_sgd_train(card: str) -> dict:
+    """Train qwen3-0.6b at full width and depth in local_sgd mode through
+    run_train_task (2 rounds of 2 pods x H = 4 inner steps, no checkpoint
+    directory), the launch counters set to 0 just before and read just after:
+    every K1 and K2 entry, both ways, exactly dense_per_step(28) x P x H a round;
+    every pod's params bit-equal to the master cast to bf16 after each round. Then
+    the master's eval loss (``run_eval_task``'s computation; the task itself
+    would need a 30.8 GiB save to restore) finite. Then 3 warm rounds timed, the
+    outer step alone timed, one round and one outer step profiled, and the byte
+    accounting printed. Returns each kernel's launches in the task."""
+    from repro_torch.optim import local_sgd as LS
+    from repro_torch.runtime.step_cache import TrainerCache, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    job = LOCAL_SGD
+    P, H = job["n_pods"], job["local_sgd"]["inner_steps"]
+    rounds = job["steps"] // H
+    cache = TrainerCache(1)
+    t0 = time.perf_counter()
+    trainer = cache.get(TrainJobConfig.from_job({"payload": dict(job)}))  # built cold here
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    real_round, synced = trainer.round_fn, []
+
+    def checked(state, batches):
+        state, m = real_round(state, batches)
+        synced.append(pods_synced(state))
+        return state, m
+
+    trainer.round_fn = checked
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    res = run_train_task(cache, dict(job))                      # a warm hit: rebound
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer.round_fn = real_round
+    norms = trainer.metrics.series("delta_norm")
+    layers = trainer.arch_cfg.num_layers
+    print(f"local SGD train task {job['arch']} full width, {layers} layers, bf16, {P} pods x "
+          f"H={H} x {job['global_batch'] // P} x {job['seq_len']} tokens: {res} in {wall:.2f} s "
+          f"(trainer built in {build_s:.2f} s before: {state_gib:.2f} GiB allocated); "
+          f"delta_norm {norms}; launches {launches}; peak memory {peak_gib:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} [{card}]")
+    check(layers == 28, f"local SGD train: {layers} layers, want 28")
+    check(res["steps"] == job["steps"] and res["ran_steps"] == job["steps"]
+          and res["loss"] is None, f"local SGD train task: {res}")
+    check(synced == [True] * rounds, f"local SGD train: pods synced after each round {synced}")
+    check(len(norms) == rounds and all(math.isfinite(v) and v > 0 for v in norms),
+          f"local SGD train: delta_norm {norms}")
+    check(int(trainer.state["round"]) == rounds
+          and trainer.state["pod_opt"]["step"].tolist() == [job["steps"]] * P,
+          f"local SGD train: round {trainer.state['round']}, pod steps "
+          f"{trainer.state['pod_opt']['step']}")
+    per_step = dense_per_step(layers)
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * P * H * rounds
+        check(n == want, f"local SGD train task: {name} launched {n} times, want {want}")
+    with torch.no_grad():            # run_eval_task's loss, on the task's trained master
+        own, _ = trainer.model.loss_fn(trainer.params_for_eval(), trainer._sync_batch(10_000))
+    print(f"local SGD: the master's eval loss after the task's {trainer.step} steps "
+          f"{float(own):.5f}")
+    check(math.isfinite(float(own)), f"local SGD: eval loss {own}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(pods_synced(trainer.state), "local SGD: pods not synced after a warm round")
+    round_ms = statistics.median(times)
+    tokens = job["global_batch"] * job["seq_len"] * H
+    outer = lambda: LS.outer_step(trainer.state, trainer.cfg.local_sgd)  # noqa: E731
+    outer_ms = wall_ms(outer, n=3)
+    print(f"local SGD round {job['arch']} full width, {tokens} tokens: {round_ms:.1f} ms (median "
+          f"of warm rounds {[round(t, 1) for t in times]}) = {tokens / round_ms * 1e3:.0f} "
+          f"training tokens/s; outer step alone {outer_ms:.1f} ms [{card}]; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    groups = profile_breakdown(
+        f"{job['arch']} local SGD round, {tokens} tokens", trainer.step_once, top=12,
+        groups={"K1 forward": ("flash_fwd",), "K1 backward": K1_BWD_NAMES,
+                "K2 forward": K2_KERNEL_NAMES, "K2 backward": K2_BWD_NAMES})
+    pod_steps = P * H
+    n = groups.get("K1 backward", (0.0, 0))[1]
+    check(n == 3 * layers * pod_steps, f"local SGD round profile: {n} K1 backward kernels, "
+          f"want {3 * layers * pod_steps}")
+    n = groups.get("K2 backward", (0.0, 0))[1]
+    want = sum(per_step[name] for name in K2_BWD_ENTRIES) * pod_steps
+    check(n == want, f"local SGD round profile: {n} K2 backward kernels, want {want}")
+    profile_breakdown(f"{job['arch']} local SGD outer step", outer, top=8, groups={})
+    c_bytes, sync_bytes = LS.dcn_bytes_per_round(trainer.state["master"], trainer.cfg.local_sgd)
+    f32_bytes, _ = LS.dcn_bytes_per_round(
+        trainer.state["master"], dataclasses.replace(trainer.cfg.local_sgd, compress=False))
+    print(f"local SGD bytes across the pod boundary a round: {c_bytes / 1e9:.3f} GB int8 "
+          f"({f32_bytes / 1e9:.3f} GB as f32), against {sync_bytes / 1e9:.3f} GB of bf16 "
+          f"gradients that synchronous data parallelism all-reduces over the same {H} steps "
+          f"({sync_bytes / c_bytes:.2f}x)")
+    del trainer, cache, real_round, outer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_local_sgd_task() -> None:
+    """The local-SGD train task with a checkpoint (8 steps, a checkpoint every 8)
+    and a strict eval-task restore of it, at full width and LOCAL_SGD_TASK_LAYERS
+    layers: the restored master's eval loss is the trained state's own."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_eval_task, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    job = dict(LOCAL_SGD, checkpoint_every=LOCAL_SGD["steps"])
+    P, H = job["n_pods"], job["local_sgd"]["inner_steps"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    print(f"local SGD task: {shutil.disk_usage(build).free / 2**30:.1f} GiB free for "
+          f"checkpoints")
+    with arch_depth(job["arch"], LOCAL_SGD_TASK_LAYERS), \
+            tempfile.TemporaryDirectory(dir=build) as ckdir:
+        payload = dict(job, checkpoint_dir=ckdir)
+        cache = TrainerCache(1)
+        trainer = cache.get(TrainJobConfig.from_job({"payload": payload}))
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        res = run_train_task(cache, payload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        layers = trainer.arch_cfg.num_layers
+        manifest = json.loads((Path(ckdir) / f"step_{job['steps']:08d}" / "manifest.json")
+                              .read_text())
+        save_gb = sum(os.path.getsize(Path(ckdir) / f"step_{job['steps']:08d}" / e["file"])
+                      for e in manifest["leaves"].values()) / 1e9
+        print(f"local SGD train task {job['arch']} full width, {layers} layers: {res} in "
+              f"{wall:.2f} s ({save_gb:.2f} GB a save); delta_norm "
+              f"{trainer.metrics.series('delta_norm')}; launches {launches}")
+        check(layers == LOCAL_SGD_TASK_LAYERS, "local SGD task: depth not cut")
+        check(res["steps"] == job["steps"] and res["ran_steps"] == job["steps"]
+              and res["loss"] is None, f"local SGD task: {res}")
+        check(res["checkpoint"] == {"step": job["steps"], "path": ckdir},
+              f"local SGD task checkpoint {res.get('checkpoint')}")
+        check(manifest["extra"]["mode"] == "local_sgd" and "pod_opt/step" in manifest["leaves"],
+              f"local SGD task: manifest extra {manifest['extra']}")
+        for name, per in dense_per_step(layers).items():
+            want = per * P * job["steps"]
+            check(launches.get(name, 0) == want,
+                  f"local SGD task: {name} launched {launches.get(name, 0)}, want {want}")
+        with torch.no_grad():
+            own, _ = trainer.model.loss_fn(trainer.params_for_eval(),
+                                           trainer._sync_batch(10_000))
+        own = float(own)
+        t0 = time.perf_counter()
+        ev = run_eval_task(None, {**job, "restore_from": res["checkpoint"]})
+        torch.cuda.synchronize()
+        print(f"local SGD eval task, strict restore of step {job['steps']}: {ev} in "
+              f"{time.perf_counter() - t0:.2f} s; the trained master's own loss on that "
+              f"batch {own}")
+        check(ev["restored_step"] == job["steps"] and math.isfinite(ev["eval_loss"]),
+              f"local SGD eval task: {ev}")
+        check(abs(ev["eval_loss"] - own) <= 1e-5 * abs(own),
+              f"local SGD eval task: restored loss {ev['eval_loss']} != the trained {own}")
+        del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def arch_depth(arch: str, layers: int):
     """``configs.get(arch)`` with ``num_layers`` cut to ``layers`` (full width),
@@ -2682,6 +3024,7 @@ def main(argv=None) -> int:
                             cut=ZAMBA_PARITY)
     phase_train_step_parity("deepseek-moe-16b", MOE_PARITY_SEQ, MOE_TRAIN_PER_STEP,
                             batch_size=1, cut=MOE_PARITY)
+    phase_local_sgd_parity()
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {}
@@ -2696,6 +3039,8 @@ def main(argv=None) -> int:
     phase_ssm_tasks()
     for path in CUT_TRAINS:
         by_path[path] = phase_cut_train(card, path)
+    by_path[LOCAL_SGD_PATH] = phase_local_sgd_train(card)
+    phase_local_sgd_task()
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()

@@ -1,17 +1,23 @@
 """Trainer: the training loop of the PyTorch port on one card, twin of
-``repro.runtime.train_loop`` in its "sync" mode (one synchronous step per
-batch). ``mode="local_sgd"`` is not ported yet (ROADMAP, "Modules to port",
-the local SGD item) and raises.
+``repro.runtime.train_loop``. Two synchronization modes, selected per job:
+  * "sync"      - one synchronous AdamW step per global batch;
+  * "local_sgd" - the Titchener mode: H pod-local AdamW steps a round on pod
+                  copies of the parameters, then one int8 error-feedback
+                  compressed delta exchange and an outer Nesterov step
+                  (``optim/local_sgd.py``). ``step`` counts inner steps, so a
+                  round advances it by H; the pods are a leading dim of the
+                  state, run in turn on the one card.
 
 Deterministic restart: checkpoint = (train state, data step, seed); the data
 pipeline is a pure function of step, so kill/restore resumes exactly. The
 checkpoint is the JAX package's on-disk format.
 
-The train step updates the state in place (``optim/adamw.py``), so ``rebind``
-cannot hand back the initial tree as the JAX package does: it draws the initial
-params again from the seed (``init_params`` is a pure function of the config,
-the seed and the device) and rebuilds the state from them (the initial optimizer
-state is a function of the params). No second copy of the params is kept on the
+The train step and the local-SGD round update the state in place
+(``optim/adamw.py``), so ``rebind`` cannot hand back the initial tree as the JAX
+package does: it draws the initial params again from the seed (``init_params``
+is a pure function of the config, the seed and the device) and rebuilds the
+state from them (the initial optimizer or local-SGD state is a function of the
+params). No second copy of the params is kept on the
 card: at gemma3-12b's width one would take 6.25 GiB.
 """
 from __future__ import annotations
@@ -28,8 +34,10 @@ from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.optim.local_sgd import LocalSGDConfig
+from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state,
+                                         make_round_fn)
 from repro_torch.runtime.telemetry import MetricsLog, StepTimer
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -39,8 +47,8 @@ class TrainJobConfig:
     seq_len: int = 64
     global_batch: int = 8
     reduced: bool = True             # reduced() config for CPU execution
-    mode: str = "sync"               # sync (local_sgd: not ported yet)
-    n_pods: int = 2                  # local_sgd: pods emulated via the vmap dim
+    mode: str = "sync"               # sync | local_sgd
+    n_pods: int = 2                  # local_sgd: pods, a leading dim of the state
     microbatches: int = 1
     seed: int = 0
     data_task: str = "ramp"
@@ -67,11 +75,7 @@ class TrainJobConfig:
 class Trainer:
     def __init__(self, cfg: TrainJobConfig,
                  on_checkpoint: Optional[Callable[[int, str], None]] = None):
-        if cfg.mode == "local_sgd":
-            raise NotImplementedError(
-                "Trainer mode 'local_sgd' is not ported yet: ROADMAP, 'Modules to "
-                "port', the local SGD item (optim/local_sgd.py and optim/compression.py)")
-        if cfg.mode != "sync":
+        if cfg.mode not in ("sync", "local_sgd"):
             raise ValueError(f"unknown trainer mode {cfg.mode!r}")
         self.cfg = cfg
         self.device = devices.resolve(cfg.device)
@@ -82,9 +86,18 @@ class Trainer:
         self.arch_cfg = arch_cfg
         self.model = Model(arch_cfg, self.device)
         self.step = 0
-        self.state = init_train_state(self.model, cfg.seed)
-        self.step_fn = make_train_step(self.model, cfg.opt, cfg.microbatches)
+        self.state = self._init_state(cfg)
+        if cfg.mode == "local_sgd":
+            self.round_fn = make_round_fn(self.model, cfg.opt, cfg.local_sgd)
+        else:
+            self.step_fn = make_train_step(self.model, cfg.opt, cfg.microbatches)
         self._arm(cfg, on_checkpoint)
+
+    def _init_state(self, cfg: TrainJobConfig) -> dict:
+        """The initial state of ``cfg.mode`` from ``cfg.seed``."""
+        if cfg.mode == "local_sgd":
+            return init_local_sgd_state(self.model.init_params(cfg.seed), cfg.n_pods)
+        return init_train_state(self.model, cfg.seed)
 
     def _arm(self, cfg: TrainJobConfig,
              on_checkpoint: Optional[Callable[[int, str], None]]) -> None:
@@ -108,10 +121,10 @@ class Trainer:
         if self.ckpt:
             self.ckpt.wait()             # bound the previous task's async save
         # the previous task's state goes before the new one is built: at
-        # mamba2-2.7b's width (39.6 GB of params, m, v and master) two do not fit
-        # on one card together
+        # mamba2-2.7b's width (39.6 GB of params, m, v and master), or qwen3-0.6b's
+        # local-SGD state over 2 pods (30.8 GiB), two do not fit on one card together
         self.state = None
-        self.state = init_train_state(self.model, cfg.seed)
+        self.state = self._init_state(cfg)
         self.cfg = cfg
         self.step = 0
         self._arm(cfg, on_checkpoint)
@@ -121,10 +134,25 @@ class Trainer:
         batch = self.data.global_batch_at(step)
         return {k: v.to(self.device) for k, v in batch.items()}
 
+    def _round_batches(self, step: int) -> Dict[str, torch.Tensor]:
+        """local_sgd: the [H, n_pods, B/n_pods, ...] batch stack of one round; pod p
+        of inner step h reads shard p of data step ``step + h``."""
+        H, P = self.cfg.local_sgd.inner_steps, self.cfg.n_pods
+        Bp = self.cfg.global_batch // P
+        rows = [[self.data.batch_at(step + h, shard_id=p, batch=Bp) for p in range(P)]
+                for h in range(H)]
+        return {k: torch.stack([torch.stack([pod[k] for pod in row]) for row in rows])
+                .to(self.device) for k in rows[0][0]}
+
     def step_once(self) -> Dict[str, float]:
-        batch = self._sync_batch(self.step)
-        self.state, m = self.step_fn(self.state, batch)
-        self.step += 1
+        if self.cfg.mode == "local_sgd":
+            batches = self._round_batches(self.step)
+            self.state, m = self.round_fn(self.state, batches)
+            self.step += self.cfg.local_sgd.inner_steps
+        else:
+            batch = self._sync_batch(self.step)
+            self.state, m = self.step_fn(self.state, batch)
+            self.step += 1
         m = {k: float(v) for k, v in m.items()}
         self.timer.tick()
         self.metrics.log(self.step, m)
@@ -189,4 +217,7 @@ class Trainer:
         return row.get("loss") if row else None
 
     def params_for_eval(self) -> dict:
+        if self.cfg.mode == "local_sgd":
+            dtype = getattr(torch, self.arch_cfg.dtype)
+            return tree_map(lambda m: m.to(dtype), self.state["master"])
         return self.state["params"]

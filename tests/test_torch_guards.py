@@ -25,6 +25,7 @@ from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.step_cache import (run_eval_task, run_serve_task,  # noqa: E402
                                             run_train_task)
 from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
+from repro_torch.tree import tree_flatten_sorted  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -33,7 +34,8 @@ FORBIDDEN = ("jax", "repro", "triton")
 
 # modules the training slice added: the import guard must see each of them
 TRAINING_MODULES = ("kernels/autograd.py", "models/model.py", "optim/adamw.py",
-                    "optim/schedules.py", "optim/local_sgd.py", "data/pipeline.py",
+                    "optim/schedules.py", "optim/local_sgd.py", "optim/compression.py",
+                    "data/pipeline.py",
                     "checkpoint/manager.py", "runtime/telemetry.py", "launch/steps.py",
                     "runtime/train_loop.py", "runtime/step_cache.py", "convert.py")
 
@@ -185,9 +187,19 @@ def test_every_wrapper_refuses_an_input_that_requires_grad(name):
     assert all(fn.launches == 0 for fn in ALL_WRAPPERS)
 
 
-def test_local_sgd_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="the local SGD item"):
-        Trainer(TrainJobConfig(mode="local_sgd", device="cpu"))
+def test_trainer_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="unknown trainer mode 'diloco'"):
+        Trainer(TrainJobConfig(mode="diloco", device="cpu"))
+
+
+def test_local_sgd_mode_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(TrainJobConfig(mode="local_sgd"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_train_task(None, {"mode": "local_sgd", "steps": 4})
+    tr = Trainer(TrainJobConfig(mode="local_sgd", device="cpu", seq_len=8, global_batch=2))
+    assert {t.device.type for _, t in tree_flatten_sorted(tr.state)} == {"cpu"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
