@@ -20,10 +20,13 @@ Phases, each failing loudly (nonzero exit):
      is also timed padded to 128 as the TPU route runs it; at 128 in
      qwen3-moe-235b-a22b's GQA 16:1 layout; K3 at zamba2's too), K2
      through each of its four entry points (rmsnorm,
-     add_rmsnorm, gated_rmsnorm, qk_norm_rope), and the SSD scan on the conv
-     output's strided views; time kernel, plain version and the PyTorch library
-     call that computes the same function (F.rms_norm, SDPA; none for the fused
-     norms and the SSD scan);
+     add_rmsnorm, gated_rmsnorm, qk_norm_rope; rmsnorm and add_rmsnorm at
+     llama-3.2-vision's width 8,192 too), and the SSD scan on the conv output's
+     strided views; K1 not causal over Sq != Skv, both ways, as the
+     cross-attending paths call it (Sq > Skv included: whisper's training
+     cross-attention, 2,048 queries over 1,500 frames); time kernel, plain version
+     and the PyTorch library call that computes the same function (F.rms_norm,
+     SDPA; none for the fused norms and the SSD scan);
   4. serve each model of the port at full width through ``run_serve_task``
      (8 requests of 512 prompt + 32 new tokens, 4 slots, 2048-token cache):
      qwen3-0.6b (dense: K1, K2), mamba2-2.7b (ssm: K2, K3), gemma3-12b
@@ -31,12 +34,17 @@ Phases, each failing loudly (nonzero exit):
      the ring cache), then zamba2-7b (hybrid, all 81 layers: K3, K2, and K1 at
      head dim 112 in its shared block), then deepseek-moe-16b (moe, all 28
      layers: K1, K2) and qwen3-moe-235b-a22b (moe, cut to 2 layers: K1 at GQA
-     16:1, K2 with qk_norm_rope), each with the launch counters set to 0
-     just before and
-     read just after, and the previous server released first. Then check
+     16:1, K2 with qk_norm_rope), whisper-medium (encdec, all 24 + 24 layers:
+     K1 not causal in the encoder and the cross-attention, K2) and
+     llama-3.2-vision-90b (vlm, cut to 10 layers: K1 with GQA 8:1, K2 at 8,192),
+     each with the launch counters set to 0 just before and read just after
+     (every kernel exactly so many a prefill and a decode step), and the previous
+     server released first. Then check
      prefill + one decode step against ``forward`` at full width (f32 to 1e-4
-     at every layer, gemma3 at 6, deepseek at 8; bf16 at 0.08 at 4 layers,
-     gemma3 at 6; the MoE paths at a capacity where no assignment can be
+     at every layer, gemma3 at 6, deepseek at 8, llama at 5; bf16 at 0.08 at 4
+     layers, gemma3 at 6, llama at 5; whisper and llama on random frames and
+     patches with every gate at CROSS_GATE; the MoE paths at a capacity where no
+     assignment can be
      dropped, the drops at 1.25 and 8.0 counted from the routing; see
      ``phase_serve``), time prefill, decode and the warm task, and profile one
      prefill and one decode step (kernels per call, each held at its known
@@ -67,7 +75,11 @@ Phases, each failing loudly (nonzero exit):
      deepseek-moe-16b at its attention and expert layout (16 heads of 128; 64
      experts, top-6, 2 shared), 4 layers, d_model, the experts' width and the
      vocabulary narrowed, on 600 tokens, its routers' top-k picks on the card
-     and the CPU exactly equal at every layer; then one f32 local-SGD round of
+     and the CPU exactly equal at every layer; whisper-medium at full width, 2
+     encoder and 2 decoder layers, on 600 tokens over 1,500 frames;
+     llama-3.2-vision-90b at its attention shape (64 q / 8 kv heads of 128), one
+     group of 5 layers, d_model, d_ff and the vocabulary narrowed, on 600
+     tokens over 1,601 patches, its gates at CROSS_GATE; then one f32 local-SGD round of
      qwen3-0.6b at full width and 2 layers (2 pods, H = 2, int8 compression on
      and off) on the card against the CPU's (``phase_local_sgd_parity``);
   7. train qwen3-0.6b at full width and depth, bf16, through ``run_train_task``
@@ -91,7 +103,10 @@ Phases, each failing loudly (nonzero exit):
      one (each of K1's backward kernels at the path's head dim, 256, 112 or 128,
      once an attention layer, no other K1 backward kernel). No checkpointed
      task: saves at these depths are ~22-47 GB, and the task code is the same as
-     qwen3's and mamba2's;
+     qwen3's and mamba2's. Then whisper-medium at full width and depth the same
+     way (4 x 2,048 tokens over the Trainer's 4 x 1,500 frames; K1 72 times a
+     step each way, at head dim 64), and its checkpointed task (2 steps, a
+     checkpoint every 2; ~14 GB a save) and a strict eval-task restore;
  10. train qwen3-0.6b at full width and depth in local_sgd mode (the Titchener
      mode: 2 pods, H = 4 inner steps a round, 2 x 2048 tokens a pod, bf16)
      through ``run_train_task`` (8 steps, 2 rounds), the counters read around it
@@ -162,13 +177,15 @@ SERVE = {"reduced": False, "slots": 4, "max_len": 2048, "n_requests": 8,
 # capacity factors whose drops are counted in the MoE checks' routing: the configs'
 # and the JAX suite's (tests/test_models_smoke.py:74-79)
 MOE_CAPACITIES = (1.25, 8.0)
-# One serving path per ported family, at full width. ``min_launches``: what each
-# kernel must at least be launched in the serve task (K1 once per layer per
-# prefill; K3 likewise). ``per_call``: K2's entry points, launched that many
-# times in every prefill and every decode step (rmsnorm: ln1 of layer 0;
-# add_rmsnorm: every other norm, each with the residual add before it;
-# qk_norm_rope once a layer; gated_rmsnorm once a layer). ``f32_leaves``: params
-# kept in f32.
+# One serving path per ported family, at full width. ``launches``: each forward
+# kernel's launches in every prefill (B = 1, the served prompt) and in every decode
+# step, (prefill, decode), held exactly over the serve task; every kernel not
+# named launches no time (rmsnorm: ln1 of the first layer of a stack; add_rmsnorm:
+# every other norm, each with the residual add before it, the final norm and
+# whisper's enc_norm included; qk_norm_rope once a layer; gated_rmsnorm once a
+# mamba2 layer; K1 and K3 once an attention or mamba2 layer of a prefill, never in
+# a decode step: decode attends to the cache in plain PyTorch). ``f32_leaves``:
+# params kept in f32.
 # ``toks``: the (batch, length) of each prefill + decode vs forward check; 601
 # makes mamba2's 600-token prefill cross two 256-token chunks and end ragged, and
 # gemma3's stay inside its 1,024-token window (the ring padded); 2049 fills
@@ -187,7 +204,8 @@ MOE_CAPACITIES = (1.25, 8.0)
 # the call's first kernel, the embedding gather; the same serving code counts 2,630
 # and 3,460 in a whole one. gemma3's were counted on the card when its path was
 # added (a 512-token prefill pads its 40 rings to W; a 2,048-token one takes views),
-# and zamba2-7b's and the MoE paths' likewise. zamba2-7b (hybrid): 81 mamba2 layers, the shared
+# and zamba2-7b's, the MoE paths' and the cross-attending paths' likewise. zamba2-7b
+# (hybrid): 81 mamba2 layers, the shared
 # attention block after every 6th (13 times; K1 at head dim 112, no qk-norm), a
 # tail of 3; its f32 check at every layer (27 GB of f32 params beside 12.6 of
 # bf16), bf16 at one group and the tail (9 layers). The MoE family: deepseek-moe-16b
@@ -199,39 +217,68 @@ MOE_CAPACITIES = (1.25, 8.0)
 # a group's capacity reaches its S tokens: prefill's and forward's dispatch then drop
 # no assignment that decode's dense all-experts path keeps (at the JAX suite's 8.0
 # random full-width routers overfill experts: ``routing_drops``). The serve task
-# runs the configs' 1.25.
+# runs the configs' 1.25. The cross-attending families: whisper-medium (encdec) at
+# full width and depth (24 encoder layers over 1,500 frames, not causal, run at
+# prefill only; 24 decoder layers, each causal self-attention then cross-attention
+# onto the encoder's output; MHA 16/16 of 64; 1.89 GiB of bf16), its f32 check at
+# every layer, bf16 at 4 decoder layers; llama-3.2-vision-90b (vlm) at full width,
+# cut to ``layers`` = 10 (two groups of 4 self layers and a tanh-gated cross layer
+# onto 1,601 patches; GQA 64:8 of 128, d_model 8,192; 19.85 GiB of bf16; its 100
+# layers are 163.3 GiB), both checks at one group (10 f32 layers are ~40 GiB). The
+# servers feed zero frames and patches (the JAX package's stubs) and the gates are
+# 0 at init, so the checks against forward draw random frames and patches and set
+# every gate to ``CROSS_GATE``.
 PATHS = [
     {"arch": "qwen3-0.6b", "params": 751_632_384, "f32_leaves": (), "toks": [(2, 64)],
      "check_layers": (None, 4), "deep_prefill_tol": 0.08,
-     "min_launches": {"flash_attention": 28 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28, "qk_norm_rope": 28},
+     "launches": {"flash_attention": (28, 0), "rmsnorm": (1, 1), "add_rmsnorm": (56, 56),
+                  "qk_norm_rope": (28, 28)},
      "kernels": {"prefill": 432, "decode": 1_265}},
     {"arch": "mamba2-2.7b", "params": 2_830_951_936, "f32_leaves": ("a_log", "dt_bias"),
      "toks": [(2, 601)], "check_layers": (None, 4), "deep_prefill_tol": 0.08,
-     "min_launches": {"ssd_scan": 64 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 64, "gated_rmsnorm": 64},
+     "launches": {"ssd_scan": (64, 0), "rmsnorm": (1, 1), "add_rmsnorm": (64, 64),
+                  "gated_rmsnorm": (64, 64)},
      "kernels": {"prefill": 2_630, "decode": 3_460}},
     {"arch": "gemma3-12b", "params": 12_772_052_736, "f32_leaves": (),
      "toks": [(2, 601), (1, 2049)], "check_layers": (6, 6), "deep_prefill_tol": None,
-     "long_prompt": 2048, "min_launches": {"flash_attention": 48 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 48, "qk_norm_rope": 48},
+     "long_prompt": 2048,
+     "launches": {"flash_attention": (48, 0), "rmsnorm": (1, 1), "add_rmsnorm": (96, 96),
+                  "qk_norm_rope": (48, 48)},
      "kernels": {"prefill": 902, "decode": 2_421, "prefill long": 838}},
     {"arch": "zamba2-7b", "params": 6_750_539_856, "f32_leaves": ("a_log", "dt_bias"),
      "toks": [(2, 601)], "check_layers": (None, 9), "deep_prefill_tol": None,
-     "min_launches": {"flash_attention": 13 * 8, "ssd_scan": 81 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 80 + 2 * 13 + 1, "gated_rmsnorm": 81},
+     "launches": {"flash_attention": (13, 0), "ssd_scan": (81, 0), "rmsnorm": (1, 1),
+                  "add_rmsnorm": (80 + 2 * 13 + 1, 80 + 2 * 13 + 1),
+                  "gated_rmsnorm": (81, 81)},
      "kernels": {"prefill": 4_255, "decode": 5_687}},
     {"arch": "deepseek-moe-16b", "params": 16_879_568_896, "f32_leaves": (),
-     "toks": [(2, 601)], "check_layers": (8, 4),
-     "deep_prefill_tol": 0.08, "min_launches": {"flash_attention": 28 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 28},
+     "toks": [(2, 601)], "check_layers": (8, 4), "deep_prefill_tol": 0.08,
+     "launches": {"flash_attention": (28, 0), "rmsnorm": (1, 1), "add_rmsnorm": (56, 56)},
      "kernels": {"prefill": 3_146, "decode": 3_000}},
     {"arch": "qwen3-moe-235b-a22b", "layers": 2, "params": 6_220_173_824, "f32_leaves": (),
-     "toks": [(2, 601)], "check_layers": (None, None),
-     "deep_prefill_tol": 0.08, "min_launches": {"flash_attention": 2 * 8},
-     "per_call": {"rmsnorm": 1, "add_rmsnorm": 2 * 2, "qk_norm_rope": 2},
+     "toks": [(2, 601)], "check_layers": (None, None), "deep_prefill_tol": 0.08,
+     "launches": {"flash_attention": (2, 0), "rmsnorm": (1, 1), "add_rmsnorm": (4, 4),
+                  "qk_norm_rope": (2, 2)},
      "kernels": {"prefill": 153, "decode": 135}},
+    # whisper: a prefill runs the encoder (24 layers, K1 not causal over the 1,500
+    # frames; ln1 of its layer 0, 47 adds + norms, enc_norm) and the decoder (24
+    # causal self and 24 cross K1 launches; ln1 of its layer 0, ln3 and ln2 a layer,
+    # 23 more ln1, the final norm); a decode step only the decoder's norms
+    {"arch": "whisper-medium", "params": 1_012_314_112, "f32_leaves": (),
+     "toks": [(2, 601)], "check_layers": (None, 4), "deep_prefill_tol": 0.08,
+     "launches": {"flash_attention": (72, 0), "rmsnorm": (2, 1),
+                  "add_rmsnorm": (48 + 72, 72)},
+     "kernels": {"prefill": 2_655, "decode": 2_452}},
+    # llama-3.2-vision at 10 layers: 8 causal self and 2 cross K1 launches a prefill;
+    # ln1 of layer 0, then 2 a layer but the first's ln1, and the final norm
+    {"arch": "llama-3.2-vision-90b", "layers": 10, "params": 10_657_898_498,
+     "f32_leaves": (), "toks": [(2, 601)], "check_layers": (5, 5), "deep_prefill_tol": 0.08,
+     "launches": {"flash_attention": (10, 0), "rmsnorm": (1, 1), "add_rmsnorm": (20, 20)},
+     "kernels": {"prefill": 486, "decode": 743}},
 ]
+# every vlm cross layer's gate in the checks against forward (0 at init, where the
+# cross layer adds nothing)
+CROSS_GATE = 0.5
 # twins of tests/test_kernels.py:FLASH_SWEEP: B, S, H, K, D, causal, window
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
                (1, 256, 8, 1, 32, True, 0), (1, 128, 4, 4, 64, False, 0),
@@ -265,6 +312,36 @@ ZAMBA_ATTN = [512, 2048]
 # window): the served prompt and S=2,048 forward, S=2,048 backward
 MOE_ATTN_SWEEP = [(1, 200, 200, 64, 4, True, 0), (1, 512, 512, 16, 16, True, 0)]
 MOE_ATTN = [(1, 512, 64, 4, 0), (1, 2048, 64, 4, 0)]
+# K1 as the cross-attending paths call it, not causal (B, Sq, Skv, H, K, D), both
+# ways: small cases (twins of tests/test_torch_kernels.py's SHORT_Q cross cases: Sq >
+# Skv and ragged, Sq < Skv at GQA 8:1), then whisper-medium's cross-attention (512
+# queries over 1,500 frames), its encoder (1,500 over 1,500), its training
+# cross-attention (4 x 2,048 queries over 1,500 frames: Sq > Skv) and
+# llama-3.2-vision-90b's (512 over 1,601 patches, GQA 64:8 of 128); those four are
+# timed both ways beside their bound and SDPA
+CROSS_ATTN_SWEEP = [(2, 96, 40, 4, 2, 64), (1, 130, 70, 4, 4, 64), (1, 40, 75, 8, 1, 128)]
+CROSS_ATTN = [(1, 512, 1500, 16, 16, 64), (1, 1500, 1500, 16, 16, 64),
+              (4, 2048, 1500, 16, 16, 64), (1, 512, 1601, 64, 8, 128)]
+# K1's self-attention at those paths' other shapes (B, Sq, Skv, H, K, D, causal, and
+# whether the backward runs there too): whisper-medium's causal decoder at its
+# served prompt and in training (4 x 2,048, both ways), its encoder in training (4 x
+# 1,500, not causal, both ways), llama-3.2-vision-90b's causal self layers at its
+# served prompt (GQA 64:8 of 128); checked and timed as CROSS_ATTN's shapes are
+SELF_ATTN = [(1, 512, 512, 16, 16, 64, True, False),
+             (4, 2048, 2048, 16, 16, 64, True, True),
+             (4, 1500, 1500, 16, 16, 64, False, True),
+             (1, 512, 512, 64, 8, 128, True, False)]
+# those outputs are small (not causal over ~1,500 keys an output element of randn
+# inputs has a std of ~sqrt(e / Skv) ~ 0.04, dV less), where TOL's and
+# FLASH_GRAD_TOL's absolute terms alone would pass an error of half a value: each
+# output is also held at ``rms_tol`` (the values' RMS as the unit of the absolute
+# term), by dtype and direction. In two runs on an H100 the largest were 5.5e-6
+# and 1.0e-5 in f32, 6.8e-3 and 5.8e-2 in bf16 (forward, backward; the bf16
+# backward's at the causal 4 x 2,048); the gates leave 2.5x or more over them. The
+# plain version that loses even one key of a ragged kv tail measures 0.71 or more
+# at every CROSS_ATTN shape
+RMS_UNIT_TOL = {(torch.float32, "fwd"): 5e-5, (torch.float32, "bwd"): 5e-5,
+                (torch.bfloat16, "fwd"): 2e-2, (torch.bfloat16, "bwd"): 0.15}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # K2's check sweep: twins of tests/test_torch_kernels.py's rmsnorm shapes and more
@@ -274,6 +351,9 @@ RMS_SWEEP = [(3, 5, 80), (2, 64, 128), (1, 7, 256), (4, 1, 512), (2, 16, 1024),
 # K2's serving shapes at the MoE paths' widths: deepseek-moe-16b's d_model 2048 and
 # qwen3-moe-235b-a22b's 4096, a 512-token prefill and a decode step of 4 slots
 MOE_NORM = [(1, 512, 2048), (4, 1, 2048), (1, 512, 4096), (4, 1, 4096)]
+# and at the cross-attending paths': llama-3.2-vision-90b's d_model 8,192 (the widest
+# row K2 normalises) at a prefill and a decode step, whisper-medium's encoder rows
+CROSS_NORM = [(1, 512, 8192), (4, 1, 8192), (1, 1500, 1024)]
 QWEN3_THETA = 1e6
 # kernel names of K2 in profiler traces (csrc/rmsnorm.cu's two kernels)
 K2_KERNEL_NAMES = ("rows_kernel", "qk_norm_rope_kernel")
@@ -320,8 +400,9 @@ FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 GEMMA_NORM_BWD, GEMMA_QK_BWD = (1, 2048, 3840), (1, 2048, 16, 8, 256)
 ZAMBA_NORM_BWD = (1, 2048, 3584)     # in RMS_SWEEP, as zamba2's gated (1, 2048, 7168)
 MOE_NORM_BWD = (1, 2048, 2048)       # deepseek-moe-16b's
+WHISPER_NORM_BWD = (4, 1500, 1024)   # whisper-medium's encoder in training
 NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), GEMMA_NORM_BWD, MOE_NORM_BWD, (1, 1, 1024),
-                              (600, 1024), (2, 3, 2560)]
+                              (600, 1024), (2, 3, 2560), WHISPER_NORM_BWD]
 QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128),
                 GEMMA_QK_BWD, (1, 1, 16, 8, 128)]
 # kernel names of the backward kernels in profiler traces
@@ -433,8 +514,45 @@ MOE_TRAIN_PER_STEP = dense_per_step(MOE_TRAIN_LAYERS, qk_norm=False)
 MOE_PARITY = {"num_layers": MOE_TRAIN_LAYERS, "d_model": 512, "d_ff_expert": 352,
               "vocab_size": 8192}
 MOE_PARITY_SEQ = 600
-# the train phases cut in depth: job, layers, launches a step, and the head dim and
-# names of K1's backward kernels there
+
+
+def encdec_per_step(enc: int, dec: int) -> dict:
+    """K1 and K2 launches in each whisper train step of ``enc`` encoder and ``dec``
+    decoder layers, forward and backward alike (K1: each encoder layer, and each
+    decoder layer's self- and cross-attention; rmsnorm: ln1 of each stack's layer 0;
+    add_rmsnorm: every other norm, enc_norm and the final norm included; no
+    qk-norm)."""
+    per = {"flash_attention": enc + 2 * dec, "rmsnorm": 2, "add_rmsnorm": 2 * enc + 3 * dec}
+    return {**per, **{f"{name}_bwd": n for name, n in per.items()}}
+
+
+def vlm_per_step(layers: int) -> dict:
+    """K1 and K2 launches in each llama-3.2-vision train step of ``layers`` layers
+    (one attention a layer, self or cross; ln1 of layer 0; two norms a layer but
+    the first's ln1, and the final norm), forward and backward alike."""
+    per = {"flash_attention": layers, "rmsnorm": 1, "add_rmsnorm": 2 * layers}
+    return {**per, **{f"{name}_bwd": n for name, n in per.items()}}
+
+
+# training whisper-medium at full width and depth (24 encoder and 24 decoder layers;
+# ~16 GB of state), bf16, 4 x 2,048 tokens a step over 4 x 1,500 frames (the
+# Trainer's one fixed draw); its checkpointed task at the same depth (a save is ~14
+# GB)
+WHISPER_TRAIN = {"arch": "whisper-medium", "reduced": False, "seq_len": 2048,
+                 "global_batch": 4, "microbatches": 1}
+WHISPER_LAYERS = 24
+# whisper's f32 train step on the card against the CPU's: full width, 2 encoder and 2
+# decoder layers, 600 tokens (ragged for 64-row tiles) over its 1,500 frames
+WHISPER_PARITY = {"num_layers": 2, "encoder_layers": 2}
+WHISPER_PARITY_SEQ = 600
+# llama-3.2-vision's f32 train step on the card against the CPU's (it trains on the
+# card at no depth: one group's state alone is ~100 GB): its attention shape (64 q /
+# 8 kv heads of 128) over one group (4 self layers and a gated cross layer onto its
+# 1,601 patches), d_model, d_ff and the vocabulary narrowed; 600 tokens
+LLAMA_PARITY = {"num_layers": 5, "d_model": 1024, "d_ff": 2048, "vocab_size": 8192}
+LLAMA_PARITY_SEQ = 600
+# the train phases of one job each (cut in depth but whisper-medium's): job, layers,
+# launches a step, and the head dim and names of K1's backward kernels there
 CUT_TRAINS = {
     "gemma3-12b train": {"job": GEMMA_TRAIN, "layers": GEMMA_TRAIN_LAYERS,
                          "per_step": GEMMA_TRAIN_PER_STEP, "head_dim": 256,
@@ -445,6 +563,9 @@ CUT_TRAINS = {
     "deepseek-moe-16b train": {"job": MOE_TRAIN, "layers": MOE_TRAIN_LAYERS,
                                "per_step": MOE_TRAIN_PER_STEP, "head_dim": 128,
                                "k1_bwd": K1_BWD_NAMES},
+    "whisper-medium train": {"job": WHISPER_TRAIN, "layers": WHISPER_LAYERS,
+                             "per_step": encdec_per_step(WHISPER_LAYERS, WHISPER_LAYERS),
+                             "head_dim": 64, "k1_bwd": K1_BWD_NAMES},
 }
 
 # local SGD, the Titchener mode: qwen3-0.6b at full width and depth, bf16, 2 pods of
@@ -606,7 +727,7 @@ def named_leaves(tree, path=()):
 
 
 def randn(shape, dtype, gen):
-    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
 def flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype):
@@ -907,6 +1028,130 @@ def pad_to_128(q, k, v, want, window: int) -> dict:
             "pad_to_128_max_abs_err": max_err(got, want)}
 
 
+def rms_tol(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The least tol at which |got - want| <= tol * (rms(want) + |want|) holds:
+    ``needed_tol`` with the values' RMS in place of 1 as the unit of the
+    absolute term, so that a gate means the same at every scale."""
+    w = want.float()
+    return ((got.float() - w).abs() / (w.square().mean().sqrt() + w.abs())).max().item()
+
+
+def phase_flash_encdec(gen) -> tuple:
+    """K1 as the encoder-decoder and VLM paths call it: not causal over Sq != Skv
+    (CROSS_ATTN_SWEEP, CROSS_ATTN, both ways) and at their self-attention shapes
+    (SELF_ATTN). Forward and backward against their plain versions in f32 (the
+    CUDA-core designs) and bf16 (the tensor-core ones), each output held at TOL
+    (FLASH_GRAD_TOL) and by ``rms_tol`` at RMS_UNIT_TOL, the forward's LSE against
+    the plain LSE, two backward runs bit-equal; then each shape of CROSS_ATTN and
+    SELF_ATTN timed in bf16 (both ways where it trains) beside its bound, its plain
+    version and SDPA (its backend printed). Returns (forward entries, backward
+    entries), one a timed shape."""
+    from repro_torch.kernels import flash_attention as FA
+    f32, bf16 = torch.float32, torch.bfloat16
+    cross = [c + (False, True) for c in CROSS_ATTN]
+    cases = [c + (False, True) for c in CROSS_ATTN_SWEEP] + cross + SELF_ATTN
+    worst = {(dt, way, n): 0.0 for dt in (f32, bf16) for way in ("fwd", "bwd")
+             for n in ("abs", "rms")}
+
+    def held(tag: str, got, want, tol: float, dtype, way: str) -> None:
+        err, ratio = max_err(got, want), rms_tol(got, want)
+        check(close(got, want, tol) and ratio <= RMS_UNIT_TOL[dtype, way],
+              f"{tag}: max err {err}, rms_tol {ratio:.3g} (gates {tol} and "
+              f"{RMS_UNIT_TOL[dtype, way]})")
+        worst[dtype, way, "abs"] = max(worst[dtype, way, "abs"], err)
+        worst[dtype, way, "rms"] = max(worst[dtype, way, "rms"], ratio)
+
+    for B, Sq, Skv, H, K, D, causal, both in cases:
+        for dtype in (f32, bf16):
+            tag = f"flash {B, Sq, Skv, H, K, D} causal={causal} {dtype}"
+            q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, dtype)
+            o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+            want, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                                       return_lse=True)
+            held(tag, o, want, TOL[dtype], dtype, "fwd")
+            check(close(lse, plain_lse, TOL[f32]), f"{tag}: lse max err "
+                  f"{max_err(lse, plain_lse)}")
+            if both:
+                got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+                again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+                want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+                for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+                    held(f"{tag} {name}", g, w, FLASH_GRAD_TOL[dtype], dtype, "bwd")
+                    check(torch.equal(g, a), f"{tag} {name}: two runs differ")
+                del got, again
+            del q, k, v, do, o, lse, want
+    print(f"flash_attention at the encoder-decoder and VLM shapes (not causal over Sq != "
+          f"Skv, and their self-attention): {len(cases)} cases x f32/bf16 match the plain "
+          f"forward and, {sum(c[-1] for c in cases)} of them, backward; largest error, "
+          f"absolute / rms_tol: forward f32 {worst[f32, 'fwd', 'abs']:.3g} / "
+          f"{worst[f32, 'fwd', 'rms']:.3g}, bf16 {worst[bf16, 'fwd', 'abs']:.3g} / "
+          f"{worst[bf16, 'fwd', 'rms']:.3g}; backward f32 {worst[f32, 'bwd', 'abs']:.3g} / "
+          f"{worst[f32, 'bwd', 'rms']:.3g}, bf16 {worst[bf16, 'bwd', 'abs']:.3g} / "
+          f"{worst[bf16, 'bwd', 'rms']:.3g} (gates: RMS_UNIT_TOL); the LSE matches; two "
+          f"backward runs bit-equal")
+    fwd, bwd = [], []
+    for B, Sq, Skv, H, K, D, causal, both in cross + SELF_ATTN:
+        q, k, v, do = flash_bwd_inputs(gen, B, Sq, Skv, H, K, D, bf16)
+        o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        err = max_err(o, want)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_kw = {"is_causal": causal, "enable_gqa": True}
+        backend = sdpa_backend(qt, kt, vt, **lib_kw)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        check(close(lib.transpose(1, 2), want, TOL[bf16]),
+              f"SDPA disagrees with plain, {B, Sq, Skv, H, K, D} causal={causal}")
+        ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, causal=causal), n=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw))
+        pairs = attn_pairs(Sq, Skv, causal, 0)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B * H * D * pairs
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
+        shape_txt = f"B={B} Sq={Sq} Skv={Skv} H={H} K={K} D={D} bf16 causal={causal}"
+        print(f"flash_attention {shape_txt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} "
+              f"TFLOP/s, max abs err {err:.3g}")
+        shape = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "D": D, "causal": causal}
+        fwd.append(dict(shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_ms, library_backend=backend))
+        if not both:
+            del q, k, v, do, o, lse, want, qt, kt, vt, lib
+            continue
+        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
+        dot = do.transpose(1, 2)
+        lib = torch.autograd.grad(lib_out, (qg, kg, vg), dot, retain_graph=True)
+        # SDPA's gate widened past a GQA group of 4, as phase_flash_bwd_head_dim's
+        lib_tol = FLASH_GRAD_TOL[bf16] * max(1.0, math.sqrt(H / K / 4))
+        lib_err = max(max_err(g.transpose(1, 2), w) for g, w in zip(lib, want))
+        check(all(close(g.transpose(1, 2), w, lib_tol) for g, w in zip(lib, want)),
+              f"SDPA's backward disagrees with plain, {B, Sq, Skv, H, K, D} causal={causal}: "
+              f"max err {lib_err} at tolerance {lib_tol}")
+        ms = time_ms(lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal))
+        plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                causal=causal), n=5)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                                     retain_graph=True))
+        # as phase_backward counts them: q, o, dO read and dq written; k, v read and
+        # dk, dv written; lse read, delta written and read
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + 3 * B * H * Sq * 4
+        flops = 10 * B * H * D * pairs
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[bf16])
+        print(f"flash_attention_bwd {shape_txt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA backward {lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g} (SDPA's {lib_err:.3g})")
+        bwd.append(dict(shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_ms, library_backend=backend))
+        del q, k, v, do, o, lse, got, want, qt, kt, vt, qg, kg, vg, lib_out, lib
+    return fwd, bwd
+
+
 def phase_rmsnorm(gen) -> list:
     """K2's four entry points: each held against its plain version on the serving
     paths' shapes and the test sweep, in f32 and bf16, then timed at the serving
@@ -932,14 +1177,15 @@ def phase_rmsnorm(gen) -> list:
             lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
             norm_case, RMS_SWEEP,
             [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560),
-             (1, 512, 3840), (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM],
+             (1, 512, 3840), (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM,
+             *CROSS_NORM],
             lambda x, r, sc: (2 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 4 * x.numel(),
             lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
         "add_rmsnorm": (
             RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP,
             [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560), (1, 512, 3840),
-             (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM],
+             (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM, *CROSS_NORM],
             lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
             lambda x, r, sc: 5 * x.numel(), None),
         "gated_rmsnorm": (
@@ -1086,13 +1332,35 @@ def phase_ssd(gen) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "zamba2": zamba}
 
 
-def decode_vs_forward(model, params, toks) -> dict:
+def aux_inputs(cfg, B: int, gen) -> dict:
+    """Random frames (encdec) or patches (vlm) [B, M, d_model] in the config's
+    dtype from ``gen``, as a check against forward draws them (the servers feed
+    zeros); {} for the other families."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    name, M = (("frames", cfg.encoder_frames) if cfg.family == "encdec"
+               else ("patches", cfg.num_patches))
+    return {name: randn((B, M, cfg.d_model), getattr(torch, cfg.dtype), gen)}
+
+
+def with_gates(params: dict, gate: float = CROSS_GATE) -> dict:
+    """params with every vlm cross layer's gate at ``gate`` (a new tree; other
+    families' params as they are)."""
+    if "cross_layers" not in params:
+        return params
+    cross = params["cross_layers"]
+    return dict(params, cross_layers=dict(cross, gate=torch.full_like(cross["gate"], gate)))
+
+
+def decode_vs_forward(model, params, toks, gen) -> dict:
     """{stage: (logits, forward's logits at the same position)} for prefill of
-    toks[:, :-1] and one decode step of toks[:, -1]."""
+    toks[:, :-1] and one decode step of toks[:, -1]; an encdec or vlm model reads
+    random frames or patches from ``gen`` in all three calls."""
     k = toks.shape[1] - 1
+    aux = aux_inputs(model.cfg, toks.shape[0], gen)
     with torch.inference_mode():
-        full, _ = model.forward(params, {"tokens": toks})
-        last, kv = model.prefill(params, {"tokens": toks[:, :k]}, max_len=2 * k)
+        full, _ = model.forward(params, {"tokens": toks, **aux})
+        last, kv = model.prefill(params, {"tokens": toks[:, :k], **aux}, max_len=2 * k)
         step, _ = model.decode_step(params, toks[:, k:], kv)
     return {"prefill": (last, full[:, k - 1]), "decode": (step, full[:, k])}
 
@@ -1148,13 +1416,11 @@ def phase_serve(card: str, path: dict) -> dict:
     n, new = payload["n_requests"], payload["max_new"]
     check(res["requests"] == n and res["generated_tokens"] == n * new,
           f"{arch}: expected {n} requests of {new} tokens, got {res}")
-    calls = n + res["decode_steps"]              # prefills and decode steps
-    least = dict(path["min_launches"],
-                 **{k: per * calls for k, per in path["per_call"].items()})
-    for name, want in least.items():
-        check(launches[name] >= want, f"{arch}: {name} launches {launches[name]} < {want}")
-    backward = {n: c for n, c in launches.items() if n.endswith("_bwd") and c}
-    check(not backward, f"{arch}: serving launched backward kernels {backward}")
+    for name, got in launches.items():      # n prefills and the decode steps
+        pre, dec = path["launches"].get(name, (0, 0))
+        want = pre * n + dec * res["decode_steps"]
+        check(got == want, f"{arch}: {name} launched {got} times in the serve task, want "
+              f"{want} ({pre} a prefill, {dec} a decode step)")
 
     srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
     model, params = srv.model, srv.params
@@ -1183,6 +1449,13 @@ def phase_serve(card: str, path: dict) -> dict:
     at_cap = f", capacity {check_cfg.capacity_factor}" if moe else ""
 
     def cut(n):
+        """The first n layers (vlm: n // cross_attn_every whole groups), every vlm
+        gate at CROSS_GATE."""
+        if model.cfg.family == "vlm":
+            g = n // model.cfg.cross_attn_every
+            return lambda: with_gates(dict(params, **{
+                part: tree_map(lambda t: t[:g], params[part])
+                for part in ("self_layers", "cross_layers")}))
         return lambda: dict(params, layers=tree_map(lambda t: t[:n], params["layers"]))
 
     cases = [
@@ -1194,7 +1467,7 @@ def phase_serve(card: str, path: dict) -> dict:
          dataclasses.replace(check_cfg, num_layers=bf16_layers),
          cut(bf16_layers), {"prefill": 0.08, "decode": 0.08})]
     if bf16_layers < L:
-        cases.append((f"bf16, {L} layers{at_cap}", check_cfg, lambda: params,
+        cases.append((f"bf16, {L} layers{at_cap}", check_cfg, cut(L),
                       {"prefill": path["deep_prefill_tol"], "decode": None}))
     all_toks = [torch.randint(0, model.cfg.vocab_size, shape, generator=gen, device="cuda")
                 for shape in path["toks"]]
@@ -1202,7 +1475,7 @@ def phase_serve(card: str, path: dict) -> dict:
         case_params = make_params()
         for toks in all_toks:
             with router_log([]) as routes:
-                compared = decode_vs_forward(Model(cfg, "cuda"), case_params, toks)
+                compared = decode_vs_forward(Model(cfg, "cuda"), case_params, toks, gen)
             if moe:
                 print(f"{arch} routing of forward ({tag}, toks {tuple(toks.shape)}): "
                       f"{routing_drops(routes, cfg, toks.shape[1])}")
@@ -1221,12 +1494,14 @@ def phase_serve(card: str, path: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # throughput: one 512-token prefill; decode steps of all 4 slots
+    # throughput: one 512-token prefill (with the server's frames or patches);
+    # decode steps of all 4 slots
     toks = all_toks[0]
-    prompt = toks.new_tensor([list(range(payload["prompt_len"]))])
+    prompt = {"tokens": toks.new_tensor([list(range(payload["prompt_len"]))]),
+              **srv._aux_inputs(1)}
     slots, max_len = payload["slots"], payload["max_len"]
     with torch.inference_mode():
-        t_pre = wall_ms(lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len))
+        t_pre = wall_ms(lambda: model.prefill(params, prompt, max_len=max_len))
         dcache = model.init_cache(slots, max_len)
         dcache["pos"].fill_(payload["prompt_len"])
         slot_toks = toks[:, :2].reshape(-1, 1)
@@ -1234,7 +1509,7 @@ def phase_serve(card: str, path: dict) -> dict:
         counted = {
             "prefill": profile_breakdown(
                 f"{arch} prefill 512 tokens",
-                lambda: model.prefill(params, {"tokens": prompt}, max_len=max_len)),
+                lambda: model.prefill(params, prompt, max_len=max_len)),
             "decode": profile_breakdown(f"{arch} decode step, 4 slots",
                                         lambda: model.decode_step(params, slot_toks, dcache))}
         del dcache
@@ -1846,10 +2121,11 @@ def phase_train_step_parity(arch: str, seq: int, per_step: dict, batch_size: int
                             cut: dict = None) -> None:
     """One train step of ``arch`` in f32, on the card (the kernels, forward and
     backward) and on the CPU (their plain versions), from the same params and a
-    batch of ``batch_size`` x ``seq`` tokens; the config cut by ``cut`` (default:
-    full width, 2 layers). Every parameter leaf must get a nonzero gradient on the
-    card: a kernel that dropped a gradient would leave the leaves before it without
-    one. Every kernel of ``per_step`` must be launched."""
+    batch of ``batch_size`` x ``seq`` tokens (with random f32 frames or patches
+    where the arch reads them, and every vlm gate at CROSS_GATE); the config cut by
+    ``cut`` (default: full width, 2 layers). Every parameter leaf must get a
+    nonzero gradient on the card: a kernel that dropped a gradient would leave the
+    leaves before it without one. Every kernel of ``per_step`` must be launched."""
     from repro_torch import configs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import Model
@@ -1862,11 +2138,12 @@ def phase_train_step_parity(arch: str, seq: int, per_step: dict, batch_size: int
     shape = "full width, 2 layers" if cut == {"num_layers": 2} else \
         ", ".join(f"{k} {v}" for k, v in cut.items())
     opt = TrainJobConfig().opt
-    params = Model(cfg, "cpu").init_params(0)
+    params = with_gates(Model(cfg, "cpu").init_params(0))
     gen = torch.Generator().manual_seed(11)
     toks = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1), generator=gen).to(torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous(),
-             "loss_mask": torch.ones((batch_size, seq), dtype=torch.bfloat16)}
+             "loss_mask": torch.ones((batch_size, seq), dtype=torch.bfloat16),
+             **aux_inputs(cfg, batch_size, gen)}
     card_params = tree_map(lambda t: t.cuda(), params)
     card = {"params": card_params, "opt": init_opt_state(card_params)}
     host = {"params": params, "opt": init_opt_state(params)}
@@ -2597,6 +2874,66 @@ def phase_ssm_tasks() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_encdec_task() -> None:
+    """whisper-medium's train task at full width and depth with a checkpoint (2
+    steps, a checkpoint every 2; a save is ~14 GB) and a strict eval-task restore of
+    it: the launches exactly 2 steps' (the encoder's included), the restored
+    state's eval loss on the Trainer's frames the trained state's own."""
+    from repro_torch.runtime.step_cache import TrainerCache, run_eval_task, run_train_task
+    from repro_torch.runtime.train_loop import TrainJobConfig
+
+    steps = 2
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    print(f"whisper task: {shutil.disk_usage(build).free / 2**30:.1f} GiB free for checkpoints")
+    with tempfile.TemporaryDirectory(dir=build) as ckdir:
+        payload = dict(WHISPER_TRAIN, steps=steps, checkpoint_every=2, checkpoint_dir=ckdir)
+        cache = TrainerCache(1)
+        trainer = cache.get(TrainJobConfig.from_job({"payload": payload}))
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        res = run_train_task(cache, payload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        losses = trainer.metrics.series("loss")
+        step_dir = Path(ckdir) / f"step_{steps:08d}"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        save_gb = sum(os.path.getsize(step_dir / e["file"])
+                      for e in manifest["leaves"].values()) / 1e9
+        print(f"train task {WHISPER_TRAIN['arch']} full width, "
+              f"{trainer.arch_cfg.encoder_layers} + {trainer.arch_cfg.num_layers} layers, "
+              f"checkpointed: {res} in {wall:.2f} s ({save_gb:.2f} GB a save); losses "
+              f"{losses}; launches {launches}")
+        check(res["steps"] == steps and res["ran_steps"] == steps and len(losses) == steps
+              and all(math.isfinite(v) for v in losses), f"whisper train task: {res}")
+        check(res["checkpoint"] == {"step": steps, "path": ckdir},
+              f"whisper train task checkpoint {res.get('checkpoint')}")
+        check({"params/enc_norm", "params/layers/xattn/wk"} <= set(manifest["leaves"]),
+              f"whisper checkpoint leaves {sorted(manifest['leaves'])[:8]}")
+        for name, per in encdec_per_step(WHISPER_LAYERS, WHISPER_LAYERS).items():
+            want = per * steps
+            check(launches.get(name, 0) == want,
+                  f"whisper train task: {name} launched {launches.get(name, 0)}, want {want}")
+        with torch.no_grad():
+            own, _ = trainer.model.loss_fn(trainer.params_for_eval(),
+                                           trainer._sync_batch(10_000))
+        own = float(own)
+        t0 = time.perf_counter()
+        ev = run_eval_task(None, {**WHISPER_TRAIN, "restore_from": res["checkpoint"]})
+        torch.cuda.synchronize()
+        print(f"eval task {WHISPER_TRAIN['arch']}, strict restore of step {steps}: {ev} in "
+              f"{time.perf_counter() - t0:.2f} s; the trained state's own loss on that "
+              f"batch {own}")
+        check(ev["restored_step"] == steps and math.isfinite(ev["eval_loss"]),
+              f"whisper eval task: {ev}")
+        check(abs(ev["eval_loss"] - own) <= 1e-5 * abs(own),
+              f"whisper eval task: restored loss {ev['eval_loss']} != the trained state's {own}")
+        del trainer, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def build_other(checkout: Path, name: str):
     """csrc/<name>.cu of another checkout (its root, e.g. the parent commit
     unpacked by ``git archive``), built with this checkout's nvcc flags into a
@@ -3012,8 +3349,16 @@ def main(argv=None) -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+
+    def mark(phase: str) -> None:
+        print(f"chip_smoke: {phase} at {time.perf_counter() - t_start:.1f} s")
+
     rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen),
             *phase_ssm_backward(gen)]
+    encdec_fwd, encdec_bwd = phase_flash_encdec(gen)
+    rows[0]["encdec_vlm"] = encdec_fwd
+    next(r for r in rows if r["name"] == "flash_attention_bwd")["encdec_vlm"] = encdec_bwd
+    mark("kernel phases done")
     phase_train_step_parity("qwen3-0.6b", 256, TRAIN_PER_STEP)
     # 300 tokens: ragged for the kernel's 64-row chunks and the model's 256
     phase_train_step_parity("mamba2-2.7b", 300, SSM_TRAIN_PER_STEP)
@@ -3024,9 +3369,15 @@ def main(argv=None) -> int:
                             cut=ZAMBA_PARITY)
     phase_train_step_parity("deepseek-moe-16b", MOE_PARITY_SEQ, MOE_TRAIN_PER_STEP,
                             batch_size=1, cut=MOE_PARITY)
+    phase_train_step_parity("whisper-medium", WHISPER_PARITY_SEQ,
+                            encdec_per_step(2, 2), batch_size=1, cut=WHISPER_PARITY)
+    phase_train_step_parity("llama-3.2-vision-90b", LLAMA_PARITY_SEQ,
+                            vlm_per_step(LLAMA_PARITY["num_layers"]), batch_size=1,
+                            cut=LLAMA_PARITY)
     phase_local_sgd_parity()
     gc.collect()
     torch.cuda.empty_cache()
+    mark("train-step parity done")
     by_path = {}
     for path in PATHS:
         with (arch_depth(path["arch"], path["layers"]) if "layers" in path
@@ -3034,11 +3385,16 @@ def main(argv=None) -> int:
             by_path[path["arch"]] = phase_serve(card, path)
         gc.collect()                   # release this server before the next one
         torch.cuda.empty_cache()
+        mark(f"serve {path['arch']} done")
     by_path[TRAIN_PATH] = phase_train(card)
     by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
     phase_ssm_tasks()
+    mark("qwen3 and mamba2 training done")
     for path in CUT_TRAINS:
         by_path[path] = phase_cut_train(card, path)
+        mark(f"{path} done")
+    phase_encdec_task()
+    mark("whisper-medium task done")
     by_path[LOCAL_SGD_PATH] = phase_local_sgd_train(card)
     phase_local_sgd_task()
     for row in rows:

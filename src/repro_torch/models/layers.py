@@ -8,6 +8,8 @@ None).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -34,13 +36,23 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
 
 
-def qkv_project(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
-                theta: float, eps: float):
-    """Self-attention q [B,S,H,hd] and k, v [B,S,K,hd], with qk-norm and RoPE
-    (one fused launch on the card where the layer has qk-norm)."""
+def qkv_project(p: dict, x: torch.Tensor, *, positions: Optional[torch.Tensor],
+                theta: float, eps: float, kv_from: Optional[torch.Tensor] = None):
+    """q [B,S,H,hd] from x and k, v [B,M,K,hd] from ``kv_from`` (cross-attention)
+    or x (self-attention), with qk-norm and RoPE (one fused launch on the card
+    where the layer has qk-norm); ``positions`` None: neither (a cross-attention
+    layer has no qk-norm, ``params.attn_defs(cross=True)``).
+
+    ``kv_from`` in another dtype than the weights (the Trainer's bf16 patches
+    under f32 params) is promoted to theirs, exactly, as the JAX package's
+    einsum promotes it: one of the model's two casts of mixed dtypes (the other
+    is ``model.Model._encode``'s)."""
+    src = x if kv_from is None else kv_from.to(p["wk"].dtype)
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
+    if positions is None:
+        return q, k, v
     if "q_norm" in p:
         q, k = ops.qk_norm_rope(q, k, p["q_norm"], p["k_norm"], positions, theta, eps=eps)
     else:

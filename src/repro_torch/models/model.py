@@ -1,12 +1,18 @@
 """Model facade of the PyTorch port, twin of ``repro.models.model``.
 
-Four families are ported: dense (``[attn -> mlp] x L`` with the local:global
+All six families are ported: dense (``[attn -> mlp] x L`` with the local:global
 period of ``_period``/``_window_for``; gemma3's windowed layers keep a ring-buffer
 cache of W slots, slot = position mod W), moe (``[attn -> moe] x L``, the dense
 stack with ``_ff``'s MoE branch; the layers' load-balance losses summed into
-``forward``'s aux), ssm (``[mamba2 SSD] x L``) and hybrid
+``forward``'s aux), ssm (``[mamba2 SSD] x L``), hybrid
 (zamba2: ``[[mamba2 SSD] x k -> shared attn+mlp block] x G``, then the
-``L - G*k`` tail layers; the one shared block's params serve every group).
+``L - G*k`` tail layers; the one shared block's params serve every group),
+encdec (whisper: an encoder ``[attn -> mlp] x Le``, not causal, over the frame
+embeddings, then the decoder ``[attn -> xattn -> mlp] x L``, whose
+cross-attention reads the encoder's output; its cross K/V are written once at
+prefill and read by every decode step) and vlm (llama-3.2-vision:
+``[[attn -> mlp] x (k-1) -> tanh-gated xattn -> mlp] x (L/k)`` over the patch
+embeddings). A cross-attention has no RoPE and no qk-norm, and no mask.
 PyTorch runs eagerly, so ``lax.scan`` over the stacked layer params becomes a
 Python loop over the leading "layers" dim. Three entry points: ``forward`` (full
 sequence), ``prefill`` (cache build + last-token logits) and ``decode_step``
@@ -23,6 +29,14 @@ Every residual add runs fused with the norm that reads its sum
 (``ops.add_rmsnorm``): a block returns the residual stream ``x`` and its
 un-added output ``d``, and the next block's ln1 (or the final norm in
 ``_unembed``) adds them as it normalises.
+
+The Trainer's frames and patches are bf16 whatever the params' dtype, as the
+JAX package's are; there its products and adds promote bf16 to f32 exactly, and
+its rmsnorm rounds to its input's dtype. PyTorch's matmul and K2 refuse mixed
+dtypes, so the port casts in two places and rounds as the JAX package does:
+``Model._encode`` (the frames, the one stream that enters a stack in another
+dtype than its params) and ``layers.qkv_project`` (``kv_from`` in another dtype
+than the weights).
 
 Training (every family ported): ``loss_fn`` is the twin of the JAX package's, masked
 CE by gather (with ``cfg.loss_chunk``, per-chunk CE under
@@ -49,13 +63,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import init_params
 from repro_torch.tree import tree_map
-
-# family -> the port slice that brings it
-_LATER_SLICES = {
-    "encdec": "the encoder-decoder and VLM slice",
-    "vlm": "the encoder-decoder and VLM slice",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class TensorDef:
@@ -123,23 +130,63 @@ def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool):
     return LY.swiglu(p["mlp"], h), None
 
 
+def _cross_attn(cfg: ArchConfig, p: dict, h: torch.Tensor, memory: torch.Tensor):
+    """q from h [B,S,D], k/v from memory [B,M,D]; K1 not causal over Sq != Skv.
+    Returns (the un-added output, k, v)."""
+    q, k, v = LY.qkv_project(p, h, positions=None, theta=0.0, eps=cfg.norm_eps,
+                             kv_from=memory)
+    o = ops.flash_attention(q, k, v, causal=False)
+    return LY.attn_out(p, o), k, v
+
+
+def _cross_attn_cached(cfg: ArchConfig, p: dict, h: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention against the cross K/V [B,M,K,hd] written at
+    prefill: the plain ``attend_cache`` with every one of the M positions live."""
+    q = LY._project(h, p["wq"])
+    full = torch.full((h.shape[0], 1, 1, 1), k.shape[1] - 1, dtype=torch.int32,
+                      device=h.device)
+    return LY.attn_out(p, ops.attend_cache(q, k, v, full, packed=cfg.packed_decode))
+
+
+def _gated(gate: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The vlm cross layer's tanh gate, rounded to a's dtype before the product,
+    as the JAX package rounds it."""
+    return torch.tanh(gate.float()).to(a.dtype) * a
+
+
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
-           positions: torch.Tensor, window: int, want_kv: bool):
-    """attn -> ff on the stream x + d. Returns (x, the ff's un-added output, kv,
-    the ff's aux or None)."""
+           positions: torch.Tensor, window: int, want_kv: bool,
+           memory: Optional[torch.Tensor] = None, causal: bool = True):
+    """attn [-> xattn onto memory] -> ff on the stream x + d. Returns (x, the ff's
+    un-added output, kv, the cross-attention's kv, the ff's aux or None)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
+    return _block_normed(cfg, p, x, h, positions, window, want_kv, memory, causal)
+
+
+def _block_normed(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
+                  positions: torch.Tensor, window: int, want_kv: bool,
+                  memory: Optional[torch.Tensor], causal: bool):
+    """``_block`` from the stream x and its ln1 norm h."""
     q, k, v = LY.qkv_project(p["attn"], h, positions=positions,
                              theta=cfg.rope_theta, eps=cfg.norm_eps)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
-    x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    a = LY.attn_out(p["attn"], o)
+    xkv = None
+    if "xattn" in p:
+        x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
+        a, xk, xv = _cross_attn(cfg, p["xattn"], h, memory)
+        xkv = {"k": xk, "v": xv} if want_kv else None
+    x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
     y, aux = _ff(cfg, p, h, decode=False)
-    return x, y, ({"k": k, "v": v} if want_kv else None), aux
+    return x, y, ({"k": k, "v": v} if want_kv else None), xkv, aux
 
 
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
-                  cache: dict, pos: torch.Tensor, window: int):
+                  cache: dict, pos: torch.Tensor, window: int,
+                  xkv: Optional[dict] = None):
     """Decode variant of ``_block``; cache is {"k","v"}: a ring of W slots when
-    window > 0, else full-length."""
+    window > 0, else full-length; xkv the layer's cross K/V where it has one."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
                                      theta=cfg.rope_theta, eps=cfg.norm_eps)
@@ -151,40 +198,56 @@ def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.T
     else:
         o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
                              packed=cfg.packed_decode)
-    x, h = ops.add_rmsnorm(x, LY.attn_out(p["attn"], o), p["ln2"], eps=cfg.norm_eps)
+    a = LY.attn_out(p["attn"], o)
+    if "xattn" in p:
+        x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
+        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"])
+    x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
     return x, _ff(cfg, p, h, decode=True)[0]
 
 
 # ------------------------------------------------------------------- dense stacks
+def _stack_kv(kvs: list) -> dict:
+    """Per-layer {"k","v"} stacked along a new leading dim."""
+    return {n: torch.stack([kv[n] for kv in kvs]) for n in ("k", "v")}
+
+
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
-               positions: torch.Tensor, want_kv: bool = False):
-    """dense / moe stack. Returns (x, d, kvs, aux): the stream is x + d; kvs[j] =
-    {"k","v": [G,B,S,K,hd]} per period position j, [G,B,W,K,hd] in ring layout
-    where j is windowed; aux the sum of the layers' MoE load-balance losses (the
-    JAX package's scan carry), None where no layer has one."""
+               positions: torch.Tensor, want_kv: bool = False,
+               memory: Optional[torch.Tensor] = None):
+    """dense / moe / encdec-decoder stack. Returns (x, d, kvs, xkvs, aux): the
+    stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]} per period position j,
+    [G,B,W,K,hd] in ring layout where j is windowed; xkvs[j] the cross K/V
+    [G,B,M,K,hd] onto ``memory`` (None where the layers have no cross-attention);
+    aux the sum of the layers' MoE load-balance losses (the JAX package's scan
+    carry), None where no layer has one."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     kvs = [[] for _ in range(period)]
+    xkvs = [[] for _ in range(period)]
     d = aux = None
     layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
         for j in range(period):
             p = layers[g * period + j]
-            x, d, kv, a = _block(cfg, p, x, d, positions, windows[j], want_kv)
+            x, d, kv, xkv, a = _block(cfg, p, x, d, positions, windows[j], want_kv, memory)
             if a is not None:
                 aux = a if aux is None else aux + a
             if want_kv and windows[j] > 0:
                 kv = {n: _ring_slice(t, windows[j]) for n, t in kv.items()}
             kvs[j].append(kv)
+            xkvs[j].append(xkv)
     if not want_kv:
-        return x, d, None, aux
-    return x, d, tuple({n: torch.stack([kv[n] for kv in kvs[j]]) for n in ("k", "v")}
-                       for j in range(period)), aux
+        return x, d, None, None, aux
+    return (x, d, tuple(_stack_kv(kv) for kv in kvs),
+            tuple(_stack_kv(xkv) if xkv[0] is not None else None for xkv in xkvs), aux)
 
 
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                  cache_layers: tuple, pos: torch.Tensor):
-    """Returns (x, d): the stream is x + d."""
+                  cache_layers: tuple, pos: torch.Tensor,
+                  cross_kvs: Optional[tuple] = None):
+    """cross_kvs[j]: the cross K/V {"k","v": [G,B,M,K,hd]} of period position j
+    (encdec). Returns (x, d): the stream is x + d."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     d = None
@@ -193,7 +256,8 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
         for j in range(period):
             p = layers[g * period + j]
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
-            x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j])
+            xkv = None if cross_kvs is None else {n: cross_kvs[j][n][g] for n in ("k", "v")}
+            x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j], xkv)
     return x, d
 
 
@@ -270,7 +334,7 @@ def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
         for lp in group:
             x, d, st = _ssm_layer(cfg, lp, x, d)
             main_states.append(st)
-        x, d, kv, _ = _block(cfg, shared, x, d, positions, 0, want_state)
+        x, d, kv, _, _ = _block(cfg, shared, x, d, positions, 0, want_state)
         kvs.append(kv)
     for lp in tail:
         x, d, st = _ssm_layer(cfg, lp, x, d)
@@ -278,7 +342,7 @@ def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     if not want_state:
         return x, d, None
     return x, d, (_stack_states(cfg, main_states, (len(groups), cfg.shared_block_every), x),
-                  {n: torch.stack([kv[n] for kv in kvs]) for n in ("k", "v")},
+                  _stack_kv(kvs),
                   _stack_states(cfg, tail_states, (len(tail),), x))
 
 
@@ -302,16 +366,77 @@ def _hybrid_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
     return x, d
 
 
+# --------------------------------------------------------------------- vlm stack
+def _vlm_groups(params: dict) -> list:
+    """[(the group's k - 1 self layers, its cross layer)] of ``_unstack`` views,
+    one a cross group."""
+    return [(_unstack(s), c) for s, c in zip(_unstack(params["self_layers"]),
+                                             _unstack(params["cross_layers"]))]
+
+
+def _vlm_cross_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
+                     patches: Optional[torch.Tensor] = None, want_kv: bool = False,
+                     xkv: Optional[dict] = None):
+    """The gated cross layer on the stream x + d: x + tanh(gate) * xattn(ln1),
+    then the mlp; the cross-attention onto the patches, or onto their K/V ``xkv``
+    cached at prefill (decode). Returns (x, the mlp's un-added output, the cross
+    K/V where ``want_kv``)."""
+    x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
+    if xkv is None:
+        a, k, v = _cross_attn(cfg, p["xattn"], h, patches)
+        xkv = {"k": k, "v": v} if want_kv else None
+    else:
+        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"])
+    x, h = ops.add_rmsnorm(x, _gated(p["gate"], a), p["ln2"], eps=cfg.norm_eps)
+    return x, LY.swiglu(p["mlp"], h), xkv
+
+
+def _vlm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
+             patches: torch.Tensor, want_kv: bool = False):
+    """Returns (x, d, kvs, xkvs): the stream is x + d; kvs = {"k","v": [nc *
+    (k-1), B, S, K, hd]} of the self layers in order, xkvs = {"k","v": [nc, B, P,
+    K, hd]} of the cross layers."""
+    groups = _vlm_groups(params)
+    kvs, xkvs = [], []
+    d = None
+    for selfs, cross in groups:
+        for lp in selfs:
+            x, d, kv, _, _ = _block(cfg, lp, x, d, positions, 0, want_kv)
+            kvs.append(kv)
+        x, d, xkv = _vlm_cross_layer(cfg, cross, x, d, patches, want_kv)
+        xkvs.append(xkv)
+    if not want_kv:
+        return x, d, None, None
+    return x, d, _stack_kv(kvs), _stack_kv(xkvs)
+
+
+def _vlm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
+                pos: torch.Tensor):
+    """One token through the groups; writes each self layer's k/v at ``pos`` of
+    ``cache["self"]`` in place and reads ``cache["cross"]``. Returns (x, d)."""
+    d = None
+    for g, (selfs, cross) in enumerate(_vlm_groups(params)):
+        for j, lp in enumerate(selfs):
+            x, d = _block_decode(cfg, lp, x, d,
+                                 {n: cache["self"][n][g, j] for n in ("k", "v")}, pos, 0)
+        x, d, _ = _vlm_cross_layer(cfg, cross, x, d,
+                                   xkv={n: cache["cross"][n][g] for n in ("k", "v")})
+    return x, d
+
+
 # =============================================================================== Model
 class Model:
-    """Dense-, moe-, ssm- or hybrid-family model bound to an ArchConfig and a
-    device."""
+    """A model of any of the six families bound to an ArchConfig and a device."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family arrives with "
-                f"{_LATER_SLICES.get(cfg.family, 'a later slice')} of the port")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+        if cfg.family == "vlm" and cfg.num_layers % cfg.cross_attn_every:
+            raise ValueError(
+                f"{cfg.name}: num_layers {cfg.num_layers} must be a multiple of "
+                f"cross_attn_every {cfg.cross_attn_every} (the stack runs whole groups of "
+                f"{cfg.cross_attn_every - 1} self layers and a cross layer, as the JAX "
+                f"package's param_defs asserts)")
         period = _period(cfg)
         if cfg.family == "dense" and cfg.num_layers % period:
             raise ValueError(
@@ -344,6 +469,26 @@ class Model:
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
 
+    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over the frame embeddings [B, M, D]: RoPE positions 0..M-1,
+        not causal, then ``enc_norm`` (which takes in the last add). Returns the
+        memory [B, M, D] the decoder's cross-attention reads.
+
+        Frames in another dtype than the params (the Trainer's bf16 frames under
+        f32 params) are promoted to theirs, exactly, and the first norm rounded
+        to the frames' dtype: the JAX package's rmsnorm returns its input's
+        dtype, and its q/k/v products and first residual add promote. Where the
+        dtypes agree both casts are no-ops."""
+        cfg = self.cfg
+        positions = self._positions(frames.shape[0], frames.shape[1])
+        first, *rest = _unstack(params["enc_layers"])
+        x = frames.to(params["enc_norm"].dtype)
+        h = LY.rmsnorm(x, first["ln1"], cfg.norm_eps).to(frames.dtype).to(x.dtype)
+        x, d, _, _, _ = _block_normed(cfg, first, x, h, positions, 0, False, None, False)
+        for lp in rest:
+            x, d, _, _, _ = _block(cfg, lp, x, d, positions, 0, False, causal=False)
+        return _add_norm(x, d, params["enc_norm"], cfg.norm_eps)[1]
+
     # ----------------------------------------------------------------------- forward
     def forward(self, params: dict, batch: Dict[str, torch.Tensor],
                 return_hidden: bool = False):
@@ -353,12 +498,18 @@ class Model:
         B, S = tokens.shape
         x = self._embed(params, tokens)
         aux = None
-        if self.cfg.family == "ssm":
+        family = self.cfg.family
+        if family == "ssm":
             x, d, _ = _ssm_fwd(self.cfg, params, x)
-        elif self.cfg.family == "hybrid":
+        elif family == "hybrid":
             x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S))
+        elif family == "vlm":
+            x, d, _, _ = _vlm_fwd(self.cfg, params, x, self._positions(B, S),
+                                  batch["patches"])
         else:
-            x, d, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S))
+            memory = self._encode(params, batch["frames"]) if family == "encdec" else None
+            x, d, _, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                         memory=memory)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if return_hidden:
@@ -416,7 +567,8 @@ class Model:
                 max_len: Optional[int] = None):
         """Build the decode cache from a full prompt; returns (last_logits, cache).
         A windowed layer's cache is its ring of W slots; a full layer's (and the
-        hybrid's shared block's) is padded to ``max_len``."""
+        hybrid's shared block's, and the encdec and vlm self layers') is padded to
+        ``max_len``; the cross K/V (encdec, vlm) keep the memory's length."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
@@ -424,7 +576,20 @@ class Model:
             raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
         x = self._embed(params, tokens)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        if self.cfg.family == "ssm":
+        family = self.cfg.family
+        if family == "vlm":
+            x, d, kv, xkv = _vlm_fwd(self.cfg, params, x, self._positions(B, S),
+                                     batch["patches"], want_kv=True)
+            groups = (xkv["k"].shape[0], self.cfg.cross_attn_every - 1)
+            cache = {"pos": pos, "cross": xkv, "self": {
+                n: _pad_seq(t, max_len).unflatten(0, groups) for n, t in kv.items()}}
+        elif family == "encdec":
+            memory = self._encode(params, batch["frames"])
+            x, d, (kv,), (xkv,), _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                               want_kv=True, memory=memory)
+            cache = {"pos": pos, "self": {n: _pad_seq(t, max_len) for n, t in kv.items()},
+                     "cross": xkv}
+        elif family == "ssm":
             x, d, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
             cache = {"pos": pos, "layers": layers}
         elif self.cfg.family == "hybrid":
@@ -434,8 +599,8 @@ class Model:
                      "shared": {n: _pad_seq(t, max_len) for n, t in kv.items()},
                      "tail": tail}
         else:
-            x, d, kvs, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                      want_kv=True)
+            x, d, kvs, _, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                         want_kv=True)
             # a windowed layer's kv is in ring layout already
             cache = {"pos": pos, "layers": tuple(
                 kv if _window_for(self.cfg, j) else
@@ -454,6 +619,11 @@ class Model:
             x, d = _ssm_decode(self.cfg, params, x, cache["layers"])
         elif self.cfg.family == "hybrid":
             x, d = _hybrid_decode(self.cfg, params, x, cache, pos)
+        elif self.cfg.family == "encdec":
+            x, d = _stack_decode(self.cfg, params, x, (cache["self"],), pos,
+                                 cross_kvs=(cache["cross"],))
+        elif self.cfg.family == "vlm":
+            x, d = _vlm_decode(self.cfg, params, x, cache, pos)
         else:
             x, d = _stack_decode(self.cfg, params, x, cache["layers"], pos)
         logits = self._unembed(params, x, d)[:, 0]
@@ -481,6 +651,16 @@ class Model:
             G = cfg.num_layers // k
             return {"pos": pos, "main": ssm_state(G, k), "shared": kv(G, max_len),
                     "tail": ssm_state(cfg.num_layers - G * k)}
+        if cfg.family == "encdec":
+            return {"pos": pos, "self": kv(cfg.num_layers, max_len),
+                    "cross": kv(cfg.num_layers, cfg.encoder_frames)}
+        if cfg.family == "vlm":
+            nc = cfg.num_layers // cfg.cross_attn_every
+            grp = cfg.cross_attn_every - 1
+            return {"pos": pos,
+                    "self": {n: TensorDef((nc, grp, batch, max_len, K, hd), dt)
+                             for n in ("k", "v")},
+                    "cross": kv(nc, cfg.num_patches)}
         period = _period(cfg)
         G = cfg.num_layers // period
         return {"pos": pos,

@@ -134,13 +134,27 @@ class Server:
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.multinomial(probs, 1, generator=self._rng)[:, 0]
 
+    def _aux_inputs(self, B: int) -> dict:
+        """The encoder's frames (encdec) or the patches (vlm) of a prefill of B
+        rows: bf16 zeros, as the JAX package's Server feeds (its conv frontend and
+        vision tower are stubs), so the cross K/V it caches are exactly 0."""
+        c, out = self.arch_cfg, {}
+        if c.family == "encdec":
+            out["frames"] = torch.zeros((B, c.encoder_frames, c.d_model),
+                                        dtype=torch.bfloat16, device=self.device)
+        if c.family == "vlm":
+            out["patches"] = torch.zeros((B, c.num_patches, c.d_model),
+                                         dtype=torch.bfloat16, device=self.device)
+        return out
+
     def _admit(self) -> None:
         for slot in range(self.cfg.slots):
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
             toks = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-            logits, one_cache = self.model.prefill(self.params, {"tokens": toks},
+            batch = {"tokens": toks, **self._aux_inputs(1)}
+            logits, one_cache = self.model.prefill(self.params, batch,
                                                    max_len=self.cfg.max_len)
             self._splice(slot, one_cache)
             req.generated.append(int(self._sample(logits)[0]))

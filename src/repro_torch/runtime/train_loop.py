@@ -101,10 +101,12 @@ class Trainer:
 
     def _arm(self, cfg: TrainJobConfig,
              on_checkpoint: Optional[Callable[[int, str], None]]) -> None:
-        """Per-run state: data, metrics, timer and the checkpoint directory."""
+        """Per-run state: data, the frames or patches, metrics, timer and the
+        checkpoint directory."""
         self.data = SyntheticTokens(
             vocab_size=self.arch_cfg.vocab_size, seq_len=cfg.seq_len,
             global_batch=cfg.global_batch, seed=cfg.seed, task=cfg.data_task)
+        self.aux_inputs = {}             # batch size -> the run's frames or patches
         self.metrics = MetricsLog()
         self.timer = StepTimer(tokens_per_step=cfg.global_batch * cfg.seq_len)
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir)
@@ -131,16 +133,35 @@ class Trainer:
 
     # ------------------------------------------------------------------ step logic
     def _sync_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        batch = self.data.global_batch_at(step)
+        batch = self._with_aux_inputs(self.data.global_batch_at(step), self.cfg.global_batch)
         return {k: v.to(self.device) for k, v in batch.items()}
+
+    def _with_aux_inputs(self, batch: dict, B: int) -> dict:
+        """The batch with the encoder's frames (encdec) or the patches (vlm): one
+        fixed bf16 draw of [B, M, d_model], the same at every step and for every
+        pod, as the JAX package's ``_with_aux_inputs`` (its conv frontend and
+        vision tower are stubs). Drawn once on the host from a ``torch.Generator``
+        seeded ``seed + 1`` (frames) or ``seed + 2`` (patches), so the card and the
+        CPU see the same values (they cannot be ``jax.random``'s bit for bit), and
+        kept on the device."""
+        c = self.arch_cfg
+        if c.family not in ("encdec", "vlm"):
+            return batch
+        name, offset, M = (("frames", 1, c.encoder_frames) if c.family == "encdec"
+                           else ("patches", 2, c.num_patches))
+        if B not in self.aux_inputs:
+            gen = torch.Generator().manual_seed(self.cfg.seed + offset)
+            self.aux_inputs[B] = torch.randn((B, M, c.d_model), generator=gen).to(
+                torch.bfloat16).to(self.device)
+        return dict(batch, **{name: self.aux_inputs[B]})
 
     def _round_batches(self, step: int) -> Dict[str, torch.Tensor]:
         """local_sgd: the [H, n_pods, B/n_pods, ...] batch stack of one round; pod p
         of inner step h reads shard p of data step ``step + h``."""
         H, P = self.cfg.local_sgd.inner_steps, self.cfg.n_pods
         Bp = self.cfg.global_batch // P
-        rows = [[self.data.batch_at(step + h, shard_id=p, batch=Bp) for p in range(P)]
-                for h in range(H)]
+        rows = [[self._with_aux_inputs(self.data.batch_at(step + h, shard_id=p, batch=Bp), Bp)
+                 for p in range(P)] for h in range(H)]
         return {k: torch.stack([torch.stack([pod[k] for pod in row]) for row in rows])
                 .to(self.device) for k in rows[0][0]}
 

@@ -24,12 +24,17 @@ FLASH_SWEEP = [
     (1, 256, 4, 2, 64, True, 64),       # sliding window
     (1, 96, 2, 2, 80, True, 0),         # ragged: S % block, D % 128 != 0
 ]
-# q shorter than k/v (chunked prefill): end-aligned masks
+# q shorter than k/v (chunked prefill): end-aligned masks; and cross-attention,
+# not causal, with q longer than k/v (whisper-medium's training decoder over its
+# frames, at small size) or shorter at GQA 8:1 of 128 (llama-3.2-vision's layout)
 SHORT_Q = [
     # B, Sq, Skv, H, K, D, causal, window
     (1, 32, 96, 4, 2, 64, True, 0),
     (2, 17, 80, 4, 1, 32, True, 24),
     (1, 40, 72, 2, 2, 80, False, 0),
+    (2, 96, 40, 4, 2, 64, False, 0),
+    (1, 130, 70, 4, 4, 64, False, 0),
+    (1, 40, 75, 8, 1, 128, False, 0),
 ]
 # zamba2-7b's head dim 112 (the card only: the Pallas path pads it to 128 and rounds
 # q once more in bf16): causal MHA, GQA 2:1, a ragged S, not causal; Sq < Skv

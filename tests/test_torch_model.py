@@ -101,11 +101,13 @@ def test_param_defs_match_jax(arch):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if tconfigs.get(a).family
-                                  not in ("dense", "moe", "ssm", "hybrid")])
-def test_other_families_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TModel(tconfigs.get(arch).reduced(), "cpu")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_builds_every_arch(arch):
+    """``Model`` takes every arch of the registry, all six families, on the CPU,
+    and its parameter tree has the config's count."""
+    cfg = tconfigs.get(arch).reduced()
+    params = TModel(cfg, "cpu").init_params(0)
+    assert sum(t.numel() for t in tree_leaves(params)) == cfg.param_count()
 
 
 def test_init_params_rules_and_param_count():

@@ -38,6 +38,14 @@ FLASH_CASES = [
     (1, 128, 128, 4, 2, 256, True, 32),      # gemma3's D=256: causal, window
     (1, 40, 100, 4, 2, 256, True, 0),        # D=256: Sq < Skv, ragged
 ]
+# cross-attention, not causal over Sq != Skv: q longer than k/v (whisper-medium's
+# training decoder, 2,048 tokens over 1,500 frames, at small size; ragged for
+# 64-row tiles), q shorter, and GQA at head dim 128 (llama-3.2-vision's layout)
+CROSS_CASES = [
+    (2, 96, 40, 4, 2, 64, False, 0),
+    (1, 130, 70, 4, 4, 64, False, 0),
+    (1, 40, 75, 8, 1, 128, False, 0),
+]
 # tests/test_kernels.py:test_flash_custom_vjp_matches_autodiff_oracle's gradient
 # tolerance, for f32; bf16 gradients are rounded to bf16 (2^-8 relative), held at
 # the forward's bf16 tolerance
@@ -85,7 +93,7 @@ def _flash_inputs(B, Sq, Skv, H, K, D, seed=0):
             _np((B, Skv, K, D), seed + 2), _np((B, Sq, H, D), seed + 3))
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES + CROSS_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_function_grads_match_jax_vjp(B, Sq, Skv, H, K, D, causal, window, dtype):
     jax = pytest.importorskip("jax")
@@ -119,7 +127,8 @@ def test_flash_plain_lse_matches_jax(B, Sq, Skv, H, K, D, causal, window):
     _close(got, want, 2e-5)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", FLASH_CASES[:3] + FLASH_CASES[-2:])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window",
+                         FLASH_CASES[:3] + FLASH_CASES[-2:] + CROSS_CASES)
 def test_flash_bwd_plain_matches_jax_bwd(B, Sq, Skv, H, K, D, causal, window):
     """flash_attention_bwd_plain against _flash_bwd_blocked on the same residuals."""
     pytest.importorskip("jax")
@@ -271,13 +280,17 @@ def test_function_gradcheck_float64(name):
 # and ragged for the 64-row tiles, with and without the window, Sq < Skv with a
 # window, and a bidirectional one (too large for the CPU's jax.vjp tests); and
 # zamba2-7b's head dim 112: causal MHA, GQA 2:1, a ragged S, Sq < Skv, not causal,
-# and its training attention (B=1, S=2,048, H=K=32)
-FLASH_CARD_CASES = FLASH_CASES + [
+# and its training attention (B=1, S=2,048, H=K=32); whisper-medium's cross-attention
+# in training (4 x 2,048 queries over 1,500 frames), its encoder (1,500 both ways, at
+# B=1 and at its training B=4) and its causal decoder in training (4 x 2,048)
+FLASH_CARD_CASES = FLASH_CASES + CROSS_CASES + [
     (1, 1100, 1100, 16, 8, 256, True, 0), (1, 1100, 1100, 16, 8, 256, True, 1024),
     (2, 200, 328, 4, 2, 256, True, 128), (1, 130, 130, 4, 2, 256, False, 0),
     (1, 256, 256, 4, 4, 112, True, 0), (2, 256, 256, 4, 2, 112, True, 0),
     (1, 1000, 1000, 4, 2, 112, True, 0), (1, 96, 200, 4, 2, 112, True, 0),
-    (1, 130, 130, 4, 4, 112, False, 0), (1, 2048, 2048, 32, 32, 112, True, 0)]
+    (1, 130, 130, 4, 4, 112, False, 0), (1, 2048, 2048, 32, 32, 112, True, 0),
+    (4, 2048, 1500, 16, 16, 64, False, 0), (1, 1500, 1500, 16, 16, 64, False, 0),
+    (4, 1500, 1500, 16, 16, 64, False, 0), (4, 2048, 2048, 16, 16, 64, True, 0)]
 
 
 @pytest.mark.cuda
