@@ -86,7 +86,15 @@ Phases, each failing loudly (nonzero exit):
      (4 steps of 4 x 2048 tokens, a checkpoint every 2 steps), with the launch
      counters set to 0 just before and read just after; evaluate it through a
      strict ``run_eval_task`` restore; time warm steps, profile one, and check
-     one step of 2 microbatches against the first step's loss;
+     one step of 2 microbatches against the first step's loss; then
+     (``phase_local_plane``) make the control agent's calls on the port's
+     local planes: the same job (6 steps, a checkpoint every 4) on plane A,
+     lost after its step-4 manifest, resumed on plane B from it, its losses an
+     uninterrupted run's bit for bit; the ``eval`` handler's strict restore of
+     step 6; a serve job on B whose tokens are a direct ``Server.run``'s; one
+     profiled train poll; the etl -> train -> eval -> export chain through one
+     worker's warm handlers, eval a cache hit; the counters read around the
+     plane's train and serve jobs (the path "qwen3-0.6b plane");
   8. train mamba2-2.7b at full width and depth, bf16, through ``run_train_task``
      (2 steps of 2048 tokens), the counters read around it (every K2 and K3
      entry of the path, exactly so many a layer a step); time warm steps and
@@ -367,6 +375,24 @@ SSD_ZAMBA = (1, 512, 112, 64, 64, 256)  # zamba2-7b prefill of 512 tokens
 TRAIN = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
          "microbatches": 1, "steps": 4, "checkpoint_every": 2}
 TRAIN_PATH = "qwen3-0.6b train"
+# the plane phase: TRAIN's job driven through two TorchLocalPlanes (6 steps, a
+# manifest at 4 and at 6), a serve job of src/repro/launch/serve.py's 8 prompts,
+# and the pipeline DAG's worker side (train: 2 steps, no checkpoint; eval: the
+# step-6 manifest)
+PLANE_PATH = "qwen3-0.6b plane"
+PLANE_CAPS = ("gpu", "train", "serve")
+PLANE_TRAIN = dict(TRAIN, steps=6, checkpoint_every=4)
+PLANE_SERVE = {"arch": "qwen3-0.6b", "reduced": False, "slots": 4,
+               "requests": [{"prompt": [1 + (i % 7), 2, 3 + i % 5] + [4] * (i % 4),
+                             "max_new": 16} for i in range(8)]}
+PLANE_DAG_TRAIN = dict(TRAIN, steps=2)
+# the plane serve job's prefills (one prompt of 3 to 6 tokens each): K1 at B=1, H=16,
+# K=8, D=128, causal over a single partial tile (B, S, H, K, D, causal, window), and
+# K2 at those rows of width 1,024 and those q/k heads
+PLANE_LENS = sorted({len(r["prompt"]) for r in PLANE_SERVE["requests"]})
+PLANE_ATTN = [(1, S, 16, 8, 128, True, 0) for S in PLANE_LENS]
+PLANE_NORM = [(1, S, 1024) for S in PLANE_LENS]
+PLANE_QK = [(1, S, 16, 8, 128) for S in PLANE_LENS]
 
 
 def dense_per_step(layers: int, qk_norm: bool = True) -> dict:
@@ -857,8 +883,9 @@ def phase_flash(gen) -> dict:
         return (randn((B, Sq, H, D), dtype, gen), randn((B, Skv, K, D), dtype, gen),
                 randn((B, Skv, K, D), dtype, gen))
 
-    # the sweep, both dtypes, and short q (end-aligned masks) against the oracle
-    for B, S, H, K, D, causal, window in FLASH_SWEEP:
+    # the sweep and the plane serve job's prompts, both dtypes, and short q
+    # (end-aligned masks) against the oracle
+    for B, S, H, K, D, causal, window in FLASH_SWEEP + PLANE_ATTN:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(B, S, S, H, K, D, dtype)
             got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -873,8 +900,8 @@ def phase_flash(gen) -> dict:
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             check(close(got, want, TOL[dtype]),
                   f"flash Sq<Skv {B, Sq, Skv, causal, window} {dtype}: {max_err(got, want)}")
-    print("flash_attention: sweep and Sq<Skv cases match (f32 CUDA-core and bf16 "
-          "tensor-core designs)")
+    print(f"flash_attention: sweep, the plane serve job's prompts (S = {PLANE_LENS}) and "
+          f"Sq<Skv cases match (f32 CUDA-core and bf16 tensor-core designs)")
 
     row = None
     for S in (512, 1024, 2048):          # 512 = the served prompt: the main path
@@ -1175,7 +1202,7 @@ def phase_rmsnorm(gen) -> list:
     entries = {
         "rmsnorm": (
             lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
-            norm_case, RMS_SWEEP,
+            norm_case, RMS_SWEEP + PLANE_NORM,
             [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560),
              (1, 512, 3840), (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM,
              *CROSS_NORM],
@@ -1183,7 +1210,7 @@ def phase_rmsnorm(gen) -> list:
             lambda x, r, sc: 4 * x.numel(),
             lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
         "add_rmsnorm": (
-            RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP,
+            RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP + PLANE_NORM,
             [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560), (1, 512, 3840),
              (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM, *CROSS_NORM],
             lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
@@ -1195,7 +1222,7 @@ def phase_rmsnorm(gen) -> list:
             lambda y, z, sc: 9 * y.numel(), None),
         "qk_norm_rope": (
             RN.qk_norm_rope_cuda, RN.qk_norm_rope_plain, qk_case,
-            [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256)],
+            [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), *PLANE_QK],
             [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128), (1, 512, 16, 8, 256),
              (4, 1, 16, 8, 256), (1, 512, 64, 4, 128), (4, 1, 64, 4, 128)],
             lambda q, k, qs, ks, pos, th: ((2 * (q.numel() + k.numel()) + 2 * qs.numel())
@@ -1587,7 +1614,8 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
     the device time and launches of each group of kernel names (default: K2's
     forward kernels); ``every``: also each kernel name's launches, by name.
     Returns {group: (ms, launches)}, with every kernel of the call under "all
-    kernels", and {kernel name: launches} under "by name"."""
+    kernels", {kernel name: launches} under "by name" and the profiled call's
+    wall ms under "wall ms"."""
     groups = groups or {"K2": K2_KERNEL_NAMES}
     from torch.profiler import ProfilerActivity, profile
     # The profiler's device timestamps, put on the host's clock, can be off by
@@ -1630,7 +1658,7 @@ def profile_breakdown(tag: str, fn, top: int = 6, groups=None, every: bool = Fal
         for e in sorted(kernels, key=lambda e: e.key):
             print(f"    x{e.count:<5} {e.self_device_time_total / 1e3:8.3f} ms  {e.key[:100]}")
     out = {"all kernels": (busy, sum(e.count for e in kernels)),
-           "by name": {e.key: e.count for e in kernels}}
+           "by name": {e.key: e.count for e in kernels}, "wall ms": wall}
     for label, names in groups.items():
         mine = [e for e in kernels if any(n in e.key for n in names)]
         n = sum(e.count for e in mine)
@@ -2311,6 +2339,218 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+def phase_local_plane(card: str) -> dict:
+    """The port's local plane and pipeline task handlers at full width, making the
+    calls the management plane's control agent makes (capabilities, submit, poll,
+    cancel, load). A train job of qwen3-0.6b loses its plane after the step-4
+    manifest and resumes on a second plane from it; its steps 5-6 losses are an
+    uninterrupted run's, bit for bit. Then the ETL -> train -> eval -> export chain
+    through one worker's warm handlers, its eval a cache hit and the strict
+    restore of the step-6 manifest, a serve job whose tokens are a direct
+    ``Server.run``'s, and one profiled train poll. Returns each kernel's launches
+    in the plane's train and serve jobs."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.pipelines import WarmHandlers
+    from repro_torch.runtime.local_plane import TorchLocalPlane
+    from repro_torch.runtime.serve_loop import Server, ServeJobConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    print(f"plane: {shutil.disk_usage(build).free / 2**30:.1f} GiB free for checkpoints")
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    walls, starts, saves, restores, published = {}, {}, {}, [], []
+
+    def count(wrappers) -> None:
+        for name, fn in wrappers.items():
+            launches[name] += fn.launches
+
+    def publish(jid: str, manifest: dict) -> None:       # runs on the writer's thread
+        published.append(dict(manifest))
+        saves[manifest["step"]] = time.perf_counter() - starts[manifest["step"]]
+
+    real_save, real_restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(mgr, step, *args, **kw):
+        starts[step] = time.perf_counter()
+        return real_save(mgr, step, *args, **kw)
+
+    def timed_restore(mgr, *args, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(mgr, *args, **kw)
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    steps, every = PLANE_TRAIN["steps"], PLANE_TRAIN["checkpoint_every"]
+    jid = "plane-train"
+    job = {"job_id": jid, "kind": "train", "arch": TRAIN["arch"], "payload": PLANE_TRAIN}
+    with tempfile.TemporaryDirectory(dir=build) as root, \
+            swapped(CheckpointManager, "save", timed_save), \
+            swapped(CheckpointManager, "restore", timed_restore):
+        # -- a train job loses its plane after the step-4 manifest, resumes on another
+        t0 = time.perf_counter()
+        plane_a = TorchLocalPlane(caps=PLANE_CAPS, steps_per_poll=2, publish=publish,
+                                  device="cuda", checkpoint_root=f"{root}/a")
+        check(plane_a.capabilities() == PLANE_CAPS, f"plane caps {plane_a.capabilities()}")
+        wrappers = reset_launches()
+        plane_a.submit(job)
+        polls = []
+        while plane_a.jobs[jid].trainer.step < every:
+            polls.append(plane_a.poll(jid))
+        plane_a.jobs[jid].trainer.ckpt.wait()     # the step-4 writer
+        losses_a = plane_a.jobs[jid].trainer.metrics.series("loss")
+        manifest = {"step": every, "path": f"{root}/a/{jid}"}
+        check(published == [manifest] and plane_a.load() == 1.0,
+              f"plane A: published {published}, want {manifest}; polls {polls}")
+        plane_a.cancel(jid)
+        check(plane_a.poll(jid)["status"] == "failed" and plane_a.load() == 0.0,
+              "plane A: the cancelled job still runs")
+        del plane_a                                 # the lost cluster, its state freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        plane_b = TorchLocalPlane(caps=PLANE_CAPS, steps_per_poll=2, publish=publish,
+                                  device="cuda", checkpoint_root=f"{root}/b")
+        plane_b.submit(dict(job, restore_from=manifest))
+        shutil.rmtree(manifest["path"])             # restored: A's save is done with
+        while polls[-1]["status"] == "running":
+            polls.append(plane_b.poll(jid))
+        torch.cuda.synchronize()
+        count(wrappers)
+        walls["train job, lost and resumed"] = time.perf_counter() - t0
+        resumed = plane_b.jobs[jid].trainer
+        losses_b = resumed.metrics.series("loss")
+        final = {"step": steps, "path": f"{root}/b/{jid}"}
+        print(f"plane train job {TRAIN['arch']} full width, {resumed.arch_cfg.num_layers} "
+              f"layers, {PLANE_TRAIN['global_batch']} x {PLANE_TRAIN['seq_len']} tokens a "
+              f"step: polls {polls}; losses on A {losses_a}, on B {losses_b}; published "
+              f"{published}")
+        check(polls[-1]["status"] == "done" and polls[-1]["progress"] == float(steps)
+              and polls[-1]["rate"] == 0.0, f"plane B: last poll {polls[-1]}")
+        check(published[1:] == [final], f"plane B: manifests {published}, want {final} last")
+        for name, per in TRAIN_PER_STEP.items():
+            check(launches[name] == per * steps,
+                  f"plane train job: {name} launched {launches[name]}, want {per * steps}")
+
+        t0 = time.perf_counter()
+        ref = Trainer(TrainJobConfig.from_job({"payload": PLANE_TRAIN}))
+        check(ref.ckpt is None, "plane: the reference run checkpoints")
+        ref.run()
+        losses_ref = ref.metrics.series("loss")
+        walls["uninterrupted run"] = time.perf_counter() - t0
+        print(f"plane: uninterrupted run's losses {losses_ref}")
+        check(losses_a == losses_ref[:every],
+              f"plane: steps 1-{every} on A {losses_a} != uninterrupted {losses_ref[:every]}")
+        check(losses_b == losses_ref[every:], f"plane: steps {every + 1}-{steps} resumed "
+              f"{losses_b} != uninterrupted {losses_ref[every:]}")
+        del ref
+        with torch.no_grad():
+            own, _ = resumed.model.loss_fn(resumed.params_for_eval(),
+                                           resumed._sync_batch(10_000))
+        own = float(own)
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the pipeline DAG's worker side through one worker's warm handlers: its
+        # eval is the strict restore of plane B's step-6 manifest, on the trainer
+        # the chain's train task built (a cache hit)
+        t0 = time.perf_counter()
+        worker = WarmHandlers()
+        etl = worker.handlers["etl"]({"batches": 3, "seq_len": 32})
+        tr = worker.handlers["train"](dict(PLANE_DAG_TRAIN))
+        t1 = time.perf_counter()
+        ev = worker.handlers["eval"](dict(PLANE_DAG_TRAIN, restore_from=final))
+        torch.cuda.synchronize()
+        walls["eval handler"] = time.perf_counter() - t1
+        ex = worker.handlers["export"]({"arch": TRAIN["arch"], "reduced": False})
+        walls["handler chain"] = time.perf_counter() - t0
+        stats = worker.trainer_cache().stats()
+        print(f"plane handler chain: etl {etl}; train {tr}; eval, strict restore of step "
+              f"{steps}: {ev} (the resumed state's own loss on that batch {own}); export "
+              f"{ex}; trainer cache {stats}")
+        dag_steps = PLANE_DAG_TRAIN["steps"]
+        check(etl == {"batches": 3, "tokens": 3 * 4 * 32}, f"plane etl: {etl}")
+        check(tr["steps"] == tr["ran_steps"] == dag_steps and math.isfinite(tr["loss"]),
+              f"plane train handler: {tr}")
+        check(ev["restored_step"] == steps and math.isfinite(ev["eval_loss"])
+              and abs(ev["eval_loss"] - own) <= 1e-5 * abs(own), f"plane eval: {ev}")
+        check(stats == {"hits": 1, "misses": 1, "evictions": 0, "size": 1},
+              f"plane: eval was not a cache hit on train's trainer: {stats}")
+        check(ex == {"exported_params": PATHS[0]["params"], "leaves": 14},
+              f"plane export: {ex}")
+        del worker
+        shutil.rmtree(final["path"])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- a serve job on B, against a direct Server.run on the same prompts
+        t0 = time.perf_counter()
+        wrappers = reset_launches()
+        serve = {"job_id": "plane-serve", "kind": "serve", "payload": PLANE_SERVE}
+        plane_b.submit(serve)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        spolls = []
+        while not spolls or spolls[-1]["status"] == "running":
+            spolls.append(plane_b.poll(serve["job_id"]))
+        torch.cuda.synchronize()
+        walls["serve job"] = time.perf_counter() - t0
+        count(wrappers)
+        server = plane_b.jobs[serve["job_id"]].server
+        n = len(PLANE_SERVE["requests"])
+        tokens = sum(len(r.generated) for r in server.requests.values())
+        poll_s = walls["serve job"] - build_s
+        print(f"plane serve job {TRAIN['arch']} full width, {n} requests of 16 new tokens, "
+              f"4 slots: {len(spolls)} polls, last {spolls[-1]}, {server.steps} decode steps, "
+              f"{tokens} tokens in {poll_s:.2f} s of polls = {tokens / poll_s:.1f} generated "
+              f"tokens/s (server built in {build_s:.2f} s) [{card}]")
+        check(spolls[-1]["status"] == "done" and spolls[-1]["served"] == n
+              and spolls[-1]["progress"] == float(n) and server.pending() == 0,
+              f"plane serve job: {spolls[-1]}")
+        pre, dec = n, server.steps
+        for name, (per_pre, per_dec) in PATHS[0]["launches"].items():
+            want = per_pre * pre + per_dec * dec + TRAIN_PER_STEP.get(name, 0) * steps
+            check(launches[name] == want, f"plane: {name} launched {launches[name]} in the "
+                  f"train and serve jobs, want {want}")
+        check(sum(launches.values()) == sum(TRAIN_PER_STEP.values()) * steps + sum(
+            a * pre + b * dec for a, b in PATHS[0]["launches"].values()),
+            f"plane: launches {launches}")
+        got = [r.generated for r in server.requests.values()]
+        del server, plane_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        direct = Server(ServeJobConfig.from_job({"payload": PLANE_SERVE}))
+        for r in PLANE_SERVE["requests"]:
+            direct.submit(r["prompt"], r["max_new"])
+        want = [r.generated for r in direct.run()]
+        check(got == want, f"plane serve job tokens {got} != a direct Server.run's {want}")
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the device-busy share of one poll of a train job (no checkpoints)
+        plane_c = TorchLocalPlane(caps=PLANE_CAPS, steps_per_poll=2, device="cuda")
+        plane_c.submit({"job_id": "plane-profile", "kind": "train",
+                        "payload": dict(PLANE_TRAIN, steps=1000)})
+        poll = profile_breakdown(f"{TRAIN['arch']} plane poll, 2 train steps",
+                                 lambda: plane_c.poll("plane-profile"))
+        busy, n_kernels = poll["all kernels"]
+        poll_wall = poll["wall ms"]
+        plane_c.cancel("plane-profile")
+        del plane_c
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    save_s = {step: round(t, 2) for step, t in saves.items()}
+    print(f"plane: walls {({k: round(v, 2) for k, v in walls.items()})} s; saves (start to "
+          f"published) {save_s} s; restores {[round(t, 2) for t in restores]} s; one train "
+          f"poll (2 steps) device busy {busy:.2f} of {poll_wall:.2f} ms (busy share "
+          f"{busy / poll_wall:.3f}), {n_kernels} kernels [{card}]")
+    return launches
+
+
 def phase_ssm_train(card: str) -> dict:
     """Train mamba2-2.7b at full width and depth through run_train_task (2 steps,
     no checkpoint directory), with the launch counters set to 0 just before and
@@ -2969,10 +3209,6 @@ def sass_functions(lib: Path) -> dict:
     return {n: "\n".join(lines) for n, lines in funcs.items()}
 
 
-# kernels whose SASS this checkout changes on purpose, against its parent: K2's f32
-# gated instantiations (forward GatedOp, backward mode 2), whose silu takes the IEEE
-# division (ROADMAP.md §3, fault 2); their bf16 twins keep __fdividef and their SASS
-SASS_CHANGED = re.compile(r"rows_kernelIfLi\d+ENS_7GatedOpIfEEE|rows_bwd_kernelIfLi\d+ELi2EE")
 # K2's gated entries timed in turns against the other checkout: mamba2-2.7b's prefill
 # of 512 tokens (forward) and training shape (backward), bf16
 GATED_TURNS = (1, 512, 5120), (1, 2048, 5120)
@@ -2981,8 +3217,8 @@ GATED_TURNS = (1, 512, 5120), (1, 2048, 5120)
 def phase_sass_against(other: Path, card: str) -> None:
     """Every kernel of the other checkout's csrc/flash_attention.cu and
     csrc/rmsnorm.cu (K1's and K2's, built with this checkout's flags) must compile
-    to the same SASS here, but those SASS_CHANGED names; the kernels this checkout
-    adds, and any whose SASS differs, are named. Then K2's gated entries of the
+    to the same SASS here; the kernels this checkout adds, and any whose SASS
+    differs, are named. Then K2's gated entries of the
     two checkouts, through this checkout's wrappers, must agree bit for bit in
     bf16 and are timed in turns (other, this, this, other)."""
     from repro_torch.kernels import _build
@@ -2998,7 +3234,7 @@ def phase_sass_against(other: Path, card: str) -> None:
               f"of the other checkout SASS-identical here "
               f"({sum(len(t.splitlines()) for t in theirs.values())} lines); {len(added)} "
               f"added: {', '.join(added)}; {len(changed)} differ: {', '.join(changed)}")
-        differ += [n for n in changed if not SASS_CHANGED.search(n)]
+        differ += changed
     check(not differ, f"sass-against: SASS differs or is missing for {differ}")
 
     mine = RN._lib()
@@ -3387,6 +3623,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         mark(f"serve {path['arch']} done")
     by_path[TRAIN_PATH] = phase_train(card)
+    by_path[PLANE_PATH] = phase_local_plane(card)
+    mark("plane done")
     by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
     phase_ssm_tasks()
     mark("qwen3 and mamba2 training done")

@@ -438,11 +438,11 @@ class Model:
                 f"{cfg.cross_attn_every - 1} self layers and a cross layer, as the JAX "
                 f"package's param_defs asserts)")
         period = _period(cfg)
-        if cfg.family == "dense" and cfg.num_layers % period:
+        if cfg.family in ("dense", "moe", "encdec") and cfg.num_layers % period:
             raise ValueError(
                 f"{cfg.name}: num_layers {cfg.num_layers} must be a multiple of the "
-                f"local:global period {period} (the dense stack runs whole groups of "
-                f"{period} layers, as the JAX package's _grouped asserts)")
+                f"local:global period {period} (the {cfg.family} stack runs whole groups "
+                f"of {period} layers, as the JAX package's _grouped asserts)")
         self.cfg = cfg
         self.device = devices.resolve(device)
 

@@ -196,3 +196,7 @@ class Server:
             if n == 0 and not self.queue:
                 break
         return [r for r in self.requests.values() if r.done]
+
+    def pending(self) -> int:
+        """Requests not yet finished: queued or holding a slot."""
+        return len(self.queue) + sum(r is not None for r in self.slots)

@@ -2,8 +2,9 @@
 layers (``_ring_slice``, ``attend_cache_ring``, the window branch of the decode
 step), K1's plain version at head dim 256, and reduced gemma3-12b's prefill, decode
 steps across the ring's wrap and Server, run on ``device="cpu"`` against the JAX
-package on the same converted params and numpy inputs; the dense stack's refusal of
-a depth that is not a multiple of the local:global period, as the JAX package's;
+package on the same converted params and numpy inputs; the refusal of a depth that
+is not a multiple of the local:global period by the dense, moe and encdec stacks, as
+the JAX package's;
 and a train task of reduced gemma3 on the CPU. Tests marked ``cuda`` hold K1's D=256
 forward kernel against its plain version on the card (the backward's D=256 cases are
 in tests/test_torch_train_kernels.py) and check that both directions refuse a head dim
@@ -29,6 +30,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.step_cache import run_train_task  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 ARCH = "gemma3-12b"
 F32_TOL = 1e-4
@@ -308,3 +310,54 @@ def test_train_task_runs_reduced_gemma3_on_cpu():
                                 "steps": 2, "device": "cpu"})
     assert res["steps"] == 2 and res["ran_steps"] == 2 and res["resumed_from"] == 0
     assert np.isfinite(res["loss"])
+
+
+# the other families whose stack runs whole local:global groups: an MoE and an
+# encoder-decoder arch given gemma3's pattern at period 2
+PERIOD_2 = dict(local_global_pattern=1, sliding_window=8, dtype="float32")
+
+
+def _period_batch(cfg, tokens):
+    batch = {"tokens": torch.from_numpy(tokens)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(_np((1, cfg.encoder_frames, cfg.d_model), 1))
+    return batch
+
+
+@pytest.mark.parametrize("layers", [3, 4])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-medium"])
+def test_moe_and_encdec_take_only_whole_local_global_groups(arch, layers):
+    """Reduced deepseek-moe-16b and whisper-medium at period 2: 3 layers are
+    refused, naming the period, where the stack would drop the third; 4 (two
+    groups) build and run ``forward``, and the fourth layer moves the logits."""
+    cfg = dataclasses.replace(tconfigs.get(arch).reduced(), num_layers=layers, **PERIOD_2)
+    if layers % 2:
+        with pytest.raises(ValueError, match="period 2"):
+            TM.Model(cfg, "cpu")
+        return
+    tm = TM.Model(cfg, "cpu")
+    batch = _period_batch(cfg, _tokens(cfg.vocab_size, 1, 16, 0))
+    params = tm.init_params(0)
+    logits, _ = tm.forward(params, batch)
+    assert logits.shape == (1, 16, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    moved = dict(params, layers=tree_map(lambda t: torch.cat([t[:-1], t[-1:] + 1.0]),
+                                         params["layers"]))
+    assert not torch.equal(tm.forward(moved, batch)[0], logits)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-medium"])
+def test_jax_moe_and_encdec_refuse_the_same_depth(arch):
+    """The JAX package's moe and encdec stacks refuse 3 layers at period 2 as well:
+    ``_grouped`` asserts whole groups."""
+    jax = _jax()
+    from repro.configs import base as jconfigs
+    from repro.models.model import Model as JModel
+    from repro.parallel.sharding import MeshPlan
+    cfg = dataclasses.replace(jconfigs.get(arch).reduced(), num_layers=3, remat="none",
+                              **PERIOD_2)
+    jm = JModel(cfg, MeshPlan(mesh=_auto_mesh(), fsdp=False))
+    params = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))   # shapes only
+    batch = {k: jax.numpy.asarray(v.numpy())
+             for k, v in _period_batch(cfg, _tokens(cfg.vocab_size, 1, 16, 0)).items()}
+    with pytest.raises(AssertionError):
+        jax.eval_shape(jm.forward, params, batch)

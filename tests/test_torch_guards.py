@@ -21,6 +21,8 @@ from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.pipelines import DEFAULT_HANDLERS, WarmHandlers  # noqa: E402
+from repro_torch.runtime.local_plane import TorchLocalPlane  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.step_cache import (run_eval_task, run_serve_task,  # noqa: E402
                                             run_train_task)
@@ -38,6 +40,8 @@ TRAINING_MODULES = ("kernels/autograd.py", "models/model.py", "optim/adamw.py",
                     "data/pipeline.py",
                     "checkpoint/manager.py", "runtime/telemetry.py", "launch/steps.py",
                     "runtime/train_loop.py", "runtime/step_cache.py", "convert.py")
+# modules of the plane integration: the local plane and the pipeline task handlers
+PLANE_MODULES = ("runtime/local_plane.py", "pipelines/__init__.py", "pipelines/handlers.py")
 
 
 def _imported_modules(path: Path):
@@ -58,6 +62,11 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_import_guard_covers_the_training_modules():
     port = ROOT / "src" / "repro_torch"
     assert all(port / m in PORT_FILES for m in TRAINING_MODULES)
+
+
+def test_import_guard_covers_the_plane_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in PORT_FILES for m in PLANE_MODULES)
 
 
 def _run(code: str):
@@ -232,6 +241,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         run_train_task(None, {"steps": 1})
     with pytest.raises(RuntimeError, match="cuda"):
         run_eval_task(None, {})
+    plane = TorchLocalPlane()
+    assert plane.device == "cuda"
+    for kind in ("train", "serve"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            plane.submit({"job_id": kind, "kind": kind, "payload": {"steps": 1}})
+    for handlers in (DEFAULT_HANDLERS, WarmHandlers().handlers):
+        for kind in ("train", "eval", "serve"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                handlers[kind]({"steps": 1, "n_requests": 1})
     assert Server(ServeJobConfig(device="cpu")).device.type == "cpu"
     assert Trainer(TrainJobConfig(device="cpu", seq_len=8, global_batch=2)).device.type \
         == "cpu"

@@ -343,8 +343,9 @@ def test_restore_matches_uninterrupted_run(tmp_path):
 
 def test_redelivered_train_task_resumes_not_reruns(tmp_path):
     """Twin of tests/test_fault_tolerance.py's test of the same name, on the task
-    semantics (the port's plane integration is ROADMAP item 2): the redelivered
-    task restores the committed step and runs ZERO steps."""
+    semantics (a plane's job moved across a cluster loss is
+    tests/test_torch_local_plane.py's): the redelivered task restores the
+    committed step and runs ZERO steps."""
     payload = {"arch": "qwen3-0.6b", "seq_len": 8, "global_batch": 2, "steps": 4,
                "checkpoint_every": 2, "checkpoint_dir": str(tmp_path / "ck"), **CPU}
     first = run_train_task(None, dict(payload))        # the worker dies after this
