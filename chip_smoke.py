@@ -18,7 +18,8 @@ Phases, each failing loudly (nonzero exit):
      designs of K1 and K3; K1 at head dim 256 too, with and without a sliding
      window, at gemma3-12b's prefill shapes, and at 112, at zamba2-7b's, where it
      is also timed padded to 128 as the TPU route runs it; at 128 in
-     qwen3-moe-235b-a22b's GQA 16:1 layout; K3 at zamba2's too), K2
+     qwen3-moe-235b-a22b's GQA 16:1 layout and phi4-mini-3.8b's 24:8, both ways;
+     at the launcher train job's 8 x 64 tokens both ways; K3 at zamba2's too), K2
      through each of its four entry points (rmsnorm,
      add_rmsnorm, gated_rmsnorm, qk_norm_rope; rmsnorm and add_rmsnorm at
      llama-3.2-vision's width 8,192 too), and the SSD scan on the conv output's
@@ -94,7 +95,19 @@ Phases, each failing loudly (nonzero exit):
      step 6; a serve job on B whose tokens are a direct ``Server.run``'s; one
      profiled train poll; the etl -> train -> eval -> export chain through one
      worker's warm handlers, eval a cache hit; the counters read around the
-     plane's train and serve jobs (the path "qwen3-0.6b plane");
+     plane's train and serve jobs (the path "qwen3-0.6b plane"); then
+     (``phase_launchers``) the port's entry points as a user runs them:
+     ``repro_torch.launch.train`` in its default driver mode (the port's own
+     management plane, a master and 2 private clusters, 30 steps of 8 x 64
+     tokens, checkpoints at 25 and 30) and with ``--direct``, the losses bit-equal;
+     ``launch.serve`` direct and ``--driver``, the tokens equal; the counters read
+     around the four runs (the path "qwen3-0.6b launchers"); the host ms of a
+     ``plane.tick()`` outside the local planes' calls and the job's seconds from
+     submit to done; ``examples/torch_quickstart.py`` and
+     ``examples/torch_hybrid_pipeline.py``; then (``phase_phi4``) phi4-mini-3.8b
+     through the serve launcher's direct mode at full width and depth, the
+     counters exact (the path "phi4-mini-3.8b launcher"), and its prefill + one
+     decode step against forward (f32 at every layer, bf16 at 4);
   8. train mamba2-2.7b at full width and depth, bf16, through ``run_train_task``
      (2 steps of 2048 tokens), the counters read around it (every K2 and K3
      entry of the path, exactly so many a layer a step); time warm steps and
@@ -393,6 +406,34 @@ PLANE_LENS = sorted({len(r["prompt"]) for r in PLANE_SERVE["requests"]})
 PLANE_ATTN = [(1, S, 16, 8, 128, True, 0) for S in PLANE_LENS]
 PLANE_NORM = [(1, S, 1024) for S in PLANE_LENS]
 PLANE_QK = [(1, S, 16, 8, 128) for S in PLANE_LENS]
+# the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
+# mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
+# width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
+# (6 requests of 8 new tokens, 4 slots, a 128-token cache) direct and ``--driver``
+LAUNCH_PATH = "qwen3-0.6b launchers"
+LAUNCH_STEPS, LAUNCH_BATCH, LAUNCH_SEQ = 30, 8, 64
+LAUNCH_REQUESTS = 6
+LAUNCH_LENS = sorted({len([1 + (i % 7), 2, 3 + i % 5] + [4] * (i % 4))
+                      for i in range(LAUNCH_REQUESTS)})
+# K1 and K2 at the launcher train job's shapes (the serve prompts' 3-6 tokens are
+# PLANE_LENS's): B=8 sequences of 64 tokens, H=16, K=8, D=128, causal
+LAUNCH_ATTN = [(LAUNCH_BATCH, LAUNCH_SEQ, 16, 8, 128, True, 0)]
+LAUNCH_NORM = [(LAUNCH_BATCH, LAUNCH_SEQ, 1024)]
+LAUNCH_QK = [(LAUNCH_BATCH, LAUNCH_SEQ, 16, 8, 128)]
+# phi4-mini-3.8b through the serve launcher's direct mode at full width and depth
+# (32 layers, d_model 3,072, GQA 24:8 of 128, no qk-norm; 8.9 GB of bf16), its checks
+# against forward as ``phase_serve``'s (f32 at every layer, bf16 at 4)
+PHI4_PATH = {"arch": "phi4-mini-3.8b", "params": 4_450_618_368, "f32_leaves": (),
+             "toks": [(2, 64)], "check_layers": (None, 4), "deep_prefill_tol": None,
+             "launches": {"flash_attention": (32, 0), "rmsnorm": (1, 1),
+                          "add_rmsnorm": (64, 64)}}
+PHI4_LAUNCH_PATH = "phi4-mini-3.8b launcher"
+# K1 at phi4's GQA 24:8: its served prompts (3-6 tokens), a ragged 200 and B=2, both
+# ways; timed at a 512-token prompt; K2 at its width at the prompts and decode steps
+PHI4_ATTN_SWEEP = ([(1, S, S, 24, 8, True, 0) for S in LAUNCH_LENS]
+                   + [(1, 200, 200, 24, 8, True, 0), (2, 64, 64, 24, 8, True, 0)])
+PHI4_ATTN = [(1, 512, 24, 8, 0)]
+PHI4_NORM = [(1, S, 3072) for S in LAUNCH_LENS] + [(4, 1, 3072)]
 
 
 def dense_per_step(layers: int, qk_norm: bool = True) -> dict:
@@ -412,7 +453,8 @@ TRAIN_PER_STEP = dense_per_step(28)
 # and D=128 with Sq < Skv, ragged lengths and a window (the masks at qwen3's width)
 FLASH_BWD_SWEEP = ([(B, S, S, H, K, D, c, w) for B, S, H, K, D, c, w in FLASH_SWEEP]
                    + SHORT_Q + [(2, 200, 200, 16, 8, 128, True, 0),
-                                (1, 200, 328, 16, 8, 128, True, 128)])
+                                (1, 200, 328, 16, 8, 128, True, 128)]
+                   + [(B, S, S, H, K, D, c, w) for B, S, H, K, D, c, w in LAUNCH_ATTN])
 # K1's backward timed at (B, S), H=16, K=8, D=128, bf16, causal: qwen3's serving
 # prompt and S=2048 at B=1 (the JSON row), and the training shape (4 x 2048)
 FLASH_BWD_TIMED = [(1, 512), (1, 2048), (4, 2048)]
@@ -428,9 +470,9 @@ ZAMBA_NORM_BWD = (1, 2048, 3584)     # in RMS_SWEEP, as zamba2's gated (1, 2048,
 MOE_NORM_BWD = (1, 2048, 2048)       # deepseek-moe-16b's
 WHISPER_NORM_BWD = (4, 1500, 1024)   # whisper-medium's encoder in training
 NORM_BWD_SWEEP = RMS_SWEEP + [(4, 2048, 1024), GEMMA_NORM_BWD, MOE_NORM_BWD, (1, 1, 1024),
-                              (600, 1024), (2, 3, 2560), WHISPER_NORM_BWD]
+                              (600, 1024), (2, 3, 2560), WHISPER_NORM_BWD, *LAUNCH_NORM]
 QK_BWD_SWEEP = [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), (4, 2048, 16, 8, 128),
-                GEMMA_QK_BWD, (1, 1, 16, 8, 128)]
+                GEMMA_QK_BWD, (1, 1, 16, 8, 128), *LAUNCH_QK]
 # kernel names of the backward kernels in profiler traces
 K1_BWD_NAMES = ("bwd_delta_kernel", "bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel")
 K2_BWD_NAMES = ("rows_bwd_kernel", "qk_norm_rope_bwd_kernel")
@@ -885,7 +927,7 @@ def phase_flash(gen) -> dict:
 
     # the sweep and the plane serve job's prompts, both dtypes, and short q
     # (end-aligned masks) against the oracle
-    for B, S, H, K, D, causal, window in FLASH_SWEEP + PLANE_ATTN:
+    for B, S, H, K, D, causal, window in FLASH_SWEEP + PLANE_ATTN + LAUNCH_ATTN:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(B, S, S, H, K, D, dtype)
             got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -900,8 +942,9 @@ def phase_flash(gen) -> dict:
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             check(close(got, want, TOL[dtype]),
                   f"flash Sq<Skv {B, Sq, Skv, causal, window} {dtype}: {max_err(got, want)}")
-    print(f"flash_attention: sweep, the plane serve job's prompts (S = {PLANE_LENS}) and "
-          f"Sq<Skv cases match (f32 CUDA-core and bf16 tensor-core designs)")
+    print(f"flash_attention: sweep, the plane serve job's prompts (S = {PLANE_LENS}), the "
+          f"launcher train job's {LAUNCH_ATTN} and Sq<Skv cases match (f32 CUDA-core and "
+          f"bf16 tensor-core designs)")
 
     row = None
     for S in (512, 1024, 2048):          # 512 = the served prompt: the main path
@@ -936,6 +979,7 @@ def phase_flash(gen) -> dict:
     row["head_dim_112"] = phase_flash_head_dim(
         gen, qkv, 112, FLASH_112_SWEEP, [(1, S, 32, 32, 0) for S in ZAMBA_ATTN])
     row["gqa_64_4"] = phase_flash_head_dim(gen, qkv, 128, MOE_ATTN_SWEEP, MOE_ATTN)
+    row["gqa_24_8"] = phase_flash_head_dim(gen, qkv, 128, PHI4_ATTN_SWEEP, PHI4_ATTN)
     return row
 
 
@@ -1202,7 +1246,7 @@ def phase_rmsnorm(gen) -> list:
     entries = {
         "rmsnorm": (
             lambda x, r, sc: RN.rmsnorm_cuda(x, sc), lambda x, r, sc: RN.rmsnorm_plain(x, sc),
-            norm_case, RMS_SWEEP + PLANE_NORM,
+            norm_case, RMS_SWEEP + PLANE_NORM + LAUNCH_NORM + PHI4_NORM,
             [(1, 512, 1024), (1, 512, 2560), (1, 512, 16, 128), (4, 1, 1024), (4, 1, 2560),
              (1, 512, 3840), (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM,
              *CROSS_NORM],
@@ -1210,7 +1254,8 @@ def phase_rmsnorm(gen) -> list:
             lambda x, r, sc: 4 * x.numel(),
             lambda x, r, sc: F.rms_norm(x, sc.shape, weight=sc, eps=1e-6)),
         "add_rmsnorm": (
-            RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case, RMS_SWEEP + PLANE_NORM,
+            RN.add_rmsnorm_cuda, RN.add_rmsnorm_plain, norm_case,
+            RMS_SWEEP + PLANE_NORM + LAUNCH_NORM + PHI4_NORM,
             [(1, 512, 1024), (1, 512, 2560), (4, 1, 1024), (4, 1, 2560), (1, 512, 3840),
              (4, 1, 3840), (1, 512, 3584), (4, 1, 3584), *MOE_NORM, *CROSS_NORM],
             lambda x, r, sc: (4 * x.numel() + sc.numel()) * x.element_size(),
@@ -1222,7 +1267,7 @@ def phase_rmsnorm(gen) -> list:
             lambda y, z, sc: 9 * y.numel(), None),
         "qk_norm_rope": (
             RN.qk_norm_rope_cuda, RN.qk_norm_rope_plain, qk_case,
-            [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), *PLANE_QK],
+            [(2, 12, 4, 2, 64), (3, 5, 2, 1, 128), (1, 7, 4, 2, 256), *PLANE_QK, *LAUNCH_QK],
             [(1, 512, 16, 8, 128), (4, 1, 16, 8, 128), (1, 512, 16, 8, 256),
              (4, 1, 16, 8, 256), (1, 512, 64, 4, 128), (4, 1, 64, 4, 128)],
             lambda q, k, qs, ks, pos, th: ((2 * (q.numel() + k.numel()) + 2 * qs.numel())
@@ -1421,43 +1466,11 @@ def routing_drops(routes: list, cfg, S: int) -> str:
                 f"{n} at factor {f}" for f, n in drops.items()))
 
 
-def phase_serve(card: str, path: dict) -> dict:
-    """Serve one model at full width; returns each kernel's launches in the task."""
+def forward_checks(arch: str, model, params: dict, path: dict) -> list:
+    """Prefill + one decode step against ``forward`` at full width on the served
+    params, at ``path``'s depths and tolerances; returns the token batches drawn."""
     from repro_torch.models.model import Model
-    from repro_torch.runtime.serve_loop import ServeJobConfig
-    from repro_torch.runtime.step_cache import ServerCache, run_serve_task
     from repro_torch.tree import tree_map
-
-    arch = path["arch"]
-    payload = dict(SERVE, arch=arch)
-    cache = ServerCache(1)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    wrappers = reset_launches()
-    t0 = time.perf_counter()
-    res = run_serve_task(cache, payload)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    print(f"serve {arch}: {res} in {wall:.2f} s (incl. param init); launches {launches}")
-    n, new = payload["n_requests"], payload["max_new"]
-    check(res["requests"] == n and res["generated_tokens"] == n * new,
-          f"{arch}: expected {n} requests of {new} tokens, got {res}")
-    for name, got in launches.items():      # n prefills and the decode steps
-        pre, dec = path["launches"].get(name, (0, 0))
-        want = pre * n + dec * res["decode_steps"]
-        check(got == want, f"{arch}: {name} launched {got} times in the serve task, want "
-              f"{want} ({pre} a prefill, {dec} a decode step)")
-
-    srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
-    model, params = srv.model, srv.params
-    leaves = list(named_leaves(params))
-    n_params = sum(t.numel() for _, t in leaves)
-    check(n_params == path["params"] == model.cfg.param_count(), f"{arch}: params {n_params}")
-    for name, t in leaves:
-        want = torch.float32 if name[-1] in path["f32_leaves"] else torch.bfloat16
-        check(t.is_cuda and t.dtype == want, f"{arch}: param {name} is {t.dtype} on "
-              f"{t.device}, want {want} on the card")
 
     # prefill + one decode step == forward's logits, at full width. In f32 the
     # two paths agree to ~2e-5 at every layer. In bf16 their rounding drifts
@@ -1520,6 +1533,46 @@ def phase_serve(card: str, path: dict) -> dict:
         del case_params
         gc.collect()
         torch.cuda.empty_cache()
+    return all_toks
+
+
+def phase_serve(card: str, path: dict) -> dict:
+    """Serve one model at full width; returns each kernel's launches in the task."""
+    from repro_torch.runtime.serve_loop import ServeJobConfig
+    from repro_torch.runtime.step_cache import ServerCache, run_serve_task
+
+    arch = path["arch"]
+    payload = dict(SERVE, arch=arch)
+    cache = ServerCache(1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    res = run_serve_task(cache, payload)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"serve {arch}: {res} in {wall:.2f} s (incl. param init); launches {launches}")
+    n, new = payload["n_requests"], payload["max_new"]
+    check(res["requests"] == n and res["generated_tokens"] == n * new,
+          f"{arch}: expected {n} requests of {new} tokens, got {res}")
+    for name, got in launches.items():      # n prefills and the decode steps
+        pre, dec = path["launches"].get(name, (0, 0))
+        want = pre * n + dec * res["decode_steps"]
+        check(got == want, f"{arch}: {name} launched {got} times in the serve task, want "
+              f"{want} ({pre} a prefill, {dec} a decode step)")
+
+    srv = cache.get(ServeJobConfig.from_job({"payload": payload}))  # warm hit
+    model, params = srv.model, srv.params
+    leaves = list(named_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves)
+    check(n_params == path["params"] == model.cfg.param_count(), f"{arch}: params {n_params}")
+    for name, t in leaves:
+        want = torch.float32 if name[-1] in path["f32_leaves"] else torch.bfloat16
+        check(t.is_cuda and t.dtype == want, f"{arch}: param {name} is {t.dtype} on "
+              f"{t.device}, want {want} on the card")
+
+    all_toks = forward_checks(arch, model, params, path)
 
     # throughput: one 512-token prefill (with the server's frames or patches);
     # decode steps of all 4 slots
@@ -1751,6 +1804,7 @@ def phase_backward(gen) -> list:
     rows[0]["head_dim_112"] = phase_flash_bwd_head_dim(
         gen, 112, FLASH_112_SWEEP, [(1, ZAMBA_ATTN[-1], 32, 32, 0)])
     rows[0]["gqa_64_4"] = phase_flash_bwd_head_dim(gen, 128, MOE_ATTN_SWEEP, MOE_ATTN[-1:])
+    rows[0]["gqa_24_8"] = phase_flash_bwd_head_dim(gen, 128, PHI4_ATTN_SWEEP, PHI4_ATTN)
 
     def norm_case(shape, dtype):
         return norm_bwd_case(gen, shape, dtype)
@@ -2548,6 +2602,239 @@ def phase_local_plane(card: str) -> dict:
           f"published) {save_s} s; restores {[round(t, 2) for t in restores]} s; one train "
           f"poll (2 steps) device busy {busy:.2f} of {poll_wall:.2f} ms (busy share "
           f"{busy / poll_wall:.3f}), {n_kernels} kernels [{card}]")
+    return launches
+
+
+def load_example(name: str):
+    """The module of ``examples/<name>.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def served_by(plane, jid: str):
+    """The local-plane record (``_TrainJob`` or ``_ServeJob``) of job ``jid``."""
+    return plane.agents[plane.job_status(jid)["cluster"]].local_plane.jobs[jid]
+
+
+def ms_stats(values: list) -> str:
+    return (f"median {statistics.median(values):.3f} ms, max {max(values):.3f} ms over "
+            f"{len(values)}")
+
+
+def phase_launchers(card: str) -> dict:
+    """The port's entry points as a user runs them, qwen3-0.6b at full width and
+    depth: ``repro_torch.launch.train`` in its default driver mode (the port's own
+    management plane, a master and 2 private clusters, 30 steps of 8 x 64 tokens,
+    checkpoints at 25 and 30 under ``build/``, deleted after), then ``--direct``,
+    its losses the driver job's bit for bit; ``launch.serve`` direct and
+    ``--driver``, their tokens equal. Every kernel wrapper's launches are held
+    exactly over the four runs. Times the host ms each ``plane.tick()`` spends
+    outside the local planes' calls (submit, poll, cancel, load), beside those
+    calls' own ms, and the train job's seconds from submit to done. Then
+    ``examples/torch_quickstart.py`` and ``examples/torch_hybrid_pipeline.py`` run to
+    their own asserts (uncounted). Returns each kernel's launches in the four
+    launcher runs."""
+    from repro_torch.core.plane import ManagementPlane
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.runtime.local_plane import TorchLocalPlane
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+
+    def count(wrappers) -> None:
+        for name, fn in wrappers.items():
+            launches[name] += fn.launches
+
+    # each tick: (its host ms, {local-plane call: its ms within the tick})
+    ticks, local_ms, submitted = [], {}, []
+    real_tick, real_submit = ManagementPlane.tick, ManagementPlane.submit_job
+
+    def timed_tick(plane, *args, **kw):
+        before, t0 = dict(local_ms), time.perf_counter()
+        real_tick(plane, *args, **kw)
+        ticks.append(((time.perf_counter() - t0) * 1e3,
+                      {k: v - before.get(k, 0.0) for k, v in local_ms.items()}))
+
+    def timed_submit(plane, *args, **kw):
+        submitted.append(time.perf_counter())
+        return real_submit(plane, *args, **kw)
+
+    def timed_local(name: str):
+        real = getattr(TorchLocalPlane, name)
+
+        def call(lp, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(lp, *args, **kw)
+            finally:
+                local_ms[name] = local_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    walls = {}
+    with contextlib.ExitStack() as stack:
+        ck = stack.enter_context(tempfile.TemporaryDirectory(dir=build))
+        stack.enter_context(swapped(ManagementPlane, "tick", timed_tick))
+        stack.enter_context(swapped(ManagementPlane, "submit_job", timed_submit))
+        for name in ("submit", "poll", "cancel", "load"):
+            stack.enter_context(swapped(TorchLocalPlane, name, timed_local(name)))
+        # -- the train launcher's default driver mode
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        out = train_launcher.main(["--checkpoint-dir", ck])
+        torch.cuda.synchronize()
+        done_at = time.perf_counter()
+        count(wrappers)
+        walls["train driver"] = done_at - t0
+        plane, jid = out["plane"], out["job"]
+        status = plane.job_status(jid)
+        cross = plane.boundary_report()["cross_cluster_bytes"]
+        trainer = served_by(plane, jid).trainer
+        trainer.ckpt.wait()                 # the step-30 save is published from its thread
+        saved = trainer.ckpt.all_steps()
+        losses = trainer.metrics.series("loss")
+        train_ticks = list(ticks)
+        print(f"launch.train driver: {TRAIN['arch']} full width, "
+              f"{trainer.arch_cfg.num_layers} layers, {LAUNCH_BATCH} x {LAUNCH_SEQ} tokens a "
+              f"step on {status['cluster']}: status {status}; cross_cluster_bytes {cross}; "
+              f"checkpoints at steps {saved}; losses {losses}")
+        check(status["status"] == "done" and status["progress"] == float(LAUNCH_STEPS),
+              f"launch.train driver: job {status}")
+        check(not trainer.cfg.reduced and trainer.device.type == "cuda"
+              and trainer.arch_cfg.num_layers == 28, "launch.train driver: not the full model "
+              "on the card")
+        check(saved == [25, LAUNCH_STEPS], f"launch.train driver: checkpoints {saved}")
+        check(len(losses) == LAUNCH_STEPS and all(map(math.isfinite, losses)),
+              f"launch.train driver: losses {losses}")
+        for name, per in TRAIN_PER_STEP.items():
+            check(launches[name] == per * LAUNCH_STEPS, f"launch.train driver: {name} "
+                  f"launched {launches[name]}, want {per * LAUNCH_STEPS}")
+        check(sum(launches.values()) == sum(TRAIN_PER_STEP.values()) * LAUNCH_STEPS,
+              f"launch.train driver: launches {launches}")
+        overhead = [total - sum(parts.values()) for total, parts in train_ticks]
+        polls = [parts["poll"] for _, parts in train_ticks if parts.get("poll")]
+        submit_s = done_at - submitted[0]
+        print(f"launch.train driver: plane.tick() outside the local planes' calls "
+              f"{ms_stats(overhead)} ticks; the local planes' polls {ms_stats(polls)} "
+              f"ticks with one; the job's submit (the trainer's build, in submit_job) "
+              f"{local_ms['submit']:.3f} ms; submit to done {submit_s:.3f} s, launcher wall "
+              f"{walls['train driver']:.3f} s [{card}]")
+        del plane, out, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the same job with --direct: the driver job's losses, bit for bit
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        direct = train_launcher.main(["--direct"])["trainer"]
+        torch.cuda.synchronize()
+        walls["train direct"] = time.perf_counter() - t0
+        count(wrappers)
+        direct_losses = direct.metrics.series("loss")
+        check(direct_losses == losses, f"launch.train --direct losses {direct_losses} != "
+              f"the driver job's {losses}")
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the serve launcher, direct and --driver
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        sd = serve_launcher.main([])
+        torch.cuda.synchronize()
+        walls["serve direct"] = time.perf_counter() - t0
+        count(wrappers)
+        want = [r.generated for r in sd["done"]]
+        steps = {"direct": sd["server"].steps}
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        sp = serve_launcher.main(["--driver"])
+        torch.cuda.synchronize()
+        walls["serve driver"] = time.perf_counter() - t0
+        count(wrappers)
+        server = served_by(sp["plane"], sp["job"]).server
+        got = [r.generated for r in server.requests.values()]
+        steps["driver"] = server.steps
+        print(f"launch.serve: direct tokens {want}; driver job {sp['plane'].job_status(sp['job'])}"
+              f", decode steps {steps}")
+        check(sp["ok"] and got == want, f"launch.serve --driver tokens {got} != direct {want}")
+        check(all(len(g) == 8 for g in got) and len(got) == LAUNCH_REQUESTS,
+              f"launch.serve: {got}")
+        del sp, server
+        gc.collect()
+        torch.cuda.empty_cache()
+    pre, dec = 2 * LAUNCH_REQUESTS, sum(steps.values())
+    for name, (per_pre, per_dec) in PATHS[0]["launches"].items():
+        want_n = per_pre * pre + per_dec * dec + TRAIN_PER_STEP.get(name, 0) * 2 * LAUNCH_STEPS
+        check(launches[name] == want_n, f"launchers: {name} launched {launches[name]}, "
+              f"want {want_n}")
+    check(sum(launches.values()) == sum(TRAIN_PER_STEP.values()) * 2 * LAUNCH_STEPS + sum(
+        a * pre + b * dec for a, b in PATHS[0]["launches"].values()),
+        f"launchers: launches {launches}")
+
+    # -- the port's examples, uncounted
+    with tempfile.TemporaryDirectory(dir=build) as ck:
+        t0 = time.perf_counter()
+        load_example("torch_quickstart").main(device="cuda", checkpoint_root=ck)
+        torch.cuda.synchronize()
+        walls["torch_quickstart"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build) as ck:
+        t0 = time.perf_counter()
+        load_example("torch_hybrid_pipeline").main(device="cuda", checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        walls["torch_hybrid_pipeline"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launchers: walls {({k: round(v, 3) for k, v in walls.items()})} s [{card}]")
+    return launches
+
+
+def phase_phi4(card: str) -> dict:
+    """phi4-mini-3.8b through ``repro_torch.launch.serve``'s direct mode at full width
+    and depth (6 requests, 4 slots, 8 new tokens), every kernel wrapper's launches
+    exactly so many a prefill and a decode step, then prefill + one decode step
+    against forward as ``phase_serve`` checks them. Returns the launches."""
+    from repro_torch.launch import serve as serve_launcher
+    arch = PHI4_PATH["arch"]
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    out = serve_launcher.main(["--arch", arch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    server = out["server"]
+    pre, dec = len(out["done"]), server.steps
+    print(f"serve launcher {arch}: {pre} requests, {dec} decode steps in {wall:.2f} s (incl. "
+          f"param init); launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    check(pre == LAUNCH_REQUESTS and all(len(r.generated) == 8 for r in out["done"]),
+          f"{arch}: {[r.generated for r in out['done']]}")
+    for name, got in launches.items():
+        per_pre, per_dec = PHI4_PATH["launches"].get(name, (0, 0))
+        want = per_pre * pre + per_dec * dec
+        check(got == want, f"{arch}: {name} launched {got} times, want {want} ({per_pre} a "
+              f"prefill, {per_dec} a decode step)")
+    model, params = server.model, server.params
+    leaves = list(named_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves)
+    check(n_params == PHI4_PATH["params"] == model.cfg.param_count()
+          and model.cfg.num_layers == 32, f"{arch}: params {n_params}")
+    check(all(t.is_cuda and t.dtype == torch.bfloat16 for _, t in leaves),
+          f"{arch}: params not bf16 on the card")
+    forward_checks(arch, model, params, PHI4_PATH)
+    del out, server, model, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3625,6 +3912,10 @@ def main(argv=None) -> int:
     by_path[TRAIN_PATH] = phase_train(card)
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
+    by_path[LAUNCH_PATH] = phase_launchers(card)
+    mark("launchers done")
+    by_path[PHI4_LAUNCH_PATH] = phase_phi4(card)
+    mark("phi4-mini-3.8b done")
     by_path[SSM_TRAIN_PATH] = phase_ssm_train(card)
     phase_ssm_tasks()
     mark("qwen3 and mamba2 training done")

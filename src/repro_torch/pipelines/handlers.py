@@ -19,6 +19,10 @@ payload's ``device`` (default "cuda"; "cpu" runs the kernels' plain versions).
 ``TrainerCache`` and serve one ``ServerCache``, so a task of the same family
 rebinds a built Trainer or Server instead of building it. ``step_cache=0`` keeps
 the cold build-per-task handlers.
+
+The module imports no model code: each handler imports the runtime it runs at
+first call, so a pipeline worker that only moves control traffic never loads
+torch.
 """
 from __future__ import annotations
 
@@ -26,14 +30,10 @@ import math
 from typing import Callable, Dict
 
 from repro_torch import configs
-from repro_torch.data.pipeline import SyntheticTokens
-from repro_torch.models.params import param_defs
-from repro_torch.runtime.step_cache import (ServerCache, TrainerCache, run_eval_task,
-                                            run_serve_task, run_train_task)
-from repro_torch.tree import tree_leaves
 
 
 def _etl(payload: dict) -> dict:
+    from repro_torch.data.pipeline import SyntheticTokens
     data = SyntheticTokens(vocab_size=payload.get("vocab", 512),
                            seq_len=payload.get("seq_len", 32),
                            global_batch=payload.get("batch", 4),
@@ -44,18 +44,23 @@ def _etl(payload: dict) -> dict:
 
 
 def _train(payload: dict) -> dict:
+    from repro_torch.runtime.step_cache import run_train_task
     return run_train_task(None, payload)
 
 
 def _eval(payload: dict) -> dict:
+    from repro_torch.runtime.step_cache import run_eval_task
     return run_eval_task(None, payload)
 
 
 def _serve(payload: dict) -> dict:
+    from repro_torch.runtime.step_cache import run_serve_task
     return run_serve_task(None, payload)
 
 
 def _export(payload: dict) -> dict:
+    from repro_torch.models.params import param_defs
+    from repro_torch.tree import tree_leaves
     cfg = configs.get(payload.get("arch", "qwen3-0.6b"))
     if payload.get("reduced", True):
         cfg = cfg.reduced()
@@ -83,21 +88,26 @@ class WarmHandlers:
             self.handlers.update(train=self._cached_train, eval=self._cached_eval,
                                  serve=self._cached_serve)
 
-    def trainer_cache(self) -> TrainerCache:
+    def trainer_cache(self):
         if self._trainer_cache is None:
+            from repro_torch.runtime.step_cache import TrainerCache
             self._trainer_cache = TrainerCache(self.step_cache)
         return self._trainer_cache
 
-    def server_cache(self) -> ServerCache:
+    def server_cache(self):
         if self._server_cache is None:
+            from repro_torch.runtime.step_cache import ServerCache
             self._server_cache = ServerCache(self.step_cache)
         return self._server_cache
 
     def _cached_train(self, payload: dict) -> dict:
+        from repro_torch.runtime.step_cache import run_train_task
         return run_train_task(self.trainer_cache(), payload)
 
     def _cached_eval(self, payload: dict) -> dict:
+        from repro_torch.runtime.step_cache import run_eval_task
         return run_eval_task(self.trainer_cache(), payload)
 
     def _cached_serve(self, payload: dict) -> dict:
+        from repro_torch.runtime.step_cache import run_serve_task
         return run_serve_task(self.server_cache(), payload)

@@ -30,7 +30,8 @@ from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
 from repro_torch.tree import tree_flatten_sorted  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "repro", "triton")
 
 
@@ -42,6 +43,19 @@ TRAINING_MODULES = ("kernels/autograd.py", "models/model.py", "optim/adamw.py",
                     "runtime/train_loop.py", "runtime/step_cache.py", "convert.py")
 # modules of the plane integration: the local plane and the pipeline task handlers
 PLANE_MODULES = ("runtime/local_plane.py", "pipelines/__init__.py", "pipelines/handlers.py")
+# the port's own copy of the management and pipeline planes, the shape registry
+# and the launchers
+COPIED_PLANE_MODULES = (
+    "observability/__init__.py", "observability/metrics.py", "observability/trace.py",
+    *(f"core/{m}.py" for m in ("__init__", "transport", "service_graph", "gateways",
+                               "access_control", "overwatch", "replica", "shardmap",
+                               "durability", "faults", "agent", "dispatcher", "plane")),
+    "roofline/__init__.py", "roofline/cost.py", "configs/shapes.py",
+    "autoscale/__init__.py", "autoscale/policy.py", "autoscale/reconciler.py",
+    *(f"pipelines/{m}.py" for m in ("dag", "services", "taskdb", "broker", "scheduler",
+                                    "composer", "worker")),
+    "launch/train.py", "launch/serve.py")
+PORT_EXAMPLES = ("torch_quickstart.py", "torch_serve_batched.py", "torch_hybrid_pipeline.py")
 
 
 def _imported_modules(path: Path):
@@ -69,6 +83,22 @@ def test_import_guard_covers_the_plane_modules():
     assert all(port / m in PORT_FILES for m in PLANE_MODULES)
 
 
+def test_import_guard_covers_the_copied_plane_launchers_and_examples():
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in PORT_FILES for m in COPIED_PLANE_MODULES)
+    assert all(ROOT / "examples" / e in PORT_FILES for e in PORT_EXAMPLES)
+
+
+@pytest.mark.parametrize("module", COPIED_PLANE_MODULES[:-2])
+def test_copied_module_names_its_twin(module):
+    """Each copied module opens with "Copy of ``repro.<module>``", and its twin in
+    the JAX package exists."""
+    name = "repro." + module[:-3].replace("/", ".").removesuffix(".__init__")
+    text = (ROOT / "src" / "repro_torch" / module).read_text()
+    assert text.startswith(f'"""Copy of ``{name}``'), text[:120]
+    assert (ROOT / "src" / "repro" / module).exists()
+
+
 def _run(code: str):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -84,6 +114,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "import repro_torch.core.plane, repro_torch.pipelines\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "print(len(names))\n")
