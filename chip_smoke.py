@@ -136,7 +136,18 @@ Phases, each failing loudly (nonzero exit):
      step alone, profile one of each, print the bytes a round crosses the pod
      boundary; then its checkpointed task (8 steps, a checkpoint every 8) and a
      strict eval-task restore at full width and 4 layers (a 28-layer save is
-     30.8 GiB).
+     30.8 GiB);
+ 11. the cells (``repro_torch.launch.steps.build_cell``) at qwen3-0.6b's full
+     width and depth, cut in batch (see ``CELLS_ARCH``): train_4k one step under
+     remat none, full and dots from one state and batch (loss, grad_norm and
+     params bit-equal; peak memory full < dots < none; launches exact),
+     prefill_32k (K1 at S = 32,768 against its plain version in f32 and bf16,
+     timed beside its bound and SDPA; the logits against forward's last
+     position, a wiring check), decode_32k (16 steps on the prefill's cache) and
+     the Titchener round; the dry-run of the train cell (``roofline/op_stats.py``
+     on fake tensors, in a CPU process started after the build on a core that
+     the script then leaves to it) beside the card's peak and step; mamba2-2.7b's long_500k cell (its decode in f32 at 4
+     layers against the prefill); ``examples/torch_train_100m.py --steps 300``.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -182,10 +193,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.launch.mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16  # noqa: E402
+
 # H100 SXM published peaks (dense): HBM bytes/s; flop/s by the type of the work
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, bf16 inputs
-              torch.float32: 67e12}     # CUDA cores, f32 without TF32
+PEAK_BYTES_S = HBM_BW
+PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS_BF16,   # tensor cores, bf16 inputs
+              torch.float32: 67e12}              # CUDA cores, f32 without TF32
 
 # ``profile_breakdown``'s window: a pause at each end, and sentinel kernels
 # (``torch.cuda._sleep``, ~10 us each) before the profiled call; tries a call. 64
@@ -652,6 +665,36 @@ LOCAL_SGD_PARITY = {"n_pods": 2, "inner_steps": 2, "seq": 256}
 # half a step apart across a rounding boundary (on an H100 80GB HBM3: 200,756 of
 # 685,255,680 elements, 2.93e-4)
 LOCAL_SGD_FLIP_SHARE = 1e-3
+# The cells (``repro_torch.launch.steps.build_cell``) at qwen3-0.6b's full width and
+# depth, random weights from seed 0, cut in batch only: train_4k's global batch 256
+# to 8 (the cell's M = 8 microbatches of 1 x 4,096 tokens), one step under each remat
+# mode from the same state and batch; prefill_32k's 32 to 1 (one 32,768-token
+# prompt); decode_32k's 128 (a 481 GB cache) to 4 (15.03 GB), filled from the prefill
+# cell's cache, 16 steps teacher-forced over the prompt's last 16 positions; the
+# Titchener cell of train_4k (one local-SGD round, H = 8, one pod) at global batch 8
+# (Bp = 1). mamba2-2.7b's long_500k cell (B = 1): its fixed-size state from a
+# prefill of 32,752 tokens, not of 524,272 (an SSM decode step reads only its state,
+# and its position enters no computation), then 16 decode steps at positions
+# 524,272-524,287, teacher-forced; the same in f32 at 4 layers against the prefill of
+# all 32,768 tokens at LONG_F32_TOL (on an H100 80GB HBM3 the qwen3 decode cell's
+# twin measured 3.08e-5 at its 1e-4).
+CELLS_ARCH = "qwen3-0.6b"
+CELLS_PATH = "qwen3-0.6b cells"
+CELLS_TRAIN_BATCH, CELLS_PREFILL_BATCH, CELLS_DECODE_BATCH = 8, 1, 4
+CELLS_DECODE_STEPS = 16
+CELLS_DECODE_CACHE_BYTES = 15_032_385_536 + 16    # k and v of 28 layers; pos, int32 [4]
+LONG_ARCH, LONG_PATH, LONG_PREFILL = "mamba2-2.7b", "mamba2-2.7b long_500k", 32_768
+LONG_F32_TOL, LONG_F32_LAYERS = 1e-4, 4
+# K1 at Sq = Skv = 32,768: a causal row's output averages v over up to 32,768 keys,
+# so late rows are small against TOL's absolute term. Held in f32 (the exact
+# design) at TOL and, both dtypes, by ``rms_tol`` at RMS_UNIT_TOL; the plain output
+# with the last CELLS_K1_DROP keys' values zeroed (what a kernel that skipped the
+# last kv tile's product would give its last rows) must fail the f32 gates.
+CELLS_K1_DROP = 64
+# the dry-run's predicted peak of the train cell (remat full) against the card's
+DRYRUN_PEAK_RTOL = 0.25
+TRAIN_100M_PATH = "qwen3 100M example"
+TRAIN_100M_STEPS = 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3837,6 +3880,522 @@ def phase_k3_bwd_against(parent: Path, card: str) -> None:
                       lambda: SS.ssd_scan_bwd_cuda(*args, chunk=chunk), top=3, groups=groups)
 
 
+# ------------------------------------------------------------------------ the cells
+def cell_launches(layers: int, microbatches: int, remat: str) -> dict:
+    """K1 and K2 launches of one step of a dense train cell with qk-norm:
+    ``dense_per_step`` a microbatch, and under remat "full" or "dots" each forward
+    kernel of a remat unit (one layer) once more in the backward: K1 and
+    qk_norm_rope a layer, rmsnorm (layer 0's ln1) and add_rmsnorm 2L - 1 (every
+    norm but the final one, which is outside the units)."""
+    per = dense_per_step(layers)
+    if remat != "none":
+        per = dict(per, flash_attention=2 * layers, qk_norm_rope=2 * layers, rmsnorm=2,
+                   add_rmsnorm=4 * layers - 1)
+    return {name: n * microbatches for name, n in per.items()}
+
+
+def dryrun_train_cut(out: str, core) -> None:
+    """The dry-run (``roofline/op_stats.py``) of the train cell at the card's cut,
+    remat full, on CPU fake tensors; runs in a process of its own, on one thread
+    pinned to ``core`` where one is given (``start_dryrun``), beside the card's
+    phases, and writes its record to ``out``."""
+    if core is not None:
+        os.sched_setaffinity(0, {core})
+    torch.set_num_threads(1)
+    from repro_torch.launch.steps import CellOptions, build_cell
+    from repro_torch.models.params import TensorDef
+    from repro_torch.roofline.op_stats import call_stats, stats_to_json
+    t0 = time.perf_counter()
+    cell = build_cell(CELLS_ARCH, "train_4k", CellOptions(remat="full"), device="cpu")
+    state, batch = cell.abstract_args
+    cut = {k: TensorDef((CELLS_TRAIN_BATCH,) + d.shape[1:], d.dtype) for k, d in batch.items()}
+    rec = stats_to_json(call_stats(cell.fn, (state, cut)))
+    rec["seconds"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(rec))
+
+
+def start_dryrun():
+    """Start ``dryrun_train_cut`` in a spawned process (it touches no card) on the
+    last of this process's cores, and leave that core to it: the calling thread,
+    and every thread it starts from here on, keeps to the other cores, so that the
+    card's phases do not share a core with it. Returns (the process, its output
+    path)."""
+    import multiprocessing
+    out = ROOT / "build" / "dryrun_train_cut.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    cores = sorted(os.sched_getaffinity(0))
+    core = cores[-1] if len(cores) > 1 else None
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dryrun_train_cut, args=(str(out), core), daemon=True)
+    proc.start()
+    if core is not None:
+        os.sched_setaffinity(0, set(cores[:-1]))
+    print(f"chip_smoke: the dry-run's process on core {core}, this one on {cores[:-1]}")
+    return proc, out
+
+
+def counted(launches: dict, wrappers: dict) -> dict:
+    """The wrappers' counts of one run, also added to ``launches``."""
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    for name, n in got.items():
+        launches[name] += n
+    return got
+
+
+def held_launches(tag: str, got: dict, want: dict) -> None:
+    for name, n in got.items():
+        check(n == want.get(name, 0), f"{tag}: {name} launched {n} times, want "
+              f"{want.get(name, 0)}")
+
+
+def phase_cells_train(card: str, launches: dict) -> dict:
+    """train_4k's cell, cut to global batch 8 (M = 8 microbatches of 1 x 4,096), one
+    step under each remat mode from the same state (seed 0) and batch: loss,
+    grad_norm and the updated params bit-equal across the modes; peak memory
+    full < dots < none; every kernel's launches exact. Then a warm step under
+    ``full`` timed. Returns {mode: (peak bytes, step ms)} and the warm step's ms."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.steps import CellOptions, build_cell, init_train_state
+    from repro_torch.tree import tree_flatten_sorted
+    props = torch.cuda.get_device_properties(0)
+    print(f"card memory: total_memory {props.total_memory} bytes ({props.name}); "
+          f"repro_torch.launch.mesh.HBM_BYTES {HBM_BYTES}")
+    if props.name == "NVIDIA H100 80GB HBM3":
+        check(props.total_memory == HBM_BYTES, f"HBM_BYTES {HBM_BYTES} != the card's "
+              f"{props.total_memory}")
+    out, ref = {}, None
+    for mode in ("none", "full", "dots"):
+        cell = build_cell(CELLS_ARCH, "train_4k", CellOptions(remat=mode))
+        M, L = cell.fn.num_microbatches, cell.cfg.num_layers
+        check(M == 8 and L == 28 and cell.cfg.remat == mode, f"train cell: M {M}, {L} layers")
+        data = SyntheticTokens(vocab_size=cell.cfg.vocab_size, seq_len=cell.spec.seq_len,
+                               global_batch=CELLS_TRAIN_BATCH, seed=0, task="random")
+        batch = {k: v.cuda() for k, v in data.global_batch_at(0).items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = init_train_state(cell.model, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        state, met = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = counted(launches, wrappers)
+        peak = torch.cuda.max_memory_allocated() - base
+        held_launches(f"train cell remat={mode}", got, cell_launches(L, M, mode))
+        loss, gnorm = met["loss"].item(), met["grad_norm"].item()
+        params = [t for _, t in tree_flatten_sorted(state["params"])]
+        print(f"train cell {cell.name} remat={mode}: {CELLS_TRAIN_BATCH} x "
+              f"{cell.spec.seq_len} tokens in {M} microbatches, loss {loss!r}, grad_norm "
+              f"{gnorm!r}, first step {ms:.1f} ms, peak {peak / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} GiB before its state [{card}]; launches {got}")
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"train cell {mode}: {met}")
+        if ref is None:
+            ref = (loss, gnorm, params)
+        else:
+            check(loss == ref[0] and gnorm == ref[1], f"train cell remat={mode}: loss "
+                  f"{loss!r} grad_norm {gnorm!r} != none's {ref[0]!r} {ref[1]!r}")
+            check(all(torch.equal(a, b) for a, b in zip(params, ref[2])),
+                  f"train cell remat={mode}: params after the step differ from none's")
+        warm_ms = None
+        if mode == "full":             # a warm step (from the stepped state) timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cell.fn(state, batch)
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            out["warm_ms"] = warm_ms
+        out[mode] = (peak, ms)
+        del cell, state, met, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(out["full"][0] < out["dots"][0] < out["none"][0],
+          f"train cell peaks (full, dots, none) {[out[m][0] for m in ('full', 'dots', 'none')]}"
+          f" not increasing")
+    tokens = CELLS_TRAIN_BATCH * 4096
+    print(f"train cell: loss, grad_norm and params bit-equal under none, full and dots; peak "
+          f"GiB full {out['full'][0] / 2**30:.2f} < dots {out['dots'][0] / 2**30:.2f} < none "
+          f"{out['none'][0] / 2**30:.2f}; warm full step {out['warm_ms']:.1f} ms = "
+          f"{tokens / out['warm_ms'] * 1e3:.0f} tokens/s [{card}]")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_vs_forward(cfg, params: dict, toks, S: int):
+    """(the prefill cell's last logits, forward's at the last position) of
+    ``toks`` on a model of ``cfg``; forward's as its final-normed hidden state at
+    the last position times the unembedding, without the [B, S, V] logits."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+    model = Model(cfg, "cuda")
+    last, cache = make_prefill_step(model, S)(params, {"tokens": toks})
+    del cache
+    with torch.no_grad():
+        hidden, _ = model.forward(params, {"tokens": toks}, return_hidden=True)
+        want = hidden[:, -1] @ model._table(params)
+    return last, want
+
+
+def k1_at_32k(out, want, tag: str) -> float:
+    """K1's output at S = 32,768 held against its plain version at TOL and, with the
+    values' RMS as the unit of the absolute term, at RMS_UNIT_TOL; the magnitudes of
+    the plain output printed beside the errors. Returns the max abs error."""
+    err, ratio = max_err(out, want), rms_tol(out, want)
+    w = want.float().abs()
+    dtype = want.dtype
+    print(f"flash S={want.shape[1]} {tag}: max abs err {err:.4g}, rms_tol {ratio:.3g} (gates "
+          f"{TOL[dtype]} and {RMS_UNIT_TOL[dtype, 'fwd']}); |plain output| median "
+          f"{w.median().item():.4g}, max {w.max().item():.4g}, RMS "
+          f"{w.square().mean().sqrt().item():.4g}; the last row's median "
+          f"{w[:, -1].median().item():.4g}")
+    check(close(out, want, TOL[dtype]) and ratio <= RMS_UNIT_TOL[dtype, "fwd"],
+          f"flash S={want.shape[1]} {tag}: max err {err}, rms_tol {ratio:.3g}")
+    return err
+
+
+def phase_cells_serve(card: str, launches: dict, k1_row: dict) -> None:
+    """prefill_32k's cell at B = 1 (one 32,768-token prompt) and decode_32k's at
+    B = 4, the launches exact. K1 on the prompt's layer-0 q, k and v against its
+    plain version (``k1_at_32k``: bf16, and f32 with a negative control) and timed
+    beside its bound and SDPA (cuDNN); the cell's logits against forward's last
+    position, a wiring check (the same kernels and ops a row; f32 at every layer
+    1e-4, bf16 at 4 layers 0.08, bf16 at 28 printed); the decode cell's 16 teacher-forced steps over
+    the prompt's last 16 positions, its tokens/s, and the same run in f32 at 4 layers
+    against the prefill of the whole prompt (1e-4)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import build_cell, make_decode_step, make_prefill_step
+    from repro_torch.models import layers as LY
+    from repro_torch.models.model import Model, _unstack
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cell = build_cell(CELLS_ARCH, "prefill_32k")
+    cfg, S, L = cell.cfg, cell.spec.seq_len, cell.cfg.num_layers
+    params = cell.model.init_params(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (CELLS_PREFILL_BATCH, S), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    last, cache = cell.fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    got = counted(launches, wrappers)
+    held_launches("prefill cell", got, {k: v[0] for k, v in PATHS[0]["launches"].items()})
+    check(tuple(last.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"prefill cell: logits {tuple(last.shape)}")
+    print(f"prefill cell {cell.name}: 1 x {S} tokens in {prefill_s * 1e3:.1f} ms (first "
+          f"call) = {S / prefill_s:.0f} tokens/s [{card}]; launches {got}")
+
+    # K1 at Sq = Skv = 32,768 on the prompt's layer-0 q, k, v
+    with torch.no_grad():
+        p0 = _unstack(params["layers"])[0]
+        h = LY.rmsnorm(params["embed"][toks], p0["ln1"], cfg.norm_eps)
+        q, k, v = (t.contiguous() for t in LY.qkv_project(
+            p0["attn"], h, positions=cell.model._positions(1, S), theta=cfg.rope_theta,
+            eps=cfg.norm_eps))
+        del h
+    out = FA.flash_attention_cuda(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    err = k1_at_32k(out, want, "bf16")
+    del out
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    out32 = FA.flash_attention_cuda(q32, k32, v32)
+    want32 = FA.flash_attention_plain(q32, k32, v32)
+    err32 = k1_at_32k(out32, want32, "f32")
+    dropped = v32.clone()
+    dropped[:, -CELLS_K1_DROP:] = 0
+    wrong = FA.flash_attention_plain(q32, k32, dropped)
+    wrong_abs, wrong_rms = max_err(wrong, want32), rms_tol(wrong, want32)
+    check(not close(wrong, want32, TOL[torch.float32])
+          and wrong_rms > RMS_UNIT_TOL[torch.float32, "fwd"],
+          f"flash S={S}: the f32 gates pass an output without the last {CELLS_K1_DROP} "
+          f"keys' values (max err {wrong_abs}, rms_tol {wrong_rms:.3g})")
+    print(f"flash S={S} f32: the plain output with the last {CELLS_K1_DROP} keys' values "
+          f"zeroed fails both gates (max err {wrong_abs:.3g}, rms_tol {wrong_rms:.3g})")
+    del q32, k32, v32, out32, want32, dropped, wrong
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    backend = sdpa_backend(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    check(close(lib.transpose(1, 2), want, TOL[torch.bfloat16]), "SDPA disagrees at 32k")
+    del lib
+    ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v), n=10)
+    plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v), n=3)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), n=10)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * q.shape[2] * q.shape[3] * attn_pairs(S, S, True, 0)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
+    k1_row["prefill_32k"] = {"B": 1, "S": S, "H": q.shape[2], "K": k.shape[2],
+                             "launches": got["flash_attention"], "max_abs_err": err,
+                             "max_abs_err_f32": err32, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": lib_ms,
+                             "library_backend": backend}
+    print(f"flash_attention B=1 S={S} H=16 K=8 D=128 bf16 causal (the prefill cell's layer "
+          f"0): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({backend}),"
+          f" bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, max abs err {err:.3g} "
+          f"[{card}]")
+    del q, k, v, qt, kt, vt, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the prefill cell's logits against forward's last position
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cases = [(f"f32, {L} layers", f32, lambda: tree_map(lambda t: t.float(), params), 1e-4),
+             ("bf16, 4 layers", dataclasses.replace(cfg, num_layers=4),
+              lambda: dict(params, layers=tree_map(lambda t: t[:4], params["layers"])), 0.08),
+             (f"bf16, {L} layers", cfg, lambda: params, None)]
+    for tag, case_cfg, make, tol in cases:
+        case_params = make()
+        got_last, want_last = prefill_vs_forward(case_cfg, case_params, toks, S)
+        err = max_err(got_last, want_last)
+        print(f"prefill cell vs forward's last position (a wiring check; {tag}, 1 x {S} "
+              f"tokens): max abs err "
+              f"{err:.4g}, |logit| max {want_last.float().abs().max().item():.3g}")
+        check(bool(torch.isfinite(got_last).all()), f"prefill cell ({tag}): non-finite")
+        if tol is not None:
+            check(close(got_last, want_last, tol), f"prefill cell vs forward ({tag}): max "
+                  f"err {err} > {tol}")
+        del case_params, got_last, want_last
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # decode_32k at B = 4: the prefill cell's cache, the last 16 positions again
+    dcell = build_cell(CELLS_ARCH, "decode_32k")
+    B, n = CELLS_DECODE_BATCH, CELLS_DECODE_STEPS
+    cache_bytes = sum(math.prod(d.shape) * d.dtype.itemsize
+                      for d in tree_leaves(dcell.model.abstract_cache(B, S)))
+    check(cache_bytes == CELLS_DECODE_CACHE_BYTES, f"decode cell: cache {cache_bytes} bytes")
+    dcache = dcell.model.init_cache(B, S)
+    for j, kv in enumerate(dcache["layers"]):
+        for name in ("k", "v"):
+            kv[name].copy_(cache["layers"][j][name])          # the one row to all B
+    dcache["pos"].fill_(S - n)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, dcache = dcell.fn(params, toks[:, S - n + i:S - n + i + 1].expand(B, 1),
+                                  dcache)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    got = counted(launches, wrappers)
+    held_launches("decode cell", got, {k: v[1] * n for k, v in PATHS[0]["launches"].items()})
+    check(int(dcache["pos"][0]) == S and bool(torch.isfinite(logits).all())
+          and all(close(logits[b], logits[0], 2e-2) for b in range(B)),
+          f"decode cell: pos {dcache['pos'].tolist()}, rows of one context disagree")
+    print(f"decode cell {dcell.name}: B = {B}, a {cache_bytes / 1e9:.2f} GB cache of {S} "
+          f"positions, {n} steps in {decode_s * 1e3:.1f} ms = {B * n / decode_s:.1f} tokens/s "
+          f"[{card}]; the last step (position {S - 1}) against the prefill cell's last logits "
+          f"(bf16, {L} layers): max abs err {max_err(logits[0], last[0]):.4g}; launches {got}")
+    del dcache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same decode run in f32 at 4 layers, against the prefill of the whole prompt
+    cfg4 = dataclasses.replace(cfg, dtype="float32", num_layers=4)
+    p4 = tree_map(lambda t: t.float(), dict(params, layers=tree_map(lambda t: t[:4],
+                                                                     params["layers"])))
+    model4 = Model(cfg4, "cuda")
+    want4, _ = make_prefill_step(model4, S)(p4, {"tokens": toks})
+    _, c4 = make_prefill_step(model4, S)(p4, {"tokens": toks[:, :S - n]})
+    step4 = make_decode_step(model4)
+    for i in range(n):
+        got4, c4 = step4(p4, toks[:, S - n + i:S - n + i + 1], c4)
+    err = max_err(got4, want4)
+    print(f"decode cell, f32 at 4 layers: prefill of {S - n} tokens + {n} decode steps vs the "
+          f"prefill of all {S}: max abs err {err:.4g}")
+    check(close(got4, want4, 1e-4), f"decode cell f32 4 layers: max err {err}")
+    del p4, c4, want4, got4, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_long_context(card: str) -> dict:
+    """mamba2-2.7b's long_500k cell (B = 1): its state from a prefill of the first
+    32,752 of 32,768 tokens, then 16 decode steps at positions 524,272-524,287,
+    teacher-forced with the prompt's last 16 tokens, every kernel's launches exact;
+    the state's bytes the same as at a 32,768-token context; the last step's logits
+    against the prefill of all 32,768 tokens, printed; then the same run in f32 at
+    LONG_F32_LAYERS layers against the prefill, at LONG_F32_TOL. Returns the
+    launches."""
+    from repro_torch.launch.steps import build_cell, make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves, tree_map
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    cell = build_cell(LONG_ARCH, "long_500k")
+    spec, cfg = cell.spec, cell.cfg
+    check(spec.seq_len == 524_288 and spec.global_batch == 1 and cfg.num_layers == 64,
+          f"long_500k cell: {spec}")
+    state_bytes = [sum(math.prod(d.shape) * d.dtype.itemsize
+                       for d in tree_leaves(cell.model.abstract_cache(1, n)))
+                   for n in (spec.seq_len, LONG_PREFILL)]
+    check(state_bytes[0] == state_bytes[1], f"long_500k: state bytes {state_bytes}")
+    params = cell.model.init_params(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL), generator=gen, device="cuda")
+    n = CELLS_DECODE_STEPS
+    prefill = make_prefill_step(cell.model, LONG_PREFILL)
+    want, _ = prefill(params, {"tokens": toks})
+    _, cache = prefill(params, {"tokens": toks[:, :-n]})
+    cache["pos"].fill_(spec.seq_len - n)
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n):
+        at = LONG_PREFILL - n + i
+        logits, cache = cell.fn(params, toks[:, at:at + 1], cache)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counted(launches, wrappers)
+    held_launches("long_500k cell", got,
+                  {k: v[1] * n for k, v in PATHS[1]["launches"].items()})
+    check(int(cache["pos"][0]) == spec.seq_len and bool(torch.isfinite(logits).all()),
+          f"long_500k: pos {cache['pos'].tolist()}")
+    print(f"long_500k cell {cell.name}: a state of {state_bytes[0] / 1e6:.2f} MB at any "
+          f"context, {n} decode steps at positions {spec.seq_len - n}-{spec.seq_len - 1} in "
+          f"{dt * 1e3:.1f} ms = {n / dt:.1f} tokens/s [{card}]; the last step against the "
+          f"prefill of all {LONG_PREFILL} tokens (bf16, 64 layers): max abs err "
+          f"{max_err(logits, want):.4g}; launches {got}")
+    del cache, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same decode run in f32 at LONG_F32_LAYERS layers, against the prefill
+    cfg4 = dataclasses.replace(cfg, dtype="float32", num_layers=LONG_F32_LAYERS)
+    p4 = tree_map(lambda t: t.float(), dict(params, layers=tree_map(
+        lambda t: t[:LONG_F32_LAYERS], params["layers"])))
+    del params
+    model4 = Model(cfg4, "cuda")
+    prefill4 = make_prefill_step(model4, LONG_PREFILL)
+    want4, _ = prefill4(p4, {"tokens": toks})
+    _, c4 = prefill4(p4, {"tokens": toks[:, :-n]})
+    c4["pos"].fill_(spec.seq_len - n)
+    step4 = make_decode_step(model4)
+    for i in range(n):
+        at = LONG_PREFILL - n + i
+        got4, c4 = step4(p4, toks[:, at:at + 1], c4)
+    err = max_err(got4, want4)
+    print(f"long_500k, f32 at {LONG_F32_LAYERS} layers: prefill of {LONG_PREFILL - n} tokens + "
+          f"{n} decode steps at positions {spec.seq_len - n}+ vs the prefill of all "
+          f"{LONG_PREFILL}: max abs err {err:.4g}, |logit| max "
+          f"{want4.abs().max().item():.3g}")
+    check(close(got4, want4, LONG_F32_TOL), f"long_500k f32 {LONG_F32_LAYERS} layers: max "
+          f"err {err}")
+    del p4, c4, want4, got4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_titchener_cell(card: str, launches: dict) -> None:
+    """train_4k's Titchener cell: one local-SGD round (H = 8 inner steps of 1 x 4,096
+    tokens, one pod, remat full as the config's), the launches exact, the pod's
+    params the master's after the round."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.steps import CellOptions, build_cell
+    from repro_torch.optim.local_sgd import init_local_sgd_state
+    cell = build_cell(CELLS_ARCH, "train_4k", CellOptions(titchener=True))
+    state_abs, batches_abs = cell.abstract_args
+    H, P, Bp, S = batches_abs["tokens"].shape
+    check((H, P, Bp) == (8, 1, 32), f"titchener cell: batches {batches_abs['tokens'].shape}")
+    Bp = CELLS_TRAIN_BATCH // (H * P)
+    state = init_local_sgd_state(cell.model.init_params(0), P)
+    data = SyntheticTokens(vocab_size=cell.cfg.vocab_size, seq_len=S,
+                           global_batch=CELLS_TRAIN_BATCH, seed=1, task="random")
+    batches = {k: v.reshape(H, P, Bp, S).cuda() for k, v in data.global_batch_at(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    state, met = cell.fn(state, batches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counted(launches, wrappers)
+    held_launches("titchener cell", got, cell_launches(cell.cfg.num_layers, H, cell.cfg.remat))
+    delta = met["delta_norm"].item()
+    check(math.isfinite(delta) and delta > 0 and int(state["round"]) == 1
+          and pods_synced(state), f"titchener cell: delta_norm {delta}, round "
+          f"{int(state['round'])}")
+    print(f"titchener cell {cell.name}: one round of H = {H} x {Bp} x {S} tokens (one pod, "
+          f"remat {cell.cfg.remat}) in {ms:.1f} ms (first call) = "
+          f"{H * Bp * S / ms * 1e3:.0f} tokens/s, delta_norm {delta:.4g}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]; launches {got}")
+    del state, batches, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun_vs_card(card: str, dryrun, train: dict) -> None:
+    """The dry-run's prediction of the train cell (remat full, the card's cut)
+    beside the card: its peak_bytes within DRYRUN_PEAK_RTOL of the card's peak
+    above the memory in use before the step's state; its flops over the warm step's
+    ms as a share of PEAK_FLOPS_BF16."""
+    proc, out = dryrun
+    t0 = time.perf_counter()
+    proc.join(timeout=600)
+    waited = time.perf_counter() - t0
+    check(proc.exitcode == 0 and out.exists(), f"dry-run process: exit {proc.exitcode}")
+    rec = json.loads(out.read_text())
+    card_peak, warm_ms = train["full"][0], train["warm_ms"]
+    rel = rec["peak_bytes"] / card_peak - 1
+    share = rec["flops"] / (warm_ms / 1e3) / PEAK_FLOPS_BF16
+    print(f"dry-run of the train cell (remat full, {CELLS_TRAIN_BATCH} x 4096 tokens, fake "
+          f"tensors on the CPU, {rec['seconds']:.1f} s, {rec['ops']} ops; waited "
+          f"{waited:.1f} s): predicted peak {rec['peak_bytes'] / 2**30:.3f} GiB, the card's "
+          f"{card_peak / 2**30:.3f} GiB ({rel:+.3f}); flops {rec['flops']:.4e} over the warm "
+          f"step's {warm_ms:.1f} ms = {share:.3f} of the bf16 peak (every dot product of "
+          f"the plain path, K1's masked blocks too: {rec['dot_flops']:.4e}); framework bytes "
+          f"{rec['framework_bytes']:.4e}, kernel-internal {rec['kernel_bytes']:.4e} [{card}]")
+    check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dry-run peak {rec['peak_bytes']} vs the card's "
+          f"{card_peak}: {rel:+.3f} beyond {DRYRUN_PEAK_RTOL}")
+
+
+def phase_train_100m(card: str) -> dict:
+    """``examples/torch_train_100m.py --steps 300`` on the card, to its own assert
+    (final loss < ln(1024) - 2), every kernel's launches exact (remat none, one
+    microbatch of 8 x 128 tokens a step). Returns the launches."""
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    losses = load_example("torch_train_100m").main(["--steps", str(TRAIN_100M_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    held_launches("torch_train_100m", launches, cell_launches(12, TRAIN_100M_STEPS, "none"))
+    check(len(losses) == TRAIN_100M_STEPS and losses[-1] < math.log(1024) - 2,
+          f"torch_train_100m: final loss {losses[-1]}")
+    print(f"torch_train_100m: {TRAIN_100M_STEPS} steps of 8 x 128 tokens in {wall:.2f} s "
+          f"(model build included) = {TRAIN_100M_STEPS * 8 * 128 / wall:.0f} tokens/s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} [{card}]; launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_cells(card: str, dryrun, k1_row: dict) -> dict:
+    """The cells, the dry-run beside the card and the 100M example; returns each
+    kernel's launches by path."""
+    cells = dict.fromkeys(kernel_wrappers(), 0)
+    train = phase_cells_train(card, cells)
+    phase_cells_serve(card, cells, k1_row)
+    phase_titchener_cell(card, cells)
+    phase_dryrun_vs_card(card, dryrun, train)
+    return {CELLS_PATH: cells, LONG_PATH: phase_long_context(card),
+            TRAIN_100M_PATH: phase_train_100m(card)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-bwd-against", type=Path, metavar="CHECKOUT",
@@ -3870,6 +4429,7 @@ def main(argv=None) -> int:
                 against[k](checkout, card)
         print(card)
         return 0
+    dryrun = start_dryrun()          # CPU only, on a core of its own
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -3926,6 +4486,9 @@ def main(argv=None) -> int:
     mark("whisper-medium task done")
     by_path[LOCAL_SGD_PATH] = phase_local_sgd_train(card)
     phase_local_sgd_task()
+    mark("local SGD done")
+    by_path.update(phase_cells(card, dryrun, rows[0]))
+    mark("cells, dry-run and the 100M example done")
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()

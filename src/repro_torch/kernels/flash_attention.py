@@ -41,6 +41,7 @@ import torch
 from repro_torch.device import refuse_grad
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import widen
+from repro_torch.kernels.region import plain_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 112, 128, 256)   # head dims the forward kernel is instantiated for
@@ -60,6 +61,32 @@ def _mask(Sq: int, Skv: int, k0: int, blk: int, causal: bool, window: int, devic
     return mask
 
 
+@functools.lru_cache(maxsize=None)
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the end-aligned mask keeps (``_mask``): the pairs the
+    kernel computes, where the plain version forms every block."""
+    total = 0
+    for i in range(Sq):
+        pos = i + Skv - Sq
+        hi = min(Skv, pos + 1) if causal else Skv
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _fwd_flops(q, k, v, *, causal: bool = True, window: int = 0, **_) -> int:
+    """The forward's dot products over the kept pairs: S = Q K^T and P V."""
+    B, Sq, H, D = q.shape
+    return 4 * B * H * D * attention_pairs(Sq, k.shape[1], causal, window)
+
+
+def _bwd_flops(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0, **_) -> int:
+    """The backward's five products over the kept pairs (S again, dP, dV, dQ, dK):
+    2.5 forwards."""
+    return 5 * _fwd_flops(q, k, v, causal=causal, window=window) // 2
+
+
+@plain_kernel(flops=_fwd_flops)
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           blk_kv: int = 512, return_lse: bool = False):
     """Blocked online-softmax forward over kv blocks of ``blk_kv``, mirroring
@@ -91,6 +118,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return (o, m + torch.log(l)) if return_lse else o
 
 
+@plain_kernel(flops=_bwd_flops)
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               window: int = 0, blk_kv: int = 512):
     """(dq, dk, dv) from the forward's residuals and dO, mirroring the JAX

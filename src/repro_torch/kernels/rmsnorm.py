@@ -36,24 +36,28 @@ import torch.nn.functional as F
 from repro_torch.device import refuse_grad
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import apply_rope, rmsnorm_ref, rope_freqs, widen
+from repro_torch.kernels.region import plain_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROW_BYTES = 256 * 8 * 16   # the widest row: 256 threads x 8 vectors of 16 bytes
 
 
 # ----------------------------------------------------------------- plain versions
-rmsnorm_plain = rmsnorm_ref   # the f32 formula of the oracle
+rmsnorm_plain = plain_kernel(rmsnorm_ref)   # the f32 formula of the oracle
 
 
+@plain_kernel
 def add_rmsnorm_plain(x, r, scale, *, eps: float = 1e-6):
     s = x + r
     return s, rmsnorm_ref(s, scale, eps=eps)
 
 
+@plain_kernel
 def gated_rmsnorm_plain(y, z, scale, *, eps: float = 1e-6):
     return rmsnorm_ref(y * F.silu(widen(z)).to(y.dtype), scale, eps=eps)
 
 
+@plain_kernel
 def qk_norm_rope_plain(q, k, q_scale, k_scale, positions, theta: float, *,
                        eps: float = 1e-6):
     q = rmsnorm_ref(q, q_scale, eps=eps)
@@ -72,6 +76,7 @@ def _rope_bwd(dout, positions, theta: float):
     return torch.cat([d1 * cos + d2 * sin, d2 * cos - d1 * sin], dim=-1).to(dout.dtype)
 
 
+@plain_kernel
 def rmsnorm_bwd_plain(x, scale, dy, *, eps: float = 1e-6):
     """(dx, dscale) of ``rmsnorm_ref(x, scale)`` for the cotangent dy:
     g = dy w, dx = rstd g - x rstd^3 mean(g x) in f32, rounded to x's dtype;
@@ -84,6 +89,7 @@ def rmsnorm_bwd_plain(x, scale, dy, *, eps: float = 1e-6):
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
+@plain_kernel
 def add_rmsnorm_bwd_plain(s, scale, ds, dn, *, eps: float = 1e-6):
     """(dx, dscale) of ``add_rmsnorm``: s = x + r is the forward's first output,
     ds and dn the cotangents of (s, rmsnorm(s)); dx (= dr) = ds + the norm's dx.
@@ -92,6 +98,7 @@ def add_rmsnorm_bwd_plain(s, scale, ds, dn, *, eps: float = 1e-6):
     return (dx if ds is None else ds + dx), dscale
 
 
+@plain_kernel
 def gated_rmsnorm_bwd_plain(y, z, scale, dout, *, eps: float = 1e-6):
     """(dy, dz, dscale) of ``gated_rmsnorm`` for the cotangent dout, with the
     JAX sequence's casts: t = y * T(silu(z)) rounded to T = y's dtype; dt = the
@@ -105,6 +112,7 @@ def gated_rmsnorm_bwd_plain(y, z, scale, dout, *, eps: float = 1e-6):
     return dt * silu, dz.to(z.dtype), dscale
 
 
+@plain_kernel
 def qk_norm_rope_bwd_plain(q, k, q_scale, k_scale, positions, theta: float, dq_out,
                            dk_out, *, eps: float = 1e-6):
     """(dq, dk, dq_scale, dk_scale) of ``qk_norm_rope`` for the cotangents of its

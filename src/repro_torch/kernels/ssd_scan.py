@@ -39,6 +39,7 @@ import torch
 from repro_torch.device import refuse_grad
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import widen
+from repro_torch.kernels.region import plain_kernel
 
 STATE_DIMS = (16, 32, 64, 128)   # N the kernel is instantiated for
 P_TILE = 32                      # P must be a multiple of this
@@ -90,6 +91,7 @@ def _chunked(chunk: int, x, dt, a, bm, cm, init_state, *more):
                            more=more)
 
 
+@plain_kernel
 def ssd_scan_plain(x, dt, a, bm, cm, *, chunk: int, init_state=None):
     """Chunked SSD mirroring ``_ssd_blocked``: zero-pads the ragged tail,
     vectorises the intra-chunk dual form over chunks, and loops over chunks
@@ -103,6 +105,7 @@ def ssd_scan_plain(x, dt, a, bm, cm, *, chunk: int, init_state=None):
     return y, t.h
 
 
+@plain_kernel
 def ssd_scan_bwd_plain(x, dt, a, bm, cm, init_state, dy, d_final, *, chunk: int):
     """The explicit backward of ``ssd_scan_plain`` (the gradient that ``jax.vjp``
     of ``_ssd_blocked`` gives), for the cotangents dy of y and ``d_final`` of the

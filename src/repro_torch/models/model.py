@@ -44,16 +44,35 @@ CE by gather (with ``cfg.loss_chunk``, per-chunk CE under
 autograd Functions (``kernels/autograd.py``). The layer loop takes each layer's
 params as ``unbind`` views of the stacked leaves, so their gradients are stacked
 once rather than summed from a full-size gradient per layer; the hybrid's shared
-block gets the sum of its G applications' gradients. ``cfg.remat`` is not
-ported (the Trainer forces "none").
+block gets the sum of its G applications' gradients.
+
+``cfg.remat`` (``_remat``, twin of the JAX package's) wraps the units the JAX
+package wraps in ``jax.checkpoint``: a dense/moe/encdec-decoder group of
+``_period`` layers, an ssm layer, a hybrid group (k mamba2 layers and the shared
+block) and a hybrid tail layer, a vlm group, an encoder layer. ``none`` runs the
+unit; ``full`` is non-reentrant ``torch.utils.checkpoint``: the unit keeps only
+its inputs and runs again in the backward; ``dots`` is the same under selective
+checkpointing that keeps the outputs of the weight products (``aten.mm`` and
+``aten.addmm``, the ``x @ W`` of ``layers.py``; the twin of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest: batched products
+(``aten.bmm``: the MoE experts' products and every einsum with a batch dim) and
+the kernels' autograd Functions, whose launches are no aten ops. A kernel
+Function keeps its tensors through ``save_for_backward`` only, so checkpointing
+frees and recomputes them; under ``full`` and ``dots`` each kernel forward in a
+unit runs twice a step. The units take the ``unbind`` views as inputs (the
+stacking happens outside them), so the stacked gradients still arrive once.
+Remat applies only while autograd records a gradient of the unit's inputs:
+prefill, decode and serving run the units as they are. The Trainer and the
+Server force "none", as the JAX package's do.
 """
 from __future__ import annotations
 
-import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as devices
 from repro_torch.configs.base import ArchConfig
@@ -61,13 +80,34 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as LY
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import init_params
-from repro_torch.tree import tree_map
+from repro_torch.models.params import TensorDef, abstract_params, init_params
+from repro_torch.tree import tree_leaves, tree_map
 
-@dataclasses.dataclass(frozen=True)
-class TensorDef:
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
+REMAT_MODES = ("none", "dots", "full")
+# the weight products whose outputs ``dots`` keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` under ``cfg.remat`` (see the module docstring). The wrapped unit
+    checkpoints only while autograd records and one of its tensor arguments
+    requires grad; otherwise it calls ``fn``."""
+    if mode == "none":
+        return fn
+    extra = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _dots_policy)} if mode == "dots" else {})
+
+    def unit(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return unit
 
 
 def _period(cfg: ArchConfig) -> int:
@@ -223,20 +263,30 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     carry), None where no layer has one."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
-    kvs = [[] for _ in range(period)]
-    xkvs = [[] for _ in range(period)]
-    d = aux = None
-    layers = _unstack(params["layers"])
-    for g in range(cfg.num_layers // period):
-        for j in range(period):
-            p = layers[g * period + j]
+
+    def group(x, d, aux, ps, memory):
+        """One group of ``period`` layers (the JAX package's scan body)."""
+        kvs, xkvs = [], []
+        for j, p in enumerate(ps):
             x, d, kv, xkv, a = _block(cfg, p, x, d, positions, windows[j], want_kv, memory)
             if a is not None:
                 aux = a if aux is None else aux + a
             if want_kv and windows[j] > 0:
                 kv = {n: _ring_slice(t, windows[j]) for n, t in kv.items()}
-            kvs[j].append(kv)
-            xkvs[j].append(xkv)
+            kvs.append(kv)
+            xkvs.append(xkv)
+        return x, d, aux, kvs, xkvs
+
+    group = _remat(group, cfg.remat)
+    kvs = [[] for _ in range(period)]
+    xkvs = [[] for _ in range(period)]
+    d = aux = None
+    layers = _unstack(params["layers"])
+    for g in range(cfg.num_layers // period):
+        x, d, aux, gkv, gxkv = group(x, d, aux, layers[g * period:(g + 1) * period], memory)
+        for j in range(period):
+            kvs[j].append(gkv[j])
+            xkvs[j].append(gxkv[j])
     if not want_kv:
         return x, d, None, None, aux
     return (x, d, tuple(_stack_kv(kv) for kv in kvs),
@@ -290,10 +340,11 @@ def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
              want_state: bool = False):
     """Returns (x, d, states): the stream is x + d; states = {"conv": [L,B,W-1,C],
     "ssd": [L,B,H,N,P]}."""
+    layer = _remat(functools.partial(_ssm_layer, cfg), cfg.remat)
     states = []
     d = None
     for lp in _unstack(params["layers"]):
-        x, d, st = _ssm_layer(cfg, lp, x, d)
+        x, d, st = layer(lp, x, d)
         if want_state:
             states.append(st)
     if not want_state:
@@ -327,17 +378,26 @@ def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     [L-G*k,B,...]}). The shared block is ``_block`` with window 0 (causal, full),
     the JAX package's ``_shared_block_fwd``, on the same params in every group."""
     groups, tail = _hybrid_split(cfg, params)
-    shared = params["shared_block"]
+
+    def group_body(x, d, lps, shared):
+        """k mamba2 layers, then the shared block (the JAX package's group body)."""
+        sts = []
+        for lp in lps:
+            x, d, st = _ssm_layer(cfg, lp, x, d)
+            sts.append(st)
+        x, d, kv, _, _ = _block(cfg, shared, x, d, positions, 0, want_state)
+        return x, d, sts, kv
+
+    group_body = _remat(group_body, cfg.remat)
+    tail_body = _remat(functools.partial(_ssm_layer, cfg), cfg.remat)
     main_states, kvs, tail_states = [], [], []
     d = None
     for group in groups:
-        for lp in group:
-            x, d, st = _ssm_layer(cfg, lp, x, d)
-            main_states.append(st)
-        x, d, kv, _, _ = _block(cfg, shared, x, d, positions, 0, want_state)
+        x, d, sts, kv = group_body(x, d, group, params["shared_block"])
+        main_states.extend(sts)
         kvs.append(kv)
     for lp in tail:
-        x, d, st = _ssm_layer(cfg, lp, x, d)
+        x, d, st = tail_body(lp, x, d)
         tail_states.append(st)
     if not want_state:
         return x, d, None
@@ -396,14 +456,21 @@ def _vlm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor, positions: torch.Te
     """Returns (x, d, kvs, xkvs): the stream is x + d; kvs = {"k","v": [nc *
     (k-1), B, S, K, hd]} of the self layers in order, xkvs = {"k","v": [nc, B, P,
     K, hd]} of the cross layers."""
-    groups = _vlm_groups(params)
-    kvs, xkvs = [], []
-    d = None
-    for selfs, cross in groups:
+    def group(x, d, selfs, cross, patches):
+        """k - 1 self layers, then the gated cross layer (the JAX package's body)."""
+        gkv = []
         for lp in selfs:
             x, d, kv, _, _ = _block(cfg, lp, x, d, positions, 0, want_kv)
-            kvs.append(kv)
+            gkv.append(kv)
         x, d, xkv = _vlm_cross_layer(cfg, cross, x, d, patches, want_kv)
+        return x, d, gkv, xkv
+
+    group = _remat(group, cfg.remat)
+    kvs, xkvs = [], []
+    d = None
+    for selfs, cross in _vlm_groups(params):
+        x, d, gkv, xkv = group(x, d, selfs, cross, patches)
+        kvs.extend(gkv)
         xkvs.append(xkv)
     if not want_kv:
         return x, d, None, None
@@ -443,11 +510,16 @@ class Model:
                 f"{cfg.name}: num_layers {cfg.num_layers} must be a multiple of the "
                 f"local:global period {period} (the {cfg.family} stack runs whole groups "
                 f"of {period} layers, as the JAX package's _grouped asserts)")
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of {REMAT_MODES}")
         self.cfg = cfg
         self.device = devices.resolve(device)
 
     def init_params(self, seed: int = 0) -> dict:
         return init_params(self.cfg, seed, self.device)
+
+    def abstract_params(self) -> dict:
+        return abstract_params(self.cfg)
 
     # --------------------------------------------------------------------- embedding
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -481,12 +553,19 @@ class Model:
         dtypes agree both casts are no-ops."""
         cfg = self.cfg
         positions = self._positions(frames.shape[0], frames.shape[1])
+
+        def first_layer(lp, x):
+            h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps).to(frames.dtype).to(x.dtype)
+            return _block_normed(cfg, lp, x, h, positions, 0, False, None, False)[:2]
+
+        def layer(lp, x, d):
+            return _block(cfg, lp, x, d, positions, 0, False, causal=False)[:2]
+
         first, *rest = _unstack(params["enc_layers"])
-        x = frames.to(params["enc_norm"].dtype)
-        h = LY.rmsnorm(x, first["ln1"], cfg.norm_eps).to(frames.dtype).to(x.dtype)
-        x, d, _, _, _ = _block_normed(cfg, first, x, h, positions, 0, False, None, False)
+        x, d = _remat(first_layer, cfg.remat)(first, frames.to(params["enc_norm"].dtype))
+        layer = _remat(layer, cfg.remat)
         for lp in rest:
-            x, d, _, _, _ = _block(cfg, lp, x, d, positions, 0, False, causal=False)
+            x, d = layer(lp, x, d)
         return _add_norm(x, d, params["enc_norm"], cfg.norm_eps)[1]
 
     # ----------------------------------------------------------------------- forward
@@ -666,6 +745,10 @@ class Model:
         return {"pos": pos,
                 "layers": tuple(kv(G, _window_for(cfg, j) or max_len)
                                 for j in range(period))}
+
+    def abstract_cache(self, batch: int, max_len: int) -> dict:
+        """The cache's ``TensorDef`` tree (the JAX package's ShapeDtypeStructs)."""
+        return self.cache_defs(batch, max_len)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),

@@ -20,6 +20,14 @@ from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
+class TensorDef:
+    """A tensor's shape and dtype without its memory: the port's stand-in for
+    ``jax.ShapeDtypeStruct``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]
@@ -182,3 +190,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     gen.manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     return tree_map(lambda d: _init_leaf(d, gen, dtype, dev), param_defs(cfg))
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """``param_defs(cfg)`` as ``TensorDef`` leaves of ``init_params``'s dtypes:
+    ``cfg.dtype``, f32 for mamba2's ``a_log`` and ``dt_bias``."""
+    dtype = getattr(torch, cfg.dtype)
+    return tree_map(lambda d: TensorDef(d.shape, torch.float32 if d.init in ("ssm_a", "ssm_dt")
+                                        else dtype), param_defs(cfg))

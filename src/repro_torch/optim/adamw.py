@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.params import TensorDef, param_defs
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.tree import tree_flatten_sorted, tree_map
 
@@ -46,6 +47,13 @@ def init_opt_state(params: dict) -> dict:
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
         "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
     }
+
+
+def abstract_opt_state(cfg) -> dict:
+    """``init_opt_state``'s tree as ``TensorDef`` leaves: f32 m, v and master of
+    every param, an int32 step."""
+    f32 = tree_map(lambda d: TensorDef(d.shape, torch.float32), param_defs(cfg))
+    return {"m": f32, "v": f32, "master": f32, "step": TensorDef((), torch.int32)}
 
 
 def _leaves(tree) -> list:

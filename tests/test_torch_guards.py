@@ -55,7 +55,11 @@ COPIED_PLANE_MODULES = (
     *(f"pipelines/{m}.py" for m in ("dag", "services", "taskdb", "broker", "scheduler",
                                     "composer", "worker")),
     "launch/train.py", "launch/serve.py")
-PORT_EXAMPLES = ("torch_quickstart.py", "torch_serve_batched.py", "torch_hybrid_pipeline.py")
+PORT_EXAMPLES = ("torch_quickstart.py", "torch_serve_batched.py", "torch_hybrid_pipeline.py",
+                 "torch_train_100m.py")
+# the cells, remat's home, the one-card dry-run and its analysis
+CELL_MODULES = ("launch/steps.py", "models/model.py", "launch/mesh.py", "launch/dryrun.py",
+                "kernels/region.py", "roofline/op_stats.py", "roofline/report.py")
 
 
 def _imported_modules(path: Path):
@@ -81,6 +85,12 @@ def test_import_guard_covers_the_training_modules():
 def test_import_guard_covers_the_plane_modules():
     port = ROOT / "src" / "repro_torch"
     assert all(port / m in PORT_FILES for m in PLANE_MODULES)
+
+
+def test_import_guard_covers_the_cells_the_dryrun_and_the_100m_example():
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in PORT_FILES for m in CELL_MODULES)
+    assert ROOT / "examples" / "torch_train_100m.py" in PORT_FILES
 
 
 def test_import_guard_covers_the_copied_plane_launchers_and_examples():
