@@ -397,17 +397,12 @@ qk_norm_rope_kernel(QkArgs<T> a) {
 //   add_rmsnorm_bwd   the forward returned (s, rmsnorm(s)) with s = x + r, so
 //                     dx = dr = ds + dnorm: ds is added inside the pass, rounded
 //                     where the unfused sequence rounds: T(ds + T(dnorm))
-//   gated_rmsnorm_bwd the forward normed t = T(y * T(silu(z))): t is recomputed
-//                     exactly as GatedOp::pre rounds it (a different t would move
-//                     rstd and dw), the norm's dx on t is rounded to T (dt), then
-//                     dy = T(dt * T(silu(z))) and dz = T(silu'(z) * T(dt * y)) in
-//                     f32, silu'(z) = sig (1 + z (1 - sig)): the casts of the JAX
-//                     sequence y * silu(z.astype(f32)).astype(y.dtype).
 //   qk_norm_rope_bwd  q and k in one launch: the cotangent of the roped output is
 //                     rotated back by -theta (RoPE's transpose, f32) and rounded
 //                     to T (the grad of apply_rope's cast), then the norm's
 //                     backward over head_dim with q_norm / k_norm.
-// Each entry point is one launch, dw included.
+// Each of these is one launch, dw included. gated_rmsnorm_bwd has a kernel of its
+// own, gated_bwd_kernel, below.
 //
 // dw is a sum over every row (131,072 of them for qwen3's q-norm at 4 x 2048
 // tokens). For f32 inputs, held at 1e-5 against the exact sum, f32 is not enough
@@ -594,16 +589,19 @@ __device__ __noinline__ void fold(const Fold& f, int W, int W1, int nvec, T* out
 }
 
 // what the row pass of rows_bwd_kernel reads besides x and dy, and writes besides dx
-constexpr int BWD_PLAIN = 0, BWD_ADD = 1, BWD_GATED = 2;
+constexpr int BWD_PLAIN = 0, BWD_ADD = 1;
 
+// the arguments of rows_bwd_kernel and of gated_bwd_kernel (the gated fields in
+// brackets)
 template <typename T>
 struct RowsBwd {
-  const T* x;              // GATED: y
-  const T* dy;
-  const T* ds;             // ADD: ds; GATED: z
+  const T* x;              // (y)
+  const T* dy;             // (dout)
+  const T* ds;             // ADD: ds (z)
   const T* scale;
-  T* dx;                   // GATED: dy
-  T* dz;                   // GATED only
+  T* dx;                   // (dy)
+  T* dz;                   // (dz); unread by rows_bwd_kernel, whose parameters keep it
+                           // (their layout, and so its SASS, as before)
   T* dscale;
   long long rows;
   int nvec, tpr;
@@ -614,8 +612,7 @@ constexpr int BWD_THREADS = 512;   // largest block of the backward row pass
 
 // Rows as rows_kernel assigns them, up to BWD_THREADS threads a block (a block
 // an SM: the fewer blocks, the fewer rows the fold reads at the end, and a second
-// block an SM did not move the row pass). ADD: dx = T(ds + T(dx_norm)). GATED: the
-// norm's input is t = T(y * silu), recomputed in both passes from y and z.
+// block an SM did not move the row pass). ADD: dx = T(ds + T(dx_norm)).
 template <typename T, int NV, int MODE>
 __global__ void __launch_bounds__(NV < 8 ? BWD_THREADS : MAX_THREADS, 1)
 rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
@@ -650,7 +647,7 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
       if (live && i < nvec) {
         rx[v] = ld16(a.x, row * nvec + i);
         rg[v] = ld16(a.dy, row * nvec + i);
-        if constexpr (MODE != BWD_PLAIN) rs[v] = ld16(a.ds, row * nvec + i);
+        if constexpr (MODE == BWD_ADD) rs[v] = ld16(a.ds, row * nvec + i);
       }
     }
     Acc ss = 0;
@@ -663,12 +660,6 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
         widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
-        if constexpr (MODE == BWD_GATED) {
-          float zf[VEC];
-          widen<T>(rs[v], zf);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) xf[k] = round_to<T>(__fmul_rn(xf[k], gate_silu<T>(zf[k])));
-        }
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           ss += (Acc)xf[k] * xf[k];
@@ -689,18 +680,10 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
     for (int v = 0; v < NV; ++v) {
       const int i = v * tpr + lane;
       if (live && i < nvec) {
-        float xf[VEC], gf[VEC], w[VEC], o[VEC], yf[VEC], zf[VEC];
+        float xf[VEC], gf[VEC], w[VEC], o[VEC];
         widen<T>(rx[v], xf);
         widen<T>(rg[v], gf);
         widen<T>(ld16(a.scale, i), w);   // from L1: no registers held for it
-        if constexpr (MODE == BWD_GATED) {
-          widen<T>(rs[v], zf);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            yf[k] = xf[k];
-            xf[k] = round_to<T>(__fmul_rn(yf[k], gate_silu<T>(zf[k])));
-          }
-        }
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           o[k] = rstd * gf[k] * w[k] - xf[k] * coef;
@@ -711,18 +694,6 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
           widen<T>(rs[v], sf);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) o[k] = __fadd_rn(sf[k], round_to<T>(o[k]));
-        }
-        if constexpr (MODE == BWD_GATED) {
-          float dz[VEC];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float dt = round_to<T>(o[k]);
-            const float sig = __fdividef(1.0f, 1.0f + expf(-zf[k]));
-            dz[k] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[k])),
-                              __fmul_rn(sig, 1.0f + zf[k] * (1.0f - sig)));
-            o[k] = __fmul_rn(dt, gate_silu<T>(zf[k]));
-          }
-          put16(a.dz, row * nvec + i, pack<T>(dz));
         }
         put16(a.dx, row * nvec + i, pack<T>(o));
       }
@@ -736,6 +707,283 @@ rows_bwd_kernel(RowsBwd<T> a, Fold fold_) {
     part[e] = s;
   }
   fold<T, VEC>(fold_, D, D, nvec, a.dscale, a.dscale);
+}
+
+// ------------------------------------------------------- the gated backward
+// gated_rmsnorm_bwd: the gradient of out = rmsnorm(t), t = T(y * T(silu(z))), for
+// the cotangent dout (T = the dtype; the casts of the JAX sequence
+// y * silu(z.astype(f32)).astype(y.dtype) of src/repro/models/ssm.py):
+//   t recomputed exactly as GatedOp::pre rounds it (a different t would move rstd
+//   and dscale); dt = the norm's dx on t, rounded to T; dy = T(dt * T(silu(z)));
+//   dz = T(silu'(z) * T(dt * y)) in f32, silu'(z) = sig (1 + z (1 - sig));
+//   dscale = the sum over every row of dout * t * rstd, in f64 (for bf16 each
+//   thread's terms in f32 and f64 from the block's sum on).
+// Replaces, with the rest of this file, the TPU kernel `_rmsnorm_kernel`
+// (src/repro/kernels/rmsnorm.py:11); the JAX package differentiates the gate and
+// the norm by autodiff.
+//
+// What bounds it on the H100: bytes. y, z and dout read once, dy and dz written
+// once: 104.9 MB at mamba2-2.7b's training rows [2048, 5120] bf16 (0.0313 ms at
+// 3.35 TB/s) and 146.8 MB at zamba2-7b's [2048, 7168] (0.0438 ms). But its
+// arithmetic (an expf, two divisions and five roundings an element) is not hidden
+// behind those bytes by itself, so the design cuts instructions and keeps loads
+// in flight behind them:
+//   - Rows go to teams. A block holds several; a team takes one row at a time:
+//     a lane group of 8-32 lanes for rows of up to 128 vectors, as
+//     rows_bwd_kernel assigns them (each row's sums, and so dy and dz, as there),
+//     else tpr threads of GATED_WIDE_NV vectors each, whose warps sum through a
+//     named barrier of the team's own, once a row (the warp sums double-
+//     buffered), so no team's reduction stalls another's.
+//   - Each thread copies its own vectors of the row GATED_STAGES - 1 rounds
+//     ahead into its own slots of a ring in shared memory (cp.async) and reads
+//     back only those: the next row's loads are in flight while this one
+//     reduces, no barrier guards the ring, and no register holds a row.
+//   - The gate once an element: e = expf(-z) gives silu = z / (1 + e) (the IEEE
+//     division in f32, __fdividef in bf16, as gate_silu) in the first pass and
+//     sig = __fdividef(1, 1 + e) in the second, bits as before; silu, in T,
+//     stays in registers and e in shared memory between the two passes.
+//   - A thread owns the same columns in every row it takes, so its dscale terms
+//     stay in registers until the block's last row.
+//   - One block an SM, as many teams as its registers and shared memory allow,
+//     the rows dealt to the blocks in turn; each block sums its teams' terms in
+//     team order into one f64 row of the scratch (132 rows, not one a block of
+//     3-8 an SM), and gated_fold_kernel sums them column by column in row order
+//     across the whole card. No atomics on values: two runs give the same bits.
+// Choices the card decided (H100 80GB HBM3 at 700 W; bf16, ms at [2048, 5120] /
+// [2048, 7168], the least of four runs in turns by tools/gated_bwd_variants.py):
+// this design 0.0564 / 0.0747, against rows_bwd_kernel's gated mode 0.1207 /
+// 0.1324, of which its fold (one row a block of 3-8 an SM, two serial reads of
+// ~sqrt(blocks) rows) took half: 0.0600 / 0.0800 without it. Undoing one choice
+// at a time: dscale folded inside the launch by rows_bwd_kernel's ticket tree
+// over the 132 rows, 0.0724 / 0.0957 (the second launch's kernel takes ~3 us;
+// a cluster of blocks summing through distributed shared memory, tried before,
+// leaves SMs idle, as clusters of 8 do not tile this card's SMs, and lost to it
+// too); 4 vectors a thread, rows_bwd_kernel's row order, 0.0609 / 0.0813; a
+// bound of 1,024 threads (64 registers), 0.0603 / 0.0792; e recomputed in the
+// second pass, 0.0579 / 0.0753; a ring of 1 or 3 stages, 0.0597 / 0.0756 and
+// 0.0603 / 0.0806. What is left: torch.add(y, z) streams at ~2.56 TB/s here, so
+// ~0.041 / 0.057 ms is near the floor for these bytes; the rest is the row pass's
+// arithmetic, which fewer instructions (e kept) and more warps moved and more
+// rows in flight (3 stages) did not.
+
+constexpr int GATED_STAGES = 2;      // rows in a team's ring
+constexpr int GATED_WIDE_NV = 2;     // vectors a thread of a row past 128 vectors
+constexpr int GATED_MAX_TEAMS = 15;  // wide teams a block: named barriers 1-15
+constexpr int GATED_SLICES = 8;      // row slices of a column in gated_fold_kernel
+
+// threads a block at most, by NV: what bounds each thread's registers
+__host__ __device__ constexpr int gated_threads(int nv) { return nv <= 2 ? 896 : 512; }
+
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+// silu(z) with e = expf(-z), as gate_silu<T>(z) forms it
+template <typename T>
+__device__ __forceinline__ float silu_of(float z, float e) {
+  if constexpr (sizeof(T) == 4) return z / (1.0f + e);
+  else return round_to<T>(__fdividef(z, 1.0f + e));
+}
+
+// Shared memory a team: its ring, [stage][y, dout, z][NV][tpr] vectors, and its e,
+// [NV * VEC / 4][tpr] float4; the teams' rings come first, then their e.
+template <typename T, int NV>
+constexpr size_t gated_team_bytes(int tpr) {
+  return (size_t)tpr * (GATED_STAGES * 3 * NV * sizeof(uint4) + NV * Vec<T>::N * sizeof(float));
+}
+
+// Team `team` of a block takes rows blockIdx.x + gridDim.x * (team + teams * k),
+// round k = 0, 1, ...; every thread runs every round of its block (the lane
+// groups' shuffles take the whole warp), a team past the last row with nothing
+// live. Writes the block's f64 row of dscale terms to rows[blockIdx.x].
+template <typename T, int NV>
+__global__ void __launch_bounds__(gated_threads(NV), 1)
+gated_bwd_kernel(RowsBwd<T> a, double* rows) {
+  constexpr int VEC = Vec<T>::N, S = GATED_STAGES;
+  using Acc = typename AccOf<T>::type;
+  extern __shared__ __align__(16) uint4 ring[];
+  __shared__ Acc warp_a[2][32];      // a wide team's warp sums, double-buffered by row
+  __shared__ float warp_b[2][32];
+  const int nvec = a.nvec, tpr = a.tpr, D = nvec * VEC;
+  const bool wide = tpr > 32;
+  const int teams = blockDim.x / tpr, team = threadIdx.x / tpr;
+  const int lane = threadIdx.x - team * tpr;
+  uint4* slots = ring + (size_t)team * S * 3 * NV * tpr + lane;   // (stage, input, v) at
+                                                                   // ((stage * 3 + input) * NV + v) * tpr
+  float4* ekeep = reinterpret_cast<float4*>(ring + (size_t)teams * S * 3 * NV * tpr) +
+                  (size_t)team * NV * VEC / 4 * tpr + lane;        // (v, q) at (v * VEC / 4 + q) * tpr
+  const long long round_rows = (long long)gridDim.x * teams;
+  const long long row0 = blockIdx.x + (long long)gridDim.x * team;
+  const long long rounds =
+      blockIdx.x < a.rows ? (a.rows - blockIdx.x + round_rows - 1) / round_rows : 0;
+  // round k's row into stage k % S, one commit group a round (empty past the rows)
+  auto fetch = [&](long long k) {
+    const long long r = row0 + k * round_rows;
+    if (k < rounds && r < a.rows) {
+      uint4* st = slots + (size_t)(k % S) * 3 * NV * tpr;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        if (i < nvec) {
+          cp_async16(st + (0 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.x) + r * nvec + i);
+          cp_async16(st + (1 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.dy) + r * nvec + i);
+          cp_async16(st + (2 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.ds) + r * nvec + i);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  Acc acc[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[v][k] = 0;
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) fetch(k);
+  int buf = 0;
+  for (long long k = 0; k < rounds; ++k) {
+    fetch(k + S - 1);
+    asm volatile("cp.async.wait_group %0;" ::"n"(S - 1) : "memory");
+    const long long row = row0 + k * round_rows;
+    const bool live = row < a.rows;
+    const uint4* st = slots + (size_t)(k % S) * 3 * NV * tpr;
+    uint4 sl[NV];                      // silu(z) in T
+    Acc ss = 0;
+    float sg = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        float yf[VEC], gf[VEC], zf[VEC], w[VEC], sf[VEC];
+        widen<T>(st[(0 * NV + v) * tpr], yf);
+        widen<T>(st[(1 * NV + v) * tpr], gf);
+        widen<T>(st[(2 * NV + v) * tpr], zf);
+        widen<T>(ld16(a.scale, i), w);   // from L1
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float e = expf(-zf[k]);
+          reinterpret_cast<float*>(ekeep + (v * VEC / 4 + k / 4) * tpr)[k % 4] = e;
+          sf[k] = silu_of<T>(zf[k], e);
+          const float t = round_to<T>(__fmul_rn(yf[k], sf[k]));
+          ss += (Acc)t * t;
+          sg += gf[k] * w[k] * t;
+        }
+        sl[v] = pack<T>(sf);           // exact: sf is already in T
+      }
+    }
+    if (wide) {                        // rows_bwd_kernel's block_sum2, over the team
+      ss = group_sum(ss, 32);
+      sg = group_sum(sg, 32);
+      const int wpt = tpr >> 5, w0 = team * wpt;
+      if ((threadIdx.x & 31) == 0) {
+        warp_a[buf][threadIdx.x >> 5] = ss;
+        warp_b[buf][threadIdx.x >> 5] = sg;
+      }
+      team_sync(1 + team, tpr);
+      Acc ta = 0;
+      float tb = 0.f;
+      for (int w = 0; w < wpt; ++w) {
+        ta += warp_a[buf][w0 + w];
+        tb += warp_b[buf][w0 + w];
+      }
+      ss = ta;
+      sg = tb;
+      buf ^= 1;   // the next row's sums go to the other buffer: no second barrier
+    } else {
+      ss = group_sum(ss, tpr);
+      sg = group_sum(sg, tpr);
+    }
+    const Acc rstd_a = rstd_of(ss, a.inv_d, a.eps);
+    const float rstd = (float)rstd_a;
+    const float coef = rstd * rstd * rstd * sg * a.inv_d;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        float yf[VEC], gf[VEC], zf[VEC], w[VEC], sf[VEC], ef[VEC], o[VEC], dz[VEC];
+        widen<T>(st[(0 * NV + v) * tpr], yf);
+        widen<T>(st[(1 * NV + v) * tpr], gf);
+        widen<T>(st[(2 * NV + v) * tpr], zf);
+        widen<T>(ld16(a.scale, i), w);
+        widen<T>(sl[v], sf);
+#pragma unroll
+        for (int q = 0; q < VEC / 4; ++q) {
+          const float4 f = ekeep[(v * VEC / 4 + q) * tpr];
+          ef[4 * q] = f.x;
+          ef[4 * q + 1] = f.y;
+          ef[4 * q + 2] = f.z;
+          ef[4 * q + 3] = f.w;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float sig = __fdividef(1.0f, 1.0f + ef[k]);
+          const float t = round_to<T>(__fmul_rn(yf[k], sf[k]));
+          o[k] = rstd * gf[k] * w[k] - t * coef;
+          acc[v][k] += (Acc)gf[k] * t * rstd_a;
+          const float dt = round_to<T>(o[k]);
+          dz[k] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[k])),
+                            __fmul_rn(sig, 1.0f + zf[k] * (1.0f - sig)));
+          o[k] = __fmul_rn(dt, sf[k]);
+        }
+        put16(a.dz, row * nvec + i, pack<T>(dz));
+        put16(a.dx, row * nvec + i, pack<T>(o));
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");   // (empty groups only)
+  __syncthreads();                                       // the ring is reused below
+
+  // the block's sum of its teams' terms, in team order, in f64
+  Acc* stage = reinterpret_cast<Acc*>(ring);   // [teams][D]
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int i = v * tpr + lane;
+    if (i < nvec)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) stage[(size_t)team * D + i * VEC + k] = acc[v][k];
+  }
+  __syncthreads();
+  double* out = rows + (long long)blockIdx.x * D;
+  for (int e = threadIdx.x; e < D; e += blockDim.x) {
+    double s = 0.0;
+    for (int j = 0; j < teams; ++j) s += stage[(size_t)j * D + e];
+    out[e] = s;
+  }
+}
+
+// dscale[e] = the sum of rows[0..n) at column e, rounded to T: 32 columns a
+// block, GATED_SLICES slices of a column's rows summed apart (8 loads in flight
+// each), then in slice order; the order is fixed, so are the bits
+template <typename T>
+__global__ void __launch_bounds__(32 * GATED_SLICES)
+gated_fold_kernel(const double* rows, int n, int D, T* dscale) {
+  __shared__ double sums[GATED_SLICES][32];
+  const int c = threadIdx.x & 31, j = threadIdx.x >> 5, e = blockIdx.x * 32 + c;
+  double s = 0.0;
+  if (e < D)
+    for (int r = j; r < n; r += 8 * GATED_SLICES) {
+      double v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int rq = r + GATED_SLICES * q;
+        v[q] = rq < n ? rows[(long long)rq * D + e] : 0.0;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) s += v[q];
+    }
+  sums[j][c] = s;
+  __syncthreads();
+  if (j == 0 && e < D) {
+    double t = 0.0;
+    for (int q = 0; q < GATED_SLICES; ++q) t += sums[q][c];
+    store1(dscale, e, (float)t);
+  }
 }
 
 template <typename T>
@@ -1100,6 +1348,78 @@ cudaError_t launch_rows_bwd(RowsBwd<T> a, double* scratch, int max_blocks, int D
   }
 }
 
+// The gated backward's block: as many teams as the compiled kernel's registers
+// (its maxThreadsPerBlock), the named barriers and shared memory allow, one block
+// an SM; the grid: at most one block an SM, a row and a scratch row each. Then
+// the fold, on the same stream.
+template <typename T, int NV>
+cudaError_t run_gated_bwd(const RowsBwd<T>& a, double* scratch, int max_rows, cudaStream_t s) {
+  using Acc = typename AccOf<T>::type;
+  auto kernel = gated_bwd_kernel<T, NV>;
+  const int D = a.nvec * Vec<T>::N;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int dev = 0, optin = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  auto smem_of = [&](int teams) {   // the teams' rings, reused for their dscale rows
+    const size_t rings = teams * gated_team_bytes<T, NV>(a.tpr);
+    const size_t sums = (size_t)teams * D * sizeof(Acc);
+    return rings > sums ? rings : sums;
+  };
+  int teams = attr.maxThreadsPerBlock / a.tpr;
+  if (a.tpr > 32 && teams > GATED_MAX_TEAMS) teams = GATED_MAX_TEAMS;
+  while (teams > 0 && attr.sharedSizeBytes + smem_of(teams) > (size_t)optin) --teams;
+  if (teams < 1) return cudaErrorInvalidConfiguration;
+  const int threads = teams * a.tpr;
+  const size_t smem = smem_of(teams);
+  if ((size_t)attr.maxDynamicSharedSizeBytes < smem)   // only raised
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  long long blocks = sm_count();
+  if (blocks > a.rows) blocks = a.rows;
+  if (blocks > max_rows) blocks = max_rows;
+  double* rows = scratch + FOLD_COUNTERS / 2;
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(a, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gated_fold_kernel<T><<<(D + 31) / 32, 32 * GATED_SLICES, 0, s>>>(rows, (int)blocks, D,
+                                                                   a.dscale);
+  return cudaGetLastError();
+}
+
+// rows_bwd_kernel's lane groups for rows of up to 128 vectors (each row's sums in
+// its order), GATED_WIDE_NV vectors a thread past them (twice as many where a
+// row would take more threads than the kernel's bound: rows of 2,048 vectors)
+template <typename T>
+cudaError_t launch_gated_bwd(RowsBwd<T> a, double* scratch, int max_rows, int D,
+                             cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  RowShape r;
+  if (a.rows <= 0 || D <= 0 || D % VEC || max_rows <= 0 ||
+      !row_shape(a.rows, D / VEC, BWD_THREADS, r))
+    return cudaErrorInvalidValue;
+  if (r.nvec > MAX_GROUP_VECS) {
+    r.nv = GATED_WIDE_NV;
+    r.tpr = ((r.nvec + r.nv - 1) / r.nv + 31) / 32 * 32;
+    if (r.tpr > gated_threads(r.nv)) {
+      r.nv *= 2;
+      r.tpr = ((r.nvec + r.nv - 1) / r.nv + 31) / 32 * 32;
+    }
+  }
+  a.nvec = r.nvec;
+  a.tpr = r.tpr;
+  a.inv_d = 1.0f / (float)D;
+  switch (r.nv) {
+    case 1: return run_gated_bwd<T, 1>(a, scratch, max_rows, s);
+    case 2: return run_gated_bwd<T, 2>(a, scratch, max_rows, s);
+    case 4: return run_gated_bwd<T, 4>(a, scratch, max_rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int NV>
 cudaError_t run_qk_bwd(const QkArgs<T>& a, const QkGrad<T>& gr, int threads, size_t smem,
                        double* scratch, int max_blocks, cudaStream_t s) {
@@ -1243,11 +1563,12 @@ extern "C" int qk_norm_rope_fwd(const void* q, const void* k, const void* q_scal
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward entry points, one launch each. `scratch` is the calling stream's own:
-// f64, FOLD_COUNTERS / 2 doubles of tickets (zero when first handed over; each
-// launch leaves them at zero), then room for max_blocks + fold_group(max_blocks)
-// + 1 rows of W doubles (W = D; 2 * hd for qk_norm_rope_bwd). The launch uses at
-// most max_blocks blocks and writes dscale in the input dtype.
+// Backward entry points, one launch each but gated_rmsnorm_bwd's two. `scratch`
+// is the calling stream's own: f64, FOLD_COUNTERS / 2 doubles of tickets (zero
+// when first handed over; each launch leaves them at zero), then room for
+// max_blocks + fold_group(max_blocks) + 1 rows of W doubles (W = D; 2 * hd for
+// qk_norm_rope_bwd; gated_rmsnorm_bwd's below). The launch uses at most
+// max_blocks blocks and writes dscale in the input dtype.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
                            void* dscale, void* scratch, int max_blocks, long long rows,
                            int D, float eps, int dtype, int device, void* stream) {
@@ -1295,26 +1616,28 @@ extern "C" int add_rmsnorm_bwd(const void* s_in, const void* scale, const void* 
 }
 
 // y, z: the forward's inputs; dout: the cotangent of its output; dy, dz and
-// dscale receive the gradients.
+// dscale receive the gradients; two launches (the rows, then the fold). Its
+// scratch: FOLD_COUNTERS / 2 doubles of tickets (unused), then max_rows rows of D
+// doubles, one a block of the row pass (at most one block an SM).
 extern "C" int gated_rmsnorm_bwd(const void* y, const void* z, const void* scale,
                                  const void* dout, void* dy, void* dz, void* dscale,
-                                 void* scratch, int max_blocks, long long rows, int D, float eps,
+                                 void* scratch, int max_rows, long long rows, int D, float eps,
                                  int dtype, int device, void* stream) {
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* p = static_cast<double*>(scratch);
   if (dtype == 0)
-    return (int)launch_rows_bwd<float, BWD_GATED>(
+    return (int)launch_gated_bwd<float>(
         RowsBwd<float>{(const float*)y, (const float*)dout, (const float*)z,
                        (const float*)scale, (float*)dy, (float*)dz, (float*)dscale, rows, 0,
                        0, 0.f, eps},
-        p, max_blocks, D, s);
+        p, max_rows, D, s);
   if (dtype == 1) {
     using B = __nv_bfloat16;
-    return (int)launch_rows_bwd<B, BWD_GATED>(
+    return (int)launch_gated_bwd<B>(
         RowsBwd<B>{(const B*)y, (const B*)dout, (const B*)z, (const B*)scale, (B*)dy, (B*)dz,
                    (B*)dscale, rows, 0, 0, 0.f, eps},
-        p, max_blocks, D, s);
+        p, max_rows, D, s);
   }
   return (int)cudaErrorInvalidValue;
 }

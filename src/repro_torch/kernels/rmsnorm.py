@@ -15,14 +15,15 @@ before or after it, each fusion rounding where the unfused sequence rounds:
 Each ``*_plain`` is exactly the sequence of PyTorch ops the model ran before the
 fusion, so the CPU path computes bit for bit what it computed then.
 
-The backward of every entry point (``rmsnorm_bwd``, ``add_rmsnorm_bwd``,
-``gated_rmsnorm_bwd``, ``qk_norm_rope_bwd``) runs on the same kernel's row core,
-one launch each; each ``*_bwd_plain`` is its explicit formula, the gradient of
-``rmsnorm_ref``'s exact casts (and of the gate's or RoPE's) that autodiff of the
-JAX reference gives. The kernel sums
-``dscale`` over every row in f64 and deterministically inside the same launch
-(per-block partial rows folded by the blocks that finish last, in a fixed order;
-no atomics on values), through a scratch buffer kept for each stream.
+The backward of ``rmsnorm``, ``add_rmsnorm`` and ``qk_norm_rope`` runs on the
+same kernel's row core, one launch each; ``gated_rmsnorm``'s on a kernel of its
+own (row teams over a ``cp.async`` ring, one block an SM) and a second launch
+that folds its blocks' dscale rows. Each ``*_bwd_plain`` is its explicit
+formula, the gradient of ``rmsnorm_ref``'s exact casts (and of the gate's or
+RoPE's) that autodiff of the JAX reference gives. The kernels sum ``dscale``
+over every row in f64 and deterministically (per-block partial rows folded in a
+fixed order; no atomics on values), through a scratch buffer kept for each
+stream.
 """
 from __future__ import annotations
 
@@ -294,28 +295,44 @@ _SCRATCH: dict = {}        # (device index, stream) -> that stream's f64 scratch
 
 
 @functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _max_blocks(device: torch.device) -> int:
     """Blocks a backward launch may use (so rows its scratch must hold): eight
     an SM, as many 256-thread blocks as an SM can hold. The kernel takes fewer
     where the compiled kernel's registers and shared memory allow fewer."""
-    return 8 * torch.cuda.get_device_properties(device).multi_processor_count
+    return 8 * _sm_count(device)
 
 
-def _scratch(x: torch.Tensor, W: int) -> tuple:
-    """(max blocks, f64 scratch) of the current stream for a backward launch whose
-    blocks fold rows of W doubles into dscale: the tickets, then one row a block
-    and one a group of blocks (ceil(sqrt(blocks)) a group). One buffer a stream:
-    each launch leaves the tickets at 0 for the next launch on its stream, and
-    two streams' launches may run at once. It grows, zeroed, when a launch needs
-    more rows; the old buffer goes back to the allocator in stream order."""
-    blocks = _max_blocks(x.device)
-    need = _TICKETS + (blocks + math.isqrt(blocks - 1) + 2) * W
+def fold_rows(blocks: int) -> int:
+    """f64 rows a backward launch of at most ``blocks`` blocks folds dscale
+    through: one a block and one a group of blocks (ceil(sqrt(blocks)) a group)."""
+    return blocks + math.isqrt(blocks - 1) + 2
+
+
+def gated_rows(sms: int) -> int:
+    """f64 rows the gated backward writes at most on a card of ``sms`` SMs: one
+    a block of its row pass, at most one block an SM (its grid takes no more
+    blocks than the scratch holds rows)."""
+    return sms
+
+
+def _scratch(x: torch.Tensor, rows: int, W: int) -> torch.Tensor:
+    """The f64 scratch of the current stream for a backward launch that sums
+    dscale through ``rows`` rows of W doubles: the tickets, then the rows. One
+    buffer a stream: each launch leaves the tickets at 0 for the next launch on
+    its stream, and two streams' launches may run at once. It grows, zeroed, when
+    a launch needs more; the old buffer goes back to the allocator in stream
+    order."""
+    need = _TICKETS + rows * W
     key = (x.device.index, _stream(x))
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < need:
         buf = torch.zeros(need, dtype=torch.float64, device=x.device)
         _SCRATCH[key] = buf
-    return blocks, buf
+    return buf
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
@@ -329,7 +346,8 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
     if not x.numel():
         return dx, dscale.zero_()
-    blocks, scratch = _scratch(x, D)
+    blocks = _max_blocks(x.device)
+    scratch = _scratch(x, fold_rows(blocks), D)
     err = _lib().rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                              dscale.data_ptr(), scratch.data_ptr(), blocks, x.numel() // D, D,
                              eps, _DTYPE_CODE[x.dtype], x.device.index, _stream(x))
@@ -352,7 +370,8 @@ def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Ten
     dx, dscale = torch.empty_like(s), torch.empty_like(scale)
     if not s.numel():
         return dx, dscale.zero_()
-    blocks, scratch = _scratch(s, D)
+    blocks = _max_blocks(s.device)
+    scratch = _scratch(s, fold_rows(blocks), D)
     rows, code, lib = s.numel() // D, _DTYPE_CODE[s.dtype], _lib()
     if ds is None:
         err = lib.rmsnorm_bwd(s.data_ptr(), scale.data_ptr(), dn.data_ptr(), dx.data_ptr(),
@@ -370,7 +389,8 @@ def add_rmsnorm_bwd_cuda(s: torch.Tensor, scale: torch.Tensor, ds, dn: torch.Ten
 def gated_rmsnorm_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                            dout: torch.Tensor, *, eps: float = 1e-6):
     """(dy, dz, dscale) of gated_rmsnorm on the card for the cotangent dout of its
-    output; y, z are the forward's inputs. One launch, dscale folded in."""
+    output; y, z are the forward's inputs. Two launches: the rows, each block's
+    dscale terms into a scratch row, then the fold of those rows."""
     refuse_grad("gated_rmsnorm_bwd_cuda", y, z, scale, dout)
     D = _norm_args("gated_rmsnorm_bwd_cuda", y, scale)
     if z.shape != y.shape or dout.shape != y.shape:
@@ -380,10 +400,11 @@ def gated_rmsnorm_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor
     dy, dz, dscale = torch.empty_like(y), torch.empty_like(z), torch.empty_like(scale)
     if not y.numel():
         return dy, dz, dscale.zero_()
-    blocks, scratch = _scratch(y, D)
+    rows = gated_rows(_sm_count(y.device))
+    scratch = _scratch(y, rows, D)
     err = _lib().gated_rmsnorm_bwd(y.data_ptr(), z.data_ptr(), scale.data_ptr(),
                                    dout.data_ptr(), dy.data_ptr(), dz.data_ptr(),
-                                   dscale.data_ptr(), scratch.data_ptr(), blocks,
+                                   dscale.data_ptr(), scratch.data_ptr(), rows,
                                    y.numel() // D, D, eps, _DTYPE_CODE[y.dtype], y.device.index,
                                    _stream(y))
     _launched("gated_rmsnorm_bwd", gated_rmsnorm_bwd_cuda, err)
@@ -403,7 +424,8 @@ def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tenso
     dq_scale, dk_scale = torch.empty_like(q_scale), torch.empty_like(k_scale)
     if min(B, S, H, K) == 0:
         return dq, dk, dq_scale.zero_(), dk_scale.zero_()
-    blocks, scratch = _scratch(q, 2 * hd)
+    blocks = _max_blocks(q.device)
+    scratch = _scratch(q, fold_rows(blocks), 2 * hd)
     freqs = _inv_freq(q.device, hd, float(theta))
     err = _lib().qk_norm_rope_bwd(
         q.data_ptr(), k.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),

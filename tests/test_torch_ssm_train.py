@@ -8,6 +8,9 @@ of the JAX sequence ``rmsnorm_ref(y * silu(z.astype(f32)).astype(y.dtype))``
 checkpoint restored by the JAX trainer. Tolerances are named where they are used.
 Tests marked ``cuda`` hold the backward kernels against these plain versions on
 the card and skip without one."""
+import math
+import re
+
 import numpy as np
 import pytest
 
@@ -32,6 +35,11 @@ SSD_GRAD_RTOL, SSD_GRAD_ATOL = 1e-4, 1e-6
 NORM_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the K2 backward shapes of the dense slice, and mamba2-2.7b's gate width
 GATED_SHAPES = [(2, 7, 128), (3, 5, 80), (4, 1, 1024), (2, 3, 5120)]
+# the edges of the gated backward kernel's grid at mamba2-2.7b's and zamba2-7b's
+# widths (chip_smoke.py:GATED_BWD_EDGES): a single row, rows fewer than the SMs,
+# row counts that no team count divides, and the widest f32 row the wrapper takes
+GATED_EDGES = [(1, 1, 5120), (1, 1, 7168), (1, 100, 5120), (1, 100, 7168), (1, 2047, 5120),
+               (1, 1031, 7168), (1, 3, 8192)]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -306,6 +314,26 @@ def test_gated_rmsnorm_bwd_matches_jax_grad(shape, dtype):
         assert torch.equal(g, f)
 
 
+@pytest.mark.parametrize("sms", [1, 7, 8, 9, 114, 132, 144])
+def test_gated_bwd_scratch_holds_the_grid(sms):
+    """The backward scratch's sizing (kernels/rmsnorm.py) against csrc/rmsnorm.cu.
+    The gated backward's row pass runs at most one block an SM (its grid is the
+    SM count, cut to the rows and to the scratch's rows) and writes one f64 row a
+    block after the tickets: gated_rows(sms) holds every block of a card of
+    ``sms`` SMs. The other backward kernels fold through one row a block of at
+    most blocks and one a group of ceil(sqrt(blocks)) blocks: fold_rows holds
+    them."""
+    src = (RN._build.CSRC / "rmsnorm.cu").read_text()
+    assert "long long blocks = sm_count();" in src
+    assert "double* rows = scratch + FOLD_COUNTERS / 2;" in src
+    counters = int(re.search(r"constexpr int FOLD_COUNTERS = (\d+);", src).group(1))
+    assert RN._TICKETS == counters // 2
+    assert RN.gated_rows(sms) >= sms
+    for blocks in (sms, 8 * sms):
+        group = math.ceil(math.sqrt(blocks))
+        assert RN.fold_rows(blocks) >= blocks + -(-blocks // group)
+
+
 # ------------------------------------------------------ train task -> eval task
 def test_mamba2_train_eval_tasks_and_jax_trainer_restore(tmp_path):
     """The ssm family through run_train_task (checkpoints every 2 of 4 steps) and
@@ -431,8 +459,8 @@ def test_ssd_scan_bwd_kernel_reads_conv_views_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", GATED_SHAPES + [(1, 2048, 5120), (1, 1, 5120),
-                                   (1, 2048, 7168)])
+@pytest.mark.parametrize("shape", GATED_SHAPES + [(1, 2048, 5120), (1, 2048, 7168)]
+                         + GATED_EDGES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_gated_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, shape, dtype):
     """f32 against the gradient in f64 from the forward's f32 gate (the kernel sums
