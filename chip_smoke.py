@@ -89,6 +89,13 @@ Phases, each failing loudly (nonzero exit):
      counters set to 0 just before and read just after; evaluate it through a
      strict ``run_eval_task`` restore; time warm steps, profile one, and check
      one step of 2 microbatches against the first step's loss; then
+     (``phase_elastic``) the same 4 steps with the state re-meshed after step 2
+     onto a one-rank NCCL ``DeviceMesh`` and back (``runtime/elastic.py``), twice,
+     each ``remesh_state`` timed: losses and state bit-equal to an uninterrupted
+     run, launches exact; the sharded forward (DTensor params, a 4 x 512 batch) on
+     that mesh bit-equal to the one-device forward, launches exact; an
+     ``ElasticController`` on a management plane of ``TorchLocalPlane``s seeing a
+     lost cluster leave and a new one join (the path "qwen3-0.6b elastic"); then
      (``phase_local_plane``) make the control agent's calls on the port's
      local planes: the same job (6 steps, a checkpoint every 4) on plane A,
      lost after its step-4 manifest, resumed on plane B from it, its losses an
@@ -424,6 +431,18 @@ PLANE_LENS = sorted({len(r["prompt"]) for r in PLANE_SERVE["requests"]})
 PLANE_ATTN = [(1, S, 16, 8, 128, True, 0) for S in PLANE_LENS]
 PLANE_NORM = [(1, S, 1024) for S in PLANE_LENS]
 PLANE_QK = [(1, S, 16, 8, 128) for S in PLANE_LENS]
+# the elastic phase: TRAIN's run (4 steps of 4 x 2048 tokens, seed 0) re-meshed after
+# step 2 onto a one-rank NCCL (data=1, model=1) DeviceMesh and back, against an
+# uninterrupted Trainer; then the sharded forward (DTensor params, a 4 x 512 batch on
+# its batch spec) on that mesh; then an ElasticController on a management plane of
+# the plane phase's local planes. A forward launches K1 once a layer, K2's rmsnorm
+# once (ln1 of layer 0), add_rmsnorm twice a layer and qk_norm_rope once a layer.
+ELASTIC_PATH = "qwen3-0.6b elastic"
+ELASTIC_SPLIT = 2                     # steps before the re-mesh; TRAIN["steps"] in all
+ELASTIC_FWD = (4, 512)
+ELASTIC_FWD_LAUNCHES = {"flash_attention": 28, "rmsnorm": 1, "add_rmsnorm": 56,
+                        "qk_norm_rope": 28}
+ELASTIC_LEASE_TICKS = 20              # ticks a lost cluster's lease may take to expire
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
 # width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
@@ -2674,6 +2693,162 @@ def phase_local_plane(card: str) -> dict:
     return launches
 
 
+def phase_elastic(card: str) -> dict:
+    """Re-mesh mid-training (``runtime/elastic.py``): qwen3-0.6b at full width and
+    depth, TRAIN's 4 x 2048 tokens from seed 0, 2 steps, the state onto a one-rank
+    NCCL ``DeviceMesh`` (data=1, model=1) under ``train_state_specs`` (every leaf a
+    DTensor there) and back onto the Trainer's one-device plan (plain tensors),
+    twice (each call timed; the first pays DTensor's lazy set-up), 2 more steps:
+    every loss and state tensor bit-equal to an uninterrupted 4-step
+    Trainer's, K1 and K2 launched exactly 4 x TRAIN_PER_STEP. Then the DTensor
+    route: the params on that mesh and a 4 x 512 batch on its batch spec, the
+    sharded forward's logits (a DTensor) bit-equal to the one-device forward's, its
+    K1 and K2 launches exact. Then membership: an ``ElasticController`` on a
+    management plane whose clusters run the plane phase's ``TorchLocalPlane``s sees
+    a lost cluster leave once its lease expires, and a new one join, with no job
+    and no save. Returns each kernel's launches in the train steps and the sharded
+    forward."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.plane import ManagementPlane, SimLocalPlane
+    from repro_torch.launch.steps import batch_pspecs, train_state_specs
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import TensorDef
+    from repro_torch.parallel.sharding import MeshPlan, OneDeviceMesh
+    from repro_torch.runtime.elastic import ElasticController, remesh_state
+    from repro_torch.runtime.local_plane import TorchLocalPlane
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted
+
+    t_phase = time.perf_counter()
+    job = TrainJobConfig.from_job({"payload": dict(TRAIN)})
+    steps = job.steps
+    ref = Trainer(job)
+    ref.run(steps)                                  # uninterrupted
+    tr = Trainer(job)
+    check(isinstance(tr.plan.mesh, OneDeviceMesh) and ref.ckpt is None and tr.ckpt is None,
+          f"elastic: the Trainer's plan {tr.plan}")
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    tr.run(ELASTIC_SPLIT)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        plan1 = MeshPlan(mesh=mesh, fsdp=False)
+        cfg = tr.arch_cfg
+
+        def specs(plan):
+            return train_state_specs(cfg, plan)
+
+        remesh_ms = []
+
+        def timed(state, old, new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = remesh_state(state, old, new, specs)
+            torch.cuda.synchronize()
+            remesh_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        for _ in range(2):          # the first round trip pays DTensor's lazy set-up
+            on_mesh = timed(tr.state, tr.plan, plan1)
+            leaves = [t for _, t in tree_flatten_sorted(on_mesh)]
+            check(all(isinstance(t, DTensor) and t.device_mesh == mesh for t in leaves),
+                  "elastic: the state on the one-rank mesh is not DTensors on it")
+            tr.state = timed(on_mesh, plan1, tr.plan)
+            del on_mesh, leaves
+            check(not any(isinstance(t, DTensor) for _, t in tree_flatten_sorted(tr.state)),
+                  "elastic: the state back on the one-device plan holds DTensors")
+        tr.run(steps - ELASTIC_SPLIT)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        losses, want = tr.metrics.series("loss"), ref.metrics.series("loss")
+        got_state, ref_state = tree_flatten_sorted(tr.state), tree_flatten_sorted(ref.state)
+        same = [p for (p, a), (q, b) in zip(got_state, ref_state)
+                if p == q and a.dtype == b.dtype and torch.equal(a, b)]
+        print(f"elastic: {TRAIN['arch']} full width, {cfg.num_layers} layers, "
+              f"{TRAIN['global_batch']} x {TRAIN['seq_len']} tokens a step, re-meshed after "
+              f"step {ELASTIC_SPLIT} onto a one-rank NCCL (1, 1) mesh and back, twice: "
+              f"remesh_state ms (onto, back, onto, back) {[round(t, 3) for t in remesh_ms]} "
+              f"[{card}]; losses {losses}, "
+              f"uninterrupted {want}; {len(same)} of {len(ref_state)} state tensors "
+              f"bit-equal; launches {launches}")
+        check(tr.step == steps and losses == want,
+              f"elastic: losses {losses} != the uninterrupted run's {want}")
+        check(len(same) == len(ref_state) == len(got_state),
+              f"elastic: {len(ref_state) - len(same)} state tensors differ from the "
+              "uninterrupted run's")
+        for name, n in launches.items():
+            per = TRAIN_PER_STEP.get(name, 0)
+            check(n == per * steps, f"elastic: {name} launched {n}, want {per * steps}")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the DTensor route: params and batch on the one-rank mesh
+        B, S = ELASTIC_FWD
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        sharded = Model(cfg, "cuda", plan1)
+        params1 = remesh_state(tr.state["params"], tr.plan, plan1,
+                               lambda p: Model(cfg, "cuda", p).param_specs())
+        bspec = batch_pspecs(plan1, cfg, {"tokens": TensorDef((B, S), torch.int32)})
+        batch1 = remesh_state({"tokens": tokens}, tr.plan, plan1, lambda p: bspec)
+        with torch.no_grad():
+            plain = tr.model.forward(tr.state["params"], {"tokens": tokens})[0]
+            torch.cuda.synchronize()
+            fwd = reset_launches()
+            logits = sharded.forward(params1, batch1)[0]
+            torch.cuda.synchronize()
+            fwd_launches = {name: fn.launches for name, fn in fwd.items()}
+            plain_ms = wall_ms(lambda: tr.model.forward(tr.state["params"],
+                                                         {"tokens": tokens}), n=3)
+            sharded_ms = wall_ms(lambda: sharded.forward(params1, batch1), n=3)
+        want_pl = plan1.sharding(("batch", "seq", "vocab"), (B, S, cfg.vocab_size))
+        equal = isinstance(logits, DTensor) and torch.equal(logits.full_tensor(), plain)
+        print(f"elastic: sharded forward on the one-rank mesh, {B} x {S} tokens: logits "
+              f"{type(logits).__name__} {tuple(logits.shape)} placements "
+              f"{tuple(getattr(logits, 'placements', ()))}, bit-equal to the one-device "
+              f"forward's: {equal}; {sharded_ms:.2f} ms, one-device {plain_ms:.2f} ms "
+              f"[{card}]; launches {fwd_launches}")
+        check(equal and tuple(logits.placements) == want_pl,
+              "elastic: the sharded forward's logits differ from the one-device forward's")
+        for name, n in fwd_launches.items():
+            want_n = ELASTIC_FWD_LAUNCHES.get(name, 0)
+            check(n == want_n, f"elastic: sharded forward: {name} launched {n}, want {want_n}")
+            launches[name] += n
+        del params1, batch1, logits, plain, sharded, tr
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- membership through the port's plane: a cluster lost, a cluster added
+    plane = ManagementPlane()
+    plane.add_cluster("master", is_master=True, local_plane=SimLocalPlane(caps=("control",)))
+    for name in ("zone-a", "zone-b"):
+        plane.add_cluster(name, local_plane=TorchLocalPlane(caps=PLANE_CAPS, device="cuda"))
+    seen = []
+    ElasticController(plane.overwatch, lambda m: seen.append(tuple(m)))
+    plane.fabric.partition_cluster("zone-a")
+    ticks = 0
+    while (not seen or "zone-a" in seen[-1]) and ticks < ELASTIC_LEASE_TICKS:
+        plane.tick()
+        ticks += 1
+    left = bool(seen) and "zone-a" not in seen[-1]
+    plane.add_cluster("zone-c", local_plane=TorchLocalPlane(caps=PLANE_CAPS, device="cuda"))
+    joined = bool(seen) and "zone-c" in seen[-1]
+    print(f"elastic: the controller saw {seen} (zone-a lost, left after {ticks} ticks; "
+          f"zone-c added); phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    check(left, f"elastic: zone-a not seen to leave in {ELASTIC_LEASE_TICKS} ticks: {seen}")
+    check(joined and "zone-b" in seen[-1] and "master" in seen[-1],
+          f"elastic: zone-c not seen to join: {seen}")
+    return launches
+
+
 def load_example(name: str):
     """The module of ``examples/<name>.py``."""
     import importlib.util
@@ -4596,6 +4771,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         mark(f"serve {path['arch']} done")
     by_path[TRAIN_PATH] = phase_train(card)
+    by_path[ELASTIC_PATH] = phase_elastic(card)
+    mark("elastic done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)

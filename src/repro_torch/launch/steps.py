@@ -2,8 +2,9 @@
 ``repro.launch.steps``.
 
 ``build_cell`` is the single entry the dry-run uses (``launch/dryrun.py``): it
-binds (ArchConfig, ShapeSpec, CellOptions) to a step function and its abstract
-arguments, ``TensorDef`` trees that hold no memory.
+binds (ArchConfig, ShapeSpec, mesh, CellOptions) to a step function, its
+abstract arguments (``TensorDef`` trees that hold no memory) and the shardings
+of its arguments and results on the mesh, built as the JAX package's are.
 
 Step semantics per the assignment:
   * train_4k     -> train_step(state, batch)          fwd+bwd+AdamW, microbatched
@@ -11,9 +12,12 @@ Step semantics per the assignment:
   * decode_32k   -> decode_step(params, tokens, cache) one token, cache written in place
   * long_500k    -> decode_step (sub-quadratic archs only)
 
-One card has no mesh: a cell has no shardings and nothing is compiled, so the
-JAX cell's ``mesh``, ``plan``, ``in_shardings``, ``out_shardings``, ``jitted``
-and ``lower`` are not here.
+A cell's ``mesh`` and ``plan`` (``parallel/sharding.py``) are the JAX cell's;
+its ``in_shardings`` and ``out_shardings`` are trees of DTensor placements
+(``named``) where the JAX cell's are ``NamedSharding``s. The mesh defaults to
+``make_test_mesh``'s: one device without a process group, where every placement
+is the identity (the Titchener cell's has a "pod" axis of one). Nothing is
+compiled, so the JAX cell's ``jitted`` and ``lower`` are not here.
 
 ``make_train_step(model, opt_cfg, M)`` returns ``train_step(state, batch) ->
 (state, metrics)``: the gradient of ``model.loss_fn`` by autograd (the kernels'
@@ -34,10 +38,12 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, cell_is_runnable, token_inputs
+from repro_torch.launch.mesh import make_test_mesh, n_pods
 from repro_torch.models.model import Model
-from repro_torch.models.params import TensorDef, abstract_params
+from repro_torch.models.params import TensorDef, abstract_params, param_defs, partition_specs
 from repro_torch.optim.adamw import (AdamWConfig, abstract_opt_state, adamw_update,
-                                     init_opt_state)
+                                     init_opt_state, opt_state_specs)
+from repro_torch.parallel.sharding import DP_ONLY_RULES, MeshPlan, P, placements
 from repro_torch.tree import tree_flatten_sorted, tree_map, tree_unflatten_sorted
 
 
@@ -46,12 +52,12 @@ class CellOptions:
     """Hillclimb knobs. Defaults = the paper-faithful baseline configuration.
 
     The JAX package's fields, names and defaults, so that a ``--set`` line and an
-    artifact's ``options`` read the same in both packages. These act here:
-    ``num_microbatches``, ``remat``, ``accum_dtype``, ``capacity_factor``,
-    ``loss_chunk``, ``packed_decode``, ``titchener``, ``donate`` and ``extra``.
-    ``fsdp``, ``sp``, ``bf16_reduce``, ``dp_only``, ``moe_combine_reshard`` and
-    ``zero2_accum`` pick sharding rules, the identity on one card: they are
-    recorded only, except that ``dp_only`` still forces one microbatch.
+    artifact's ``options`` read the same in both packages. ``fsdp``, ``sp``,
+    ``bf16_reduce``, ``dp_only`` (``DP_ONLY_RULES``, and one microbatch) and
+    ``moe_combine_reshard`` pick the cell's ``MeshPlan`` as in the JAX package,
+    and so its specs and shardings; ``zero2_accum`` lays the gradient
+    accumulator out by the optimizer's rules (the step's ``accum_specs``). On one
+    device every layout they pick is the identity.
     """
     fsdp: bool = True
     sp: bool = False                   # sequence-parallel residual stream
@@ -77,6 +83,24 @@ def _auto_microbatches(cfg: ArchConfig, spec: ShapeSpec) -> int:
     return 8 if spec.global_batch >= 64 else 1
 
 
+# ------------------------------------------------------------------------- shardings
+def batch_pspecs(plan: MeshPlan, cfg: ArchConfig, inputs: Dict[str, TensorDef]) -> dict:
+    logical = {
+        "tokens": ("batch", "seq"),
+        "targets": ("batch", "seq"),
+        "loss_mask": ("batch", "seq"),
+        "frames": ("batch", None, None),
+        "patches": ("batch", None, None),
+    }
+    return {k: plan.spec(logical[k], v.shape) for k, v in inputs.items()}
+
+
+def named(mesh, tree):
+    """A spec tree as a tree of the DTensor placements each spec lays out on
+    ``mesh`` (the JAX package's ``NamedSharding`` tree)."""
+    return tree_map(lambda s: placements(mesh, s), tree)
+
+
 # ----------------------------------------------------------------------- train step
 def _loss_and_grads(model: Model, params: dict, batch: Dict[str, torch.Tensor]):
     """(metrics, f32 grads in the sorted flatten order) of one loss_fn."""
@@ -88,9 +112,11 @@ def _loss_and_grads(model: Model, params: dict, batch: Dict[str, torch.Tensor]):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
-                    accum_dtype: str = "float32"):
+                    accum_dtype: str = "float32", zero2_accum: bool = False):
     """(state, batch) -> (state, metrics); grads accumulated over microbatches.
-    The returned function carries ``num_microbatches``."""
+    The returned function carries ``num_microbatches`` and ``accum_specs``, the
+    layout of the gradient accumulator on the model's mesh: the optimizer state's
+    (ZeRO-2, pod-spread) with ``zero2_accum``, else the params'."""
     M = num_microbatches
     acc_dt = getattr(torch, accum_dtype)
 
@@ -123,7 +149,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
 
     train_step.num_microbatches = M
+    train_step.accum_specs = (
+        tree_map(lambda d: model.plan.opt_spec(d.logical, d.shape), param_defs(model.cfg))
+        if zero2_accum else model.param_specs())
     return train_step
+
+
+def train_state_specs(cfg: ArchConfig, plan: MeshPlan) -> dict:
+    return {"params": partition_specs(cfg, plan), "opt": opt_state_specs(cfg, plan)}
 
 
 def abstract_train_state(cfg: ArchConfig) -> dict:
@@ -151,25 +184,31 @@ def make_decode_step(model: Model):
 
 
 # ------------------------------------------------------- Titchener local-SGD cell
-def _build_titchener_cell(cfg: ArchConfig, spec: ShapeSpec, opts: CellOptions,
-                          opt_cfg: AdamWConfig, device) -> "Cell":
+def _build_titchener_cell(cfg: ArchConfig, spec: ShapeSpec, mesh, plan: MeshPlan,
+                          opts: CellOptions, opt_cfg: AdamWConfig, device) -> "Cell":
     """One local-SGD ROUND (H pod-local AdamW steps + the compressed exchange of
     the pods' deltas) instead of one sync step. The round consumes the same
-    tokens as one baseline step (H x Bp x P x seq = global_batch x seq). One card
-    has no "pod" axis: one pod, as on the JAX package's (data, model) mesh."""
-    from repro_torch.optim.local_sgd import LocalSGDConfig, make_round_fn
+    tokens as one baseline step (H x Bp x P x seq = global_batch x seq). The pods
+    are the mesh's "pod" axis (one on one device); the per-pod trees lead with a
+    pod dim sharded on it, as the JAX package's."""
+    from repro_torch.optim.local_sgd import LocalSGDConfig, make_round_fn, pod_free_plan
     extra = dict(opts.extra)
-    P_pods = 1
+    P_pods = n_pods(mesh)
     H = int(extra.get("inner_steps", 8))
     lcfg = LocalSGDConfig(inner_steps=H, compress=bool(extra.get("compress", True)))
-    model = Model(cfg, device)
+    pf = pod_free_plan(plan)
+    model = Model(cfg, device, pf)
     round_fn = make_round_fn(model, opt_cfg, lcfg)
 
     params_abs = abstract_params(cfg)
+    pspecs = partition_specs(cfg, pf)
     f32 = torch.float32
 
     def stack_abs(t, dtype=None):
         return tree_map(lambda a: TensorDef((P_pods,) + a.shape, dtype or a.dtype), t)
+
+    def stack_spec(t):
+        return tree_map(lambda s: P("pod", *s), t)
 
     state_abs = {
         "pod_params": stack_abs(params_abs),
@@ -181,27 +220,44 @@ def _build_titchener_cell(cfg: ArchConfig, spec: ShapeSpec, opts: CellOptions,
         "ef": stack_abs(params_abs, f32),
         "round": TensorDef((), torch.int32),
     }
+    global_spec = tree_map(lambda d: pf.spec(d.logical, d.shape), param_defs(cfg))
+    state_specs = {
+        "pod_params": stack_spec(pspecs),
+        "pod_opt": {"m": stack_spec(pspecs), "v": stack_spec(pspecs),
+                    "master": stack_spec(pspecs), "step": P("pod")},
+        "master": global_spec,
+        "momentum": global_spec,
+        "ef": stack_spec(pspecs),
+        "round": P(),
+    }
     Bp = spec.global_batch // (P_pods * H)
     assert Bp >= 1, "global batch too small for H x pods"
     lead = (H, P_pods, Bp, spec.seq_len)
     batches_abs = {"tokens": TensorDef(lead, torch.int32),
                    "targets": TensorDef(lead, torch.int32),
                    "loss_mask": TensorDef(lead, torch.bfloat16)}
-    return Cell(cfg=cfg, spec=spec, model=model, opts=opts, fn=round_fn,
-                abstract_args=(state_abs, batches_abs),
-                donate_argnums=(0,) if opts.donate else ())
+    batch_specs = {k: P(None, "pod", "data") for k in batches_abs}
+    in_sh = (named(mesh, state_specs), named(mesh, batch_specs))
+    out_sh = (named(mesh, state_specs), {"delta_norm": placements(mesh, P())})
+    return Cell(cfg=cfg, spec=spec, mesh=mesh, plan=plan, model=model, opts=opts,
+                fn=round_fn, abstract_args=(state_abs, batches_abs), in_shardings=in_sh,
+                out_shardings=out_sh, donate_argnums=(0,) if opts.donate else ())
 
 
 # ------------------------------------------------------------------------- the cell
 @dataclasses.dataclass
 class Cell:
-    """Everything needed to run or dry-run one (arch x shape) combination."""
+    """Everything needed to run or dry-run one (arch x shape x mesh) combination."""
     cfg: ArchConfig
     spec: ShapeSpec
+    mesh: Any
+    plan: MeshPlan
     model: Model
     opts: CellOptions
     fn: Any                       # the step callable
     abstract_args: tuple          # TensorDef trees of fn's arguments
+    in_shardings: tuple           # placement trees of fn's arguments
+    out_shardings: Any            # placement trees of fn's results
     donate_argnums: tuple         # arguments the step writes in place
 
     @property
@@ -210,7 +266,9 @@ class Cell:
 
 
 def build_cell(arch, shape: str, opts: CellOptions = CellOptions(),
-               opt_cfg: AdamWConfig = AdamWConfig(), device="cuda") -> Cell:
+               opt_cfg: AdamWConfig = AdamWConfig(), device="cuda", mesh=None) -> Cell:
+    """The cell of (arch, shape) on ``mesh`` (default: ``make_test_mesh``'s, with
+    a "pod" axis for the Titchener round)."""
     cfg = configs.get(arch) if isinstance(arch, str) else arch
     if opts.remat is not None:
         cfg = dataclasses.replace(cfg, remat=opts.remat)
@@ -224,25 +282,47 @@ def build_cell(arch, shape: str, opts: CellOptions = CellOptions(),
     skip = cell_is_runnable(cfg, shape)
     if skip:
         raise ValueError(f"cell {cfg.name}/{shape} not runnable: {skip}")
-    if opts.titchener and spec.step == "train":
-        return _build_titchener_cell(cfg, spec, opts, opt_cfg, device)
-    model = Model(cfg, device)
+    titchener = opts.titchener and spec.step == "train"
+    if mesh is None:
+        mesh = (make_test_mesh((1, 1, 1), ("pod", "data", "model"), device=device)
+                if titchener else make_test_mesh(device=device))
+    plan = MeshPlan(mesh=mesh, fsdp=opts.fsdp, sp=opts.sp, bf16_reduce=opts.bf16_reduce,
+                    moe_combine_reshard=opts.moe_combine_reshard,
+                    rules=DP_ONLY_RULES if opts.dp_only else None)
+    if titchener:
+        return _build_titchener_cell(cfg, spec, mesh, plan, opts, opt_cfg, device)
+    model = Model(cfg, device, plan)
     inputs = token_inputs(cfg, spec)
+    in_pspecs = batch_pspecs(plan, cfg, inputs)
     B, S = spec.global_batch, spec.seq_len
 
     if spec.step == "train":
         # dp_only runs the whole batch in one shot, as the JAX package's does
         M = 1 if opts.dp_only else (opts.num_microbatches or _auto_microbatches(cfg, spec))
-        fn = make_train_step(model, opt_cfg, M, accum_dtype=opts.accum_dtype)
+        fn = make_train_step(model, opt_cfg, M, accum_dtype=opts.accum_dtype,
+                             zero2_accum=opts.zero2_accum)
+        st_specs = train_state_specs(cfg, plan)
         abstract = (abstract_train_state(cfg), inputs)
+        in_sh = (named(mesh, st_specs), named(mesh, in_pspecs))
+        out_sh = (named(mesh, st_specs),
+                  {k: placements(mesh, P())
+                   for k in ("loss", "tokens", "aux_loss", "grad_norm", "lr")})
         donate = (0,) if opts.donate else ()
-    elif spec.step == "prefill":
-        fn = make_prefill_step(model, max_len=S)
-        abstract = (abstract_params(cfg), inputs)
-        donate = ()
-    else:  # decode
-        fn = make_decode_step(model)
-        abstract = (abstract_params(cfg), inputs["tokens"], model.abstract_cache(B, S))
-        donate = (2,) if opts.donate else ()
-    return Cell(cfg=cfg, spec=spec, model=model, opts=opts, fn=fn, abstract_args=abstract,
+    else:
+        logits_sh = placements(mesh, plan.spec(("batch", "vocab"), (B, cfg.vocab_size)))
+        cache_sh = named(mesh, model.cache_specs(B, S))
+        params_sh = named(mesh, partition_specs(cfg, plan))
+        out_sh = (logits_sh, cache_sh)
+        if spec.step == "prefill":
+            fn = make_prefill_step(model, max_len=S)
+            abstract = (abstract_params(cfg), inputs)
+            in_sh = (params_sh, named(mesh, in_pspecs))
+            donate = ()
+        else:  # decode
+            fn = make_decode_step(model)
+            abstract = (abstract_params(cfg), inputs["tokens"], model.abstract_cache(B, S))
+            in_sh = (params_sh, placements(mesh, in_pspecs["tokens"]), cache_sh)
+            donate = (2,) if opts.donate else ()
+    return Cell(cfg=cfg, spec=spec, mesh=mesh, plan=plan, model=model, opts=opts, fn=fn,
+                abstract_args=abstract, in_shardings=in_sh, out_shardings=out_sh,
                 donate_argnums=donate)

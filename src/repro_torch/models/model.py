@@ -64,6 +64,14 @@ stacking happens outside them), so the stacked gradients still arrive once.
 Remat applies only while autograd records a gradient of the unit's inputs:
 prefill, decode and serving run the units as they are. The Trainer and the
 Server force "none", as the JAX package's do.
+
+A ``Model`` carries a ``MeshPlan`` (``parallel/sharding.py``) as the JAX
+package's does: ``param_specs`` and ``cache_specs`` lay the params and the cache
+out by its rules (the cache's logical axes are the JAX package's, declared in
+``cache_defs``). On a one-device plan every layout is the identity and the code
+above runs as it is. DTensor params (a plan over a ``DeviceMesh``) take
+``forward``'s sharded route (``_sharded_forward``); loss, prefill and decode on
+them are refused.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -80,12 +89,20 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as LY
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import TensorDef, abstract_params, init_params
+from repro_torch.models.params import (TensorDef, abstract_params, init_params,
+                                       partition_specs)
+from repro_torch.parallel.sharding import MeshPlan, OneDeviceMesh
 from repro_torch.tree import tree_leaves, tree_map
 
 REMAT_MODES = ("none", "dots", "full")
 # the weight products whose outputs ``dots`` keeps
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _refuse_sharded(params: dict, what: str) -> None:
+    if isinstance(params["embed"], DTensor):
+        raise NotImplementedError(f"{what} on DTensor params is not in the port: only "
+                                  "forward has a sharded route")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -493,9 +510,10 @@ def _vlm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
 
 # =============================================================================== Model
 class Model:
-    """A model of any of the six families bound to an ArchConfig and a device."""
+    """A model of any of the six families bound to an ArchConfig, a device and a
+    ``MeshPlan`` (by default the one-device plan of ``device``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", plan: Optional[MeshPlan] = None):
         if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         if cfg.family == "vlm" and cfg.num_layers % cfg.cross_attn_every:
@@ -514,12 +532,16 @@ class Model:
             raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of {REMAT_MODES}")
         self.cfg = cfg
         self.device = devices.resolve(device)
+        self.plan = plan if plan is not None else MeshPlan(mesh=OneDeviceMesh(self.device))
 
     def init_params(self, seed: int = 0) -> dict:
         return init_params(self.cfg, seed, self.device)
 
     def abstract_params(self) -> dict:
         return abstract_params(self.cfg)
+
+    def param_specs(self) -> dict:
+        return partition_specs(self.cfg, self.plan)
 
     # --------------------------------------------------------------------- embedding
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -572,7 +594,10 @@ class Model:
     def forward(self, params: dict, batch: Dict[str, torch.Tensor],
                 return_hidden: bool = False):
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
-        final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE)."""
+        final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE).
+        DTensor params take the sharded forward (``_sharded_forward``)."""
+        if isinstance(params["embed"], DTensor):
+            return self._sharded_forward(params, batch, return_hidden)
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -595,6 +620,49 @@ class Model:
             return self._final_norm(params, x, d), aux
         return self._unembed(params, x, d), aux
 
+    def _sharded_forward(self, params: dict, batch: Dict[str, torch.Tensor],
+                         return_hidden: bool):
+        """The forward on DTensor params and batch (a plan over a ``DeviceMesh``).
+        Every parameter leaf is gathered whole (``full_tensor``, an all-gather, as
+        ZeRO-3 gathers a layer's weights), every rank runs the one-card forward on
+        its rows of the batch (a batch leaf sharded on another dim than the batch
+        dim is gathered on that dim first), and the output is a DTensor on
+        ``plan.spec(("batch", "seq", "vocab"))``'s placements (the hidden state:
+        ``("batch", "seq", None)``). Ranks along a mesh axis that does not shard
+        the batch compute the same rows: the JAX package's tensor parallelism over
+        "model" inside a layer is not ported. The aux loss is the forward's own,
+        replicated: the MoE family's load-balance loss is a function of the whole
+        batch, so the moe family is refused here."""
+        mesh = params["embed"].device_mesh
+        if self.plan.mesh != mesh:
+            raise ValueError(f"params are DTensors on {mesh}, the model's plan is on "
+                             f"{self.plan.mesh}")
+        if self.cfg.family == "moe":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the sharded forward of the moe family needs its "
+                "load-balance loss reduced over the whole batch across ranks")
+        full = tree_map(lambda p: p.full_tensor() if isinstance(p, DTensor) else p, params)
+        rows, local = None, {}
+        for name, v in batch.items():
+            if not isinstance(v, DTensor):
+                local[name] = v
+                continue
+            keep = tuple(p if p.is_shard(0) else Replicate() for p in v.placements)
+            if rows not in (None, keep):
+                raise ValueError(f"batch leaf {name!r} splits its rows {keep}, "
+                                 f"another leaf {rows}")
+            rows = keep
+            local[name] = v.redistribute(mesh, keep).to_local()
+        rows = rows or (Replicate(),) * mesh.ndim
+        out, aux = self.forward(full, local, return_hidden)
+        shape = (batch["tokens"].shape[0],) + tuple(out.shape[1:])
+        stride = torch.empty(shape, device="meta").stride()
+        out = DTensor.from_local(out, mesh, rows, run_check=False, shape=shape, stride=stride)
+        logical = ("batch", "seq", None if return_hidden else "vocab")
+        out = out.redistribute(mesh, self.plan.sharding(logical, shape))
+        aux = DTensor.from_local(aux, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        return out, aux
+
     # ------------------------------------------------------------------------- loss
     def loss_fn(self, params: dict, batch: Dict[str, torch.Tensor]):
         """Masked CE (+ 0.01 aux). Returns (loss, metrics {loss, aux_loss, tokens}).
@@ -602,6 +670,7 @@ class Model:
         CE takes log p of the target by a gather, never a one-hot. With
         ``cfg.loss_chunk`` the [B,S,V] logits are never materialised: see
         ``_chunked_ce``. Twin of the JAX package's ``Model.loss_fn``."""
+        _refuse_sharded(params, "loss_fn (multi-rank training)")
         mask = batch["loss_mask"].float()
         denom = mask.sum().clamp_min(1.0)
         if self.cfg.loss_chunk:
@@ -648,6 +717,7 @@ class Model:
         A windowed layer's cache is its ring of W slots; a full layer's (and the
         hybrid's shared block's, and the encdec and vlm self layers') is padded to
         ``max_len``; the cross K/V (encdec, vlm) keep the memory's length."""
+        _refuse_sharded(params, "prefill")
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
@@ -692,6 +762,7 @@ class Model:
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
         """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place."""
+        _refuse_sharded(params, "decode_step")
         pos = cache["pos"]
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
@@ -710,18 +781,23 @@ class Model:
 
     # ------------------------------------------------------------------- cache views
     def cache_defs(self, batch: int, max_len: int) -> dict:
+        """The cache's ``TensorDef`` tree with the JAX package's logical axes."""
         cfg = self.cfg
-        pos = TensorDef((batch,), torch.int32)
+        pos = TensorDef((batch,), torch.int32, ("batch",))
         dt = getattr(torch, cfg.dtype)
         K, hd = cfg.num_kv_heads, cfg.head_dim
+        kv_log = (None, "batch", "cache_seq", "kv_heads", None)
 
         def kv(G, S):
-            return {"k": TensorDef((G, batch, S, K, hd), dt),
-                    "v": TensorDef((G, batch, S, K, hd), dt)}
+            return {"k": TensorDef((G, batch, S, K, hd), dt, kv_log),
+                    "v": TensorDef((G, batch, S, K, hd), dt, kv_log)}
 
         def ssm_state(*lead):
-            return {n: TensorDef(*d)
-                    for n, d in SSM.ssm_state_defs(cfg, batch, *lead).items()}
+            defs = SSM.ssm_state_defs(cfg, batch, *lead)
+            lead_log = (None,) * len(lead)
+            return {"conv": TensorDef(*defs["conv"], lead_log + ("batch", None, "ffn")),
+                    "ssd": TensorDef(*defs["ssd"],
+                                     lead_log + ("batch", "ssm_heads", None, None))}
 
         if cfg.family == "ssm":
             return {"pos": pos, "layers": ssm_state(cfg.num_layers)}
@@ -737,7 +813,8 @@ class Model:
             nc = cfg.num_layers // cfg.cross_attn_every
             grp = cfg.cross_attn_every - 1
             return {"pos": pos,
-                    "self": {n: TensorDef((nc, grp, batch, max_len, K, hd), dt)
+                    "self": {n: TensorDef((nc, grp, batch, max_len, K, hd), dt,
+                                          (None,) + kv_log)
                              for n in ("k", "v")},
                     "cross": kv(nc, cfg.num_patches)}
         period = _period(cfg)
@@ -752,4 +829,8 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),
+                        self.cache_defs(batch, max_len))
+
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        return tree_map(lambda d: self.plan.spec(d.logical, d.shape),
                         self.cache_defs(batch, max_len))

@@ -5,7 +5,8 @@ leaf in a nested dict with the JAX package's names and shapes (``wq`` is
 ``[D, H, hd]``; repeated layers carry a leading "layers" dim), so a parameter
 tree converts 1:1 between the two packages. ``init_params`` materializes the
 tree on a device from an explicit ``torch.Generator``; its numbers differ from
-``jax.random``'s, its rules (``_init_leaf``) do not.
+``jax.random``'s, its rules (``_init_leaf``) do not. ``partition_specs`` maps
+each leaf's logical axes to a ``PartitionSpec`` through a ``MeshPlan``'s rules.
 """
 from __future__ import annotations
 
@@ -22,9 +23,15 @@ from repro_torch.tree import tree_map
 @dataclasses.dataclass(frozen=True)
 class TensorDef:
     """A tensor's shape and dtype without its memory: the port's stand-in for
-    ``jax.ShapeDtypeStruct``."""
+    ``jax.ShapeDtypeStruct``, and, with its logical axes, for the JAX package's
+    cache ``TensorDef``."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    logical: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        assert self.logical is None or len(self.shape) == len(self.logical), (
+            self.shape, self.logical)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,3 +205,8 @@ def abstract_params(cfg: ArchConfig) -> dict:
     dtype = getattr(torch, cfg.dtype)
     return tree_map(lambda d: TensorDef(d.shape, torch.float32 if d.init in ("ssm_a", "ssm_dt")
                                         else dtype), param_defs(cfg))
+
+
+def partition_specs(cfg: ArchConfig, plan) -> dict:
+    """The ``PartitionSpec`` of every parameter under ``plan``'s rules."""
+    return tree_map(lambda d: plan.spec(d.logical, d.shape), param_defs(cfg))

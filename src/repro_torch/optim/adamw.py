@@ -1,7 +1,9 @@
 """AdamW with f32 master weights, twin of ``repro.optim.adamw``.
 
 Params stay in the model dtype (bf16) and are regenerated from the f32 master
-copy every step. On one card the optimizer state is not sharded. The update is
+copy every step. m, v and master carry the params' logical axes, laid out by
+the ZeRO rules (``opt_state_specs``: the FSDP dim spread over the "pod" axis as
+well); on one device every layout is the identity. The update is
 the JAX package's arithmetic, leaf by leaf in its flatten order (dict keys
 sorted), under ``torch.no_grad()``; no fused or foreach optimizer of
 ``torch.optim``. Unlike the JAX package's functional update, the port updates the
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.models.params import TensorDef, param_defs
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.parallel.sharding import PartitionSpec
 from repro_torch.tree import tree_flatten_sorted, tree_map
 
 
@@ -54,6 +57,12 @@ def abstract_opt_state(cfg) -> dict:
     every param, an int32 step."""
     f32 = tree_map(lambda d: TensorDef(d.shape, torch.float32), param_defs(cfg))
     return {"m": f32, "v": f32, "master": f32, "step": TensorDef((), torch.int32)}
+
+
+def opt_state_specs(cfg, plan) -> dict:
+    """PartitionSpecs of the optimizer state (ZeRO rules, pod-spread)."""
+    spec = tree_map(lambda d: plan.opt_spec(d.logical, d.shape), param_defs(cfg))
+    return {"m": spec, "v": spec, "master": spec, "step": PartitionSpec()}
 
 
 def _leaves(tree) -> list:

@@ -16,10 +16,11 @@ the new error feedback and the pod mean are formed one leaf at a time: at
 qwen3-0.6b's full width the state alone is 30.8 GiB at two pods, and the whole
 delta would be 5.6 GiB more.
 
-Not here, because both are sharding layout and one card has no pod axis: the JAX
-package's ``pod_free_plan`` (sharding rules that leave the "pod" mesh axis to
-the vmapped dim) and the branch of its round that all-gathers the int8 deltas
-across a "pod" mesh axis before the mean. The numbers are the same without them.
+``pod_free_plan`` is the JAX package's: sharding rules that leave the "pod"
+mesh axis to the stacked pod dim. Not here: the branch of the JAX package's
+round that all-gathers the int8 deltas across a "pod" mesh axis before the
+mean, once the pods are devices of their own; on one card the pods are a loop
+and the numbers are the same without it.
 """
 from __future__ import annotations
 
@@ -34,6 +35,15 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.compression import compress_tree, dequantize_int8
 from repro_torch.tree import (tree_flatten_sorted, tree_leaves, tree_map,
                                tree_unflatten_sorted)
+
+
+def pod_free_plan(plan):
+    """A MeshPlan whose rules never touch the "pod" axis: the stacked pod dim of
+    the local-SGD state owns it."""
+    from repro_torch.parallel.sharding import DEFAULT_RULES, MeshPlan
+    base = dict(plan.rules or DEFAULT_RULES)
+    rules = {k: tuple(a for a in v if a != "pod") for k, v in base.items()}
+    return MeshPlan(mesh=plan.mesh, fsdp=plan.fsdp, sp=plan.sp, rules=rules)
 
 
 @dataclasses.dataclass(frozen=True)

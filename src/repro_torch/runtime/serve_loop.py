@@ -10,7 +10,8 @@ head-of-line blocking.
 
 The batch axis of every cache leaf is located generically by diffing
 ``cache_defs(batch=1)`` against ``cache_defs(batch=2)``. PyTorch runs eagerly,
-so there is no per-prompt-length compile cache.
+so there is no per-prompt-length compile cache. The model's plan is the JAX
+package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as devices
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.model import Model
+from repro_torch.parallel.sharding import MeshPlan
 from repro_torch.tree import tree_map
 
 
@@ -64,7 +67,8 @@ class Server:
             arch_cfg = arch_cfg.reduced()
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
-        self.model = Model(arch_cfg, self.device)
+        self.model = Model(arch_cfg, self.device,
+                           MeshPlan(mesh=make_test_mesh(device=self.device), fsdp=False))
         self.params = params if params is not None else \
             self.model.init_params(cfg.seed)
 

@@ -8,6 +8,12 @@
                   round advances it by H; the pods are a leading dim of the
                   state, run in turn on the one card.
 
+The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
+``make_test_mesh``'s mesh unless one is given. Its ``state`` can be moved
+between meshes (``runtime/elastic.py`` ``remesh_state``) and training goes on
+where it lands on a mesh of one device; a mesh of more ranks is refused, since
+multi-rank training (its gradient reduction) is not in the port.
+
 Deterministic restart: checkpoint = (train state, data step, seed); the data
 pipeline is a pure function of step, so kill/restore resumes exactly. The
 checkpoint is the JAX package's on-disk format.
@@ -31,11 +37,13 @@ from repro_torch import configs
 from repro_torch import device as devices
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch.mesh import chips, make_test_mesh
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state,
-                                         make_round_fn)
+                                         make_round_fn, pod_free_plan)
+from repro_torch.parallel.sharding import MeshPlan
 from repro_torch.runtime.telemetry import MetricsLog, StepTimer
 from repro_torch.tree import tree_map
 
@@ -74,7 +82,7 @@ class TrainJobConfig:
 
 class Trainer:
     def __init__(self, cfg: TrainJobConfig,
-                 on_checkpoint: Optional[Callable[[int, str], None]] = None):
+                 on_checkpoint: Optional[Callable[[int, str], None]] = None, *, mesh=None):
         if cfg.mode not in ("sync", "local_sgd"):
             raise ValueError(f"unknown trainer mode {cfg.mode!r}")
         self.cfg = cfg
@@ -84,7 +92,15 @@ class Trainer:
             arch_cfg = arch_cfg.reduced()
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
-        self.model = Model(arch_cfg, self.device)
+        mesh = mesh if mesh is not None else make_test_mesh(device=self.device)
+        if chips(mesh) != 1:
+            raise NotImplementedError(
+                f"a Trainer on a mesh of {chips(mesh)} devices: multi-rank training "
+                "(its gradient reduction) is not in the port")
+        self.plan = MeshPlan(mesh=mesh, fsdp=False)
+        # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
+        self.model = Model(arch_cfg, self.device,
+                           pod_free_plan(self.plan) if cfg.mode == "local_sgd" else self.plan)
         self.step = 0
         self.state = self._init_state(cfg)
         if cfg.mode == "local_sgd":

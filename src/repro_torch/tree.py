@@ -1,17 +1,24 @@
 """Nested dict/tuple/list trees: the port's stand-in for ``jax.tree_util``.
 
 Parameter and cache trees are plain nested containers whose leaves are tensors
-(or declarations such as ``ParamDef``/``TensorDef``)."""
+(or declarations such as ``ParamDef``/``TensorDef``). A tuple whose class sets
+``tree_leaf`` (``parallel.sharding.PartitionSpec``) is a leaf, as JAX's
+``PartitionSpec`` is a leaf of its spec trees."""
 from __future__ import annotations
 
 from typing import Any, Callable, List
+
+
+def _seq(t: Any) -> bool:
+    """A tuple or list node of a tree (not a tuple that is a leaf)."""
+    return isinstance(t, (tuple, list)) and not getattr(t, "tree_leaf", False)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leaf-wise over ``tree`` and any trees of the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (tuple, list)):
+    if _seq(tree):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
@@ -20,7 +27,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, dict):
         return [x for k in tree for x in tree_leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
+    if _seq(tree):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
@@ -31,7 +38,7 @@ def tree_flatten_sorted(tree: Any, prefix: tuple = ()) -> List[tuple]:
     optimizer and the checkpoint format iterate leaves in this order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_flatten_sorted(tree[k], prefix + (k,))]
-    if isinstance(tree, (tuple, list)):
+    if _seq(tree):
         return [x for i, t in enumerate(tree) for x in tree_flatten_sorted(t, prefix + (i,))]
     return [(prefix, tree)]
 
@@ -45,7 +52,7 @@ def tree_unflatten_sorted(like: Any, leaves: List[Any]) -> Any:
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}          # keep like's own key order
-        if isinstance(t, (tuple, list)):
+        if _seq(t):
             return type(t)(build(x) for x in t)
         return next(it)
 

@@ -56,10 +56,13 @@ COPIED_PLANE_MODULES = (
                                     "composer", "worker")),
     "launch/train.py", "launch/serve.py")
 PORT_EXAMPLES = ("torch_quickstart.py", "torch_serve_batched.py", "torch_hybrid_pipeline.py",
-                 "torch_train_100m.py")
+                 "torch_train_100m.py", "torch_elastic_training.py")
 # the cells, remat's home, the one-card dry-run and its analysis
 CELL_MODULES = ("launch/steps.py", "models/model.py", "launch/mesh.py", "launch/dryrun.py",
                 "kernels/region.py", "roofline/op_stats.py", "roofline/report.py")
+# sharding and elastic re-meshing, the last modules of the JAX package to port
+SHARDING_MODULES = ("parallel/__init__.py", "parallel/sharding.py", "runtime/elastic.py",
+                    "launch/mesh.py")
 
 
 def _imported_modules(path: Path):
@@ -93,6 +96,22 @@ def test_import_guard_covers_the_cells_the_dryrun_and_the_100m_example():
     assert ROOT / "examples" / "torch_train_100m.py" in PORT_FILES
 
 
+def test_import_guard_covers_the_sharding_and_elastic_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in PORT_FILES for m in SHARDING_MODULES)
+    assert ROOT / "examples" / "torch_elastic_training.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("module", SHARDING_MODULES)
+def test_sharding_module_names_its_twin(module):
+    """Each module names its twin in the JAX package in its docstring, and the
+    twin exists."""
+    name = "repro." + module[:-3].replace("/", ".").removesuffix(".__init__")
+    assert f"twin of ``{name}``" in " ".join(
+        (ROOT / "src" / "repro_torch" / module).read_text().split())
+    assert (ROOT / "src" / "repro" / module).exists()
+
+
 def test_import_guard_covers_the_copied_plane_launchers_and_examples():
     port = ROOT / "src" / "repro_torch"
     assert all(port / m in PORT_FILES for m in COPIED_PLANE_MODULES)
@@ -107,6 +126,14 @@ def test_copied_module_names_its_twin(module):
     text = (ROOT / "src" / "repro_torch" / module).read_text()
     assert text.startswith(f'"""Copy of ``{name}``'), text[:120]
     assert (ROOT / "src" / "repro" / module).exists()
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _run(code: str):
@@ -292,6 +319,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         for kind in ("train", "eval", "serve"):
             with pytest.raises(RuntimeError, match="cuda"):
                 handlers[kind]({"steps": 1, "n_requests": 1})
+    elastic = _example("torch_elastic_training")
+    with pytest.raises(RuntimeError, match="cuda"):
+        elastic.main()
     assert Server(ServeJobConfig(device="cpu")).device.type == "cpu"
     assert Trainer(TrainJobConfig(device="cpu", seq_len=8, global_batch=2)).device.type \
         == "cpu"
