@@ -96,6 +96,13 @@ Phases, each failing loudly (nonzero exit):
      that mesh bit-equal to the one-device forward, launches exact; an
      ``ElasticController`` on a management plane of ``TorchLocalPlane``s seeing a
      lost cluster leave and a new one join (the path "qwen3-0.6b elastic"); then
+     (``phase_tensor_parallel``) the tensor-parallel code on a one-rank NCCL
+     ("data", "model") mesh: a Trainer there (its state DTensors) for 3 steps of
+     TRAIN's tokens, losses, grad norms and every state tensor bit-equal to the
+     one-device Trainer's, K1 and K2 launched exactly 3 steps'; its state saved
+     from that mesh restores bit-equal on one device; a Server there serves the
+     serve path's requests with the one-device Server's greedy tokens, launches
+     exact (the path "qwen3-0.6b tensor-parallel"); then
      (``phase_local_plane``) make the control agent's calls on the port's
      local planes: the same job (6 steps, a checkpoint every 4) on plane A,
      lost after its step-4 manifest, resumed on plane B from it, its losses an
@@ -443,6 +450,12 @@ ELASTIC_FWD = (4, 512)
 ELASTIC_FWD_LAUNCHES = {"flash_attention": 28, "rmsnorm": 1, "add_rmsnorm": 56,
                         "qk_norm_rope": 28}
 ELASTIC_LEASE_TICKS = 20              # ticks a lost cluster's lease may take to expire
+# the tensor-parallel phase: TRAIN's tokens (4 x 2048, seed 0) for 3 steps on a one-rank
+# NCCL (data=1, model=1) DeviceMesh against the one-device Trainer; a save there
+# restored on one device; SERVE's 8 requests through a Server there against the
+# one-device Server
+TP_PATH = "qwen3-0.6b tensor-parallel"
+TP_STEPS = 3
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
 # width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
@@ -2849,6 +2862,153 @@ def phase_elastic(card: str) -> dict:
     return launches
 
 
+def phase_tensor_parallel(card: str) -> dict:
+    """The tensor-parallel route (``models/model.py``, ``launch/steps.py``,
+    ``optim/adamw.py``) on a one-rank NCCL ("data", "model") ``DeviceMesh``, where
+    every axis has size 1, so no collective runs: a qwen3-0.6b Trainer at full
+    width and depth on that mesh (its state DTensors) takes TP_STEPS steps of
+    TRAIN's 4 x 2048 tokens from seed 0, its losses, grad norms and every state
+    tensor bit-equal to the one-device Trainer's, K1 and K2 launched exactly
+    TP_STEPS x TRAIN_PER_STEP, each step's wall printed for both; its state, saved
+    from the mesh (``checkpoint/manager.py`` gathers DTensor leaves), restores on
+    one device bit-equal; a Server on the mesh serves SERVE's 8 requests with the
+    one-device Server's greedy tokens, its launches exactly 8 prefills' and its
+    decode steps'. Returns each kernel's launches in the mesh Trainer's steps and
+    the mesh Server's run."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.parallel.sharding import full_value
+    from repro_torch.runtime.serve_loop import Server, ServeJobConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted
+
+    t_phase = time.perf_counter()
+    job = TrainJobConfig.from_job({"payload": dict(TRAIN, steps=TP_STEPS)})
+
+    def timed_steps(tr) -> list:
+        walls = []
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step_once()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    def bits(state) -> list:
+        return [(path, full_value(t)) for path, t in tree_flatten_sorted(state)]
+
+    def same(a: list, b: list) -> int:
+        return sum(p == q and x.dtype == y.dtype and torch.equal(x, y)
+                   for (p, x), (q, y) in zip(a, b))
+
+    ref = Trainer(job)
+    ref_ms = timed_steps(ref)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        tr = Trainer(job, mesh=mesh)
+        check(tr.model.ranked and all(isinstance(t, DTensor) and t.device_mesh == mesh
+                                      for _, t in tree_flatten_sorted(tr.state)),
+              "tensor-parallel: the Trainer's state on the one-rank mesh is not DTensors")
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        tp_ms = timed_steps(tr)
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        got, want = bits(tr.state), bits(ref.state)
+        n_same = same(got, want)
+        series = {k: (tr.metrics.series(k), ref.metrics.series(k)) for k in ("loss", "grad_norm")}
+        print(f"tensor-parallel: {TRAIN['arch']} full width, {tr.arch_cfg.num_layers} layers, "
+              f"{TRAIN['global_batch']} x {TRAIN['seq_len']} tokens a step on a one-rank NCCL "
+              f"(1, 1) mesh: step ms {[round(t, 3) for t in tp_ms]}, one device "
+              f"{[round(t, 3) for t in ref_ms]} [{card}]; losses {series['loss'][0]}, one "
+              f"device {series['loss'][1]}; grad norms {series['grad_norm'][0]}, one device "
+              f"{series['grad_norm'][1]}; {n_same} of {len(want)} state tensors bit-equal; "
+              f"launches {launches}")
+        for key, (a, b) in series.items():
+            check(len(a) == TP_STEPS and a == b, f"tensor-parallel: {key} {a} != one device's {b}")
+        check(n_same == len(want) == len(got),
+              f"tensor-parallel: {len(want) - n_same} state tensors differ from one device's")
+        for name, n in launches.items():
+            per = TRAIN_PER_STEP.get(name, 0)
+            check(n == per * TP_STEPS, f"tensor-parallel: {name} launched {n}, "
+                  f"want {per * TP_STEPS}")
+
+        # -- a save from the mesh, restored on one device
+        directory = ROOT / "build" / "tp_checkpoint"
+        shutil.rmtree(directory, ignore_errors=True)
+        mgr = CheckpointManager(str(directory), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(tr.step, tr.state, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step, _ = mgr.restore(ref.state, step=tr.step)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = bits(restored)
+        n_back = same(back, got)
+        size = sum(t.numel() * t.element_size() for _, t in back) / 1e9
+        print(f"tensor-parallel: a {size:.2f} GB save from the mesh {save_s:.2f} s, restored "
+              f"on one device {restore_s:.2f} s [{card}]; {n_back} of {len(got)} tensors "
+              f"bit-equal, plain tensors {not any(isinstance(t, DTensor) for _, t in back)}")
+        check(step == tr.step and n_back == len(got) and not any(
+            isinstance(t, DTensor) for _, t in back),
+            "tensor-parallel: the mesh's save does not restore bit-equal on one device")
+        del restored, back, got, want, tr, ref
+        shutil.rmtree(directory, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- serving: the one-device Server against one on the mesh
+        cfg = ServeJobConfig.from_job({"payload": dict(SERVE, arch=TRAIN["arch"])})
+        n, plen, new = SERVE["n_requests"], SERVE["prompt_len"], SERVE["max_new"]
+
+        def serve(srv) -> list:
+            vocab = srv.arch_cfg.vocab_size
+            ids = [srv.submit([(i + j) % vocab for j in range(plen)], max_new=new)
+                   for i in range(n)]
+            srv.run()
+            return [srv.requests[i].generated for i in ids]
+
+        plain = Server(cfg)
+        t0 = time.perf_counter()
+        want_toks = serve(plain)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        meshed = Server(cfg, params=plain.params, mesh=mesh)
+        check(isinstance(meshed.params["embed"], DTensor) and isinstance(
+            meshed.cache["pos"], DTensor), "tensor-parallel: the Server on the mesh holds "
+              "plain tensors")
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        got_toks = serve(meshed)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        served = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"tensor-parallel: a Server on the mesh, {n} requests of {plen} + {new} tokens, "
+              f"{meshed.steps} decode steps: {mesh_s:.2f} s, one device {plain_s:.2f} s "
+              f"[{card}]; greedy tokens equal the one-device Server's: {got_toks == want_toks}; "
+              f"launches {served}")
+        check(got_toks == want_toks and meshed.steps == plain.steps,
+              "tensor-parallel: the Server on the mesh emits other tokens than one device's")
+        for name, got_n in served.items():
+            pre, dec = PATHS[0]["launches"].get(name, (0, 0))
+            want_n = pre * n + dec * meshed.steps
+            check(got_n == want_n, f"tensor-parallel: serve: {name} launched {got_n}, "
+                  f"want {want_n}")
+            launches[name] += got_n
+        del plain, meshed
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tensor-parallel: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def load_example(name: str):
     """The module of ``examples/<name>.py``."""
     import importlib.util
@@ -4773,6 +4933,8 @@ def main(argv=None) -> int:
     by_path[TRAIN_PATH] = phase_train(card)
     by_path[ELASTIC_PATH] = phase_elastic(card)
     mark("elastic done")
+    by_path[TP_PATH] = phase_tensor_parallel(card)
+    mark("tensor-parallel done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)

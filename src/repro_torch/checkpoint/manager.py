@@ -11,6 +11,14 @@ checkpoint without one is invisible to ``latest_step``, so a crash mid-save neve
 corrupts restartability. bf16 goes to and from bytes through int16 views, so
 neither numpy's nor ml_dtypes' bfloat16 is needed. Commit callbacks receive
 (step, manifest path) once a checkpoint is durable.
+
+DTensor leaves (a state on a ``DeviceMesh``): a save gathers every leaf whole on
+every rank of its mesh (a collective) and the mesh's first rank writes the same
+files a one-device save writes, as the JAX package's ``device_get`` save does;
+over more than one rank the write is synchronous and every rank waits for it at
+a barrier. A restore reads the files on every rank and lays each leaf out on its
+like-leaf's mesh and placements, so a save from one mesh restores on any other,
+or on one device.
 """
 from __future__ import annotations
 
@@ -21,7 +29,10 @@ import threading
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.parallel.sharding import full_value
 from repro_torch.tree import tree_flatten_sorted, tree_unflatten_sorted
 
 _SEP = "/"
@@ -40,7 +51,7 @@ def _flatten_with_names(tree):
 def _host_array(t: torch.Tensor):
     """A host copy of ``t`` as a numpy array of its raw bytes, and its dtype
     name. The copy is taken now: the train step updates the state in place."""
-    t = t.detach().to("cpu", copy=True).contiguous()
+    t = full_value(t.detach()).to("cpu", copy=True).contiguous()
     if t.dtype not in _NAMES:
         raise TypeError(f"checkpoint leaf of unsupported dtype {t.dtype}")
     name = _NAMES[t.dtype]
@@ -86,6 +97,9 @@ class CheckpointManager:
         names, leaves = _flatten_with_names(tree)
         host = [_host_array(leaf) for leaf in leaves]
         target = os.path.join(self.directory, f"step_{step:08d}")
+        meshes = {id(leaf.device_mesh): leaf.device_mesh for leaf in leaves
+                  if isinstance(leaf, DTensor) and leaf.device_mesh.size() > 1}
+        mesh = next(iter(meshes.values()), None)
 
         def write():
             tmp = target + ".tmp"
@@ -123,7 +137,14 @@ class CheckpointManager:
             for hook in self._commit_hooks:
                 hook(step, os.path.join(target, "manifest.json"))
 
-        if self.use_async and not blocking:
+        if mesh is not None:     # the mesh's first rank writes; all wait for it
+            if len(meshes) > 1:
+                raise ValueError("a checkpoint's DTensor leaves lie on more than one mesh")
+            if mesh.get_rank() == int(mesh.mesh.flatten()[0]):
+                write()
+            for group in mesh.get_all_groups():
+                dist.barrier(group=group)
+        elif self.use_async and not blocking:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
@@ -204,5 +225,10 @@ class CheckpointManager:
             ent = manifest["leaves"][name]
             with open(os.path.join(target, ent["file"]), "rb") as f:
                 t = _from_bytes(f.read(), ent["dtype"], ent["shape"])
-            out.append(t.to(leaf.device) if isinstance(leaf, torch.Tensor) else t)
+            if isinstance(leaf, DTensor):
+                t = distribute_tensor(t.to(leaf.to_local().device), leaf.device_mesh,
+                                      leaf.placements, src_data_rank=None)
+            elif isinstance(leaf, torch.Tensor):
+                t = t.to(leaf.device)
+            out.append(t)
         return tree_unflatten_sorted(like, out), manifest["step"], manifest["extra"]

@@ -2,8 +2,8 @@
 
 A CUDA tensor goes to the hand-written Hopper kernel (which launches or raises);
 a CPU tensor goes to the kernel's plain PyTorch version. There is no switch and
-no fallback from one to the other. ``attend_cache``, ``attend_cache_ring`` and
-``ssd_decode_step`` have no kernel in the JAX package either and are plain
+no fallback from one to the other. ``attend_cache``, ``attend_cache_part``,
+``attend_cache_ring`` and ``ssd_decode_step`` have no kernel in the JAX package either and are plain
 PyTorch on both devices.
 
 Training: when autograd is recording and an input requires grad,
@@ -122,6 +122,25 @@ def attend_cache(q, k_cache, v_cache, pos, *, window: int = 0,
         mask = mask & (pos - k_pos < window)
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def attend_cache_part(q, k_cache, v_cache, live):
+    """One rank's share of a decode step's attention over its slice of a cache
+    split along the sequence: q [B,1,H,D] (every head) against k/v [B,Sl,K,D],
+    ``live`` [B,Sl] the slice's positions that hold a token. Returns the
+    softmax's partial row max m [B,H], the sum l [B,H] of exp(s - m) over the live
+    positions and o [B,H,D] = sum of exp(s - m) v, all f32 (the terms of
+    ``attend_cache``'s f32 softmax, which the caller combines across the slices);
+    a row with no live position gives l = 0 and o = 0."""
+    B, _, H, D = q.shape
+    group = H // k_cache.shape[2]
+    kk = k_cache.float().repeat_interleave(group, dim=2)
+    vv = v_cache.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kk) / math.sqrt(D)
+    s = torch.where(live[:, None, :], s, NEG_INF)
+    m = s.max(dim=-1).values
+    e = torch.exp(s - m[..., None]) * live[:, None, :]
+    return m, e.sum(dim=-1), torch.einsum("bhk,bkhd->bhd", e, vv)
 
 
 def attend_cache_ring(q, k_cache, v_cache, pos):

@@ -27,6 +27,16 @@ reshaped to [M, B/M, ...], the microbatches' gradients are summed in
 in ``state`` need not require grad: the step differentiates detached views of
 them, and ``adamw_update`` writes the new values into the same tensors in place,
 so the state is updated in place and returned.
+
+On DTensor params (the dense family on a ``DeviceMesh``, twin of the JAX
+package's step on a mesh): each rank differentiates its compute shards
+(``Model.shard_params``) on its rows of the batch; the local gradients are
+accumulated over the microbatches in ``accum_dtype`` as on one card, summed over
+the batch axes (``Model._rows``' axes) and laid out as DTensors on the params'
+placements (a view: the compute layout splits no more than theirs), which
+``adamw_update`` reads in the optimizer's layout. With ``zero2_accum`` each
+microbatch's gradients are summed over the batch axes and accumulated in the
+optimizer's (ZeRO) layout instead, as the JAX step lays its accumulator.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.configs.base import ArchConfig
@@ -43,7 +54,8 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import TensorDef, abstract_params, param_defs, partition_specs
 from repro_torch.optim.adamw import (AdamWConfig, abstract_opt_state, adamw_update,
                                      init_opt_state, opt_state_specs)
-from repro_torch.parallel.sharding import DP_ONLY_RULES, MeshPlan, P, placements
+from repro_torch.parallel.sharding import (DP_ONLY_RULES, MeshPlan, P, as_dtensor, placements,
+                                           relayout, sum_over)
 from repro_torch.tree import tree_flatten_sorted, tree_map, tree_unflatten_sorted
 
 
@@ -103,12 +115,29 @@ def named(mesh, tree):
 
 # ----------------------------------------------------------------------- train step
 def _loss_and_grads(model: Model, params: dict, batch: Dict[str, torch.Tensor]):
-    """(metrics, f32 grads in the sorted flatten order) of one loss_fn."""
-    leaves = [p.detach().requires_grad_(True) for _, p in tree_flatten_sorted(params)]
+    """(metrics, f32 grads in the sorted flatten order) of one loss_fn; on DTensor
+    params, of this rank's compute shards and rows, not yet summed over ranks."""
+    local = model.shard_params(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in tree_flatten_sorted(local)]
     with torch.enable_grad():
         loss, metrics = model.loss_fn(tree_unflatten_sorted(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     return metrics, [g.float() for g in grads]
+
+
+def _laid_out(model: Model, grads: list, params: dict, axes: tuple, specs: dict) -> list:
+    """This rank's compute-shard gradients summed over the batch ``axes``, as
+    DTensors on ``specs``' placements (views of the sums)."""
+    mesh = model.plan.mesh
+    flat = [p for _, p in tree_flatten_sorted(params)]
+    out = []
+    for g, p, (_, c), (_, s) in zip(grads, flat, tree_flatten_sorted(model.compute_specs()),
+                                    tree_flatten_sorted(specs)):
+        g = sum_over(g, model.plan, axes)
+        dst = placements(mesh, s)
+        out.append(as_dtensor(relayout(g, mesh, p.shape, placements(mesh, c), dst), mesh, dst,
+                              p.shape))
+    return out
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
@@ -119,19 +148,27 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
     (ZeRO-2, pod-spread) with ``zero2_accum``, else the params'."""
     M = num_microbatches
     acc_dt = getattr(torch, accum_dtype)
+    accum_specs = (
+        tree_map(lambda d: model.plan.opt_spec(d.logical, d.shape), param_defs(model.cfg))
+        if zero2_accum else model.param_specs())
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
         params, opt = state["params"], state["opt"]
+        ranked = isinstance(params["embed"], DTensor)
+        B = next(iter(batch.values())).shape[0]
+        axes = model.batch_axes(B // max(M, 1)) if ranked else ()
+        zero2 = ranked and zero2_accum and M > 1
         if M <= 1:
             metrics, grads = _loss_and_grads(model, params, batch)
         else:
-            B = next(iter(batch.values())).shape[0]
             if B % M:
                 raise ValueError(f"batch {B} is not a multiple of {M} microbatches")
             mb = {k: v.reshape((M, B // M) + tuple(v.shape[1:])) for k, v in batch.items()}
             grads, loss_sum, tok_sum = None, 0.0, 0.0
             for i in range(M):
                 m, g = _loss_and_grads(model, params, {k: v[i] for k, v in mb.items()})
+                if zero2:       # summed over the batch axes into the ZeRO layout now
+                    g = [t.to_local() for t in _laid_out(model, g, params, axes, accum_specs)]
                 if grads is None:
                     grads = [gi.to(acc_dt) for gi in g]
                 else:
@@ -144,14 +181,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
             metrics = {"loss": loss_sum / M, "tokens": tok_sum,
                        "aux_loss": torch.zeros((), dtype=torch.float32,
                                                device=grads[0].device)}
+        if zero2:
+            mesh = model.plan.mesh
+            grads = [as_dtensor(g, mesh, placements(mesh, s), p.shape) for g, (_, s), (_, p)
+                     in zip(grads, tree_flatten_sorted(accum_specs), tree_flatten_sorted(params))]
+        elif ranked:
+            grads = _laid_out(model, grads, params, axes, model.param_specs())
         new_params, new_opt, opt_metrics = adamw_update(
             params, tree_unflatten_sorted(params, grads), opt, opt_cfg)
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
 
     train_step.num_microbatches = M
-    train_step.accum_specs = (
-        tree_map(lambda d: model.plan.opt_spec(d.logical, d.shape), param_defs(model.cfg))
-        if zero2_accum else model.param_specs())
+    train_step.accum_specs = accum_specs
     return train_step
 
 
@@ -164,8 +205,16 @@ def abstract_train_state(cfg: ArchConfig) -> dict:
 
 
 def init_train_state(model: Model, seed: int) -> dict:
+    """The initial train state from ``seed``; for the dense family on a
+    ``DeviceMesh``, laid out by ``train_state_specs`` (DTensors: each rank draws
+    the whole state and keeps its shards)."""
     params = model.init_params(seed)
-    return {"params": params, "opt": init_opt_state(params)}
+    state = {"params": params, "opt": init_opt_state(params)}
+    if not model.ranked:
+        return state
+    from repro_torch.parallel.sharding import distribute
+    return tree_map(lambda x, s: distribute(x, model.plan.mesh, s), state,
+                    train_state_specs(model.cfg, model.plan))
 
 
 # --------------------------------------------------------------------------- serving

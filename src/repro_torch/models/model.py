@@ -69,17 +69,45 @@ A ``Model`` carries a ``MeshPlan`` (``parallel/sharding.py``) as the JAX
 package's does: ``param_specs`` and ``cache_specs`` lay the params and the cache
 out by its rules (the cache's logical axes are the JAX package's, declared in
 ``cache_defs``). On a one-device plan every layout is the identity and the code
-above runs as it is. DTensor params (a plan over a ``DeviceMesh``) take
-``forward``'s sharded route (``_sharded_forward``); loss, prefill and decode on
-them are refused.
+above runs as it is.
+
+Tensor and data parallelism (the dense family on a plan over a ``DeviceMesh``):
+the params are DTensors laid out by ``param_specs``. Every entry point works on
+this rank's shards in the compute layout (``shard_params``: the "model" splits
+of heads, kv heads, ffn and vocab, ``parallel.sharding.compute_spec``; any other
+split gathered) and on its rows of the batch (``_rows``: a DTensor leaf's rows by
+its placements, a plain leaf holds the whole batch and each rank takes its rows
+by the "batch" rule), and the layers run the collectives of
+``parallel/sharding.py`` at the JAX package's ``constrain`` sites, with
+``self.tp`` (``TensorParallel``). ``_embed`` is a vocab-parallel lookup (a masked
+local gather, summed over "model"); ``_unembed`` gives vocab-split logits,
+which ``forward`` returns as a DTensor on ``plan.spec(("batch", "seq",
+"vocab"))``'s placements; ``loss_fn``'s cross-entropy is vocab-parallel (max and
+sum of exp reduced over "model", the target's logit from the rank that holds it;
+``_chunked_ce`` alike), its mask's denominator and its CE summed over the batch
+axes, so every rank reports the global loss. Plain params on such a plan are
+taken to be this rank's compute shards (the train step's gradient leaves).
+``prefill`` writes its k/v into the cache laid out by ``cache_specs``, whose
+"cache_seq" rule splits the sequence over "model" where it divides it:
+``decode_step`` then gathers q's heads (and the new k/v's), each rank attends its
+own cache positions for all heads (``ops.attend_cache_part``), the partial
+softmaxes are combined across "model" by log-sum-exp (``_lse_combine``; a rank
+with no live position adds zero weight), and each rank keeps its heads for the
+row-parallel ``wo``; gemma3's ring takes the same combine over its slots. On a
+one-rank mesh every axis has size 1: no collective runs and the code is the
+one-card code op for op. The other families' DTensor params take ``forward``'s
+gather route (``_sharded_forward``); loss, prefill and decode on them are
+refused (ROADMAP §1 item 2).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -89,9 +117,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as LY
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import (TensorDef, abstract_params, init_params,
+from repro_torch.models.params import (TensorDef, abstract_params, init_params, param_defs,
                                        partition_specs)
-from repro_torch.parallel.sharding import MeshPlan, OneDeviceMesh
+from repro_torch.parallel.sharding import (MeshPlan, OneDeviceMesh, TensorParallel, as_dtensor,
+                                           compute_spec, copy_to, gather_along, local_range,
+                                           max_over, placements, reduce_from, relayout,
+                                           sum_over)
 from repro_torch.tree import tree_leaves, tree_map
 
 REMAT_MODES = ("none", "dots", "full")
@@ -99,10 +130,12 @@ REMAT_MODES = ("none", "dots", "full")
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _refuse_sharded(params: dict, what: str) -> None:
-    if isinstance(params["embed"], DTensor):
-        raise NotImplementedError(f"{what} on DTensor params is not in the port: only "
-                                  "forward has a sharded route")
+def _refuse_sharded(cfg: ArchConfig, params: dict, what: str) -> None:
+    if isinstance(params["embed"], DTensor) and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what} of the {cfg.family} family on DTensor params is not in the port: "
+            "tensor parallelism covers the dense family (ROADMAP §1 item 2); the other "
+            "families have only forward's gather route")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -176,7 +209,8 @@ def _add_norm(x: torch.Tensor, d: Optional[torch.Tensor], scale: torch.Tensor,
     return ops.add_rmsnorm(x, d, scale, eps=eps)
 
 
-def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool):
+def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool,
+        tp: Optional[TensorParallel] = None):
     """Feed-forward: MoE where the layer has one, else SwiGLU. Returns (y, aux):
     aux is the MoE load-balance loss of a full-sequence call, else None (so the
     other families launch nothing for it)."""
@@ -184,7 +218,7 @@ def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool):
         if decode:
             return MOE.moe_block_decode(cfg, p["moe"], h), None
         return MOE.moe_block(cfg, p["moe"], h)
-    return LY.swiglu(p["mlp"], h), None
+    return LY.swiglu(p["mlp"], h, tp), None
 
 
 def _cross_attn(cfg: ArchConfig, p: dict, h: torch.Tensor, memory: torch.Tensor):
@@ -214,53 +248,106 @@ def _gated(gate: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
            positions: torch.Tensor, window: int, want_kv: bool,
-           memory: Optional[torch.Tensor] = None, causal: bool = True):
+           memory: Optional[torch.Tensor] = None, causal: bool = True,
+           tp: Optional[TensorParallel] = None):
     """attn [-> xattn onto memory] -> ff on the stream x + d. Returns (x, the ff's
     un-added output, kv, the cross-attention's kv, the ff's aux or None)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
-    return _block_normed(cfg, p, x, h, positions, window, want_kv, memory, causal)
+    return _block_normed(cfg, p, x, h, positions, window, want_kv, memory, causal, tp)
 
 
 def _block_normed(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
                   positions: torch.Tensor, window: int, want_kv: bool,
-                  memory: Optional[torch.Tensor], causal: bool):
-    """``_block`` from the stream x and its ln1 norm h."""
+                  memory: Optional[torch.Tensor], causal: bool,
+                  tp: Optional[TensorParallel] = None):
+    """``_block`` from the stream x and its ln1 norm h. Under ``tp`` the kv
+    returned are the kv heads the rank holds (``layers.qkv_project``), K1 reads
+    those of its local q heads."""
     q, k, v = LY.qkv_project(p["attn"], h, positions=positions,
-                             theta=cfg.rope_theta, eps=cfg.norm_eps)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    a = LY.attn_out(p["attn"], o)
+                             theta=cfg.rope_theta, eps=cfg.norm_eps, tp=tp)
+    o = ops.flash_attention(q, LY.local_kv(q, k, tp), LY.local_kv(q, v, tp),
+                            causal=causal, window=window)
+    a = LY.attn_out(p["attn"], o, tp)
     xkv = None
     if "xattn" in p:
         x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
         a, xk, xv = _cross_attn(cfg, p["xattn"], h, memory)
         xkv = {"k": xk, "v": xv} if want_kv else None
     x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
-    y, aux = _ff(cfg, p, h, decode=False)
+    y, aux = _ff(cfg, p, h, decode=False, tp=tp)
     return x, y, ({"k": k, "v": v} if want_kv else None), xkv, aux
 
 
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
                   cache: dict, pos: torch.Tensor, window: int,
-                  xkv: Optional[dict] = None):
+                  xkv: Optional[dict] = None, tp: Optional[TensorParallel] = None,
+                  seq: Optional[Tuple[int, int]] = None):
     """Decode variant of ``_block``; cache is {"k","v"}: a ring of W slots when
-    window > 0, else full-length; xkv the layer's cross K/V where it has one."""
+    window > 0, else full-length; xkv the layer's cross K/V where it has one.
+    Under ``tp`` the cache holds, at every position, the kv heads the rank
+    computes (``seq`` None: the write and the attention are local, K1's local
+    kv heads read), or every kv head of a slice of the positions (``seq``, the
+    slice's first position and the whole length: ``_attend_slices``)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
-                                     theta=cfg.rope_theta, eps=cfg.norm_eps)
-    at = torch.remainder(pos, cache["k"].shape[1]) if window > 0 else pos   # ring slot
-    k_c = LY._cache_update(cache["k"], k_new, at)
-    v_c = LY._cache_update(cache["v"], v_new, at)
-    if window > 0:
-        o = ops.attend_cache_ring(q, k_c, v_c, pos)
+                                     theta=cfg.rope_theta, eps=cfg.norm_eps, tp=tp)
+    if seq is not None:
+        o = _attend_slices(q, k_new, v_new, cache, pos, window, tp, seq)
     else:
-        o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
-                             packed=cfg.packed_decode)
-    a = LY.attn_out(p["attn"], o)
+        at = torch.remainder(pos, cache["k"].shape[1]) if window > 0 else pos   # ring slot
+        k_c = LY.local_kv(q, LY._cache_update(cache["k"], k_new, at), tp)
+        v_c = LY.local_kv(q, LY._cache_update(cache["v"], v_new, at), tp)
+        if window > 0:
+            o = ops.attend_cache_ring(q, k_c, v_c, pos)
+        else:
+            o = ops.attend_cache(q, k_c, v_c, pos[:, None, None, None],
+                                 packed=cfg.packed_decode)
+    a = LY.attn_out(p["attn"], o, tp)
     if "xattn" in p:
         x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
         a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"])
     x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
-    return x, _ff(cfg, p, h, decode=True)[0]
+    return x, _ff(cfg, p, h, decode=True, tp=tp)[0]
+
+
+def _lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, plan: MeshPlan,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The softmax attention of the whole cache from each "model" rank's share of
+    it (``ops.attend_cache_part``: row max m, sum l, weighted v o, f32): each
+    share scaled by exp(m - the max over the ranks), summed, normalised. A rank
+    whose slice holds no live position has l = 0 and adds zero weight.
+    Returns [B, 1, H, D] in ``dtype``."""
+    top = max_over(m, plan)
+    w = torch.where(l > 0, torch.exp(m - top), torch.zeros_like(m))
+    parts = reduce_from(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1), plan)
+    return (parts[..., :-1] / parts[..., -1:])[:, None].to(dtype)
+
+
+def _attend_slices(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, cache: dict,
+                   pos: torch.Tensor, window: int, tp: TensorParallel,
+                   seq: Tuple[int, int]) -> torch.Tensor:
+    """One token's attention over a cache split along the sequence over "model",
+    this rank holding every kv head of positions (ring slots) [lo, lo + Sl): q's
+    heads and the new k/v's are gathered, the rank that owns the position writes
+    it, each rank attends its slice for all heads and ``_lse_combine`` joins them.
+    Returns the output of this rank's q heads."""
+    plan = tp.plan
+    lo, length = seq
+    Sl = cache["k"].shape[1]
+    qf = gather_along(q, 2, plan) if tp.heads else q
+    if tp.kv_heads:
+        k_new, v_new = gather_along(k_new, 2, plan), gather_along(v_new, 2, plan)
+    at = torch.remainder(pos, length) if window > 0 else pos
+    LY._cache_write_slice(cache["k"], k_new, at - lo)
+    LY._cache_write_slice(cache["v"], v_new, at - lo)
+    slots = lo + torch.arange(Sl, device=pos.device)[None, :]
+    if window > 0:       # slot s holds position pos - ((pos - s) mod W)
+        live = pos[:, None] - torch.remainder(pos[:, None] - slots, length) >= 0
+    else:
+        live = slots <= pos[:, None]
+    m, l, o = ops.attend_cache_part(qf, cache["k"], cache["v"], live)
+    o = _lse_combine(m, l, o, plan, q.dtype)
+    return o.narrow(2, tp.rank * q.shape[2], q.shape[2]) if tp.heads else o
 
 
 # ------------------------------------------------------------------- dense stacks
@@ -271,7 +358,7 @@ def _stack_kv(kvs: list) -> dict:
 
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, want_kv: bool = False,
-               memory: Optional[torch.Tensor] = None):
+               memory: Optional[torch.Tensor] = None, tp: Optional[TensorParallel] = None):
     """dense / moe / encdec-decoder stack. Returns (x, d, kvs, xkvs, aux): the
     stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]} per period position j,
     [G,B,W,K,hd] in ring layout where j is windowed; xkvs[j] the cross K/V
@@ -285,7 +372,8 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
         """One group of ``period`` layers (the JAX package's scan body)."""
         kvs, xkvs = [], []
         for j, p in enumerate(ps):
-            x, d, kv, xkv, a = _block(cfg, p, x, d, positions, windows[j], want_kv, memory)
+            x, d, kv, xkv, a = _block(cfg, p, x, d, positions, windows[j], want_kv, memory,
+                                      tp=tp)
             if a is not None:
                 aux = a if aux is None else aux + a
             if want_kv and windows[j] > 0:
@@ -312,9 +400,11 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
 
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   cache_layers: tuple, pos: torch.Tensor,
-                  cross_kvs: Optional[tuple] = None):
+                  cross_kvs: Optional[tuple] = None, tp: Optional[TensorParallel] = None,
+                  seq: Optional[tuple] = None):
     """cross_kvs[j]: the cross K/V {"k","v": [G,B,M,K,hd]} of period position j
-    (encdec). Returns (x, d): the stream is x + d."""
+    (encdec); seq[j]: ``_block_decode``'s ``seq`` of period position j's cache.
+    Returns (x, d): the stream is x + d."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     d = None
@@ -324,7 +414,8 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
             p = layers[g * period + j]
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
             xkv = None if cross_kvs is None else {n: cross_kvs[j][n][g] for n in ("k", "v")}
-            x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j], xkv)
+            x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j], xkv, tp,
+                                 None if seq is None else seq[j])
     return x, d
 
 
@@ -533,6 +624,8 @@ class Model:
         self.cfg = cfg
         self.device = devices.resolve(device)
         self.plan = plan if plan is not None else MeshPlan(mesh=OneDeviceMesh(self.device))
+        self.ranked = cfg.family == "dense" and isinstance(self.plan.mesh, DeviceMesh)
+        self.tp = self._tensor_parallel()
 
     def init_params(self, seed: int = 0) -> dict:
         return init_params(self.cfg, seed, self.device)
@@ -543,9 +636,106 @@ class Model:
     def param_specs(self) -> dict:
         return partition_specs(self.cfg, self.plan)
 
+    # ---------------------------------------------------------- tensor parallelism
+    def compute_specs(self) -> dict:
+        """The spec of every parameter in the layout the layers compute on
+        (``parallel.sharding.compute_spec``)."""
+        return tree_map(lambda d: compute_spec(self.plan, d.logical, d.shape),
+                        param_defs(self.cfg))
+
+    def _tensor_parallel(self) -> Optional[TensorParallel]:
+        """The dense family's split over a "model" axis of more than one rank."""
+        if not self.ranked or self.plan.axis_size("model") == 1:
+            return None
+        specs = self.compute_specs()
+
+        def split(spec, dim):
+            return dim < len(spec) and spec[dim] == "model"
+
+        attn = specs["layers"]["attn"]
+        return TensorParallel(self.plan, heads=split(attn["wq"], 2),
+                              kv_heads=split(attn["wk"], 2),
+                              ffn=split(specs["layers"]["mlp"]["w_gate"], 2),
+                              vocab=split(specs["embed"], 0))
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's shards of DTensor params in the compute layout, as plain
+        tensors (views where the param layout splits no more than the compute
+        layout; else gathered); plain params as they are."""
+        if not isinstance(params["embed"], DTensor):
+            return params
+        mesh = self.plan.mesh
+        return tree_map(lambda t, s: relayout(t.to_local(), mesh, t.shape, tuple(t.placements),
+                                              placements(mesh, s)),
+                        params, self.compute_specs())
+
+    def batch_axes(self, rows: int) -> tuple:
+        """The mesh axes of more than one rank that the "batch" rule splits a
+        batch of ``rows`` rows over."""
+        spec = self.plan.spec(("batch",), (rows,))
+        entry = spec[0] if len(spec) else None
+        axes = (entry,) if isinstance(entry, str) else entry or ()
+        return tuple(a for a in axes if self.plan.axis_size(a) > 1)
+
+    def _rows(self, batch: dict):
+        """(this rank's rows of ``batch``, the mesh axes of more than one rank that
+        split them). A DTensor leaf gives the rows its placements split dim 0 into
+        (any other split gathered); a plain leaf holds the whole batch and the rows
+        are this rank's under the "batch" rule at its size. Off the dense family on
+        a ``DeviceMesh``: the batch as it is, no axes."""
+        if not self.ranked:
+            return batch, ()
+        mesh, plan = self.plan.mesh, self.plan
+        names = mesh.mesh_dim_names
+        out, axes = {}, None
+        for name, v in batch.items():
+            if isinstance(v, DTensor):
+                keep = tuple(pl if pl.is_shard(0) else Replicate() for pl in v.placements)
+                split = tuple(n for i, (n, pl) in enumerate(zip(names, keep))
+                              if pl.is_shard(0) and mesh.size(i) > 1)
+                v = (v if keep == tuple(v.placements) else v.redistribute(mesh, keep)).to_local()
+            else:
+                split = self.batch_axes(v.shape[0])
+                lo, hi = local_range(plan, plan.spec(("batch",), (v.shape[0],)), 0, v.shape[0])
+                if hi - lo != v.shape[0]:
+                    v = v[lo:hi]
+            if axes not in (None, split):
+                raise ValueError(f"batch leaf {name!r} splits its rows over {split}, "
+                                 f"another leaf over {axes}")
+            axes, out[name] = split, v
+        return out, axes or ()
+
+    def _wrap(self, local: torch.Tensor, logical: tuple, axes: tuple):
+        """This rank's shard of an output (rows split over ``axes``, the last dim
+        over "model" where it is the split vocab) as a DTensor on
+        ``plan.sharding(logical)``'s placements."""
+        mesh = self.plan.mesh
+        names = mesh.mesh_dim_names
+        vocab = logical[-1] == "vocab" and self.tp is not None and self.tp.vocab
+        shape = list(local.shape)
+        shape[0] *= math.prod(self.plan.axis_size(a) for a in axes)
+        if vocab:
+            shape[-1] *= self.tp.size
+        target = self.plan.sharding(logical, shape)
+        have = tuple(target[i] if mesh.size(i) == 1 else
+                     Shard(0) if n in axes else
+                     Shard(len(shape) - 1) if n == "model" and vocab else Replicate()
+                     for i, n in enumerate(names))
+        out = as_dtensor(local, mesh, have, shape)
+        return out if have == tuple(target) else out.redistribute(mesh, target)
+
     # --------------------------------------------------------------------- embedding
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        """The token embeddings; under a vocab split, a masked lookup of the local
+        rows of the table summed over "model" (one rank holds each token's row)."""
+        if self.tp is None or not self.tp.vocab:
+            return params["embed"][tokens.long()]
+        table = params["embed"]
+        n = table.shape[0]
+        ids = tokens.long() - self.tp.rank * n
+        hit = (ids >= 0) & (ids < n)
+        x = table[ids.clamp(0, n - 1)].masked_fill(~hit[..., None], 0)
+        return reduce_from(x, self.plan)
 
     def _final_norm(self, params: dict, x: torch.Tensor,
                     d: Optional[torch.Tensor]) -> torch.Tensor:
@@ -557,8 +747,28 @@ class Model:
 
     def _unembed(self, params: dict, x: torch.Tensor,
                  d: Optional[torch.Tensor]) -> torch.Tensor:
-        """Logits of the stream x + d."""
-        return self._final_norm(params, x, d) @ self._table(params)
+        """Logits of the stream x + d (under a vocab split, this rank's vocab)."""
+        h = self._final_norm(params, x, d)
+        if self.tp is not None and self.tp.vocab:
+            h = copy_to(h, self.plan)
+        return h @ self._table(params)
+
+    def _target_logp(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """log p of the targets [B, S] from logits [B, S, V]; under a vocab split,
+        from this rank's vocab: the max and the sum of exp reduced over "model"
+        (the max is a shift, so no gradient flows through it), the target's
+        logit from the rank that holds it."""
+        if self.tp is None or not self.tp.vocab:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            return logp.gather(-1, targets.long()[..., None])[..., 0]
+        z = logits.float()
+        n = z.shape[-1]
+        top = max_over(z.max(dim=-1).values.detach(), self.plan)
+        total = reduce_from(torch.exp(z - top[..., None]).sum(dim=-1), self.plan)
+        t = targets.long() - self.tp.rank * n
+        hit = (t >= 0) & (t < n)
+        zt = z.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0].masked_fill(~hit, 0)
+        return reduce_from(zt, self.plan) - top - torch.log(total)
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device)[None].expand(B, S)
@@ -595,9 +805,22 @@ class Model:
                 return_hidden: bool = False):
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
         final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE).
-        DTensor params take the sharded forward (``_sharded_forward``)."""
-        if isinstance(params["embed"], DTensor):
+        DTensor params: the dense family's are tensor-parallel and the output a
+        DTensor; the other families' take the gather route (``_sharded_forward``)."""
+        dtensors = isinstance(params["embed"], DTensor)
+        if dtensors and not self.ranked:
             return self._sharded_forward(params, batch, return_hidden)
+        rows, axes = self._rows(batch)
+        out, aux = self._forward_local(self.shard_params(params), rows, return_hidden)
+        if not dtensors:
+            return out, aux
+        logical = ("batch", "seq", None if return_hidden else "vocab")
+        return (self._wrap(out, logical, axes),
+                as_dtensor(aux, self.plan.mesh, (Replicate(),) * self.plan.mesh.ndim, ()))
+
+    def _forward_local(self, params: dict, batch: Dict[str, torch.Tensor],
+                       return_hidden: bool):
+        """``forward`` on this rank's shards and rows."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -613,7 +836,7 @@ class Model:
         else:
             memory = self._encode(params, batch["frames"]) if family == "encdec" else None
             x, d, _, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                         memory=memory)
+                                         memory=memory, tp=self.tp)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if return_hidden:
@@ -622,15 +845,18 @@ class Model:
 
     def _sharded_forward(self, params: dict, batch: Dict[str, torch.Tensor],
                          return_hidden: bool):
-        """The forward on DTensor params and batch (a plan over a ``DeviceMesh``).
+        """The gather route: the forward of the families that tensor parallelism
+        does not cover yet, ssm, hybrid, encdec and vlm (ROADMAP §1 item 2; moe is
+        refused), on DTensor params and batch (a plan over a ``DeviceMesh``). The
+        dense family takes the tensor-parallel route (``forward``) instead.
         Every parameter leaf is gathered whole (``full_tensor``, an all-gather, as
         ZeRO-3 gathers a layer's weights), every rank runs the one-card forward on
         its rows of the batch (a batch leaf sharded on another dim than the batch
         dim is gathered on that dim first), and the output is a DTensor on
         ``plan.spec(("batch", "seq", "vocab"))``'s placements (the hidden state:
         ``("batch", "seq", None)``). Ranks along a mesh axis that does not shard
-        the batch compute the same rows: the JAX package's tensor parallelism over
-        "model" inside a layer is not ported. The aux loss is the forward's own,
+        the batch compute the same rows: for these families the JAX package's
+        tensor parallelism over "model" inside a layer is not ported. The aux loss is the forward's own,
         replicated: the MoE family's load-balance loss is a function of the whole
         batch, so the moe family is refused here."""
         mesh = params["embed"].device_mesh
@@ -640,7 +866,8 @@ class Model:
         if self.cfg.family == "moe":
             raise NotImplementedError(
                 f"{self.cfg.name}: the sharded forward of the moe family needs its "
-                "load-balance loss reduced over the whole batch across ranks")
+                "load-balance loss reduced over the whole batch across ranks "
+                "(ROADMAP §1 item 2)")
         full = tree_map(lambda p: p.full_tensor() if isinstance(p, DTensor) else p, params)
         rows, local = None, {}
         for name, v in batch.items():
@@ -669,20 +896,28 @@ class Model:
 
         CE takes log p of the target by a gather, never a one-hot. With
         ``cfg.loss_chunk`` the [B,S,V] logits are never materialised: see
-        ``_chunked_ce``. Twin of the JAX package's ``Model.loss_fn``."""
-        _refuse_sharded(params, "loss_fn (multi-rank training)")
+        ``_chunked_ce``. Twin of the JAX package's ``Model.loss_fn``.
+
+        On ranks (see the module docstring) the CE's denominator is the global
+        token count and the CE is summed over the batch axes (identity backward),
+        so the loss is the global one on every rank and each rank's gradient is
+        its rows' share."""
+        _refuse_sharded(self.cfg, params, "loss_fn (multi-rank training)")
+        params = self.shard_params(params)
+        batch, axes = self._rows(batch)
         mask = batch["loss_mask"].float()
-        denom = mask.sum().clamp_min(1.0)
+        tokens = sum_over(mask.sum(), self.plan, axes)
+        denom = tokens.clamp_min(1.0)
         if self.cfg.loss_chunk:
-            hidden, aux = self.forward(params, batch, return_hidden=True)
+            hidden, aux = self._forward_local(params, batch, return_hidden=True)
             ce = self._chunked_ce(params, hidden, batch["targets"], mask) / denom
         else:
-            logits, aux = self.forward(params, batch)
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]   # [B, S]
+            logits, aux = self._forward_local(params, batch, return_hidden=False)
+            ll = self._target_logp(logits, batch["targets"])                 # [B, S]
             ce = -(ll * mask).sum() / denom
+        ce = sum_over(ce, self.plan, axes)
         loss = ce + 0.01 * aux
-        metrics = {"loss": ce.detach(), "aux_loss": aux.detach(), "tokens": mask.sum()}
+        metrics = {"loss": ce.detach(), "aux_loss": aux.detach(), "tokens": tokens}
         return loss, metrics
 
     def _chunked_ce(self, params: dict, hidden: torch.Tensor, targets: torch.Tensor,
@@ -698,6 +933,9 @@ class Model:
             raise ValueError(f"loss_chunk {c} must divide seq {S}")
 
         def body(xc, tc, mc):
+            if self.tp is not None and self.tp.vocab:
+                ll = self._target_logp(copy_to(xc, self.plan) @ table, tc)
+                return -(ll * mc).sum()
             logits = (xc @ table).float()
             ll = logits.gather(-1, tc.long()[..., None])[..., 0] \
                 - torch.logsumexp(logits, dim=-1)
@@ -716,8 +954,12 @@ class Model:
         """Build the decode cache from a full prompt; returns (last_logits, cache).
         A windowed layer's cache is its ring of W slots; a full layer's (and the
         hybrid's shared block's, and the encdec and vlm self layers') is padded to
-        ``max_len``; the cross K/V (encdec, vlm) keep the memory's length."""
-        _refuse_sharded(params, "prefill")
+        ``max_len``; the cross K/V (encdec, vlm) keep the memory's length.
+        On ranks the logits and the cache are DTensors, the cache on
+        ``cache_specs``' placements (``_cache_laid_out``)."""
+        _refuse_sharded(self.cfg, params, "prefill")
+        params = self.shard_params(params)
+        batch, axes = self._rows(batch)
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
@@ -749,7 +991,7 @@ class Model:
                      "tail": tail}
         else:
             x, d, kvs, _, _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                         want_kv=True)
+                                         want_kv=True, tp=self.tp)
             # a windowed layer's kv is in ring layout already
             cache = {"pos": pos, "layers": tuple(
                 kv if _window_for(self.cfg, j) else
@@ -757,12 +999,47 @@ class Model:
                 for j, kv in enumerate(kvs))}
         last_logits = self._unembed(params, x[:, -1:],
                                     None if d is None else d[:, -1:])[:, 0]
+        if self.ranked:
+            rows = B * math.prod(self.plan.axis_size(a) for a in axes)
+            return (self._wrap(last_logits, ("batch", "vocab"), axes),
+                    self._cache_laid_out(cache, rows, max_len))
         return last_logits, cache
+
+    def _cache_laid_out(self, cache: dict, batch: int, max_len: int) -> dict:
+        """A dense prefill's cache of this rank's rows and computed kv heads as
+        DTensors on ``cache_specs``' placements: the kv heads gathered where the
+        cache does not split them, the sequence narrowed to this rank's slice
+        where it does."""
+        mesh, plan = self.plan.mesh, self.plan
+
+        def lay(t, d):
+            spec = plan.spec(d.logical, d.shape)
+            if len(d.shape) == 5:                       # k/v [G, B, S, K, hd]
+                heads = spec[3] if len(spec) > 3 else None
+                if self.tp is not None and self.tp.kv_heads and heads is None:
+                    t = gather_along(t, 3, plan)
+                lo, hi = local_range(plan, spec, 2, d.shape[2])
+                if hi - lo != t.shape[2]:
+                    t = t[:, :, lo:hi].contiguous()
+            return as_dtensor(t, mesh, placements(mesh, spec), d.shape)
+        return tree_map(lay, cache, self.cache_defs(batch, max_len))
+
+    def _seq_slice(self, kv: DTensor) -> Optional[Tuple[int, int]]:
+        """(first position, whole length) of this rank's slice of a cache leaf
+        whose sequence is split over "model"; None where it is not split."""
+        spec = self.plan.spec((None, "batch", "cache_seq", "kv_heads", None), kv.shape)
+        if self.tp is None or len(spec) < 3 or spec[2] is None:
+            return None
+        return local_range(self.plan, spec, 2, kv.shape[2])[0], kv.shape[2]
 
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
-        """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place."""
-        _refuse_sharded(params, "decode_step")
+        """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place.
+        On ranks the cache is DTensors on ``cache_specs``' placements (``init_cache``,
+        ``prefill``) and the logits a DTensor."""
+        _refuse_sharded(self.cfg, params, "decode_step")
+        if self.ranked:
+            return self._decode_ranked(params, tokens, cache)
         pos = cache["pos"]
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
@@ -778,6 +1055,22 @@ class Model:
             x, d = _stack_decode(self.cfg, params, x, cache["layers"], pos)
         logits = self._unembed(params, x, d)[:, 0]
         return logits, dict(cache, pos=pos + 1)
+
+    def _decode_ranked(self, params: dict, tokens: torch.Tensor, cache: dict):
+        if not isinstance(cache["pos"], DTensor):
+            raise ValueError("a decode step on ranks takes the cache as DTensors laid out "
+                             "by cache_specs (init_cache, prefill)")
+        params = self.shard_params(params)
+        rows, axes = self._rows({"tokens": tokens})
+        local = tree_map(lambda t: t.to_local(), cache)
+        pos = local["pos"]
+        seq = tuple(self._seq_slice(kv["k"]) for kv in cache["layers"])
+        x = self._embed(params, rows["tokens"])
+        x, d = _stack_decode(self.cfg, params, x, local["layers"], pos, tp=self.tp, seq=seq)
+        logits = self._wrap(self._unembed(params, x, d)[:, 0], ("batch", "vocab"), axes)
+        new_pos = as_dtensor(pos + 1, self.plan.mesh, tuple(cache["pos"].placements),
+                             cache["pos"].shape)
+        return logits, dict(cache, pos=new_pos)
 
     # ------------------------------------------------------------------- cache views
     def cache_defs(self, batch: int, max_len: int) -> dict:
@@ -828,8 +1121,22 @@ class Model:
         return self.cache_defs(batch, max_len)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),
-                        self.cache_defs(batch, max_len))
+        """Zeros of ``cache_defs``; on ranks each rank's shard of them, as DTensors
+        on ``cache_specs``' placements."""
+        if not self.ranked:
+            return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=self.device),
+                            self.cache_defs(batch, max_len))
+        mesh = self.plan.mesh
+
+        def zeros(d):
+            pls = self.plan.sharding(d.logical, d.shape)
+            shape = list(d.shape)
+            for i, pl in enumerate(pls):
+                if pl.is_shard():
+                    shape[pl.dim] //= mesh.size(i)
+            return as_dtensor(torch.zeros(shape, dtype=d.dtype, device=self.device), mesh,
+                              pls, d.shape)
+        return tree_map(zeros, self.cache_defs(batch, max_len))
 
     def cache_specs(self, batch: int, max_len: int) -> dict:
         return tree_map(lambda d: self.plan.spec(d.logical, d.shape),

@@ -12,6 +12,16 @@ full width: a second copy would double it) and returns the same trees. It forms
 each leaf's update in place too, in the functional form's f32 ops and order, so
 the bits are the same: mamba2-2.7b's largest leaves are 3.4 GB in f32, and every
 temporary of the functional form is one more of them at the step's memory peak.
+
+DTensor state (the dense family on a ``DeviceMesh``): each rank updates its
+``opt_state_specs`` shard of master, m and v from its shard of the gradient in
+that layout (a view of the gradient's, which splits no more), and the new
+params, cast to their dtype, are gathered from the masters' layout back into the
+params' (ZeRO's all-gather over the axes the optimizer state adds). The
+gradient norm sums each leaf's squares over its local shard and reduces them
+over the mesh axes that split that leaf only, so a replicated shard counts
+once. On a one-rank mesh every step of this is the one-device arithmetic, op for
+op.
 """
 from __future__ import annotations
 
@@ -19,10 +29,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import TensorDef, param_defs
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.parallel.sharding import PartitionSpec
+from repro_torch.parallel.sharding import PartitionSpec, as_dtensor, relayout, splits_further
 from repro_torch.tree import tree_flatten_sorted, tree_map
 
 
@@ -69,9 +81,42 @@ def _leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_sorted(tree)]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _split_axes(t: torch.Tensor) -> tuple:
+    """The mesh axes of more than one rank that split a DTensor leaf."""
+    if not isinstance(t, DTensor):
+        return ()
+    mesh = t.device_mesh
+    return tuple(name for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, t.placements))
+                 if pl.is_shard() and mesh.size(i) > 1)
+
+
+def _as_laid(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of the value of ``t`` in ``like``'s layout."""
+    if not isinstance(t, DTensor):
+        return t
+    return relayout(t.to_local(), t.device_mesh, t.shape, tuple(t.placements),
+                    tuple(like.placements))
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(tree))
-    return torch.sqrt(sq)
+    leaves = _leaves(tree)
+    terms = [torch.sum(torch.square(_local(g).float())) for g in leaves]
+    groups: dict = {}
+    for i, g in enumerate(leaves):
+        axes = _split_axes(g)
+        if axes:
+            groups.setdefault((id(g.device_mesh), axes), (g.device_mesh, []))[1].append(i)
+    for (_, axes), (mesh, idx) in groups.items():
+        sums = torch.stack([terms[i] for i in idx])
+        for a in axes:
+            dist.all_reduce(sums, group=mesh.get_group(a))
+        for j, i in enumerate(idx):
+            terms[i] = sums[j]
+    return torch.sqrt(sum(terms))
 
 
 @torch.no_grad()
@@ -81,7 +126,7 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     on the master, params = master cast to their dtype. Updates ``params`` and
     ``state``'s tensors in place; returns (params, new_state, metrics
     {grad_norm, lr})."""
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     if lr is None:
         lr = warmup_cosine(step, peak_lr=cfg.peak_lr, warmup_steps=cfg.warmup_steps,
                            total_steps=cfg.total_steps)
@@ -91,9 +136,10 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for p, g, m, v, master in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
+    for pt, gt, mt, vt, wt in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
                                   _leaves(state["v"]), _leaves(state["master"])):
-        g = g.float() * clip
+        p, m, v, master = _local(pt), _local(mt), _local(vt), _local(wt)
+        g = _as_laid(gt, mt).float() * clip
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         # master - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * master), op by op
@@ -101,7 +147,16 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
         step_ = (m / bc1).div_(den)
         del den
         master.sub_(step_.add_(cfg.weight_decay * master).mul_(lr))
+        if isinstance(pt, DTensor):
+            mesh, src, dst = pt.device_mesh, tuple(wt.placements), tuple(pt.placements)
+            # a view where the params' layout splits the masters' further; else
+            # gathered (ZeRO), in the param's dtype
+            new = master if splits_further(mesh, src, dst) else master.to(p.dtype)
+            master = relayout(new, mesh, pt.shape, src, dst)
         p.copy_(master)                       # cast to the param's dtype
+    if isinstance(state["step"], DTensor):
+        st = state["step"]
+        step = as_dtensor(step, st.device_mesh, tuple(st.placements), st.shape)
     new_state = {"m": state["m"], "v": state["v"], "master": state["master"],
                  "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -24,6 +24,27 @@ shards tensor dim d, else ``Replicate()``. A dim over several mesh axes (``("pod
 in mesh order: JAX's layout when the spec lists them in mesh order, as every rule
 set here does. A spec that lists a dim's axes in another order, or names an axis
 the mesh lacks, raises ``ValueError``.
+
+Tensor parallelism over "model" (the dense family's forward, loss, backward,
+prefill and decode, ``models/layers.py`` and ``models/model.py``): the layers
+run on each rank's local shards, plain tensors, and call the collectives below
+at the JAX package's ``constrain`` sites, on the process group of this rank's
+line along one mesh axis (``axis_group``). Autograd goes through
+``torch.autograd.Function`` pairs, Megatron-LM's f and g operators:
+``copy_to`` (identity forward, all-reduce of the gradient backward) where a
+replicated tensor enters a split region, ``reduce_from`` (all-reduce forward,
+identity backward) where a split region's partial sums leave it, and
+``gather_along`` (all-gather along a dim forward, the local slice backward).
+Every collective returns its input, and launches nothing, where the plan's mesh
+is not a ``DeviceMesh`` or the axis has size 1: on one card, or a one-rank mesh,
+the layers run the one-card code op for op. A row-parallel product's partial
+sums (``reduce_partial``) are reduced in f32 and cast back once, or in bf16 under
+``plan.bf16_reduce``: the dtype the JAX package names by
+``preferred_element_type=plan.reduce_dtype``. ``TensorParallel`` says which
+dims of a dense model's weights a rank holds a 1/M shard of; ``local_range``
+gives a spec's index range of a dim on this rank, and ``relayout`` moves a
+local shard between two layouts of one value (a view where the new layout only
+splits the old one further).
 """
 from __future__ import annotations
 
@@ -33,6 +54,8 @@ from collections.abc import Mapping
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 # logical axis -> preferred mesh axes (in order; trailing axes dropped if not divisible)
@@ -253,3 +276,223 @@ def constrain(x: torch.Tensor, plan: MeshPlan, logical_axes) -> torch.Tensor:
 
 def pad_to_multiple(n: int, m: int) -> int:
     return int(math.ceil(n / m) * m)
+
+
+# ------------------------------------------------ tensor parallelism: the collectives
+def axis_group(plan: MeshPlan, axis: str):
+    """The process group of this rank's line along ``axis`` of the plan's mesh;
+    None where the mesh is not a ``DeviceMesh``, lacks the axis or has it of size
+    1 (every collective over it is then the identity)."""
+    mesh = plan.mesh
+    if not isinstance(mesh, DeviceMesh) or axis not in (mesh.mesh_dim_names or ()):
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(axis)) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def axis_index(plan: MeshPlan, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 off a ``DeviceMesh``)."""
+    mesh = plan.mesh
+    if not isinstance(mesh, DeviceMesh) or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron-LM's f: identity forward, the gradient all-reduced backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron-LM's g: the partial sums all-reduced forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """The shards of the axis' ranks concatenated along ``dim`` forward; this
+    rank's slice of the gradient backward (the consumer is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        ctx.dim, ctx.lo, ctx.n = dim, r * x.shape[dim], x.shape[dim]
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def copy_to(x: torch.Tensor, plan: MeshPlan, axis: str = "model") -> torch.Tensor:
+    """``x`` as it is forward; its gradient summed over ``axis`` backward."""
+    group = axis_group(plan, axis)
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, plan: MeshPlan, axis: str = "model") -> torch.Tensor:
+    """``x`` summed over ``axis`` forward; the gradient as it is backward."""
+    group = axis_group(plan, axis)
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def reduce_partial(part: torch.Tensor, plan: MeshPlan, axis: str = "model") -> torch.Tensor:
+    """A row-parallel product's partial sums summed over ``axis``: in f32 and cast
+    back to ``part``'s dtype once, or in bf16 under ``plan.bf16_reduce``."""
+    if axis_group(plan, axis) is None:
+        return part
+    return reduce_from(part.to(plan.reduce_dtype or torch.float32), plan, axis).to(part.dtype)
+
+
+def gather_along(x: torch.Tensor, dim: int, plan: MeshPlan, axis: str = "model") -> torch.Tensor:
+    """The axis' shards of ``x`` concatenated along ``dim`` in rank order."""
+    group = axis_group(plan, axis)
+    return x if group is None else _GatherAlong.apply(x, dim, group)
+
+
+def max_over(x: torch.Tensor, plan: MeshPlan, axis: str = "model") -> torch.Tensor:
+    """The elementwise max over ``axis`` (no gradient)."""
+    group = axis_group(plan, axis)
+    if group is None:
+        return x
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+def sum_over(x: torch.Tensor, plan: MeshPlan, axes) -> torch.Tensor:
+    """``reduce_from`` over each of ``axes`` in turn: the sum over their ranks."""
+    for axis in axes:
+        x = reduce_from(x, plan, axis)
+    return x
+
+
+def local_range(plan: MeshPlan, spec: PartitionSpec, dim: int, size: int) -> Tuple[int, int]:
+    """[start, stop) of this rank's shard of dim ``dim`` (of ``size``) under
+    ``spec``: the dim's mesh axes index its shards major to minor in mesh order."""
+    entry = spec[dim] if dim < len(spec) else None
+    axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+    index, n = 0, 1
+    for a in axes:
+        k = plan.axis_size(a)
+        index, n = index * k + axis_index(plan, a), n * k
+    chunk = size // n
+    return index * chunk, (index + 1) * chunk
+
+
+def _split_dims(mesh, pls) -> Dict[int, list]:
+    """{tensor dim: the mesh dims of size > 1 that shard it, in mesh order}."""
+    out: Dict[int, list] = {}
+    for i, p in enumerate(pls):
+        if p.is_shard() and mesh.size(i) > 1:
+            out.setdefault(p.dim, []).append(i)
+    return out
+
+
+def splits_further(mesh, src: tuple, dst: tuple) -> bool:
+    """Whether the placements ``dst`` only split further what ``src`` splits:
+    each tensor dim's sharding mesh dims (of size > 1) under ``src`` lead its list
+    under ``dst``, so each rank's ``dst`` shard lies inside its ``src`` shard."""
+    a, b = _split_dims(mesh, src), _split_dims(mesh, dst)
+    return all(b.get(d, [])[:len(dims)] == dims for d, dims in a.items())
+
+
+def relayout(local: torch.Tensor, mesh, shape, src: tuple, dst: tuple) -> torch.Tensor:
+    """This rank's shard of a value of global ``shape`` laid out by the placements
+    ``src``, as laid out by ``dst``. Where ``dst`` only splits further what ``src``
+    splits (each dim's sharding mesh dims of ``src`` lead its list in ``dst``;
+    mesh dims of size 1 split nothing) the result is a view of ``local``; else
+    the value moves through DTensor's collectives. Every rank takes the same
+    branch."""
+    if not splits_further(mesh, src, dst):
+        return as_dtensor(local, mesh, src, shape).redistribute(mesh, dst).to_local()
+    a, b = _split_dims(mesh, src), _split_dims(mesh, dst)
+    coord = mesh.get_coordinate()
+    out = local
+    for d, dims in b.items():
+        n, index = local.shape[d], 0
+        for i in dims[len(a.get(d, [])):]:
+            n //= mesh.size(i)
+            index = index * mesh.size(i) + coord[i]
+        if n != local.shape[d]:
+            out = out.narrow(d, index * n, n)
+    return out
+
+
+def as_dtensor(local: torch.Tensor, mesh, pls: tuple, shape) -> DTensor:
+    """A DTensor of global ``shape`` from this rank's shard under ``pls`` (no
+    communication)."""
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local, mesh, tuple(pls), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def full_value(x: torch.Tensor) -> torch.Tensor:
+    """The whole value of ``x`` on this rank: a DTensor gathered (on a one-rank
+    mesh its local tensor, with no collective), a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    if x.device_mesh.size() == 1:
+        return x.to_local()
+    return x.full_tensor()
+
+
+# the weights' logical dims that tensor parallelism splits over "model"
+TP_LOGICALS = ("heads", "kv_heads", "ffn", "vocab")
+
+
+def compute_spec(plan: MeshPlan, logical, shape) -> PartitionSpec:
+    """The layout the layers compute on: ``plan.spec``'s "model" split of a
+    ``TP_LOGICALS`` dim kept, every other split gathered."""
+    spec = plan.spec(logical, shape)
+    entries = []
+    for d, log in enumerate(logical):
+        e = spec[d] if d < len(spec) else None
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        entries.append("model" if log in TP_LOGICALS and "model" in axes else None)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return PartitionSpec(*entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How a dense model's layers split over the "model" axis of ``plan``'s mesh,
+    which has ``size`` > 1 ranks: each flag says whether a rank holds 1/size of
+    that dim of the weights (a dim the axis does not divide stays whole, as
+    ``MeshPlan.spec`` drops the axis); ``rank`` is this rank's index along it."""
+    plan: MeshPlan
+    heads: bool
+    kv_heads: bool
+    ffn: bool
+    vocab: bool
+
+    @property
+    def size(self) -> int:
+        return self.plan.axis_size("model")
+
+    @property
+    def rank(self) -> int:
+        return axis_index(self.plan, "model")

@@ -14,6 +14,10 @@ itself must be rebuildable mid-run: on a membership change
 
 Kept across a re-mesh: parameter values, optimizer moments, master weights, the
 data step. Changed: the per-pod batch slicing (the global batch is invariant).
+Training goes on where the state lands, on one device or on a multi-rank mesh:
+``Trainer.remesh`` (``runtime/train_loop.py``) moves the state with
+``remesh_state`` and binds its model and step to the new mesh, whose
+tensor-parallel step (the dense family) reads each leaf's new shards.
 ``ElasticController`` watches the overwatch's ``/clusters/`` prefix (the port's
 own plane, ``repro_torch.core``) and calls back on every change of membership.
 """
@@ -31,7 +35,9 @@ def remesh_state(state, old_plan: MeshPlan, new_plan: MeshPlan, specs_fn):
     (``parallel.sharding.distribute``: a DTensor on the same mesh is
     redistributed, one on another mesh gathered and laid out anew; onto a mesh of
     one device the leaf is a plain tensor on that device). ``old_plan`` is where
-    the state lies; each leaf carries its own mesh, as a JAX array does."""
+    the state lies; each leaf carries its own mesh, as a JAX array does. A
+    collective over the ranks of the old mesh and the new; a rank outside the new
+    mesh gets leaves with no local data."""
     return tree_map(lambda x, s: distribute(x, new_plan.mesh, s), state,
                     specs_fn(new_plan))
 

@@ -11,7 +11,17 @@ head-of-line blocking.
 The batch axis of every cache leaf is located generically by diffing
 ``cache_defs(batch=1)`` against ``cache_defs(batch=2)``. PyTorch runs eagerly,
 so there is no per-prompt-length compile cache. The model's plan is the JAX
-package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh.
+package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh unless one
+is given.
+
+On a ("data", "model") ``DeviceMesh`` of a process group (the dense family; the
+other families are refused on more than one rank, ROADMAP §1 item 2) the params
+and the cache are DTensors laid out by ``param_specs`` and ``cache_specs``: the
+slots are split over "data", the cache's sequence over "model", the layers are
+tensor-parallel (``models/model.py``). Every rank runs the same scheduler on the
+whole logits (gathered), so every rank takes the same decisions. A request's
+prefill (B = 1, which "data" does not divide) runs on every data rank, and the
+rank that holds the slot's rows writes its cache there.
 """
 from __future__ import annotations
 
@@ -24,9 +34,11 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as devices
-from repro_torch.launch.mesh import make_test_mesh
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.mesh import chips, make_test_mesh
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import MeshPlan
+from repro_torch.parallel.sharding import MeshPlan, distribute, full_value, local_range
 from repro_torch.tree import tree_map
 
 
@@ -59,7 +71,7 @@ class ServeJobConfig:
 
 
 class Server:
-    def __init__(self, cfg: ServeJobConfig, params: Optional[dict] = None):
+    def __init__(self, cfg: ServeJobConfig, params: Optional[dict] = None, *, mesh=None):
         self.cfg = cfg
         self.device = devices.resolve(cfg.device)
         arch_cfg = configs.get(cfg.arch)
@@ -67,10 +79,14 @@ class Server:
             arch_cfg = arch_cfg.reduced()
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
-        self.model = Model(arch_cfg, self.device,
-                           MeshPlan(mesh=make_test_mesh(device=self.device), fsdp=False))
-        self.params = params if params is not None else \
-            self.model.init_params(cfg.seed)
+        mesh = mesh if mesh is not None else make_test_mesh(device=self.device)
+        if chips(mesh) != 1 and arch_cfg.family != "dense":
+            raise NotImplementedError(
+                f"a {arch_cfg.family} Server on a mesh of {chips(mesh)} devices: multi-rank "
+                "serving covers the dense family (ROADMAP §1 item 2)")
+        self.model = Model(arch_cfg, self.device, MeshPlan(mesh=mesh, fsdp=False))
+        self.params = self._laid_out(params if params is not None else
+                                     self.model.init_params(cfg.seed))
 
         B, L = cfg.slots, cfg.max_len
         self.cache = self.model.init_cache(B, L)
@@ -83,6 +99,14 @@ class Server:
         self.steps = 0
         self._init_params = self.params
         self._init_seed = cfg.seed
+
+    def _laid_out(self, params: dict) -> dict:
+        """Whole params as the model takes them: on ranks, DTensors laid out by
+        ``param_specs`` (each rank keeps its shards)."""
+        if not self.model.ranked or isinstance(params["embed"], DTensor):
+            return params
+        return tree_map(lambda x, s: distribute(x, self.model.plan.mesh, s), params,
+                        self.model.param_specs())
 
     def _sampler(self, seed: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -97,7 +121,7 @@ class Server:
         if cfg.seed == self._init_seed:
             self.params = self._init_params
         else:
-            self.params = self.model.init_params(cfg.seed)
+            self.params = self._laid_out(self.model.init_params(cfg.seed))
             self._init_params = self.params
             self._init_seed = cfg.seed
         self.cfg = cfg
@@ -119,7 +143,17 @@ class Server:
         return tree_map(axis, self.model.cache_defs(1, L), self.model.cache_defs(2, L))
 
     def _splice(self, slot: int, one_cache: dict) -> None:
+        """Write a one-row cache into the slot's row; on ranks, the rank whose
+        shard holds that row writes it (the one-row cache's rows are whole)."""
+        plan = self.model.plan
+
         def put(full, one, ax):
+            if isinstance(full, DTensor):
+                spec = plan.spec(("batch",), (full.shape[ax],))
+                lo, hi = local_range(plan, spec, 0, full.shape[ax])
+                if lo <= slot < hi:
+                    full.to_local().narrow(ax, slot - lo, 1).copy_(one.to_local())
+                return full
             full.narrow(ax, slot, 1).copy_(one)
             return full
         self.cache = tree_map(put, self.cache, one_cache, self._batch_axis)
@@ -161,7 +195,7 @@ class Server:
             logits, one_cache = self.model.prefill(self.params, batch,
                                                    max_len=self.cfg.max_len)
             self._splice(slot, one_cache)
-            req.generated.append(int(self._sample(logits)[0]))
+            req.generated.append(int(self._sample(full_value(logits))[0]))
             self.slots[slot] = req
             self._maybe_finish(slot)
 
@@ -187,7 +221,7 @@ class Server:
         last = [r.generated[-1] if r else 0 for r in self.slots]
         tokens = torch.tensor(last, dtype=torch.long, device=self.device)[:, None]
         logits, self.cache = self.model.decode_step(self.params, tokens, self.cache)
-        nxt = self._sample(logits).tolist()
+        nxt = self._sample(full_value(logits)).tolist()
         for i in active:
             self.slots[i].generated.append(int(nxt[i]))
             self._maybe_finish(i)

@@ -9,10 +9,19 @@
                   state, run in turn on the one card.
 
 The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
-``make_test_mesh``'s mesh unless one is given. Its ``state`` can be moved
-between meshes (``runtime/elastic.py`` ``remesh_state``) and training goes on
-where it lands on a mesh of one device; a mesh of more ranks is refused, since
-multi-rank training (its gradient reduction) is not in the port.
+``make_test_mesh``'s mesh unless one is given. Which families take which mesh:
+  * the dense family in sync mode runs on any ("data", "model") mesh of a
+    process group (a ``DeviceMesh``, one rank or many): its state is DTensors
+    laid out by ``train_state_specs``, the step tensor- and data-parallel
+    (``models/model.py``, ``launch/steps.py``); each rank builds the global batch
+    from the seed and the model takes its rows by the "batch" rule; the metrics
+    are the same on every rank;
+  * every family runs on a mesh of one device (one card, or a one-rank mesh with
+    a plain state);
+  * the other families, and local_sgd, on a mesh of more ranks are refused
+    (ROADMAP §1 item 2).
+``remesh`` moves the state onto another mesh (``runtime/elastic.py``
+``remesh_state``) and training goes on where it lands.
 
 Deterministic restart: checkpoint = (train state, data step, seed); the data
 pipeline is a pure function of step, so kill/restore resumes exactly. The
@@ -38,12 +47,13 @@ from repro_torch import device as devices
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.mesh import chips, make_test_mesh
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.launch.steps import init_train_state, make_train_step, train_state_specs
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state,
                                          make_round_fn, pod_free_plan)
 from repro_torch.parallel.sharding import MeshPlan
+from repro_torch.runtime.elastic import remesh_state
 from repro_torch.runtime.telemetry import MetricsLog, StepTimer
 from repro_torch.tree import tree_map
 
@@ -92,22 +102,38 @@ class Trainer:
             arch_cfg = arch_cfg.reduced()
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
-        mesh = mesh if mesh is not None else make_test_mesh(device=self.device)
-        if chips(mesh) != 1:
-            raise NotImplementedError(
-                f"a Trainer on a mesh of {chips(mesh)} devices: multi-rank training "
-                "(its gradient reduction) is not in the port")
-        self.plan = MeshPlan(mesh=mesh, fsdp=False)
-        # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
-        self.model = Model(arch_cfg, self.device,
-                           pod_free_plan(self.plan) if cfg.mode == "local_sgd" else self.plan)
+        self._bind(mesh if mesh is not None else make_test_mesh(device=self.device))
         self.step = 0
         self.state = self._init_state(cfg)
+        self._arm(cfg, on_checkpoint)
+
+    def _bind(self, mesh) -> None:
+        """The plan, model and step function of ``mesh``."""
+        cfg = self.cfg
+        if chips(mesh) != 1 and (self.arch_cfg.family != "dense" or cfg.mode != "sync"):
+            raise NotImplementedError(
+                f"a {self.arch_cfg.family} Trainer in {cfg.mode} mode on a mesh of "
+                f"{chips(mesh)} devices: multi-rank training covers the dense family in "
+                "sync mode (ROADMAP §1 item 2)")
+        self.plan = MeshPlan(mesh=mesh, fsdp=False)
+        # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
+        self.model = Model(self.arch_cfg, self.device,
+                           pod_free_plan(self.plan) if cfg.mode == "local_sgd" else self.plan)
         if cfg.mode == "local_sgd":
             self.round_fn = make_round_fn(self.model, cfg.opt, cfg.local_sgd)
         else:
             self.step_fn = make_train_step(self.model, cfg.opt, cfg.microbatches)
-        self._arm(cfg, on_checkpoint)
+
+    def remesh(self, mesh) -> None:
+        """Move the state onto ``mesh`` (``runtime/elastic.py`` ``remesh_state``,
+        every value kept) and train there from now on: a collective over the
+        ranks of the old mesh and of ``mesh``. A rank outside ``mesh`` keeps
+        shards with no data and must not step."""
+        old = self.plan
+        self._bind(mesh)
+        if self.model.ranked:     # else one device, where the state stays plain
+            self.state = remesh_state(self.state, old, self.plan,
+                                      lambda p: train_state_specs(self.arch_cfg, p))
 
     def _init_state(self, cfg: TrainJobConfig) -> dict:
         """The initial state of ``cfg.mode`` from ``cfg.seed``."""

@@ -12,8 +12,9 @@ JAX package's ``repro.runtime.elastic``.
   (tests/test_elastic.py's gate), and within the port's model-parity gates
   (tests/test_torch_model.py: f32 1e-4, bf16 0.08) of the JAX package's forward
   on 8 forced host devices from the same params (a JAX subprocess, its
-  ``init_params`` from ``PRNGKey(0)``, carried across by ``convert.py``); the
-  other families' sharded forward on (4, 2) against their one-device forward.
+  ``init_params`` from ``PRNGKey(0)``, carried across by ``convert.py``; qwen3
+  and gemma3, the dense family, take the tensor-parallel route); the other
+  families' sharded forward on (4, 2) against their one-device forward.
   Rank 0
   also runs the card's elastic phase of ``chip_smoke.py`` at reduced size: a
   Trainer's state re-meshed onto a one-rank ``DeviceMesh`` and back between its
@@ -108,10 +109,13 @@ def test_trainer_continues_after_remesh_same_device():
 
 
 def test_trainer_refuses_a_mesh_of_several_devices():
+    """Multi-rank training covers the dense family in sync mode: a mamba2 Trainer
+    and a local_sgd Trainer on several devices are refused, naming ROADMAP."""
     class FakeMesh:
         shape = {"data": 4, "model": 2}
-    with pytest.raises(NotImplementedError, match="multi-rank training"):
-        Trainer(TrainJobConfig(**TRAIN), mesh=FakeMesh())
+    for job in (dict(TRAIN, arch="mamba2-2.7b"), dict(TRAIN, mode="local_sgd")):
+        with pytest.raises(NotImplementedError, match="multi-rank training.*ROADMAP"):
+            Trainer(TrainJobConfig(**job), mesh=FakeMesh())
 
 
 def test_elastic_example_on_cpu(tmp_path):
