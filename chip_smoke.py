@@ -5,7 +5,7 @@
     python3 chip_smoke.py --k1-bwd-against DIR   # only K1's backward against DIR's
     python3 chip_smoke.py --k2-bwd-against DIR   # only K2's backward against DIR's
     python3 chip_smoke.py --k3-bwd-against DIR   # only K3's backward against DIR's
-    python3 chip_smoke.py --sass-against DIR     # only K1's and K2's SASS against DIR's
+    python3 chip_smoke.py --sass-against DIR     # only K1's, K2's and K3's SASS against DIR's
 
 Phases, each failing loudly (nonzero exit):
   1. print the card (nvidia-smi name, power limit) and the torch/CUDA versions;
@@ -67,7 +67,12 @@ Phases, each failing loudly (nonzero exit):
      then the ssm slice's (K3's backward on the SSD sweep, its own shapes and
      the training shape, with and without init_state and d(final state), on the
      conv output's views too; gated_rmsnorm's), timed at mamba2-2.7b's training
-     shape (no library call for either);
+     shape (no library call for either); then K2's gated norm over a split row
+     (``phase_split_norm``: its four entries, gated_rmsnorm_stats,
+     gated_rmsnorm_split, gated_rmsnorm_split_dot and gated_rmsnorm_split_bwd, at
+     d_inner 5,120 and 7,168 split 2, 4 and 8 ways, the row sums added in place
+     of the all-reduce, against their plain versions and, put back together,
+     against the whole-row kernel, both ways; timed beside their byte bounds);
   6. one train step in f32 on the card against the same step on the CPU (loss,
      grad_norm, m, master; every leaf gets a nonzero gradient): qwen3-0.6b and
      mamba2-2.7b at full width, 2 layers; gemma3-12b at its attention shape
@@ -103,6 +108,15 @@ Phases, each failing loudly (nonzero exit):
      from that mesh restores bit-equal on one device; a Server there serves the
      serve path's requests with the one-device Server's greedy tokens, launches
      exact (the path "qwen3-0.6b tensor-parallel"); then
+     (``phase_ssm_tensor_parallel``) the ssm and hybrid families' tensor-parallel
+     code: on a one-rank NCCL mesh mamba2-2.7b (4 layers) and zamba2-7b (7)
+     Trainers, 2 steps of 2,048 tokens, and a full-depth mamba2-2.7b Server,
+     bit-equal to one device, launches exact (the paths "mamba2-2.7b
+     tensor-parallel", "zamba2-7b tensor-parallel"); then two gloo ranks spawned
+     on the one card as a (1, 2) mesh, where the mamba2 layers split d_inner and
+     the heads and the gated norm runs through K2's split-row entries: the same
+     Trainers and a short serve within the bf16 gates of one device, every
+     kernel's launches exact on both ranks (the paths "... (1, 2) ranks"); then
      (``phase_local_plane``) make the control agent's calls on the port's
      local planes: the same job (6 steps, a checkpoint every 4) on plane A,
      lost after its step-4 manifest, resumed on plane B from it, its losses an
@@ -119,7 +133,8 @@ Phases, each failing loudly (nonzero exit):
      around the four runs (the path "qwen3-0.6b launchers"); the host ms of a
      ``plane.tick()`` outside the local planes' calls and the job's seconds from
      submit to done; ``examples/torch_quickstart.py`` and
-     ``examples/torch_hybrid_pipeline.py``; then (``phase_phi4``) phi4-mini-3.8b
+     ``examples/torch_hybrid_pipeline.py`` (at full width, cut to
+     EXAMPLE_LAYERS); then (``phase_phi4``) phi4-mini-3.8b
      through the serve launcher's direct mode at full width and depth, the
      counters exact (the path "phi4-mini-3.8b launcher"), and its prefill + one
      decode step against forward (f32 at every layer, bf16 at 4);
@@ -128,8 +143,8 @@ Phases, each failing loudly (nonzero exit):
      entry of the path, exactly so many a layer a step); time warm steps and
      profile one (K3's backward kernels, each at the training shape, by launch);
      then its train task (4 steps, a checkpoint every 2) and a
-     strict eval-task restore at full width and 4 layers (a 64-layer save is
-     ~39.6 GB);
+     strict eval-task restore at full width and SSM_TASK_LAYERS (a 64-layer save
+     is ~39.6 GB);
   9. train gemma3-12b at full width, cut to one local:global group of 6 layers,
      then zamba2-7b at full width, cut to two groups and the tail (15 layers),
      then deepseek-moe-16b at full width, cut to 4 layers (its aux loss finite
@@ -141,8 +156,9 @@ Phases, each failing loudly (nonzero exit):
      task: saves at these depths are ~22-47 GB, and the task code is the same as
      qwen3's and mamba2's. Then whisper-medium at full width and depth the same
      way (4 x 2,048 tokens over the Trainer's 4 x 1,500 frames; K1 72 times a
-     step each way, at head dim 64), and its checkpointed task (2 steps, a
-     checkpoint every 2; ~14 GB a save) and a strict eval-task restore;
+     step each way, at head dim 64), and its checkpointed task at 4 encoder and
+     4 decoder layers (2 steps, a checkpoint every 2) and a strict eval-task
+     restore;
  10. train qwen3-0.6b at full width and depth in local_sgd mode (the Titchener
      mode: 2 pods, H = 4 inner steps a round, 2 x 2048 tokens a pod, bf16)
      through ``run_train_task`` (8 steps, 2 rounds), the counters read around it
@@ -150,8 +166,8 @@ Phases, each failing loudly (nonzero exit):
      bit-equal to the master after each round; time 3 warm rounds and the outer
      step alone, profile one of each, print the bytes a round crosses the pod
      boundary; then its checkpointed task (8 steps, a checkpoint every 8) and a
-     strict eval-task restore at full width and 4 layers (a 28-layer save is
-     30.8 GiB);
+     strict eval-task restore at full width and LOCAL_SGD_TASK_LAYERS (a
+     28-layer save is 30.8 GiB);
  11. the cells (``repro_torch.launch.steps.build_cell``) at qwen3-0.6b's full
      width and depth, cut in batch (see ``CELLS_ARCH``): train_4k one step under
      remat none, full and dots from one state and batch (loss, grad_norm and
@@ -182,7 +198,8 @@ kernel. ``--k3-bwd-against DIR`` does the
 same for K3's backward (f32 results bit-equal over the backward sweep; bf16 of both
 within the gate; bf16 times in turns at the training shape; both designs profiled
 by kernel). ``--sass-against DIR`` checks that every kernel of DIR's
-``csrc/flash_attention.cu`` and ``csrc/rmsnorm.cu`` compiles to the same SASS here
+``csrc/flash_attention.cu``, ``csrc/rmsnorm.cu`` and ``csrc/ssd_scan.cu`` compiles
+to the same SASS here
 (``cuobjdump -sass``) and names the kernels this checkout adds and any that
 differ, SASS_REPLACED (the gated backward's old kernels) the one exception. The
 flags may be given together.
@@ -456,11 +473,41 @@ ELASTIC_LEASE_TICKS = 20              # ticks a lost cluster's lease may take to
 # one-device Server
 TP_PATH = "qwen3-0.6b tensor-parallel"
 TP_STEPS = 3
+# the ssm and hybrid families' tensor-parallel code (phase_ssm_tensor_parallel):
+# K2's gated norm over a split row, d_inner 5,120 (mamba2-2.7b) and 7,168
+# (zamba2-7b) split 2, 4 and 8 ways, checked at a ragged row count, a decode batch
+# and the training rows, timed at the training rows
+SPLIT_WIDTHS, SPLIT_WAYS = (5120, 7168), (2, 4, 8)
+SPLIT_ROWS = ((3, 5), (4, 1), (1, 2048))
+SPLIT_NAMES = ("gated_rmsnorm_stats", "gated_rmsnorm_split", "gated_rmsnorm_split_dot",
+               "gated_rmsnorm_split_bwd")
+# (b) a one-rank NCCL (1, 1) mesh: mamba2-2.7b and zamba2-7b Trainers at full width
+# cut in depth (mamba2 4 layers; zamba2 one group of 6 and one tail layer), 2 steps
+# of one 2,048-token sequence, and a mamba2 Server at full depth, bit-equal to one
+# device; (c) two gloo ranks on the one card as a (1, 2) mesh: the same Trainers
+# and a short serve, held against one device at the bf16 gates
+SSM_TP_PATH = {"mamba2-2.7b": "mamba2-2.7b tensor-parallel",
+               "zamba2-7b": "zamba2-7b tensor-parallel"}
+SSM_TP2_PATH = {"mamba2-2.7b": "mamba2-2.7b (1, 2) ranks",
+                "zamba2-7b": "zamba2-7b (1, 2) ranks"}
+SSM_TP_LAYERS = {"mamba2-2.7b": 4, "zamba2-7b": 7}
+SSM_TP_STEPS = 2
+SSM_TP_TRAIN = {"reduced": False, "seq_len": 2048, "global_batch": 1, "microbatches": 1}
+SSM_TP_SERVE = {"reduced": False, "slots": 2, "max_len": 256}
+SSM_TP_PROMPTS = [([(7 * i + 3) % 30000 for i in range(96)], 6), ([11, 12, 13], 5),
+                  ([(5 * i) % 30000 for i in range(40)], 4)]
+SSM_TP_DECODE = 4          # teacher-forced decode steps held against one device
+SSM_TP_LOSS_TOL = 0.02     # tests/test_torch_train.py's BF16_LOSS_TOL
+SSM_TP_LOGIT_TOL = 0.08    # tests/test_torch_model.py's BF16_TOL
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
 # width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
 # (6 requests of 8 new tokens, 4 slots, a 128-token cache) direct and ``--driver``
 LAUNCH_PATH = "qwen3-0.6b launchers"
+# the port's examples on the card, after the launchers: qwen3-0.6b at full width cut
+# to 4 layers (at full depth they took 84.4 s of the script, most of it writing
+# 10.5 GB checkpoints; the launchers and the plane run the same code at full depth)
+EXAMPLE_LAYERS = 4
 LAUNCH_STEPS, LAUNCH_BATCH, LAUNCH_SEQ = 30, 8, 64
 LAUNCH_REQUESTS = 6
 LAUNCH_LENS = sorted({len([1 + (i % 7), 2, 3 + i % 5] + [4] * (i % 4))
@@ -550,7 +597,8 @@ def ssm_per_step(layers: int) -> dict:
 
 SSM_TRAIN_PER_STEP = ssm_per_step(64)
 # the train and eval tasks' depth: a 64-layer checkpoint is ~39.6 GB, 4 layers ~5.8 GB
-SSM_TASK_LAYERS = 4
+# (its two saves and the restore took 39.5 s of the script at 4 layers)
+SSM_TASK_LAYERS = 2
 # K3's backward: the check sweep (with and without init_state and d(final state))
 # and the training shape, at which it is timed
 SSD_BWD_MAIN = (1, 2048, 80, 64, 128, 256)
@@ -668,6 +716,9 @@ def vlm_per_step(layers: int) -> dict:
 WHISPER_TRAIN = {"arch": "whisper-medium", "reduced": False, "seq_len": 2048,
                  "global_batch": 4, "microbatches": 1}
 WHISPER_LAYERS = 24
+# its checkpointed train task and the eval task's strict restore: 4 encoder and 4
+# decoder layers (a full-depth save is ~14 GB and took 66 s of the script)
+WHISPER_TASK_LAYERS = 4
 # whisper's f32 train step on the card against the CPU's: full width, 2 encoder and 2
 # decoder layers, 600 tokens (ragged for 64-row tiles) over its 1,500 frames
 WHISPER_PARITY = {"num_layers": 2, "encoder_layers": 2}
@@ -697,12 +748,12 @@ CUT_TRAINS = {
 
 # local SGD, the Titchener mode: qwen3-0.6b at full width and depth, bf16, 2 pods of
 # H = 4 inner steps a round on 2 x 2048 tokens each (32,768 tokens a round), 2 rounds
-# through run_train_task; its checkpointed task at 4 layers (a 28-layer save is
-# 30.8 GiB of state)
+# through run_train_task; its checkpointed task at 2 layers (a 28-layer save is
+# 30.8 GiB of state, a 4-layer one 16.46 GB)
 LOCAL_SGD = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 4,
              "mode": "local_sgd", "n_pods": 2, "local_sgd": {"inner_steps": 4}, "steps": 8}
 LOCAL_SGD_PATH = "qwen3-0.6b local_sgd"
-LOCAL_SGD_TASK_LAYERS = 4
+LOCAL_SGD_TASK_LAYERS = 2
 # the f32 round on the card against the CPU's: full width, 2 layers, 2 pods, H = 2,
 # 1 x 256 tokens a pod and inner step
 LOCAL_SGD_PARITY = {"n_pods": 2, "inner_steps": 2, "seq": 256}
@@ -864,7 +915,11 @@ def kernel_wrappers() -> dict:
             "flash_attention_bwd": FA.flash_attention_bwd_cuda,
             "rmsnorm_bwd": RN.rmsnorm_bwd_cuda, "add_rmsnorm_bwd": RN.add_rmsnorm_bwd_cuda,
             "gated_rmsnorm_bwd": RN.gated_rmsnorm_bwd_cuda,
-            "qk_norm_rope_bwd": RN.qk_norm_rope_bwd_cuda, "ssd_scan_bwd": SS.ssd_scan_bwd_cuda}
+            "qk_norm_rope_bwd": RN.qk_norm_rope_bwd_cuda, "ssd_scan_bwd": SS.ssd_scan_bwd_cuda,
+            "gated_rmsnorm_stats": RN.gated_rmsnorm_stats_cuda,
+            "gated_rmsnorm_split": RN.gated_rmsnorm_split_cuda,
+            "gated_rmsnorm_split_dot": RN.gated_rmsnorm_split_dot_cuda,
+            "gated_rmsnorm_split_bwd": RN.gated_rmsnorm_split_bwd_cuda}
 
 
 def reset_launches() -> dict:
@@ -2265,6 +2320,196 @@ def phase_ssm_backward(gen) -> list:
     return rows
 
 
+def split_parts(t: torch.Tensor, ways: int) -> list:
+    """The ``ways`` contiguous column slices of t's last dim, each contiguous: what
+    the ranks of a "model" axis of that size hold of a split row."""
+    return [c.contiguous() for c in t.chunk(ways, dim=-1)]
+
+
+def split_sums_exact(y, z, sc, dout):
+    """The row sums of the split-row entries (t^2; dout * scale * t) evaluated in
+    f64 from the gate t = y * silu(z) in y's dtype, as the kernels and the plain
+    versions form it: two f32 sums of a row in different orders differ by more
+    than K2's 1e-5 where dout * scale * t cancels, so the f32 kernels are held
+    against the exact sums, as ``exact`` holds the f32 backward."""
+    from repro_torch.kernels import rmsnorm as RN
+    t = RN._gate(y, z).double()
+    return (t * t).sum(dim=-1), (dout.double() * sc.double() * t).sum(dim=-1)
+
+
+def split_bwd_exact(y, z, sc, dout, ss, dot, width: int):
+    """gated_rmsnorm_split_bwd's outputs evaluated in f64 from the f32 gate t =
+    y * silu(z) and the given row sums, as ``gated_bwd_exact`` evaluates the
+    one-launch backward: the kernel sums dscale over the rows in f64."""
+    silu = F.silu(z)
+    t = (y * silu).double()
+    rstd = torch.rsqrt(ss.double()[..., None] / width + 1e-6)
+    dt = rstd * dout.double() * sc.double() - t * rstd ** 3 * (dot.double()[..., None] / width)
+    dscale = (dout.double() * t * rstd).reshape(-1, y.shape[-1]).sum(dim=0)
+    zd = z.double()
+    sig = torch.sigmoid(zd)
+    return dt * silu.double(), dt * y.double() * sig * (1 + zd * (1 - sig)), dscale
+
+
+def split_gated(y, z, sc, ways: int, width: int):
+    """gated_rmsnorm of [.., width] rows split ``ways`` ways through the split-row
+    kernels, the row sums added here in place of the all-reduce. Returns the
+    whole output."""
+    from repro_torch.kernels import rmsnorm as RN
+    ys, zs, ss_ = split_parts(y, ways), split_parts(z, ways), split_parts(sc, ways)
+    total = sum(RN.gated_rmsnorm_stats_cuda(a, b) for a, b in zip(ys, zs))
+    return torch.cat([RN.gated_rmsnorm_split_cuda(a, b, c, total, width)
+                      for a, b, c in zip(ys, zs, ss_)], dim=-1)
+
+
+def split_gated_bwd(y, z, sc, dout, ways: int, width: int):
+    """(dy, dz, dscale) of ``split_gated`` through the split-row backward kernels,
+    the row sums of both directions added here in place of the all-reduces."""
+    from repro_torch.kernels import rmsnorm as RN
+    parts = [split_parts(t, ways) for t in (y, z, sc, dout)]
+    ss = sum(RN.gated_rmsnorm_stats_cuda(a, b) for a, b, _, _ in zip(*parts))
+    dot = sum(RN.gated_rmsnorm_split_dot_cuda(*p) for p in zip(*parts))
+    outs = [RN.gated_rmsnorm_split_bwd_cuda(*p, ss, dot, width) for p in zip(*parts)]
+    return tuple(torch.cat([o[i] for o in outs], dim=-1) for i in range(3))
+
+
+def phase_split_norm(gen) -> list:
+    """K2's gated norm over a split row (SPLIT_NAMES), each entry on the card: the
+    rows of mamba2-2.7b's and zamba2-7b's d_inner split 2, 4 and 8 ways, the row
+    sums added in-process in place of the all-reduce, both ways, in f32 and bf16
+    at SPLIT_ROWS: each entry against its plain version on the same slices at
+    K2's gates (in f32 the row sums and the backward against their f64 evaluation:
+    ``split_sums_exact``, ``split_bwd_exact``),
+    and the whole row put back together against the whole-row kernel
+    and the whole-row plain version (f32 backward against the f64 evaluation);
+    two runs bit-equal. Then timed in bf16 at the training rows beside its byte
+    bound, the whole-row kernel on the same local row and on the whole row.
+    Returns one JSON row per entry (mamba2's two-way split, the main path's)."""
+    from repro_torch.kernels import rmsnorm as RN
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+    worst = {n: 0.0 for n in SPLIT_NAMES}
+    n_cases = 0
+    for D in SPLIT_WIDTHS:
+        for ways in SPLIT_WAYS:
+            for rows in SPLIT_ROWS:
+                for dtype in (f32, bf16):
+                    shape = rows + (D,)
+                    y, z, sc, dout = gated_bwd_case(gen, shape, dtype)
+                    tol, tag = RMS_TOL[dtype], f"{shape} / {ways} {dtype}"
+                    parts = [split_parts(t, ways) for t in (y, z, sc, dout)]
+                    # each entry against its plain version on the same slices
+                    ss = [RN.gated_rmsnorm_stats_cuda(a, b) for a, b, _, _ in zip(*parts)]
+                    dots = [RN.gated_rmsnorm_split_dot_cuda(*p) for p in zip(*parts)]
+                    exact_sums = [split_sums_exact(*p) for p in zip(*parts)]
+                    for name, got, want in (("gated_rmsnorm_stats", ss,
+                                             [e[0] for e in exact_sums]),
+                                            ("gated_rmsnorm_split_dot", dots,
+                                             [e[1] for e in exact_sums])):
+                        for g, w in zip(got, want):
+                            check(close(g, w, tol), f"{name} {tag}: max err {max_err(g, w)}")
+                            worst[name] = max(worst[name], max_err(g, w))
+                    total, dot = sum(ss), sum(dots)
+                    for p in zip(*parts):
+                        g = RN.gated_rmsnorm_split_cuda(p[0], p[1], p[2], total, D)
+                        w = RN.gated_rmsnorm_split_plain(p[0], p[1], p[2], total, D)
+                        check(close(g, w, tol), f"gated_rmsnorm_split {tag}: max err "
+                              f"{max_err(g, w)}")
+                        worst["gated_rmsnorm_split"] = max(worst["gated_rmsnorm_split"],
+                                                           max_err(g, w))
+                        g = RN.gated_rmsnorm_split_bwd_cuda(*p, total, dot, D)
+                        w = (split_bwd_exact(*p, total, dot, D) if dtype == f32 else
+                             RN.gated_rmsnorm_split_bwd_plain(*p, total, dot, D))
+                        for i, (a, b) in enumerate(zip(g, w)):
+                            check(close(a, b, tol), f"gated_rmsnorm_split_bwd {tag} output "
+                                  f"{i}: max err {max_err(a, b)}")
+                            worst["gated_rmsnorm_split_bwd"] = max(
+                                worst["gated_rmsnorm_split_bwd"], max_err(a, b))
+                    # the whole row put back together
+                    out = split_gated(y, z, sc, ways, D)
+                    check(torch.equal(out, split_gated(y, z, sc, ways, D)),
+                          f"gated split {tag}: two runs differ")
+                    for label, w in (("the whole-row kernel", RN.gated_rmsnorm_cuda(y, z, sc)),
+                                     ("the whole-row plain", RN.gated_rmsnorm_plain(y, z, sc))):
+                        check(close(out, w, tol), f"gated split {tag} against {label}: max "
+                              f"err {max_err(out, w)}")
+                    got = split_gated_bwd(y, z, sc, dout, ways, D)
+                    again = split_gated_bwd(y, z, sc, dout, ways, D)
+                    whole = RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout)
+                    want = (gated_bwd_exact(y, z, sc, dout) if dtype == f32
+                            else RN.gated_rmsnorm_bwd_plain(y, z, sc, dout))
+                    for i, (g, r, k, w) in enumerate(zip(got, again, whole, want)):
+                        check(torch.equal(g, r), f"gated split bwd {tag} output {i}: two runs "
+                              "differ")
+                        for label, ref in (("the whole-row kernel", k), ("the plain", w)):
+                            check(close(g, ref, tol), f"gated split bwd {tag} output {i} "
+                                  f"against {label}: max err {max_err(g, ref)}")
+                    n_cases += 1
+    print(f"gated norm over a split row: {n_cases} cases (d_inner {SPLIT_WIDTHS} split "
+          f"{SPLIT_WAYS} ways, rows {SPLIT_ROWS}, f32 and bf16): each entry within K2's gates "
+          f"of its plain version, the whole row within them of the whole-row kernel and plain "
+          f"version both ways, two runs bit-equal")
+    # timed in bf16 at the training rows: each entry, and beside them the one-launch
+    # whole-row kernels on the same local row and on the whole row
+    rows, timed = [], {}
+    for D in SPLIT_WIDTHS:
+        for ways in SPLIT_WAYS:
+            y, z, sc, dout = gated_bwd_case(gen, (1, 2048, D), bf16)
+            a, b, c, g = (split_parts(t, ways)[0] for t in (y, z, sc, dout))
+            ss = RN.gated_rmsnorm_stats_cuda(a, b) * ways
+            dot = RN.gated_rmsnorm_split_dot_cuda(a, b, c, g)
+            n, e, Dl, R = a.numel(), a.element_size(), a.shape[-1], a.numel() // a.shape[-1]
+            # entry -> (kernel, plain, bytes: each input read once, each output written once,
+            # f32 flops)
+            entries = {
+                "gated_rmsnorm_stats": (lambda: RN.gated_rmsnorm_stats_cuda(a, b),
+                                        lambda: RN.gated_rmsnorm_stats_plain(a, b),
+                                        2 * n * e + 4 * R, 7 * n),
+                "gated_rmsnorm_split": (lambda: RN.gated_rmsnorm_split_cuda(a, b, c, ss, D),
+                                        lambda: RN.gated_rmsnorm_split_plain(a, b, c, ss, D),
+                                        3 * n * e + Dl * e + 4 * R, 8 * n),
+                "gated_rmsnorm_split_dot": (
+                    lambda: RN.gated_rmsnorm_split_dot_cuda(a, b, c, g),
+                    lambda: RN.gated_rmsnorm_split_dot_plain(a, b, c, g),
+                    3 * n * e + Dl * e + 4 * R, 8 * n),
+                "gated_rmsnorm_split_bwd": (
+                    lambda: RN.gated_rmsnorm_split_bwd_cuda(a, b, c, g, ss, dot, D),
+                    lambda: RN.gated_rmsnorm_split_bwd_plain(a, b, c, g, ss, dot, D),
+                    5 * n * e + 2 * Dl * e + 8 * R, 20 * n)}
+            one = {"fwd local": time_ms(lambda: RN.gated_rmsnorm_cuda(a, b, c)),
+                   "bwd local": time_ms(lambda: RN.gated_rmsnorm_bwd_cuda(a, b, c, g)),
+                   "fwd whole": time_ms(lambda: RN.gated_rmsnorm_cuda(y, z, sc)),
+                   "bwd whole": time_ms(lambda: RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout))}
+            line = []
+            for name, (kernel, plain, nbytes, flops) in entries.items():
+                t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain)}
+                t["bound_ms"], t["bound_by"] = bound(nbytes, flops, PEAK_FLOPS[f32])
+                timed[(name, D, ways)] = t
+                line.append(f"{name} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+                            f"{t['bound_ms']:.5f} ms {t['bound_by']}, {nbytes / 1e6:.2f} MB)")
+            fwd = timed[("gated_rmsnorm_stats", D, ways)]["ms"] + \
+                timed[("gated_rmsnorm_split", D, ways)]["ms"]
+            bwd = timed[("gated_rmsnorm_split_dot", D, ways)]["ms"] + \
+                timed[("gated_rmsnorm_split_bwd", D, ways)]["ms"]
+            print(f"gated split row [2048, {D}] / {ways} = [2048, {Dl}] bf16: "
+                  f"{'; '.join(line)}; forward {fwd:.4f} ms against the whole-row kernel "
+                  f"{one['fwd local']:.4f} ms on the same local row ({fwd / one['fwd local']:.2f}x)"
+                  f" and {one['fwd whole']:.4f} ms on the whole row; backward {bwd:.4f} ms "
+                  f"against {one['bwd local']:.4f} ({bwd / one['bwd local']:.2f}x) and "
+                  f"{one['bwd whole']:.4f} ms")
+            del y, z, sc, dout, a, b, c, g
+    for name in SPLIT_NAMES:
+        main = timed[(name, SPLIT_WIDTHS[0], SPLIT_WAYS[0])]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                     "replaces": "src/repro/kernels/rmsnorm.py:11", "max_abs_err": worst[name],
+                     **main, "library_ms": None,
+                     "others": {f"{D}/{w}": timed[(name, D, w)]["ms"]
+                                for D in SPLIT_WIDTHS for w in SPLIT_WAYS}})
+    print(f"gated split row: phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 @contextlib.contextmanager
 def router_log(log: list):
     """Each MoE router call's (top-k indices, probabilities) appended to ``log``."""
@@ -3009,6 +3254,307 @@ def phase_tensor_parallel(card: str) -> dict:
     return launches
 
 
+def ssm_tp_per_step(arch: str, split: bool) -> dict:
+    """Kernel launches in each train step of ``arch`` at SSM_TP_LAYERS: its
+    gated norms through the one-launch entries, or (``split``) through the
+    split-row entries, one launch each a layer both ways."""
+    L = SSM_TP_LAYERS[arch]
+    per = ssm_per_step(L) if arch == "mamba2-2.7b" else hybrid_per_step(L, 6)
+    if split:
+        fwd, bwd = per.pop("gated_rmsnorm"), per.pop("gated_rmsnorm_bwd")
+        per.update(gated_rmsnorm_stats=fwd, gated_rmsnorm_split=fwd,
+                   gated_rmsnorm_split_dot=bwd, gated_rmsnorm_split_bwd=bwd)
+    return per
+
+
+def ssm_serve_launches(arch: str, layers: int, split: bool) -> dict:
+    """Kernel launches (a prefill, a decode step) of ``arch`` served at ``layers``
+    (PATHS' tables at another depth); ``split``: the gated norm through the
+    split-row forward entries."""
+    G = layers // 6 if arch == "zamba2-7b" else 0
+    per = {"ssd_scan": (layers, 0), "rmsnorm": (1, 1),
+           "add_rmsnorm": ((layers - 1 + 2 * G + 1,) * 2 if G else (layers, layers)),
+           "gated_rmsnorm": (layers, layers)}
+    if G:
+        per["flash_attention"] = (G, 0)
+    if split:
+        per["gated_rmsnorm_stats"] = per["gated_rmsnorm_split"] = per.pop("gated_rmsnorm")
+    return per
+
+
+def ssm_tp_forced(model, params) -> torch.Tensor:
+    """The teacher-forced logits of SSM_TP_PROMPTS[0]'s prompt: its prefill's last
+    position, then SSM_TP_DECODE decode steps of fixed tokens, [1 + steps, V] f32 on
+    the CPU (a DTensor's gathered)."""
+    from repro_torch.parallel.sharding import full_value
+    prompt = SSM_TP_PROMPTS[0][0]
+    with torch.no_grad():
+        toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+        logits, cache = model.prefill(params, {"tokens": toks}, max_len=SSM_TP_SERVE["max_len"])
+        out = [full_value(logits)[0].float().cpu()]
+        for i in range(SSM_TP_DECODE):
+            step = torch.tensor([[prompt[i]]], dtype=torch.long, device="cuda")
+            logits, cache = model.decode_step(params, step, cache)
+            out.append(full_value(logits)[0].float().cpu())
+    return torch.stack(out)
+
+
+def ssm_tp_serve(srv) -> list:
+    ids = [srv.submit(list(p), max_new=n) for p, n in SSM_TP_PROMPTS]
+    srv.run()
+    return [srv.requests[i].generated for i in ids]
+
+
+def _ssm_tp_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two gloo ranks on the one card, a (1, 2) ("data", "model") mesh: for
+    each arch of SSM_TP_LAYERS at that depth, a Trainer's SSM_TP_STEPS steps, a
+    Server's SSM_TP_PROMPTS and the teacher-forced logits; each rank's launches of
+    the steps and of the serve, counted from 0 just before each. Writes its report
+    to ``tmp``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.runtime.serve_loop import Server, ServeJobConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    report = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        for arch, layers in SSM_TP_LAYERS.items():
+            with arch_depth(arch, layers):
+                job = TrainJobConfig.from_job({"payload": dict(SSM_TP_TRAIN, arch=arch)})
+                tr = Trainer(job, mesh=mesh)
+                torch.cuda.synchronize()
+                wrappers = reset_launches()
+                walls = []
+                for _ in range(SSM_TP_STEPS):
+                    t0 = time.perf_counter()
+                    tr.step_once()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                train = {name: fn.launches for name, fn in wrappers.items()}
+                rep = {"train": train, "walls": walls, "split": tr.model.tp.ssm,
+                       "series": {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}}
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+                srv = Server(ServeJobConfig.from_job({"payload": dict(SSM_TP_SERVE, arch=arch)}),
+                             mesh=mesh)
+                wrappers = reset_launches()
+                rep["tokens"] = ssm_tp_serve(srv)
+                rep["serve"] = {name: fn.launches for name, fn in wrappers.items()}
+                rep["steps"] = srv.steps
+                rep["forced"] = ssm_tp_forced(srv.model, srv.params)
+                del srv
+                gc.collect()
+                torch.cuda.empty_cache()
+                report[arch] = rep
+    finally:
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+        dist.destroy_process_group()
+
+
+def run_two_ranks(timeout_s: float) -> list:
+    """``_ssm_tp_rank`` on two spawned processes; returns their reports. Every
+    process is stopped before it returns."""
+    import pickle
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.start_processes(_ssm_tp_rank, args=(2, tmp), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"the two ranks did not finish in {timeout_s:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        reports = []
+        for rank in range(2):
+            with open(Path(tmp) / f"rank{rank}.pkl", "rb") as f:
+                reports.append(pickle.load(f))
+    return reports
+
+
+def phase_ssm_tensor_parallel(card: str) -> dict:
+    """The ssm and hybrid families' tensor-parallel code on the card.
+
+    (b) A one-rank NCCL ("data", "model") mesh, every axis of size 1 (no collective
+    runs): for mamba2-2.7b and zamba2-7b at full width and SSM_TP_LAYERS, a
+    Trainer on the mesh (its state DTensors) takes SSM_TP_STEPS steps of one
+    2,048-token sequence from seed 0, its losses, grad norms and every state tensor
+    bit-equal to the one-device Trainer's, the kernels launched exactly
+    ``ssm_tp_per_step`` a step (the one-launch gated entries); a mamba2-2.7b Server
+    at full depth on the mesh serves SSM_TP_PROMPTS with the one-device Server's
+    tokens, launches exact.
+    (c) Two gloo ranks on the one card as a (1, 2) mesh (``run_two_ranks``): the
+    same Trainers, whose mamba2 layers split d_inner and the heads 2 ways and run
+    the gated norm through the split-row entries, and a short serve: losses and
+    grad norms within SSM_TP_LOSS_TOL of the one-device Trainer's, the
+    teacher-forced prefill and decode logits within SSM_TP_LOGIT_TOL of one
+    device's, every kernel's launches exact on both ranks.
+    Returns each path's launches (c's: rank 0's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import OneDeviceMesh, full_value
+    from repro_torch.runtime.serve_loop import Server, ServeJobConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted
+
+    t_phase = time.perf_counter()
+    # the one-device runs' mesh, given explicitly: with a process group up, the
+    # default mesh is one over its ranks
+    one_mesh = OneDeviceMesh(torch.device("cuda"))
+
+    def steps(tr) -> list:
+        walls = []
+        for _ in range(SSM_TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step_once()
+            torch.cuda.synchronize()
+            walls.append(round((time.perf_counter() - t0) * 1e3, 3))
+        return walls
+
+    def series(tr) -> dict:
+        return {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}
+
+    def same_bits(a, b) -> int:
+        a, b = list(tree_flatten_sorted(a)), list(tree_flatten_sorted(b))
+        return sum(p == q and full_value(x).dtype == y.dtype and torch.equal(full_value(x), y)
+                   for (p, x), (q, y) in zip(a, b)), len(b)
+
+    ref, by_path = {}, {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for arch, layers in SSM_TP_LAYERS.items():
+            with arch_depth(arch, layers):
+                job = TrainJobConfig.from_job({"payload": dict(SSM_TP_TRAIN, arch=arch)})
+                one = Trainer(job, mesh=one_mesh)
+                one_ms = steps(one)
+                tr = Trainer(job, mesh=mesh)
+                check(tr.model.ranked and all(isinstance(t, DTensor) for _, t in
+                                              tree_flatten_sorted(tr.state)),
+                      f"{arch} one-rank mesh: the Trainer's state is not DTensors")
+                torch.cuda.synchronize()
+                wrappers = reset_launches()
+                mesh_ms = steps(tr)
+                launches = {name: fn.launches for name, fn in wrappers.items()}
+                n_same, n = same_bits(tr.state, one.state)
+                ref[arch] = {"series": series(one), "ms": one_ms}
+                print(f"ssm tensor-parallel: {arch} full width, {layers} layers, "
+                      f"{SSM_TP_TRAIN['seq_len']} tokens a step, on a one-rank NCCL (1, 1) mesh:"
+                      f" step ms {mesh_ms}, one device {one_ms} [{card}]; {series(tr)}, one "
+                      f"device {series(one)}; {n_same} of {n} state tensors bit-equal; launches "
+                      f"{launches}")
+                check(series(tr) == series(one), f"{arch} one-rank mesh: {series(tr)} != one "
+                      f"device's {series(one)}")
+                check(n_same == n, f"{arch} one-rank mesh: {n - n_same} state tensors differ")
+                per = ssm_tp_per_step(arch, split=False)
+                for name, got in launches.items():
+                    check(got == per.get(name, 0) * SSM_TP_STEPS,
+                          f"{arch} one-rank mesh: {name} launched {got}, want "
+                          f"{per.get(name, 0) * SSM_TP_STEPS}")
+                del tr, one
+                gc.collect()
+                torch.cuda.empty_cache()
+                srv = Server(ServeJobConfig.from_job({"payload": dict(SSM_TP_SERVE, arch=arch)}),
+                             mesh=one_mesh)
+                ref[arch]["tokens"] = ssm_tp_serve(srv)
+                ref[arch]["forced"] = ssm_tp_forced(srv.model, srv.params)
+                del srv
+            by_path[SSM_TP_PATH[arch]] = launches
+        # mamba2-2.7b served at full depth, on the mesh and on one device
+        arch = "mamba2-2.7b"
+        cfg = ServeJobConfig.from_job({"payload": dict(SSM_TP_SERVE, arch=arch)})
+        plain = Server(cfg, mesh=one_mesh)
+        want = ssm_tp_serve(plain)
+        meshed = Server(cfg, params=plain.params, mesh=mesh)
+        check(isinstance(meshed.params["embed"], DTensor) and isinstance(
+            meshed.cache["layers"]["conv"], DTensor), f"{arch} one-rank mesh: the Server holds "
+              "plain tensors")
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        got = ssm_tp_serve(meshed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = {name: fn.launches for name, fn in wrappers.items()}
+        layers = meshed.arch_cfg.num_layers
+        print(f"ssm tensor-parallel: a {arch} Server at full depth ({layers} layers) on the "
+              f"mesh, {len(SSM_TP_PROMPTS)} requests, {meshed.steps} decode steps: {wall:.2f} s "
+              f"[{card}]; tokens equal the one-device Server's: {got == want}; launches {served}")
+        check(got == want and meshed.steps == plain.steps,
+              f"{arch} one-rank mesh: the Server emits other tokens than one device's")
+        per = ssm_serve_launches(arch, layers, split=False)
+        for name, n in served.items():
+            pre, dec = per.get(name, (0, 0))
+            check(n == pre * len(SSM_TP_PROMPTS) + dec * meshed.steps,
+                  f"{arch} one-rank mesh serve: {name} launched {n}")
+            by_path[SSM_TP_PATH[arch]][name] += n
+        del plain, meshed
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    # (c) two gloo ranks on the one card, a (1, 2) mesh
+    t0 = time.perf_counter()
+    reports = run_two_ranks(300)
+    ranks_s = time.perf_counter() - t0
+    for arch, layers in SSM_TP_LAYERS.items():
+        want = ref[arch]
+        r0 = reports[0][arch]
+        for rank, rep in enumerate(reports):
+            got = rep[arch]
+            check(got["split"], f"{arch} (1, 2): rank {rank}'s mamba2 blocks are not split")
+            for key in ("loss", "grad_norm"):
+                a, b = torch.tensor(got["series"][key]), torch.tensor(want["series"][key])
+                check(len(a) == SSM_TP_STEPS and close(a, b, SSM_TP_LOSS_TOL),
+                      f"{arch} (1, 2) rank {rank}: {key} {a.tolist()} not within "
+                      f"{SSM_TP_LOSS_TOL} of one device's {b.tolist()}")
+            per = ssm_tp_per_step(arch, split=True)
+            for name, n in got["train"].items():
+                check(n == per.get(name, 0) * SSM_TP_STEPS, f"{arch} (1, 2) rank {rank}: "
+                      f"{name} launched {n} in the steps, want {per.get(name, 0) * SSM_TP_STEPS}")
+            per = ssm_serve_launches(arch, layers, split=True)
+            for name, n in got["serve"].items():
+                pre, dec = per.get(name, (0, 0))
+                check(n == pre * len(SSM_TP_PROMPTS) + dec * got["steps"],
+                      f"{arch} (1, 2) rank {rank}: {name} launched {n} in the serve")
+            check(got["tokens"] == r0["tokens"], f"{arch} (1, 2): the ranks' tokens differ")
+        forced = r0["forced"]
+        check(close(forced, want["forced"], SSM_TP_LOGIT_TOL),
+              f"{arch} (1, 2): teacher-forced logits max err {max_err(forced, want['forced'])}")
+        agree = sum(a == b for g, w in zip(r0["tokens"], want["tokens"]) for a, b in zip(g, w))
+        total = sum(len(w) for w in want["tokens"])
+        print(f"ssm tensor-parallel (1, 2): {arch} full width, {layers} layers, two gloo ranks "
+              f"on the one card: step ms {[round(t, 1) for t in r0['walls']]} (one device "
+              f"{want['ms']}) [{card}]; losses {r0['series']['loss']}, one device "
+              f"{want['series']['loss']}; grad norms {r0['series']['grad_norm']}, one device "
+              f"{want['series']['grad_norm']}; teacher-forced logits max err "
+              f"{max_err(forced, want['forced']):.4f} (gate {SSM_TP_LOGIT_TOL}); served tokens "
+              f"equal to one device's {agree} of {total}; launches: steps {r0['train']}, serve "
+              f"{r0['serve']}")
+        by_path[SSM_TP2_PATH[arch]] = {name: r0["train"][name] + r0["serve"][name]
+                                       for name in r0["train"]}
+    print(f"ssm tensor-parallel: phase {time.perf_counter() - t_phase:.1f} s (one-rank mesh "
+          f"{t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
+    return by_path
+
+
 def load_example(name: str):
     """The module of ``examples/<name>.py``."""
     import importlib.util
@@ -3183,15 +3729,15 @@ def phase_launchers(card: str) -> dict:
         a * pre + b * dec for a, b in PATHS[0]["launches"].values()),
         f"launchers: launches {launches}")
 
-    # -- the port's examples, uncounted
-    with tempfile.TemporaryDirectory(dir=build) as ck:
+    # -- the port's examples, uncounted, at EXAMPLE_LAYERS
+    with tempfile.TemporaryDirectory(dir=build) as ck, arch_depth("qwen3-0.6b", EXAMPLE_LAYERS):
         t0 = time.perf_counter()
         load_example("torch_quickstart").main(device="cuda", checkpoint_root=ck)
         torch.cuda.synchronize()
         walls["torch_quickstart"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(dir=build) as ck:
+    with tempfile.TemporaryDirectory(dir=build) as ck, arch_depth("qwen3-0.6b", EXAMPLE_LAYERS):
         t0 = time.perf_counter()
         load_example("torch_hybrid_pipeline").main(device="cuda", checkpoint_dir=ck)
         torch.cuda.synchronize()
@@ -3740,15 +4286,18 @@ def phase_local_sgd_task() -> None:
 
 
 @contextlib.contextmanager
-def arch_depth(arch: str, layers: int):
-    """``configs.get(arch)`` with ``num_layers`` cut to ``layers`` (full width),
-    for the tasks, which name an arch and build their config from the registry."""
+def arch_depth(arch: str, layers: int, encoder_layers: int = 0):
+    """``configs.get(arch)`` with ``num_layers`` cut to ``layers`` (and an
+    encoder's to ``encoder_layers``, where given; full width), for the tasks,
+    which name an arch and build their config from the registry."""
     from repro_torch import configs
     real = configs.get
+    depth = dict(num_layers=layers, **({"encoder_layers": encoder_layers}
+                                      if encoder_layers else {}))
 
     def cut(name):
         cfg = real(name)
-        return dataclasses.replace(cfg, num_layers=layers) if name == arch else cfg
+        return dataclasses.replace(cfg, **depth) if name == arch else cfg
 
     configs.get = cut
     try:
@@ -3810,10 +4359,12 @@ def phase_ssm_tasks() -> None:
 
 
 def phase_encdec_task() -> None:
-    """whisper-medium's train task at full width and depth with a checkpoint (2
-    steps, a checkpoint every 2; a save is ~14 GB) and a strict eval-task restore of
-    it: the launches exactly 2 steps' (the encoder's included), the restored
-    state's eval loss on the Trainer's frames the trained state's own."""
+    """whisper-medium's train task at full width, cut to WHISPER_TASK_LAYERS
+    encoder and decoder layers, with a checkpoint (2 steps, a checkpoint every 2)
+    and a strict eval-task restore of it: the launches exactly 2 steps' (the
+    encoder's included), the restored state's eval loss on the Trainer's frames
+    the trained state's own. (At full depth a save is ~14 GB; the path trains at
+    full depth in ``phase_cut_train``.)"""
     from repro_torch.runtime.step_cache import TrainerCache, run_eval_task, run_train_task
     from repro_torch.runtime.train_loop import TrainJobConfig
 
@@ -3821,7 +4372,9 @@ def phase_encdec_task() -> None:
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     print(f"whisper task: {shutil.disk_usage(build).free / 2**30:.1f} GiB free for checkpoints")
-    with tempfile.TemporaryDirectory(dir=build) as ckdir:
+    L = WHISPER_TASK_LAYERS
+    with tempfile.TemporaryDirectory(dir=build) as ckdir, \
+            arch_depth(WHISPER_TRAIN["arch"], L, encoder_layers=L):
         payload = dict(WHISPER_TRAIN, steps=steps, checkpoint_every=2, checkpoint_dir=ckdir)
         cache = TrainerCache(1)
         trainer = cache.get(TrainJobConfig.from_job({"payload": payload}))
@@ -3836,7 +4389,7 @@ def phase_encdec_task() -> None:
         manifest = json.loads((step_dir / "manifest.json").read_text())
         save_gb = sum(os.path.getsize(step_dir / e["file"])
                       for e in manifest["leaves"].values()) / 1e9
-        print(f"train task {WHISPER_TRAIN['arch']} full width, "
+        print(f"train task {WHISPER_TRAIN['arch']} full width, cut to "
               f"{trainer.arch_cfg.encoder_layers} + {trainer.arch_cfg.num_layers} layers, "
               f"checkpointed: {res} in {wall:.2f} s ({save_gb:.2f} GB a save); losses "
               f"{losses}; launches {launches}")
@@ -3846,7 +4399,7 @@ def phase_encdec_task() -> None:
               f"whisper train task checkpoint {res.get('checkpoint')}")
         check({"params/enc_norm", "params/layers/xattn/wk"} <= set(manifest["leaves"]),
               f"whisper checkpoint leaves {sorted(manifest['leaves'])[:8]}")
-        for name, per in encdec_per_step(WHISPER_LAYERS, WHISPER_LAYERS).items():
+        for name, per in encdec_per_step(L, L).items():
             want = per * steps
             check(launches.get(name, 0) == want,
                   f"whisper train task: {name} launched {launches.get(name, 0)}, want {want}")
@@ -3978,20 +4531,20 @@ def gated_bwd_held(tag: str, mine, theirs, want, dtype) -> int:
 
 
 def phase_sass_against(other: Path, card: str) -> None:
-    """Every kernel of the other checkout's csrc/flash_attention.cu and
-    csrc/rmsnorm.cu (K1's and K2's, built with this checkout's flags) must compile
-    to the same SASS here, but SASS_REPLACED's (named, with the reason); the
-    kernels this checkout adds, and any whose SASS differs, are named. Then K2's
-    gated entries of the two checkouts run in bf16 and are timed in turns (other,
-    this, this, other): the forward through this checkout's wrapper, its output
+    """Every kernel of the other checkout's csrc/flash_attention.cu,
+    csrc/rmsnorm.cu and csrc/ssd_scan.cu (K1's, K2's and K3's, built with this
+    checkout's flags) must compile to the same SASS here, but SASS_REPLACED's
+    (named, with the reason); the kernels this checkout adds, and any whose SASS
+    differs, are named. Then K2's gated entries of the two checkouts run in bf16
+    and are timed in turns (other, this, this, other): the forward through this checkout's wrapper, its output
     bit-equal; the backward through each checkout's own entry (other_gated_bwd),
     every output within K2's bf16 gate and the elements of dy and dz that differ
     counted (gated_bwd_held; dscale is summed in another order)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as RN
-    differ = []
-    for name in ("flash_attention", "rmsnorm"):
-        lib, _ = build_other(other, name)
+    differ, libs = [], {}
+    for name in ("flash_attention", "rmsnorm", "ssd_scan"):
+        libs[name], _ = build_other(other, name)
         theirs = sass_functions(_build.BUILD_DIR / f"other-{name}.so")
         mine = sass_functions(_build.library_path(name))
         changed = [n for n in theirs if mine.get(n) != theirs[n]]
@@ -4008,7 +4561,7 @@ def phase_sass_against(other: Path, card: str) -> None:
         differ += changed
     check(not differ, f"sass-against: SASS differs or is missing for {differ}")
 
-    mine = RN._lib()
+    mine, lib = RN._lib(), libs["rmsnorm"]
     for fn in ("gated_rmsnorm_fwd", "gated_rmsnorm_bwd"):
         getattr(lib, fn).argtypes = getattr(mine, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -4869,8 +5422,8 @@ def main(argv=None) -> int:
                     help="only build the kernels and compare K3's backward with the one "
                          "of another checkout (its root directory), in turns on this card")
     ap.add_argument("--sass-against", type=Path, metavar="CHECKOUT",
-                    help="only build the kernels and check that every K1 and K2 kernel of "
-                         "another checkout compiles to the same SASS here")
+                    help="only build the kernels and check that every K1, K2 and K3 kernel "
+                         "of another checkout compiles to the same SASS here")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4898,7 +5451,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {phase} at {time.perf_counter() - t_start:.1f} s")
 
     rows = [phase_flash(gen), *phase_rmsnorm(gen), phase_ssd(gen), *phase_backward(gen),
-            *phase_ssm_backward(gen)]
+            *phase_ssm_backward(gen), *phase_split_norm(gen)]
     encdec_fwd, encdec_bwd = phase_flash_encdec(gen)
     rows[0]["encdec_vlm"] = encdec_fwd
     next(r for r in rows if r["name"] == "flash_attention_bwd")["encdec_vlm"] = encdec_bwd
@@ -4935,6 +5488,8 @@ def main(argv=None) -> int:
     mark("elastic done")
     by_path[TP_PATH] = phase_tensor_parallel(card)
     mark("tensor-parallel done")
+    by_path.update(phase_ssm_tensor_parallel(card))
+    mark("ssm and hybrid tensor-parallel done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)
@@ -4956,8 +5511,8 @@ def main(argv=None) -> int:
     mark("cells, dry-run and the 100M example done")
     for row in rows:
         # each kernel's launches in the serve and train tasks of the paths that run it
-        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()
-                                   if n[row["name"]]}
+        row["launches_by_path"] = {path: n.get(row["name"], 0) for path, n in by_path.items()
+                                   if n.get(row["name"], 0)}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{row['name']} was never launched on a main path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,8 @@ plain forward. So the CPU tests run the same Function the card runs.
 
 What each saves: q, k, v, o and the forward's LSE for flash attention (O(S), as
 the JAX VJP); the input of the norm for the norms (x; s = x + r for add_rmsnorm;
-y and z for gated_rmsnorm; the pre-norm q and k for qk_norm_rope); the scan's
+y and z for gated_rmsnorm, and over a split row also its rows' summed sum of
+squares; the pre-norm q and k for qk_norm_rope); the scan's
 inputs for the SSD scan, whose backward recomputes the states it needs.
 
 ``ops`` enters these only when autograd is recording and an input requires grad;
@@ -21,6 +22,7 @@ what lets the ``*_cuda`` wrappers refuse to be called with it on.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import on_card
 from repro_torch.kernels import flash_attention as FA
@@ -118,6 +120,40 @@ class GatedRMSNorm(torch.autograd.Function):
         bwd = RN.gated_rmsnorm_bwd_cuda if on_card(y) else RN.gated_rmsnorm_bwd_plain
         dy, dz, dscale = bwd(y, z, scale, dout.contiguous(), eps=ctx.eps)
         return dy, dz, dscale, None
+
+
+class GatedRMSNormSplit(torch.autograd.Function):
+    """rmsnorm(y * silu(z)) of a row whose ``width`` columns are split over the
+    ranks of ``group``, this rank holding y, z [..., D_local] and scale [D_local]:
+    each direction sums a row statistic (f32, one float a row) over the group
+    between its two passes: the sum of t^2 forward, that of dout * scale * t
+    backward. dscale is this rank's columns'. ``group`` None: no sum (the local
+    columns are the whole row)."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps: float, width: int, group):
+        card = on_card(y)
+        ss = RN.gated_rmsnorm_stats_cuda(y, z) if card else RN.gated_rmsnorm_stats_plain(y, z)
+        if group is not None:
+            dist.all_reduce(ss, group=group)
+        norm = RN.gated_rmsnorm_split_cuda if card else RN.gated_rmsnorm_split_plain
+        out = norm(y, z, scale, ss, width, eps=eps)
+        ctx.save_for_backward(y, z, scale, ss)
+        ctx.eps, ctx.width, ctx.group = eps, width, group
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale, ss = ctx.saved_tensors
+        dout = dout.contiguous()
+        card = on_card(y)
+        dot = (RN.gated_rmsnorm_split_dot_cuda if card else RN.gated_rmsnorm_split_dot_plain)(
+            y, z, scale, dout)
+        if ctx.group is not None:
+            dist.all_reduce(dot, group=ctx.group)
+        bwd = RN.gated_rmsnorm_split_bwd_cuda if card else RN.gated_rmsnorm_split_bwd_plain
+        dy, dz, dscale = bwd(y, z, scale, dout, ss, dot, ctx.width, eps=ctx.eps)
+        return dy, dz, dscale, None, None, None
 
 
 class SSDScan(torch.autograd.Function):

@@ -1490,6 +1490,220 @@ QkArgs<T> qk_args(const void* q, const void* k, const void* q_scale, const void*
   return a;
 }
 
+
+// ------------------------------------------------ the gated norm over a split row
+// gated_rmsnorm of a row whose D columns lie on M ranks, each holding D_local of
+// them (mamba2's d_inner split over the "model" axis of a mesh; the JAX package's
+// GSPMD sums the row's squares across the shards in f32). A row's sums cross the
+// ranks, so each direction is two passes with an f32 all-reduce of one float a
+// row between them, which the caller runs (kernels/autograd.py):
+//   forward   gated_split_sums_kernel<SUM_SQUARES>: ss = the sum of t^2 over the
+//             local columns, t = T(y * T(silu(z))) formed as GatedOp::pre forms it;
+//             [ss summed over the ranks]
+//             gated_split_norm_kernel: out = T(t * rstd * w), rstd = rsqrt(ss / D
+//             + eps) with the whole row's D, as rows_kernel forms it.
+//   backward  gated_split_sums_kernel<SUM_DOT>: dot = the sum of dout * w * t over
+//             the local columns;
+//             [dot summed over the ranks]
+//             gated_split_bwd_kernel: dt = T(rstd dout w - t rstd^3 dot / D), then
+//             dy = T(dt * T(silu(z))) and dz = T(silu'(z) * T(dt * y)) as
+//             gated_bwd_kernel forms them; each block's dscale terms over its rows
+//             (f64 for f32 inputs, f32 for bf16: AccOf) into one f64 row of the
+//             scratch, then gated_fold_kernel sums those rows in row order. No
+//             atomics on values: two runs give the same bits.
+// New kernels beside the one-launch ones, which a row on one rank keeps.
+// What bounds them on the H100: bytes, as the one-launch kernels. t is formed
+// twice each way (the second pass reads y and z again): the forward moves 3 x the
+// row's bytes where rows_kernel moves 3 (y, z in; out) and reads 2 more, the
+// backward 5 + 3 where gated_bwd_kernel moves 5. A simple design: the row passes
+// give a warp a row (16-byte vectors, the lanes' partial sums by xor shuffles); the
+// backward's finish gives a thread a 16-byte column of the row in every row its
+// block takes, so its dscale terms stay in registers until its last row.
+constexpr int SPLIT_THREADS = 256;   // a block of the row passes: 8 rows at a time
+constexpr int SUM_SQUARES = 0, SUM_DOT = 1;
+
+// t = T(y * T(silu(z))) of a vector, as GatedOp::pre rounds it
+template <typename T>
+__device__ __forceinline__ void gate_product(const float* yf, const float* zf, float* t) {
+#pragma unroll
+  for (int k = 0; k < Vec<T>::N; ++k)
+    t[k] = round_to<T>(__fmul_rn(yf[k], gate_silu<T>(zf[k])));
+}
+
+// out[row] = the sum over the row's nvec local vectors of t^2 (SUM_SQUARES) or of
+// dout * w * t (SUM_DOT), a warp a row, rounded to f32 once. The terms and sums in
+// AccOf<T>: for f32 inputs a lane's sequential f32 sum of 80 terms (a 2,560-wide
+// local row) is ~2e-5 off, past K2's 1e-5 where dout * w * t cancels, so f32
+// inputs sum in f64, as the one-launch backward's row math does
+template <typename T, int WHAT>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+gated_split_sums_kernel(const T* __restrict__ y, const T* __restrict__ z,
+                        const T* __restrict__ dout, const T* __restrict__ scale,
+                        float* __restrict__ out, long long rows, int nvec) {
+  constexpr int VEC = Vec<T>::N;
+  using Acc = typename AccOf<T>::type;
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * (SPLIT_THREADS / 32);
+  for (long long row = (long long)blockIdx.x * (SPLIT_THREADS / 32) + (threadIdx.x >> 5);
+       row < rows; row += step) {
+    Acc s = 0;
+    for (int i = lane; i < nvec; i += 32) {
+      float yf[VEC], zf[VEC], t[VEC];
+      widen<T>(ld16(y, row * nvec + i), yf);
+      widen<T>(ld16(z, row * nvec + i), zf);
+      gate_product<T>(yf, zf, t);
+      if constexpr (WHAT == SUM_DOT) {
+        float gf[VEC], w[VEC];
+        widen<T>(ld16(dout, row * nvec + i), gf);
+        widen<T>(ld16(scale, i), w);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) s += (Acc)gf[k] * w[k] * t[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) s += (Acc)t[k] * t[k];
+      }
+    }
+    s = group_sum(s, 32);
+    if (lane == 0) out[row] = (float)s;
+  }
+}
+
+// out = T(t * rstd * w) from the whole row's ss, a warp a row
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+gated_split_norm_kernel(const T* __restrict__ y, const T* __restrict__ z,
+                        const T* __restrict__ scale, const float* __restrict__ ss,
+                        T* __restrict__ out, long long rows, int nvec, float inv_d, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * (SPLIT_THREADS / 32);
+  for (long long row = (long long)blockIdx.x * (SPLIT_THREADS / 32) + (threadIdx.x >> 5);
+       row < rows; row += step) {
+    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(ss[row], inv_d), eps));
+    for (int i = lane; i < nvec; i += 32) {
+      float yf[VEC], zf[VEC], t[VEC], w[VEC];
+      widen<T>(ld16(y, row * nvec + i), yf);
+      widen<T>(ld16(z, row * nvec + i), zf);
+      widen<T>(ld16(scale, i), w);
+      gate_product<T>(yf, zf, t);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) t[k] = __fmul_rn(__fmul_rn(t[k], rstd), w[k]);
+      put16(out, row * nvec + i, pack<T>(t));
+    }
+  }
+}
+
+template <typename T>
+struct SplitBwd {
+  const T* y;
+  const T* z;
+  const T* dout;
+  const T* scale;
+  const float* ss;          // the whole row's sum of t^2 (the forward's)
+  const float* dot;         // the whole row's sum of dout * w * t
+  T* dy;
+  T* dz;
+  long long rows;
+  int nvec;
+  float inv_d, eps;
+};
+
+// Thread (blockIdx.y * blockDim.x + threadIdx.x) owns that 16-byte column of the
+// local row; block x takes rows x, x + gridDim.x, ... and writes its f64 row of
+// dscale terms to rows_out[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+gated_split_bwd_kernel(SplitBwd<T> a, double* __restrict__ rows_out) {
+  constexpr int VEC = Vec<T>::N;
+  using Acc = typename AccOf<T>::type;
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;
+  if (i >= a.nvec) return;
+  Acc acc[VEC];
+  float w[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0;
+  widen<T>(ld16(a.scale, i), w);
+  for (long long row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(a.ss[row], a.inv_d), a.eps));
+    const float coef = rstd * rstd * rstd * a.dot[row] * a.inv_d;
+    const long long at = row * a.nvec + i;
+    float yf[VEC], zf[VEC], gf[VEC], dy[VEC], dz[VEC];
+    widen<T>(ld16(a.y, at), yf);
+    widen<T>(ld16(a.z, at), zf);
+    widen<T>(ld16(a.dout, at), gf);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float e = expf(-zf[k]);
+      const float sf = silu_of<T>(zf[k], e);
+      const float sig = __fdividef(1.0f, 1.0f + e);
+      const float t = round_to<T>(__fmul_rn(yf[k], sf));
+      acc[k] += (Acc)gf[k] * t * (Acc)rstd;
+      const float dt = round_to<T>(rstd * gf[k] * w[k] - t * coef);
+      dz[k] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[k])),
+                        __fmul_rn(sig, 1.0f + zf[k] * (1.0f - sig)));
+      dy[k] = __fmul_rn(dt, sf);
+    }
+    put16(a.dz, at, pack<T>(dz));
+    put16(a.dy, at, pack<T>(dy));
+  }
+  double* out = rows_out + (long long)blockIdx.x * a.nvec * VEC + (long long)i * VEC;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) out[k] = (double)acc[k];
+}
+
+// a grid of the row passes: a warp a row, at most eight blocks an SM
+unsigned split_grid(long long rows) {
+  const long long blocks = (rows + SPLIT_THREADS / 32 - 1) / (SPLIT_THREADS / 32);
+  const long long cap = 8LL * sm_count();
+  return (unsigned)(blocks < cap ? blocks : cap);
+}
+
+template <typename T, int WHAT>
+cudaError_t launch_split_sums(const void* y, const void* z, const void* dout, const void* scale,
+                              void* out, long long rows, int D, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  if (rows <= 0 || D <= 0 || D % VEC) return cudaErrorInvalidValue;
+  gated_split_sums_kernel<T, WHAT><<<split_grid(rows), SPLIT_THREADS, 0, s>>>(
+      (const T*)y, (const T*)z, (const T*)dout, (const T*)scale, (float*)out, rows, D / VEC);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_split_norm(const void* y, const void* z, const void* scale, const void* ss,
+                              void* out, long long rows, int D, int width, float eps,
+                              cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  if (rows <= 0 || D <= 0 || D % VEC || width < D) return cudaErrorInvalidValue;
+  gated_split_norm_kernel<T><<<split_grid(rows), SPLIT_THREADS, 0, s>>>(
+      (const T*)y, (const T*)z, (const T*)scale, (const float*)ss, (T*)out, rows, D / VEC,
+      1.0f / (float)width, eps);
+  return cudaGetLastError();
+}
+
+// the finish's grid: y = the column blocks of a row (at most SPLIT_THREADS threads
+// each, as even as a warp's multiple allows), x = the row blocks, about four
+// blocks an SM in all and at most max_rows (the scratch's rows); then the fold
+template <typename T>
+cudaError_t launch_split_bwd(SplitBwd<T> a, T* dscale, double* scratch, int max_rows, int D,
+                             int width, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  if (a.rows <= 0 || D <= 0 || D % VEC || width < D || max_rows <= 0)
+    return cudaErrorInvalidValue;
+  a.nvec = D / VEC;
+  a.inv_d = 1.0f / (float)width;
+  const int cols = (a.nvec + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  const int threads = ((a.nvec + cols - 1) / cols + 31) / 32 * 32;
+  long long blocks = (4LL * sm_count() + cols - 1) / cols;
+  if (blocks > a.rows) blocks = a.rows;
+  if (blocks > max_rows) blocks = max_rows;
+  double* rows = scratch + FOLD_COUNTERS / 2;
+  gated_split_bwd_kernel<T><<<dim3((unsigned)blocks, (unsigned)cols), threads, 0, s>>>(a, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gated_fold_kernel<T><<<(D + 31) / 32, 32 * GATED_SLICES, 0, s>>>(rows, (int)blocks, D, dscale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point: contiguous, 16-byte aligned tensors of one dtype (0 = f32,
@@ -1671,6 +1885,70 @@ extern "C" int qk_norm_rope_bwd(const void* q, const void* k, const void* q_scal
     return (int)launch_qk_bwd(qk_args<Bf>(q, k, q_scale, k_scale, dq, dk, positions, pos_sb,
                                           pos_ss, inv_freq, B, S, H, K, eps),
                               gr, p, max_blocks, hd, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// gated_rmsnorm over a split row (see "the gated norm over a split row" above): y, z
+// [rows, D] this rank's D columns of rows `width` wide, scale its [D]; ss, dot and
+// the sums are f32 [rows]. gated_rmsnorm_split_bwd's scratch is gated_rmsnorm_bwd's:
+// FOLD_COUNTERS / 2 doubles (unused), then max_rows rows of D doubles; two launches.
+extern "C" int gated_rmsnorm_split_stats(const void* y, const void* z, void* ss, long long rows,
+                                         int D, int dtype, int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_split_sums<float, SUM_SQUARES>(y, z, nullptr, nullptr, ss, rows, D, s);
+  if (dtype == 1)
+    return (int)launch_split_sums<__nv_bfloat16, SUM_SQUARES>(y, z, nullptr, nullptr, ss, rows,
+                                                              D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gated_rmsnorm_split_fwd(const void* y, const void* z, const void* scale,
+                                       const void* ss, void* out, long long rows, int D,
+                                       int width, float eps, int dtype, int device,
+                                       void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_split_norm<float>(y, z, scale, ss, out, rows, D, width, eps, s);
+  if (dtype == 1)
+    return (int)launch_split_norm<__nv_bfloat16>(y, z, scale, ss, out, rows, D, width, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gated_rmsnorm_split_dot(const void* y, const void* z, const void* scale,
+                                       const void* dout, void* dot, long long rows, int D,
+                                       int dtype, int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_split_sums<float, SUM_DOT>(y, z, dout, scale, dot, rows, D, s);
+  if (dtype == 1)
+    return (int)launch_split_sums<__nv_bfloat16, SUM_DOT>(y, z, dout, scale, dot, rows, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gated_rmsnorm_split_bwd(const void* y, const void* z, const void* scale,
+                                       const void* dout, const void* ss, const void* dot,
+                                       void* dy, void* dz, void* dscale, void* scratch,
+                                       int max_rows, long long rows, int D, int width,
+                                       float eps, int dtype, int device, void* stream) {
+  DeviceScope scope(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* p = static_cast<double*>(scratch);
+  if (dtype == 0)
+    return (int)launch_split_bwd<float>(
+        SplitBwd<float>{(const float*)y, (const float*)z, (const float*)dout,
+                        (const float*)scale, (const float*)ss, (const float*)dot, (float*)dy,
+                        (float*)dz, rows, 0, 0.f, eps},
+        (float*)dscale, p, max_rows, D, width, s);
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    return (int)launch_split_bwd<B>(
+        SplitBwd<B>{(const B*)y, (const B*)z, (const B*)dout, (const B*)scale,
+                    (const float*)ss, (const float*)dot, (B*)dy, (B*)dz, rows, 0, 0.f, eps},
+        (B*)dscale, p, max_rows, D, width, s);
   }
   return (int)cudaErrorInvalidValue;
 }

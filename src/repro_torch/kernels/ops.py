@@ -8,7 +8,7 @@ PyTorch on both devices.
 
 Training: when autograd is recording and an input requires grad,
 ``flash_attention``, ``rmsnorm``, ``add_rmsnorm``, ``gated_rmsnorm``,
-``qk_norm_rope`` and ``ssd_scan`` go through their autograd Function
+``gated_rmsnorm_split``, ``qk_norm_rope`` and ``ssd_scan`` go through their autograd Function
 (``kernels/autograd.py``: the kernels both ways on the card, the plain forward and
 explicit backward on the CPU); otherwise, as on every serving call, they call the
 kernel directly, without ``Function.apply``'s host cost.
@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import on_card as _on_card
 from repro_torch.kernels import autograd as AG
@@ -78,6 +79,25 @@ def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
         return RN.gated_rmsnorm_cuda(y.contiguous(), z.contiguous(), scale.contiguous(),
                                      eps=eps)
     return RN.gated_rmsnorm_plain(y, z, scale, eps=eps)
+
+
+def gated_rmsnorm_split(y, z, scale, width: int, group, *, eps: float = 1e-6):
+    """mamba2's gated norm over rows of ``width`` columns split over the ranks of
+    ``group`` (a process group; None: y holds the whole row): y, z [..., D_local]
+    and scale [D_local] are this rank's columns. Each row's f32 sum of squares is
+    summed over the group between the two launches."""
+    if _recording(y, z, scale):
+        if _on_card(y):
+            y, z, scale = y.contiguous(), z.contiguous(), scale.contiguous()
+        return AG.GatedRMSNormSplit.apply(y, z, scale, eps, width, group)
+    card = _on_card(y)
+    if card:
+        y, z, scale = y.contiguous(), z.contiguous(), scale.contiguous()
+    ss = RN.gated_rmsnorm_stats_cuda(y, z) if card else RN.gated_rmsnorm_stats_plain(y, z)
+    if group is not None:
+        dist.all_reduce(ss, group=group)
+    norm = RN.gated_rmsnorm_split_cuda if card else RN.gated_rmsnorm_split_plain
+    return norm(y, z, scale, ss, width, eps=eps)
 
 
 def qk_norm_rope(q, k, q_scale, k_scale, positions, theta: float, *, eps: float = 1e-6):

@@ -12,6 +12,15 @@ before or after it, each fusion rounding where the unfused sequence rounds:
 - ``gated_rmsnorm``: mamba2's gate ``y * silu(z)`` before ``gate_norm``.
 - ``qk_norm_rope``: q-norm and k-norm, then RoPE on q and k, in one launch.
 
+``gated_rmsnorm`` over a row split over ranks (mamba2's d_inner over a mesh's
+"model" axis) has entries of its own, two passes a direction with the row's f32
+sum summed over the ranks between them (``autograd.GatedRMSNormSplit`` runs the
+all-reduce): ``gated_rmsnorm_stats`` (each local row's sum of t^2, t = y *
+silu(z)), ``gated_rmsnorm_split`` (the norm from the whole row's sum, over the
+whole width), ``gated_rmsnorm_split_dot`` (the backward's sum of dout * scale *
+t) and ``gated_rmsnorm_split_bwd`` (dy, dz and the local columns' dscale from
+both sums). A row on one rank keeps the one-launch entries.
+
 Each ``*_plain`` is exactly the sequence of PyTorch ops the model ran before the
 fusion, so the CPU path computes bit for bit what it computed then.
 
@@ -124,6 +133,51 @@ def qk_norm_rope_bwd_plain(q, k, q_scale, k_scale, positions, theta: float, dq_o
     return dq, dk, dq_scale, dk_scale
 
 
+# ------------------------------------------- plain versions, the gate over a split row
+def _gate(y, z):
+    """t = y * silu(z), silu in f32 rounded to y's dtype, the product in y's dtype."""
+    return y * F.silu(widen(z)).to(y.dtype)
+
+
+@plain_kernel
+def gated_rmsnorm_stats_plain(y, z):
+    """Each row's f32 sum of t^2 over this rank's columns of y, z [..., D_local]."""
+    t = widen(_gate(y, z))
+    return (t * t).sum(dim=-1)
+
+
+@plain_kernel
+def gated_rmsnorm_split_plain(y, z, scale, ss, width: int, *, eps: float = 1e-6):
+    """``gated_rmsnorm`` of this rank's columns from ``ss`` [...], the f32 sum of t^2
+    over the whole row of ``width`` columns: t * rsqrt(ss / width + eps) * scale."""
+    rstd = torch.rsqrt(ss[..., None] / width + eps)
+    return (widen(_gate(y, z)) * rstd * widen(scale)).to(y.dtype)
+
+
+@plain_kernel
+def gated_rmsnorm_split_dot_plain(y, z, scale, dout):
+    """Each row's f32 sum of dout * scale * t over this rank's columns."""
+    return (widen(dout) * widen(scale) * widen(_gate(y, z))).sum(dim=-1)
+
+
+@plain_kernel
+def gated_rmsnorm_split_bwd_plain(y, z, scale, dout, ss, dot, width: int, *,
+                                  eps: float = 1e-6):
+    """(dy, dz, dscale) of this rank's columns, ``gated_rmsnorm_bwd_plain``'s
+    formula with the whole row's sums: ``ss`` of t^2 and ``dot`` of dout * scale *
+    t over its ``width`` columns; dscale summed over the rows, local columns."""
+    zf = widen(z)
+    silu = F.silu(zf).to(y.dtype)
+    tf = widen(y * silu)
+    rstd = torch.rsqrt(ss[..., None] / width + eps)
+    g = widen(dout) * widen(scale)
+    dt = (rstd * g - tf * (rstd ** 3) * (dot[..., None] / width)).to(y.dtype)
+    dscale = (widen(dout) * tf * rstd).reshape(-1, y.shape[-1]).sum(dim=0)
+    sig = torch.sigmoid(zf)
+    dz = widen(dt * y) * (sig * (1 + zf * (1 - sig)))
+    return dt * silu, dz.to(z.dtype), dscale.to(scale.dtype)
+
+
 # ------------------------------------------------------------------------- kernel
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -139,6 +193,10 @@ def _lib() -> ctypes.CDLL:
         "add_rmsnorm_bwd": [P] * 7 + [I, L, I] + tail,
         "gated_rmsnorm_bwd": [P] * 8 + [I, L, I] + tail,
         "qk_norm_rope_bwd": [P] * 7 + [L, L] + [P] * 6 + [I] * 6 + tail,
+        "gated_rmsnorm_split_stats": [P] * 3 + [L, I] + [I, I, P],
+        "gated_rmsnorm_split_fwd": [P] * 5 + [L, I, I] + tail,
+        "gated_rmsnorm_split_dot": [P] * 5 + [L, I] + [I, I, P],
+        "gated_rmsnorm_split_bwd": [P] * 10 + [I, L, I, I] + tail,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -437,7 +495,110 @@ def qk_norm_rope_bwd_cuda(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tenso
     return dq, dk, dq_scale, dk_scale
 
 
+# ------------------------------------------------- the gate over a split row, on the card
+def _split_args(name: str, y, z, scale, width: int, *more) -> int:
+    """Check a split-row entry's inputs: y, z (and the cotangent) [..., D] of one
+    shape, scale [D], D <= width; returns D."""
+    D = _norm_args(name, y, scale)
+    if z.shape != y.shape or any(t.shape != y.shape for t in more):
+        raise ValueError(f"{name}: y {tuple(y.shape)}, z {tuple(z.shape)} and "
+                         f"{[tuple(t.shape) for t in more]} differ")
+    if width < D:
+        raise ValueError(f"{name}: the whole row's width {width} is below its local {D}")
+    _check(name, D, y, z, scale, *more)
+    return D
+
+
+def _row_sums(name: str, y, *sums) -> None:
+    """Check f32 row sums [...] of y's rows on its card."""
+    for t in sums:
+        if t.shape != y.shape[:-1] or t.dtype != torch.float32 or t.device != y.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: row sums must be contiguous f32 {tuple(y.shape[:-1])} "
+                             f"on {y.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def gated_rmsnorm_stats_cuda(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 sum of t^2, t = y * silu(z), over the local columns, on the
+    card: y, z [..., D_local]; returns [...] f32."""
+    refuse_grad("gated_rmsnorm_stats_cuda", y, z)
+    D = y.shape[-1] if y.dim() else 0
+    if z.shape != y.shape:
+        raise ValueError(f"gated_rmsnorm_stats_cuda: y {tuple(y.shape)} and z "
+                         f"{tuple(z.shape)} differ")
+    _check("gated_rmsnorm_stats_cuda", D, y, z)
+    ss = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    if y.numel():
+        err = _lib().gated_rmsnorm_split_stats(y.data_ptr(), z.data_ptr(), ss.data_ptr(),
+                                               y.numel() // D, D, _DTYPE_CODE[y.dtype],
+                                               y.device.index, _stream(y))
+        _launched("gated_rmsnorm_split_stats", gated_rmsnorm_stats_cuda, err)
+    return ss
+
+
+def gated_rmsnorm_split_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                             ss: torch.Tensor, width: int, *, eps: float = 1e-6) -> torch.Tensor:
+    """This rank's columns of rmsnorm(y * silu(z)) over rows ``width`` wide, on the
+    card, from ``ss``, each row's f32 sum of t^2 over the whole row."""
+    refuse_grad("gated_rmsnorm_split_cuda", y, z, scale)
+    D = _split_args("gated_rmsnorm_split_cuda", y, z, scale, width)
+    _row_sums("gated_rmsnorm_split_cuda", y, ss)
+    out = torch.empty_like(y)
+    if y.numel():
+        err = _lib().gated_rmsnorm_split_fwd(y.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                                             ss.data_ptr(), out.data_ptr(), y.numel() // D, D,
+                                             int(width), eps, _DTYPE_CODE[y.dtype],
+                                             y.device.index, _stream(y))
+        _launched("gated_rmsnorm_split_fwd", gated_rmsnorm_split_cuda, err)
+    return out
+
+
+def gated_rmsnorm_split_dot_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                                 dout: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 sum of dout * scale * t over the local columns, on the card."""
+    refuse_grad("gated_rmsnorm_split_dot_cuda", y, z, scale, dout)
+    D = _split_args("gated_rmsnorm_split_dot_cuda", y, z, scale, y.shape[-1] if y.dim() else 0,
+                    dout)
+    dot = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    if y.numel():
+        err = _lib().gated_rmsnorm_split_dot(y.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                                             dout.data_ptr(), dot.data_ptr(), y.numel() // D, D,
+                                             _DTYPE_CODE[y.dtype], y.device.index, _stream(y))
+        _launched("gated_rmsnorm_split_dot", gated_rmsnorm_split_dot_cuda, err)
+    return dot
+
+
+def gated_rmsnorm_split_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                                 dout: torch.Tensor, ss: torch.Tensor, dot: torch.Tensor,
+                                 width: int, *, eps: float = 1e-6):
+    """(dy, dz, dscale) of this rank's columns on the card from the whole row's
+    sums ``ss`` and ``dot``; dscale summed over the rows. Two launches: the rows,
+    each block's dscale terms into a scratch row, then gated_rmsnorm_bwd's fold."""
+    refuse_grad("gated_rmsnorm_split_bwd_cuda", y, z, scale, dout)
+    D = _split_args("gated_rmsnorm_split_bwd_cuda", y, z, scale, width, dout)
+    _row_sums("gated_rmsnorm_split_bwd_cuda", y, ss, dot)
+    dy, dz, dscale = torch.empty_like(y), torch.empty_like(z), torch.empty_like(scale)
+    if not y.numel():
+        return dy, dz, dscale.zero_()
+    rows = split_rows(_sm_count(y.device))
+    scratch = _scratch(y, rows, D)
+    err = _lib().gated_rmsnorm_split_bwd(
+        y.data_ptr(), z.data_ptr(), scale.data_ptr(), dout.data_ptr(), ss.data_ptr(),
+        dot.data_ptr(), dy.data_ptr(), dz.data_ptr(), dscale.data_ptr(), scratch.data_ptr(),
+        rows, y.numel() // D, D, int(width), eps, _DTYPE_CODE[y.dtype], y.device.index,
+        _stream(y))
+    _launched("gated_rmsnorm_split_bwd", gated_rmsnorm_split_bwd_cuda, err)
+    return dy, dz, dscale
+
+
+def split_rows(sms: int) -> int:
+    """f64 rows the split-row backward writes at most on a card of ``sms`` SMs:
+    one a row block of its finish, about four blocks an SM."""
+    return 4 * sms
+
+
 for _wrapper in (rmsnorm_cuda, add_rmsnorm_cuda, gated_rmsnorm_cuda, qk_norm_rope_cuda,
                  rmsnorm_bwd_cuda, add_rmsnorm_bwd_cuda, gated_rmsnorm_bwd_cuda,
-                 qk_norm_rope_bwd_cuda):
+                 qk_norm_rope_bwd_cuda, gated_rmsnorm_stats_cuda, gated_rmsnorm_split_cuda,
+                 gated_rmsnorm_split_dot_cuda, gated_rmsnorm_split_bwd_cuda):
     _wrapper.launches = 0

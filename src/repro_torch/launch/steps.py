@@ -28,15 +28,16 @@ in ``state`` need not require grad: the step differentiates detached views of
 them, and ``adamw_update`` writes the new values into the same tensors in place,
 so the state is updated in place and returned.
 
-On DTensor params (the dense family on a ``DeviceMesh``, twin of the JAX
-package's step on a mesh): each rank differentiates its compute shards
-(``Model.shard_params``) on its rows of the batch; the local gradients are
-accumulated over the microbatches in ``accum_dtype`` as on one card, summed over
-the batch axes (``Model._rows``' axes) and laid out as DTensors on the params'
-placements (a view: the compute layout splits no more than theirs), which
-``adamw_update`` reads in the optimizer's layout. With ``zero2_accum`` each
-microbatch's gradients are summed over the batch axes and accumulated in the
-optimizer's (ZeRO) layout instead, as the JAX step lays its accumulator.
+On DTensor params (the dense, ssm and hybrid families on a ``DeviceMesh``, twin
+of the JAX package's step on a mesh; every leaf alike): each rank differentiates
+its compute shards (``Model.shard_params``) on its rows of the batch; the local
+gradients are accumulated over the microbatches in ``accum_dtype`` as on one
+card, summed over the batch axes (``Model._rows``' axes) and laid out as DTensors
+on the params' placements (a view: the compute layout splits no more than
+theirs), which ``adamw_update`` reads in the optimizer's layout. With
+``zero2_accum`` each microbatch's gradients are summed over the batch axes and
+accumulated in the optimizer's (ZeRO) layout instead, as the JAX step lays its
+accumulator.
 """
 from __future__ import annotations
 
@@ -205,9 +206,10 @@ def abstract_train_state(cfg: ArchConfig) -> dict:
 
 
 def init_train_state(model: Model, seed: int) -> dict:
-    """The initial train state from ``seed``; for the dense family on a
-    ``DeviceMesh``, laid out by ``train_state_specs`` (DTensors: each rank draws
-    the whole state and keeps its shards)."""
+    """The initial train state from ``seed``; for the dense, ssm and hybrid
+    families on a ``DeviceMesh`` (``Model.ranked``), laid out by
+    ``train_state_specs`` (DTensors: each rank draws the whole state and keeps its
+    shards)."""
     params = model.init_params(seed)
     state = {"params": params, "opt": init_opt_state(params)}
     if not model.ranked:

@@ -1,1 +1,2 @@
-"""Model definitions of the PyTorch port (dense family in this slice)."""
+"""Model definitions of the PyTorch port: all six families, tensor- and
+data-parallel on a mesh for the dense, ssm and hybrid families."""

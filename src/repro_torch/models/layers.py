@@ -5,7 +5,8 @@ Parameters arrive as the dicts of ``models.params``. On one card every sharding
 constraint of the JAX package is the identity, and the dots keep their natural
 output dtype (the serving path's ``reduce_dtype`` is None).
 
-Tensor parallelism over "model" (the dense family on a multi-rank mesh): a layer
+Tensor parallelism over "model" (the dense layers and the hybrid's shared block
+on a multi-rank mesh; the mamba2 block's is in ``models/ssm.py``): a layer
 given ``tp`` (``parallel.sharding.TensorParallel``) takes each rank's local shards
 of the weights and runs at the JAX package's ``constrain`` sites the collectives
 of ``parallel/sharding.py``, Megatron-LM's way. ``swiglu`` is column-parallel in

@@ -71,13 +71,14 @@ out by its rules (the cache's logical axes are the JAX package's, declared in
 ``cache_defs``). On a one-device plan every layout is the identity and the code
 above runs as it is.
 
-Tensor and data parallelism (the dense family on a plan over a ``DeviceMesh``):
-the params are DTensors laid out by ``param_specs``. Every entry point works on
-this rank's shards in the compute layout (``shard_params``: the "model" splits
-of heads, kv heads, ffn and vocab, ``parallel.sharding.compute_spec``; any other
-split gathered) and on its rows of the batch (``_rows``: a DTensor leaf's rows by
-its placements, a plain leaf holds the whole batch and each rank takes its rows
-by the "batch" rule), and the layers run the collectives of
+Tensor and data parallelism (the dense, ssm and hybrid families on a plan over a
+``DeviceMesh``: ``ranked``): the params are DTensors laid out by
+``param_specs``. Every entry point works on this rank's shards in the compute
+layout (``shard_params``: the "model" splits of heads, kv heads, ffn, vocab and
+ssm heads, ``parallel.sharding.compute_spec``; any other split gathered) and
+on its rows of the batch (``_rows``: a DTensor leaf's rows by its placements, a
+plain leaf holds the whole batch and each rank takes its rows by the "batch"
+rule), and the layers run the collectives of
 ``parallel/sharding.py`` at the JAX package's ``constrain`` sites, with
 ``self.tp`` (``TensorParallel``). ``_embed`` is a vocab-parallel lookup (a masked
 local gather, summed over "model"); ``_unembed`` gives vocab-split logits,
@@ -93,11 +94,20 @@ taken to be this rank's compute shards (the train step's gradient leaves).
 own cache positions for all heads (``ops.attend_cache_part``), the partial
 softmaxes are combined across "model" by log-sum-exp (``_lse_combine``; a rank
 with no live position adds zero weight), and each rank keeps its heads for the
-row-parallel ``wo``; gemma3's ring takes the same combine over its slots. On a
-one-rank mesh every axis has size 1: no collective runs and the code is the
-one-card code op for op. The other families' DTensor params take ``forward``'s
-gather route (``_sharded_forward``); loss, prefill and decode on them are
-refused (ROADMAP §1 item 2).
+row-parallel ``wo``; gemma3's ring takes the same combine over its slots. A
+mamba2 layer (ssm, and the hybrid's; ``models/ssm.py``) splits d_inner and its
+heads over "model" where the axis divides both, and the hybrid's shared block is
+the dense layers' code. Its decode state is computed in its own layout (the
+rank's heads of the SSD state; a conv tail of the rank's xs channels and all of
+B and C) and handed out in the JAX package's ``cache_specs`` layout, whose
+"ffn" rule splits the conv tail's channels [xs | B | C] into contiguous slices:
+prefill lays the tails out (``_conv_laid_out``: the xs channels gathered over
+"model", the rank's slice cut), and a decode step takes them back into its
+layout (``_conv_computed``) and lays the new tails out again, two all-gathers of
+the tails a step. On a one-rank mesh every axis has size 1: no collective runs
+and the code is the one-card code op for op. The moe, encdec and vlm families'
+DTensor params take ``forward``'s gather route (``_sharded_forward``); loss,
+prefill and decode on them are refused (ROADMAP §1 items 2-4).
 """
 from __future__ import annotations
 
@@ -119,10 +129,10 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (TensorDef, abstract_params, init_params, param_defs,
                                        partition_specs)
-from repro_torch.parallel.sharding import (MeshPlan, OneDeviceMesh, TensorParallel, as_dtensor,
-                                           compute_spec, copy_to, gather_along, local_range,
-                                           max_over, placements, reduce_from, relayout,
-                                           sum_over)
+from repro_torch.parallel.sharding import (MeshPlan, OneDeviceMesh, PartitionSpec,
+                                           TensorParallel, as_dtensor, compute_spec, copy_to,
+                                           gather_along, local_range, max_over, placements,
+                                           reduce_from, relayout, sum_over)
 from repro_torch.tree import tree_leaves, tree_map
 
 REMAT_MODES = ("none", "dots", "full")
@@ -130,12 +140,21 @@ REMAT_MODES = ("none", "dots", "full")
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
+# the families whose layers are tensor-parallel on a DeviceMesh (``Model.ranked``)
+TP_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def _refuse_sharded(cfg: ArchConfig, params: dict, what: str) -> None:
-    if isinstance(params["embed"], DTensor) and cfg.family != "dense":
+    if isinstance(params["embed"], DTensor) and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{what} of the {cfg.family} family on DTensor params is not in the port: "
-            "tensor parallelism covers the dense family (ROADMAP §1 item 2); the other "
-            "families have only forward's gather route")
+            "tensor parallelism covers the dense, ssm and hybrid families (ROADMAP §1 "
+            "items 2-4); moe, encdec and vlm have only forward's gather route")
+
+
+def _split(spec, dim: int) -> bool:
+    """Whether ``spec`` splits tensor dim ``dim`` over "model" (a compute spec)."""
+    return dim < len(spec) and spec[dim] == "model"
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -421,34 +440,42 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
 
 # --------------------------------------------------------------------- ssm stacks
 def _ssm_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, d: Optional[torch.Tensor],
-               state: Optional[dict] = None):
+               state: Optional[dict] = None, tp: Optional[TensorParallel] = None):
     """One mamba2 layer on the stream x + d. Returns (x, its un-added output, its
     new state {"conv", "ssd"}); with ``state`` (decode) the new state is also
-    written into it in place."""
+    written into it in place. Under ``tp`` the state is in the compute layout
+    (``ssm.ssm_block``)."""
     x, h = _add_norm(x, d, lp["ln1"], cfg.norm_eps)
-    y, new = SSM.ssm_block(cfg, lp["ssm"], h, state=state)
+    y, new = SSM.ssm_block(cfg, lp["ssm"], h, state=state, tp=tp)
     if state is not None:
         for n in ("conv", "ssd"):
             state[n].copy_(new[n])
     return x, y, new
 
 
-def _stack_states(cfg: ArchConfig, states: list, lead: Tuple[int, ...], x: torch.Tensor):
+def _stack_states(cfg: ArchConfig, states: list, lead: Tuple[int, ...], x: torch.Tensor,
+                  tp: Optional[TensorParallel] = None):
     """The per-layer states {"conv", "ssd"} of a batch like x's stacked to
     ``lead`` + their shape; no states (a hybrid tail of 0 layers): empty leaves of
-    the cache's layout."""
+    the cache's layout (its compute layout under ``tp``)."""
     if not states:
-        return {n: torch.empty(shape, dtype=dt, device=x.device) for n, (shape, dt)
-                in SSM.ssm_state_defs(cfg, x.shape[0], *lead).items()}
+        defs = SSM.ssm_state_defs(cfg, x.shape[0], *lead)
+        if tp is not None and tp.ssm:
+            conv, ssd = list(defs["conv"][0]), list(defs["ssd"][0])
+            conv[-1] -= cfg.d_inner - cfg.d_inner // tp.size
+            ssd[-3] //= tp.size
+            defs = {"conv": (tuple(conv), defs["conv"][1]), "ssd": (tuple(ssd), defs["ssd"][1])}
+        return {n: torch.empty(shape, dtype=dt, device=x.device)
+                for n, (shape, dt) in defs.items()}
     return {n: torch.stack([st[n] for st in states]).reshape(lead + states[0][n].shape)
             for n in ("conv", "ssd")}
 
 
 def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
-             want_state: bool = False):
+             want_state: bool = False, tp: Optional[TensorParallel] = None):
     """Returns (x, d, states): the stream is x + d; states = {"conv": [L,B,W-1,C],
-    "ssd": [L,B,H,N,P]}."""
-    layer = _remat(functools.partial(_ssm_layer, cfg), cfg.remat)
+    "ssd": [L,B,H,N,P]} (the compute layout under ``tp``)."""
+    layer = _remat(functools.partial(_ssm_layer, cfg, tp=tp), cfg.remat)
     states = []
     d = None
     for lp in _unstack(params["layers"]):
@@ -457,15 +484,16 @@ def _ssm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
             states.append(st)
     if not want_state:
         return x, d, None
-    return x, d, _stack_states(cfg, states, (cfg.num_layers,), x)
+    return x, d, _stack_states(cfg, states, (cfg.num_layers,), x, tp)
 
 
-def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict):
+def _ssm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, states: dict,
+                tp: Optional[TensorParallel] = None):
     """One token through every layer; writes each layer's new state into
     ``states`` in place. Returns (x, d): the stream is x + d."""
     d = None
     for i, lp in enumerate(_unstack(params["layers"])):
-        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: states[n][i] for n in ("conv", "ssd")})
+        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: states[n][i] for n in ("conv", "ssd")}, tp)
     return x, d
 
 
@@ -480,24 +508,27 @@ def _hybrid_split(cfg: ArchConfig, params: dict):
 
 
 def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                positions: torch.Tensor, want_state: bool = False):
+                positions: torch.Tensor, want_state: bool = False,
+                tp: Optional[TensorParallel] = None):
     """Returns (x, d, states): the stream is x + d; states = (main {"conv", "ssd":
     [G,k,B,...]}, shared {"k", "v": [G,B,S,K,hd]}, tail {"conv", "ssd":
     [L-G*k,B,...]}). The shared block is ``_block`` with window 0 (causal, full),
-    the JAX package's ``_shared_block_fwd``, on the same params in every group."""
+    the JAX package's ``_shared_block_fwd``, on the same params in every group.
+    Under ``tp`` the states are in the compute layout and the kv are the kv heads
+    the rank holds (``_block``)."""
     groups, tail = _hybrid_split(cfg, params)
 
     def group_body(x, d, lps, shared):
         """k mamba2 layers, then the shared block (the JAX package's group body)."""
         sts = []
         for lp in lps:
-            x, d, st = _ssm_layer(cfg, lp, x, d)
+            x, d, st = _ssm_layer(cfg, lp, x, d, tp=tp)
             sts.append(st)
-        x, d, kv, _, _ = _block(cfg, shared, x, d, positions, 0, want_state)
+        x, d, kv, _, _ = _block(cfg, shared, x, d, positions, 0, want_state, tp=tp)
         return x, d, sts, kv
 
     group_body = _remat(group_body, cfg.remat)
-    tail_body = _remat(functools.partial(_ssm_layer, cfg), cfg.remat)
+    tail_body = _remat(functools.partial(_ssm_layer, cfg, tp=tp), cfg.remat)
     main_states, kvs, tail_states = [], [], []
     d = None
     for group in groups:
@@ -509,28 +540,33 @@ def _hybrid_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
         tail_states.append(st)
     if not want_state:
         return x, d, None
-    return x, d, (_stack_states(cfg, main_states, (len(groups), cfg.shared_block_every), x),
+    return x, d, (_stack_states(cfg, main_states, (len(groups), cfg.shared_block_every), x,
+                                tp),
                   _stack_kv(kvs),
-                  _stack_states(cfg, tail_states, (len(tail),), x))
+                  _stack_states(cfg, tail_states, (len(tail),), x, tp))
 
 
 def _hybrid_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
-                   pos: torch.Tensor):
+                   pos: torch.Tensor, tp: Optional[TensorParallel] = None,
+                   seq: Optional[Tuple[int, int]] = None):
     """One token through the groups and the tail; writes the new states of
     ``cache["main"]`` and ``cache["tail"]`` and the shared block's k/v at ``pos``
     of ``cache["shared"]`` in place (the shared block: ``_block_decode`` with
-    window 0, the JAX package's ``_shared_decode``). Returns (x, d)."""
+    window 0, the JAX package's ``_shared_decode``; under ``tp`` with ``seq``, its
+    cache's slice of the sequence, as a dense layer's). Returns (x, d)."""
     groups, tail = _hybrid_split(cfg, params)
     shared = params["shared_block"]
     d = None
     for g, group in enumerate(groups):
         for j, lp in enumerate(group):
             x, d, _ = _ssm_layer(cfg, lp, x, d,
-                                 {n: cache["main"][n][g, j] for n in ("conv", "ssd")})
+                                 {n: cache["main"][n][g, j] for n in ("conv", "ssd")}, tp)
         x, d = _block_decode(cfg, shared, x, d,
-                             {n: cache["shared"][n][g] for n in ("k", "v")}, pos, 0)
+                             {n: cache["shared"][n][g] for n in ("k", "v")}, pos, 0, tp=tp,
+                             seq=seq)
     for i, lp in enumerate(tail):
-        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: cache["tail"][n][i] for n in ("conv", "ssd")})
+        x, d, _ = _ssm_layer(cfg, lp, x, d, {n: cache["tail"][n][i] for n in ("conv", "ssd")},
+                             tp)
     return x, d
 
 
@@ -624,7 +660,7 @@ class Model:
         self.cfg = cfg
         self.device = devices.resolve(device)
         self.plan = plan if plan is not None else MeshPlan(mesh=OneDeviceMesh(self.device))
-        self.ranked = cfg.family == "dense" and isinstance(self.plan.mesh, DeviceMesh)
+        self.ranked = cfg.family in TP_FAMILIES and isinstance(self.plan.mesh, DeviceMesh)
         self.tp = self._tensor_parallel()
 
     def init_params(self, seed: int = 0) -> dict:
@@ -639,24 +675,34 @@ class Model:
     # ---------------------------------------------------------- tensor parallelism
     def compute_specs(self) -> dict:
         """The spec of every parameter in the layout the layers compute on
-        (``parallel.sharding.compute_spec``)."""
-        return tree_map(lambda d: compute_spec(self.plan, d.logical, d.shape),
-                        param_defs(self.cfg))
+        (``parallel.sharding.compute_spec``). A mamba2 block splits its d_inner and
+        its heads in step or not at all: where "model" divides only one of them,
+        its leaves are whole."""
+        specs = tree_map(lambda d: compute_spec(self.plan, d.logical, d.shape),
+                         param_defs(self.cfg))
+        block = specs.get("layers", {}).get("ssm")
+        if block is not None and not (_split(block["w_x"], 2) and _split(block["a_log"], 1)):
+            specs["layers"]["ssm"] = tree_map(lambda _: PartitionSpec(), block)
+        return specs
 
     def _tensor_parallel(self) -> Optional[TensorParallel]:
-        """The dense family's split over a "model" axis of more than one rank."""
+        """The split over a "model" axis of more than one rank: the dense layers'
+        or the shared block's attention and MLP (a hybrid's), the mamba2 blocks'
+        (ssm, hybrid) and the vocab."""
         if not self.ranked or self.plan.axis_size("model") == 1:
             return None
         specs = self.compute_specs()
-
-        def split(spec, dim):
-            return dim < len(spec) and spec[dim] == "model"
-
-        attn = specs["layers"]["attn"]
-        return TensorParallel(self.plan, heads=split(attn["wq"], 2),
-                              kv_heads=split(attn["wk"], 2),
-                              ffn=split(specs["layers"]["mlp"]["w_gate"], 2),
-                              vocab=split(specs["embed"], 0))
+        flags = {"heads": False, "kv_heads": False, "ffn": False,
+                 "vocab": _split(specs["embed"], 0)}
+        if self.cfg.family in ("ssm", "hybrid"):
+            flags["ssm"] = _split(specs["layers"]["ssm"]["w_x"], 2)
+        if self.cfg.family in ("dense", "hybrid"):      # stacked layers, or one block
+            block, lead = ((specs["layers"], 1) if self.cfg.family == "dense"
+                           else (specs["shared_block"], 0))
+            flags.update(heads=_split(block["attn"]["wq"], lead + 1),
+                         kv_heads=_split(block["attn"]["wk"], lead + 1),
+                         ffn=_split(block["mlp"]["w_gate"], lead + 1))
+        return TensorParallel(self.plan, **flags)
 
     def shard_params(self, params: dict) -> dict:
         """This rank's shards of DTensor params in the compute layout, as plain
@@ -681,8 +727,8 @@ class Model:
         """(this rank's rows of ``batch``, the mesh axes of more than one rank that
         split them). A DTensor leaf gives the rows its placements split dim 0 into
         (any other split gathered); a plain leaf holds the whole batch and the rows
-        are this rank's under the "batch" rule at its size. Off the dense family on
-        a ``DeviceMesh``: the batch as it is, no axes."""
+        are this rank's under the "batch" rule at its size. Off ``ranked``: the
+        batch as it is, no axes."""
         if not self.ranked:
             return batch, ()
         mesh, plan = self.plan.mesh, self.plan
@@ -805,8 +851,9 @@ class Model:
                 return_hidden: bool = False):
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
         final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE).
-        DTensor params: the dense family's are tensor-parallel and the output a
-        DTensor; the other families' take the gather route (``_sharded_forward``)."""
+        DTensor params: those of the dense, ssm and hybrid families are
+        tensor-parallel and the output a DTensor; the other families' take the
+        gather route (``_sharded_forward``)."""
         dtensors = isinstance(params["embed"], DTensor)
         if dtensors and not self.ranked:
             return self._sharded_forward(params, batch, return_hidden)
@@ -827,9 +874,9 @@ class Model:
         aux = None
         family = self.cfg.family
         if family == "ssm":
-            x, d, _ = _ssm_fwd(self.cfg, params, x)
+            x, d, _ = _ssm_fwd(self.cfg, params, x, tp=self.tp)
         elif family == "hybrid":
-            x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S))
+            x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S), tp=self.tp)
         elif family == "vlm":
             x, d, _, _ = _vlm_fwd(self.cfg, params, x, self._positions(B, S),
                                   batch["patches"])
@@ -846,9 +893,9 @@ class Model:
     def _sharded_forward(self, params: dict, batch: Dict[str, torch.Tensor],
                          return_hidden: bool):
         """The gather route: the forward of the families that tensor parallelism
-        does not cover yet, ssm, hybrid, encdec and vlm (ROADMAP §1 item 2; moe is
-        refused), on DTensor params and batch (a plan over a ``DeviceMesh``). The
-        dense family takes the tensor-parallel route (``forward``) instead.
+        does not cover yet, encdec and vlm (ROADMAP §1 items 3-4; moe is refused),
+        on DTensor params and batch (a plan over a ``DeviceMesh``). The dense, ssm
+        and hybrid families take the tensor-parallel route (``forward``) instead.
         Every parameter leaf is gathered whole (``full_tensor``, an all-gather, as
         ZeRO-3 gathers a layer's weights), every rank runs the one-card forward on
         its rows of the batch (a batch leaf sharded on another dim than the batch
@@ -981,11 +1028,11 @@ class Model:
             cache = {"pos": pos, "self": {n: _pad_seq(t, max_len) for n, t in kv.items()},
                      "cross": xkv}
         elif family == "ssm":
-            x, d, layers = _ssm_fwd(self.cfg, params, x, want_state=True)
+            x, d, layers = _ssm_fwd(self.cfg, params, x, want_state=True, tp=self.tp)
             cache = {"pos": pos, "layers": layers}
         elif self.cfg.family == "hybrid":
-            x, d, (main, kv, tail) = _hybrid_fwd(self.cfg, params, x,
-                                                 self._positions(B, S), want_state=True)
+            x, d, (main, kv, tail) = _hybrid_fwd(self.cfg, params, x, self._positions(B, S),
+                                                 want_state=True, tp=self.tp)
             cache = {"pos": pos, "main": main,
                      "shared": {n: _pad_seq(t, max_len) for n, t in kv.items()},
                      "tail": tail}
@@ -1006,23 +1053,59 @@ class Model:
         return last_logits, cache
 
     def _cache_laid_out(self, cache: dict, batch: int, max_len: int) -> dict:
-        """A dense prefill's cache of this rank's rows and computed kv heads as
-        DTensors on ``cache_specs``' placements: the kv heads gathered where the
-        cache does not split them, the sequence narrowed to this rank's slice
-        where it does."""
+        """A prefill's cache of this rank's rows in the compute layout as DTensors
+        on ``cache_specs``' placements: of k/v [G, B, S, K, hd] the kv heads
+        gathered where the cache does not split them, the sequence narrowed to this
+        rank's slice where it does; a conv tail laid out by ``_conv_laid_out``; the
+        SSD state's heads split as they are computed."""
         mesh, plan = self.plan.mesh, self.plan
 
         def lay(t, d):
             spec = plan.spec(d.logical, d.shape)
-            if len(d.shape) == 5:                       # k/v [G, B, S, K, hd]
+            if "cache_seq" in d.logical:                # k/v [G, B, S, K, hd]
                 heads = spec[3] if len(spec) > 3 else None
                 if self.tp is not None and self.tp.kv_heads and heads is None:
                     t = gather_along(t, 3, plan)
                 lo, hi = local_range(plan, spec, 2, d.shape[2])
                 if hi - lo != t.shape[2]:
                     t = t[:, :, lo:hi].contiguous()
+            elif d.logical[-1] == "ffn":                # the conv tail
+                t = self._conv_laid_out(t, d)
             return as_dtensor(t, mesh, placements(mesh, spec), d.shape)
         return tree_map(lay, cache, self.cache_defs(batch, max_len))
+
+    def _conv_laid_out(self, t: torch.Tensor, d: TensorDef) -> torch.Tensor:
+        """A conv tail [..., W-1, C_local] in the compute layout (this rank's xs
+        channels, then all of B and C) as this rank's slice of the JAX package's
+        layout: its contiguous 1/M of the channels [xs | B | C] where
+        ``cache_specs`` splits them over "model"."""
+        plan, C = self.plan, d.shape[-1]
+        split = self.tp is not None and self.tp.ssm
+        lo, hi = local_range(plan, plan.spec(d.logical, d.shape), len(d.shape) - 1, C)
+        if not t.numel():
+            return t.new_empty(t.shape[:-1] + (hi - lo,))
+        if split:
+            DIl = t.shape[-1] - 2 * self.cfg.ssm_state
+            t = torch.cat([gather_along(t[..., :DIl].contiguous(), t.dim() - 1, plan),
+                           t[..., DIl:]], dim=-1)
+        return t if hi - lo == C else t[..., lo:hi].contiguous()
+
+    def _conv_computed(self, t: torch.Tensor, d: TensorDef) -> torch.Tensor:
+        """This rank's slice of a conv tail in the JAX package's layout (as
+        ``cache_specs`` lays it out) in the compute layout: the inverse of
+        ``_conv_laid_out``."""
+        plan, C = self.plan, d.shape[-1]
+        split = self.tp is not None and self.tp.ssm
+        DI, M = self.cfg.d_inner, plan.axis_size("model")
+        width = C - DI + DI // M if split else C
+        if not t.numel():
+            return t.new_empty(t.shape[:-1] + (width,))
+        if t.shape[-1] != C:
+            t = gather_along(t.contiguous(), t.dim() - 1, plan)
+        if not split:
+            return t
+        r = self.tp.rank
+        return torch.cat([t[..., r * (DI // M):(r + 1) * (DI // M)], t[..., DI:]], dim=-1)
 
     def _seq_slice(self, kv: DTensor) -> Optional[Tuple[int, int]]:
         """(first position, whole length) of this rank's slice of a cache leaf
@@ -1064,9 +1147,25 @@ class Model:
         rows, axes = self._rows({"tokens": tokens})
         local = tree_map(lambda t: t.to_local(), cache)
         pos = local["pos"]
-        seq = tuple(self._seq_slice(kv["k"]) for kv in cache["layers"])
         x = self._embed(params, rows["tokens"])
-        x, d = _stack_decode(self.cfg, params, x, local["layers"], pos, tp=self.tp, seq=seq)
+        family = self.cfg.family
+        if family == "dense":
+            seq = tuple(self._seq_slice(kv["k"]) for kv in cache["layers"])
+            x, d = _stack_decode(self.cfg, params, x, local["layers"], pos, tp=self.tp,
+                                 seq=seq)
+        else:      # the conv tails in the compute layout for the step, then laid back
+            defs = self.cache_defs(cache["pos"].shape[0], 1)
+            stacks = ("layers",) if family == "ssm" else ("main", "tail")
+            states = {n: dict(local[n], conv=self._conv_computed(local[n]["conv"],
+                                                                 defs[n]["conv"]))
+                      for n in stacks}
+            if family == "ssm":
+                x, d = _ssm_decode(self.cfg, params, x, states["layers"], self.tp)
+            else:
+                x, d = _hybrid_decode(self.cfg, params, x, dict(local, **states), pos, self.tp,
+                                      self._seq_slice(cache["shared"]["k"]))
+            for n in stacks:
+                local[n]["conv"].copy_(self._conv_laid_out(states[n]["conv"], defs[n]["conv"]))
         logits = self._wrap(self._unembed(params, x, d)[:, 0], ("batch", "vocab"), axes)
         new_pos = as_dtensor(pos + 1, self.plan.mesh, tuple(cache["pos"].placements),
                              cache["pos"].shape)

@@ -6,6 +6,23 @@ Single B/C group (G=1) as in the mamba2/zamba2 configs. The scan runs chunked
 (SSD dual form) for prefill and forward; decode carries a [B, H, N, P] f32 state
 and a (W-1)-token conv tail in ``cfg.dtype``. The five projections are plain
 matmuls, as XLA does them in the JAX package.
+
+Tensor parallelism over "model" (``tp`` with ``tp.ssm``: the JAX package's
+``constrain`` sites split z, xs and the normed y over "ffn" = d_inner and xh over
+"ssm_heads"): each rank holds its 1/M of w_z, w_x, conv_x, gate_norm and the rows
+of out_proj (d_inner) and of w_dt, a_log, dt_bias and d_skip (the heads), in
+step, so its d_inner columns are its heads'. The block's input enters the split
+region through ``copy_to``, and so do the replicated w_b, w_c, conv_b and conv_c
+(the one B/C group serves every head: each rank's gradient of them covers its own
+heads only, and the sum over the ranks is theirs). The depthwise conv runs on the
+rank's xs channels and the whole B and C channels, K3 on its heads, the gated
+norm over the split row (``ops.gated_rmsnorm_split``: each row's sum of squares
+summed over "model" in f32, as GSPMD sums it), and out_proj is row-parallel: its
+partial sums are reduced in f32 and rounded to the dtype once
+(``reduce_partial``; bf16 under ``plan.bf16_reduce``), where the JAX package's
+einsum names no ``preferred_element_type``. The decode state in the compute
+layout: the rank's heads of ``ssd`` and a conv tail of its xs channels and all of
+B and C (``models/model.py`` lays it out as the JAX package's cache).
 """
 from __future__ import annotations
 
@@ -16,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import TensorParallel, axis_group, copy_to, reduce_partial
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
@@ -35,23 +53,33 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def ssm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-              state: Optional[dict] = None):
-    """x: [B, S, D]. state (decode): {"conv": [B,W-1,DI+2N], "ssd": [B,H,N,P]}.
+              state: Optional[dict] = None, tp: Optional[TensorParallel] = None):
+    """x: [B, S, D]. state (decode): {"conv": [B,W-1,DI+2N], "ssd": [B,H,N,P]}, in
+    the compute layout under ``tp`` (see the module docstring).
     Returns (y [B,S,D], the new state {"conv", "ssd"})."""
     B, S, D = x.shape
-    DI, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    split = tp is not None and tp.ssm
+    w_b, w_c, conv_b, conv_c = p["w_b"], p["w_c"], p["conv_b"], p["conv_c"]
+    if split:        # the split region: d_inner and the heads over "model"
+        plan = tp.plan
+        x = copy_to(x, plan)
+        w_b, w_c, conv_b, conv_c = (copy_to(t, plan) for t in (w_b, w_c, conv_b, conv_c))
+    DI, Hs = p["w_x"].shape[-1], p["a_log"].shape[-1]           # this rank's
 
     z = x @ p["w_z"]                                             # gate branch
     xs = x @ p["w_x"]
-    bm = x @ p["w_b"]
-    cm = x @ p["w_c"]
+    bm = x @ w_b
+    cm = x @ w_c
     dt = x @ p["w_dt"]
 
     conv_in = torch.cat([xs, bm.to(xs.dtype), cm.to(xs.dtype)], dim=-1)
-    conv_k = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
+    conv_k = torch.cat([p["conv_x"], conv_b, conv_c], dim=-1)
     conv_out, new_tail = _causal_conv(conv_in, conv_k,
                                       None if state is None else state["conv"])
     conv_out = F.silu(conv_out.float()).to(xs.dtype)
+    # K3 reads these views in place: a rank's row of Hs * P + 2N channels (P a
+    # multiple of 32, N of 16, as K3 takes them) keeps them 16-byte aligned
     xs, bm, cm = conv_out[..., :DI], conv_out[..., DI:DI + N], conv_out[..., DI + N:]
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())           # [B,S,Hs] > 0
@@ -66,8 +94,13 @@ def ssm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     y = y + xh * p["d_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(B, S, DI)
 
-    y = ops.gated_rmsnorm(y, z, p["gate_norm"], eps=cfg.norm_eps)
-    out = (y.reshape(B * S, DI) @ p["out_proj"]).reshape(B, S, D)
+    if split:
+        y = ops.gated_rmsnorm_split(y, z, p["gate_norm"], cfg.d_inner,
+                                    axis_group(tp.plan, "model"), eps=cfg.norm_eps)
+        out = reduce_partial((y.reshape(B * S, DI) @ p["out_proj"]).reshape(B, S, D), tp.plan)
+    else:
+        y = ops.gated_rmsnorm(y, z, p["gate_norm"], eps=cfg.norm_eps)
+        out = (y.reshape(B * S, DI) @ p["out_proj"]).reshape(B, S, D)
     return out, {"conv": new_tail, "ssd": new_ssd}
 
 

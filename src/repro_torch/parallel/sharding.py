@@ -25,8 +25,9 @@ in mesh order: JAX's layout when the spec lists them in mesh order, as every rul
 set here does. A spec that lists a dim's axes in another order, or names an axis
 the mesh lacks, raises ``ValueError``.
 
-Tensor parallelism over "model" (the dense family's forward, loss, backward,
-prefill and decode, ``models/layers.py`` and ``models/model.py``): the layers
+Tensor parallelism over "model" (the forward, loss, backward, prefill and decode
+of the dense, ssm and hybrid families, ``models/layers.py``, ``models/ssm.py``
+and ``models/model.py``): the layers
 run on each rank's local shards, plain tensors, and call the collectives below
 at the JAX package's ``constrain`` sites, on the process group of this rank's
 line along one mesh axis (``axis_group``). Autograd goes through
@@ -41,7 +42,7 @@ the layers run the one-card code op for op. A row-parallel product's partial
 sums (``reduce_partial``) are reduced in f32 and cast back once, or in bf16 under
 ``plan.bf16_reduce``: the dtype the JAX package names by
 ``preferred_element_type=plan.reduce_dtype``. ``TensorParallel`` says which
-dims of a dense model's weights a rank holds a 1/M shard of; ``local_range``
+dims of a model's weights a rank holds a 1/M shard of; ``local_range``
 gives a spec's index range of a dim on this rank, and ``relayout`` moves a
 local shard between two layouts of one value (a view where the new layout only
 splits the old one further).
@@ -451,16 +452,36 @@ def as_dtensor(local: torch.Tensor, mesh, pls: tuple, shape) -> DTensor:
 
 def full_value(x: torch.Tensor) -> torch.Tensor:
     """The whole value of ``x`` on this rank: a DTensor gathered (on a one-rank
-    mesh its local tensor, with no collective), a plain tensor as it is."""
+    mesh its local tensor, with no collective), a plain tensor as it is. Even
+    shards are gathered with c10d's ``all_gather``, a mesh dim at a time from the
+    minor one (DTensor lays a dim's shards out major to minor in mesh order):
+    DTensor's own gather (``full_tensor``, through the functional collectives)
+    crashes on a gloo group holding CUDA tensors, as two ranks sharing one card
+    are; other placements go through ``full_tensor``."""
     if not isinstance(x, DTensor):
         return x
-    if x.device_mesh.size() == 1:
+    mesh = x.device_mesh
+    if mesh.size() == 1:
         return x.to_local()
-    return x.full_tensor()
+    out, pls = x.to_local(), x.placements
+    n = {}
+    for i, pl in enumerate(pls):
+        if pl.is_shard():
+            n[pl.dim] = n.get(pl.dim, 1) * mesh.size(i)
+        elif not pl.is_replicate():
+            return x.full_tensor()
+    if any(out.shape[d] * k != x.shape[d] for d, k in n.items()):
+        return x.full_tensor()
+    for i in reversed(range(mesh.ndim)):
+        if pls[i].is_shard() and mesh.size(i) > 1:
+            parts = [torch.empty_like(out) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, out.contiguous(), group=mesh.get_group(i))
+            out = torch.cat(parts, dim=pls[i].dim)
+    return out
 
 
 # the weights' logical dims that tensor parallelism splits over "model"
-TP_LOGICALS = ("heads", "kv_heads", "ffn", "vocab")
+TP_LOGICALS = ("heads", "kv_heads", "ffn", "vocab", "ssm_heads")
 
 
 def compute_spec(plan: MeshPlan, logical, shape) -> PartitionSpec:
@@ -479,15 +500,21 @@ def compute_spec(plan: MeshPlan, logical, shape) -> PartitionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """How a dense model's layers split over the "model" axis of ``plan``'s mesh,
-    which has ``size`` > 1 ranks: each flag says whether a rank holds 1/size of
-    that dim of the weights (a dim the axis does not divide stays whole, as
-    ``MeshPlan.spec`` drops the axis); ``rank`` is this rank's index along it."""
+    """How a model's layers split over the "model" axis of ``plan``'s mesh, which
+    has ``size`` > 1 ranks: each flag says whether a rank holds 1/size of that dim
+    of the weights (a dim the axis does not divide stays whole, as
+    ``MeshPlan.spec`` drops the axis); ``rank`` is this rank's index along it.
+    ``heads``, ``kv_heads`` and ``ffn`` are those of the attention and the MLP
+    (the dense layers, the hybrid's shared block); ``ssm`` says that a mamba2
+    block splits both its d_inner ("ffn") and its heads ("ssm_heads"), which a
+    rank then holds 1/size of, in step: where the axis divides only one of them
+    the block is not split, and every rank holds and computes the whole."""
     plan: MeshPlan
     heads: bool
     kv_heads: bool
     ffn: bool
     vocab: bool
+    ssm: bool = False
 
     @property
     def size(self) -> int:

@@ -14,11 +14,12 @@ so there is no per-prompt-length compile cache. The model's plan is the JAX
 package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh unless one
 is given.
 
-On a ("data", "model") ``DeviceMesh`` of a process group (the dense family; the
-other families are refused on more than one rank, ROADMAP §1 item 2) the params
-and the cache are DTensors laid out by ``param_specs`` and ``cache_specs``: the
-slots are split over "data", the cache's sequence over "model", the layers are
-tensor-parallel (``models/model.py``). Every rank runs the same scheduler on the
+On a ("data", "model") ``DeviceMesh`` of a process group (the dense, ssm and
+hybrid families; moe, encdec and vlm are refused on more than one rank, ROADMAP
+§1 items 2-4) the params and the cache are DTensors laid out by ``param_specs``
+and ``cache_specs``: the slots are split over "data", a k/v cache's sequence over
+"model", a mamba2 layer's SSD state by its heads and its conv tail by its
+channels, the layers are tensor-parallel (``models/model.py``). Every rank runs the same scheduler on the
 whole logits (gathered), so every rank takes the same decisions. A request's
 prefill (B = 1, which "data" does not divide) runs on every data rank, and the
 rank that holds the slot's rows writes its cache there.
@@ -37,7 +38,7 @@ from repro_torch import device as devices
 from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.mesh import chips, make_test_mesh
-from repro_torch.models.model import Model
+from repro_torch.models.model import TP_FAMILIES, Model
 from repro_torch.parallel.sharding import MeshPlan, distribute, full_value, local_range
 from repro_torch.tree import tree_map
 
@@ -80,10 +81,11 @@ class Server:
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
         mesh = mesh if mesh is not None else make_test_mesh(device=self.device)
-        if chips(mesh) != 1 and arch_cfg.family != "dense":
+        if chips(mesh) != 1 and arch_cfg.family not in TP_FAMILIES:
             raise NotImplementedError(
                 f"a {arch_cfg.family} Server on a mesh of {chips(mesh)} devices: multi-rank "
-                "serving covers the dense family (ROADMAP §1 item 2)")
+                "serving covers the dense, ssm and hybrid families; moe, encdec and vlm are "
+                "not ported yet (ROADMAP §1 items 2-4)")
         self.model = Model(arch_cfg, self.device, MeshPlan(mesh=mesh, fsdp=False))
         self.params = self._laid_out(params if params is not None else
                                      self.model.init_params(cfg.seed))

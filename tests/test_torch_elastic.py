@@ -109,11 +109,12 @@ def test_trainer_continues_after_remesh_same_device():
 
 
 def test_trainer_refuses_a_mesh_of_several_devices():
-    """Multi-rank training covers the dense family in sync mode: a mamba2 Trainer
-    and a local_sgd Trainer on several devices are refused, naming ROADMAP."""
+    """Multi-rank training covers the dense, ssm and hybrid families in sync mode:
+    a deepseek-moe Trainer and a local_sgd Trainer on several devices are refused,
+    naming ROADMAP."""
     class FakeMesh:
         shape = {"data": 4, "model": 2}
-    for job in (dict(TRAIN, arch="mamba2-2.7b"), dict(TRAIN, mode="local_sgd")):
+    for job in (dict(TRAIN, arch="deepseek-moe-16b"), dict(TRAIN, mode="local_sgd")):
         with pytest.raises(NotImplementedError, match="multi-rank training.*ROADMAP"):
             Trainer(TrainJobConfig(**job), mesh=FakeMesh())
 

@@ -2,9 +2,10 @@
 ``qk_norm_rope``): each plain version against the JAX package's composition of
 the same ops on the same numpy inputs (f32 1e-5, bf16 2e-2, the JAX suite's
 rmsnorm tolerances); each ``ops.*`` call on the CPU against the unfused PyTorch
-sequence the model ran before the fusion, bit for bit; and, marked ``cuda``, each
-of K2's four kernel entry points against its plain version at the serving
-shapes."""
+sequence the model ran before the fusion, bit for bit; the split-row entries of
+the gated norm (a row split over ranks), their plain versions put back together
+against the whole-row plain version both ways; and, marked ``cuda``, each of K2's
+kernel entry points against its plain version at the serving shapes."""
 import numpy as np
 import pytest
 
@@ -141,6 +142,81 @@ def test_gated_rmsnorm_cpu_equals_unfused(dtype):
     assert torch.equal(got, want)
 
 
+# ------------------------------------------------- the gated norm over a split row
+SPLIT_SHAPES = [(2, 7, 256), (4, 1, 5120), (1, 9, 7168)]
+
+
+def _gated_case(shape, dtype, seed):
+    return tuple(_torch(_np(s, seed + i), dtype) for i, s in
+                 enumerate((shape, shape, shape[-1:], shape)))
+
+
+def _split_forward(y, z, sc, ways):
+    """The split-row plain versions on ``ways`` column slices, the row sums added
+    here in place of the all-reduce; the slices' outputs put back together."""
+    parts = [t.chunk(ways, dim=-1) for t in (y, z, sc)]
+    ss = sum(RN.gated_rmsnorm_stats_plain(a, b) for a, b, _ in zip(*parts))
+    return torch.cat([RN.gated_rmsnorm_split_plain(a, b, c, ss, y.shape[-1], eps=1e-5)
+                      for a, b, c in zip(*parts)], dim=-1)
+
+
+def _split_backward(y, z, sc, dout, ways):
+    parts = [t.chunk(ways, dim=-1) for t in (y, z, sc, dout)]
+    ss = sum(RN.gated_rmsnorm_stats_plain(a, b) for a, b, _, _ in zip(*parts))
+    dot = sum(RN.gated_rmsnorm_split_dot_plain(*p) for p in zip(*parts))
+    outs = [RN.gated_rmsnorm_split_bwd_plain(*p, ss, dot, y.shape[-1], eps=1e-5)
+            for p in zip(*parts)]
+    return tuple(torch.cat([o[i] for o in outs], dim=-1) for i in range(3))
+
+
+@pytest.mark.parametrize("ways", [2, 4, 8])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_row_plain_equals_whole_row(shape, ways, dtype):
+    """The split-row plain versions, the rows split ``ways`` ways and their sums
+    added, equal the whole-row plain ``gated_rmsnorm`` and its backward."""
+    y, z, sc, dout = _gated_case(shape, dtype, 110)
+    got = _split_forward(y, z, sc, ways)
+    want = RN.gated_rmsnorm_plain(y, z, sc, eps=1e-5)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+    for g, w in zip(_split_backward(y, z, sc, dout, ways),
+                    RN.gated_rmsnorm_bwd_plain(y, z, sc, dout, eps=1e-5)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_row_function_without_a_group_is_the_gated_norm(dtype):
+    """``ops.gated_rmsnorm_split`` with no group (the local columns are the whole
+    row), recording and not, against ``ops.gated_rmsnorm``: the forward and every
+    gradient within K2's gates."""
+    y, z, sc, dout = _gated_case((3, 5, 256), dtype, 120)
+    np.testing.assert_allclose(_f32(tops.gated_rmsnorm_split(y, z, sc, 256, None, eps=1e-5)),
+                               _f32(tops.gated_rmsnorm(y, z, sc, eps=1e-5)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    grads = []
+    for fn in (lambda a, b, c: tops.gated_rmsnorm_split(a, b, c, 256, None, eps=1e-5),
+               lambda a, b, c: tops.gated_rmsnorm(a, b, c, eps=1e-5)):
+        leaves = [t.clone().requires_grad_(True) for t in (y, z, sc)]
+        fn(*leaves).backward(dout)
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_split_row_backward_gradcheck_f64():
+    """The split-row Function's explicit backward against finite differences, in
+    f64, on one rank's whole row."""
+    gen = torch.Generator().manual_seed(5)
+    y, z, sc = (torch.randn(s, generator=gen, dtype=torch.float64, requires_grad=True)
+                for s in ((3, 16), (3, 16), (16,)))
+    from repro_torch.kernels.autograd import GatedRMSNormSplit
+    assert torch.autograd.gradcheck(lambda a, b, c: GatedRMSNormSplit.apply(a, b, c, 1e-5, 16,
+                                                                            None),
+                                    (y, z, sc))
+
+
 def test_rope_is_reexported_by_layers():
     assert TLY.apply_rope is tref.apply_rope and TLY.rope_freqs is tref.rope_freqs
 
@@ -198,3 +274,28 @@ def test_qk_norm_rope_kernel_vs_plain_on_card(cuda, B, S, H, K, hd, dtype):
 def test_rmsnorm_kernel_serving_shapes_on_card(cuda, shape, dtype):
     x, sc = _torch(_np(shape, 100), dtype, cuda), _torch(_np(shape[-1:], 101), dtype, cuda)
     _close(RN.rmsnorm_cuda(x, sc), RN.rmsnorm_plain(x, sc), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ways", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 512, 5120), (4, 1, 5120), (3, 5, 7168),
+                                   (1, 2048, 7168)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_row_kernels_vs_plain_on_card(cuda, shape, ways, dtype):
+    """Each split-row entry against its plain version on the same column slices,
+    the row sums added here in place of the all-reduce."""
+    y, z, sc, dout = (t.to(cuda) for t in _gated_case(shape, dtype, 130))
+    parts = [[c.contiguous() for c in t.chunk(ways, dim=-1)] for t in (y, z, sc, dout)]
+    ss = sum(RN.gated_rmsnorm_stats_cuda(a, b) for a, b, _, _ in zip(*parts))
+    ss_p = sum(RN.gated_rmsnorm_stats_plain(a, b) for a, b, _, _ in zip(*parts))
+    dot = sum(RN.gated_rmsnorm_split_dot_cuda(*p) for p in zip(*parts))
+    dot_p = sum(RN.gated_rmsnorm_split_dot_plain(*p) for p in zip(*parts))
+    _close(ss, ss_p, dtype)
+    _close(dot, dot_p, dtype)
+    D = shape[-1]
+    for p in zip(*parts):
+        _close(RN.gated_rmsnorm_split_cuda(p[0], p[1], p[2], ss, D, eps=1e-5),
+               RN.gated_rmsnorm_split_plain(p[0], p[1], p[2], ss, D, eps=1e-5), dtype)
+        for g, w in zip(RN.gated_rmsnorm_split_bwd_cuda(*p, ss, dot, D, eps=1e-5),
+                        RN.gated_rmsnorm_split_bwd_plain(*p, ss, dot, D, eps=1e-5)):
+            _close(g, w, dtype)
