@@ -117,6 +117,15 @@ Phases, each failing loudly (nonzero exit):
      the heads and the gated norm runs through K2's split-row entries: the same
      Trainers and a short serve within the bf16 gates of one device, every
      kernel's launches exact on both ranks (the paths "... (1, 2) ranks"); then
+     (``phase_xattn_tensor_parallel``) the encdec and vlm families' the same two
+     ways: a whisper-medium Trainer at 4 + 4 layers (2 steps of 2,048 tokens over
+     its 1,500 frames) and teacher-forced prefill and decode steps of whisper
+     (full depth in bf16 and f32, 4 decoder layers in bf16) and
+     llama-3.2-vision-90b (5 layers) on random frames and patches, gates at 0.5,
+     bit-equal to one device on the one-rank mesh, on the two gloo ranks within
+     0.02 (losses), 0.08 (bf16 logits; whisper's at full depth printed) and 1e-4
+     (f32 logits), launches exact (the paths "whisper-medium tensor-parallel",
+     "llama-3.2-vision-90b tensor-parallel", "... (1, 2) ranks"); then
      (``phase_local_plane``) make the control agent's calls on the port's
      local planes: the same job (6 steps, a checkpoint every 4) on plane A,
      lost after its step-4 manifest, resumed on plane B from it, its losses an
@@ -499,6 +508,38 @@ SSM_TP_PROMPTS = [([(7 * i + 3) % 30000 for i in range(96)], 6), ([11, 12, 13], 
 SSM_TP_DECODE = 4          # teacher-forced decode steps held against one device
 SSM_TP_LOSS_TOL = 0.02     # tests/test_torch_train.py's BF16_LOSS_TOL
 SSM_TP_LOGIT_TOL = 0.08    # tests/test_torch_model.py's BF16_TOL
+# the encdec and vlm families' tensor-parallel code (phase_xattn_tensor_parallel):
+# (b) on a one-rank NCCL (1, 1) mesh a whisper-medium Trainer at full width and 4 + 4
+# layers (its checkpointed task's depth), 2 steps of one 2,048-token sequence over
+# the Trainer's 1,500 random frames, and teacher-forced prefill and decode steps
+# (XATTN_TP_CALLS) of whisper and llama-3.2-vision at one group (4 self layers and
+# a gated cross layer onto its 1,601 patches), random frames and patches, every gate
+# at CROSS_GATE, all bit-equal to one device; (c) two gloo ranks on the one card as a
+# (1, 2) mesh: the same Trainer and the same teacher-forced calls at the gates
+# below. On (1, 2) whisper's cross K/V splits its 1,500 frames (750 a rank, joined
+# by log-sum-exp) and llama-vision's its 8 kv heads (1,601 is a prime)
+XATTN_TP_PATH = {"whisper-medium": "whisper-medium tensor-parallel",
+                 "llama-3.2-vision-90b": "llama-3.2-vision-90b tensor-parallel"}
+XATTN_TP2_PATH = {"whisper-medium": "whisper-medium (1, 2) ranks",
+                  "llama-3.2-vision-90b": "llama-3.2-vision-90b (1, 2) ranks"}
+XATTN_TP_TRAIN = {"arch": "whisper-medium", "reduced": False, "seq_len": 2048,
+                  "global_batch": 1, "microbatches": 1}
+XATTN_TP_TRAIN_LAYERS = 4      # encoder and decoder layers each
+XATTN_TP_STEPS = 2
+# the teacher-forced calls: (arch, dtype, its decoder layers, None: every one; the
+# (1, 2) ranks' gate against one device, None: printed only). As the serving path's
+# checks (PATHS' check_layers) whisper's bf16 gate is held at 4 decoder layers over
+# its 24-layer encoder: at 48 layers bf16 rounding drifts past it on one device
+# too; at full depth the f32 logits are held at F32_GATE
+F32_GATE = 1e-4            # tests/test_torch_model.py's F32_TOL
+XATTN_TP_CALLS = [("whisper-medium", "bfloat16", None, None),
+                  ("whisper-medium", "bfloat16", 4, SSM_TP_LOGIT_TOL),
+                  ("whisper-medium", "float32", None, F32_GATE),
+                  ("llama-3.2-vision-90b", "bfloat16", 5, SSM_TP_LOGIT_TOL)]
+XATTN_TP_PROMPT = [(7 * i + 5) % 30000 for i in range(96)]
+XATTN_TP_DECODE = 4            # teacher-forced decode steps after the prefill
+XATTN_TP_SEED = 21             # the frames' and patches' generator
+
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
 # width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
@@ -3360,13 +3401,13 @@ def _ssm_tp_rank(rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def run_two_ranks(timeout_s: float) -> list:
-    """``_ssm_tp_rank`` on two spawned processes; returns their reports. Every
-    process is stopped before it returns."""
+def run_two_ranks(timeout_s: float, rank_fn=None) -> list:
+    """``rank_fn`` (default ``_ssm_tp_rank``) on two spawned processes; returns
+    their reports. Every process is stopped before it returns."""
     import pickle
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        ctx = mp.start_processes(_ssm_tp_rank, args=(2, tmp), nprocs=2, join=False,
+        ctx = mp.start_processes(rank_fn or _ssm_tp_rank, args=(2, tmp), nprocs=2, join=False,
                                  start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:
@@ -3552,6 +3593,292 @@ def phase_ssm_tensor_parallel(card: str) -> dict:
                                        for name in r0["train"]}
     print(f"ssm tensor-parallel: phase {time.perf_counter() - t_phase:.1f} s (one-rank mesh "
           f"{t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
+    return by_path
+
+
+def xattn_tp_per_call(arch: str, layers) -> dict:
+    """Kernel launches (a prefill, a decode step) of ``arch`` at ``layers`` decoder
+    layers (None: every one): PATHS' tables at another depth (whisper: each
+    encoder layer's and each decoder layer's self- and cross-attention, ln1 of both
+    stacks' layer 0, every other norm with its add; llama-vision: one attention a
+    layer, ln1 of layer 0, two norms a layer but the first's ln1, and the final
+    norm)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    L = layers or cfg.num_layers
+    if cfg.family == "encdec":
+        enc = cfg.encoder_layers
+        return {"flash_attention": (enc + 2 * L, 0), "rmsnorm": (2, 1),
+                "add_rmsnorm": (2 * enc + 3 * L, 3 * L)}
+    return {"flash_attention": (L, 0), "rmsnorm": (1, 1), "add_rmsnorm": (2 * L, 2 * L)}
+
+
+def xattn_model(arch: str, dtype: str, layers, mesh=None):
+    """(model, params) of ``arch`` at full width, ``layers`` decoder layers (None:
+    every one) and ``dtype``, random from seed 0 with every gate at CROSS_GATE, on
+    one device or (``mesh``) laid out on ``mesh`` by ``param_specs``."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import MeshPlan, distribute
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(configs.get(arch), remat="none", dtype=dtype)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if mesh is None:
+        model = Model(cfg, "cuda")
+        return model, with_gates(model.init_params(0))
+    model = Model(cfg, "cuda", MeshPlan(mesh=mesh, fsdp=False))
+    params = tree_map(lambda x, s: distribute(x, mesh, s), with_gates(model.init_params(0)),
+                      model.param_specs())
+    return model, params
+
+
+def xattn_forced(model, params) -> torch.Tensor:
+    """Teacher-forced logits of XATTN_TP_PROMPT on random frames or patches (from
+    XATTN_TP_SEED): its prefill's last position, then XATTN_TP_DECODE decode steps
+    of fixed tokens, [1 + steps, V] f32 on the CPU (a DTensor's gathered)."""
+    from repro_torch.parallel.sharding import full_value
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(XATTN_TP_SEED)
+    aux = aux_inputs(model.cfg, 1, gen)
+    prompt = XATTN_TP_PROMPT
+    with torch.no_grad():
+        toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+        logits, cache = model.prefill(params, {"tokens": toks, **aux},
+                                      max_len=len(prompt) + XATTN_TP_DECODE)
+        out = [full_value(logits)[0].float().cpu()]
+        for i in range(XATTN_TP_DECODE):
+            step = torch.tensor([[prompt[i]]], dtype=torch.long, device="cuda")
+            logits, cache = model.decode_step(params, step, cache)
+            out.append(full_value(logits)[0].float().cpu())
+    return torch.stack(out)
+
+
+def xattn_tp_trainer(mesh):
+    """The phase's whisper-medium Trainer (XATTN_TP_TRAIN at XATTN_TP_TRAIN_LAYERS +
+    XATTN_TP_TRAIN_LAYERS) on ``mesh``."""
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    arch = XATTN_TP_TRAIN["arch"]
+    with arch_depth(arch, XATTN_TP_TRAIN_LAYERS, XATTN_TP_TRAIN_LAYERS):
+        return Trainer(TrainJobConfig.from_job({"payload": dict(XATTN_TP_TRAIN)}), mesh=mesh)
+
+
+def xattn_tp_steps(tr) -> tuple:
+    """(each kernel's launches in XATTN_TP_STEPS steps of ``tr``, their walls in
+    ms)."""
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    walls = []
+    for _ in range(XATTN_TP_STEPS):
+        t0 = time.perf_counter()
+        tr.step_once()
+        torch.cuda.synchronize()
+        walls.append(round((time.perf_counter() - t0) * 1e3, 3))
+    return {name: fn.launches for name, fn in wrappers.items()}, walls
+
+
+def xattn_tp_calls(mesh) -> list:
+    """[(teacher-forced logits, each kernel's launches in them, whether the model
+    splits the heads)] of XATTN_TP_CALLS on ``mesh``, each model freed after."""
+    out = []
+    for arch, dtype, layers, _ in XATTN_TP_CALLS:
+        model, params = xattn_model(arch, dtype, layers, mesh)
+        torch.cuda.synchronize()
+        wrappers = reset_launches()
+        forced = xattn_forced(model, params)
+        out.append((forced, {name: fn.launches for name, fn in wrappers.items()},
+                    model.tp is not None and model.tp.heads))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _xattn_tp_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two gloo ranks on the one card, a (1, 2) ("data", "model") mesh: the
+    whisper Trainer's XATTN_TP_STEPS steps and both archs' teacher-forced calls,
+    each rank's launches counted from 0 just before each. Writes its report to
+    ``tmp``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    report = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        tr = xattn_tp_trainer(mesh)
+        launches, walls = xattn_tp_steps(tr)
+        report["train"] = {"launches": launches, "walls": walls,
+                           "split": tr.model.tp is not None and tr.model.tp.heads,
+                           "series": {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["calls"] = xattn_tp_calls(mesh)
+    finally:
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+        dist.destroy_process_group()
+
+
+def phase_xattn_tensor_parallel(card: str) -> dict:
+    """The encdec and vlm families' tensor-parallel code on the card.
+
+    (b) A one-rank NCCL ("data", "model") mesh, every axis of size 1 (no collective
+    runs): a whisper-medium Trainer at full width and XATTN_TP_TRAIN_LAYERS + as
+    many layers on the mesh (its state DTensors) takes XATTN_TP_STEPS steps of one
+    2,048-token sequence over the Trainer's 1,500 random frames, its losses, grad
+    norms and every state tensor bit-equal to the one-device Trainer's, the kernels
+    launched exactly ``encdec_per_step`` a step; the teacher-forced prefill and
+    decode steps of XATTN_TP_CALLS (``xattn_forced``: random frames and patches,
+    every gate at CROSS_GATE; the servers' zero frames would make every cross
+    output 0; whisper-medium at full depth in bf16 and f32 and at 4 decoder
+    layers, llama-3.2-vision-90b at 5 layers), on the mesh, bit-equal to one
+    device's, launches exact.
+    (c) Two gloo ranks on the one card as a (1, 2) mesh (``run_two_ranks``,
+    ``_xattn_tp_rank``), whose layers split the heads 2 ways: the same Trainer,
+    losses and grad norms within SSM_TP_LOSS_TOL of one device's; the same
+    teacher-forced calls, logits within their XATTN_TP_CALLS gates of one
+    device's; every kernel's launches exact on both ranks.
+    Returns each path's launches (c's: rank 0's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import OneDeviceMesh, full_value
+    from repro_torch.tree import tree_flatten_sorted
+
+    t_phase = time.perf_counter()
+    arch = XATTN_TP_TRAIN["arch"]
+    per_step = encdec_per_step(XATTN_TP_TRAIN_LAYERS, XATTN_TP_TRAIN_LAYERS)
+
+    def series(tr) -> dict:
+        return {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}
+
+    def check_launches(tag: str, launches: dict, want: dict, times: int = 1) -> None:
+        for name, n in launches.items():
+            check(n == want.get(name, 0) * times,
+                  f"{tag}: {name} launched {n}, want {want.get(name, 0) * times}")
+
+    def check_calls(call: tuple, tag: str, calls: dict) -> None:
+        per = xattn_tp_per_call(call[0], call[2])
+        for kernel, n in calls.items():
+            pre, dec = per.get(kernel, (0, 0))
+            check(n == pre + dec * XATTN_TP_DECODE, f"{named(call)} {tag}: {kernel} launched "
+                  f"{n} in the prefill and {XATTN_TP_DECODE} decode steps, want "
+                  f"{pre + dec * XATTN_TP_DECODE}")
+
+    def named(call: tuple) -> str:
+        arch_, dtype, layers, _ = call
+        depth = f"{layers} layers" if layers else "full depth"
+        return f"{arch_} ({'bf16' if dtype == 'bfloat16' else 'f32'}, {depth})"
+
+    def add(path: str, calls: dict) -> None:
+        into = by_path.setdefault(path, {})
+        for k, n in calls.items():
+            into[k] = into.get(k, 0) + n
+
+    one_mesh = OneDeviceMesh(torch.device("cuda"))
+    one = xattn_tp_trainer(one_mesh)
+    _, one_ms = xattn_tp_steps(one)
+    ref = {"series": series(one), "ms": one_ms}
+    ref_state = [(p, t) for p, t in tree_flatten_sorted(one.state)]
+    ref_calls = []
+    for call in XATTN_TP_CALLS:
+        model, params = xattn_model(*call[:3])
+        ref_calls.append(xattn_forced(model, params))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        tr = xattn_tp_trainer(mesh)
+        check(tr.model.ranked and all(isinstance(t, DTensor) for _, t in
+                                      tree_flatten_sorted(tr.state)),
+              f"{arch} one-rank mesh: the Trainer's state is not DTensors")
+        launches, mesh_ms = xattn_tp_steps(tr)
+        got = list(tree_flatten_sorted(tr.state))
+        n_same = sum(p == q and full_value(x).dtype == y.dtype and torch.equal(full_value(x), y)
+                     for (p, x), (q, y) in zip(got, ref_state))
+        print(f"xattn tensor-parallel: {arch} full width, {XATTN_TP_TRAIN_LAYERS} + "
+              f"{XATTN_TP_TRAIN_LAYERS} layers, {XATTN_TP_TRAIN['seq_len']} tokens over "
+              f"1,500 frames a step, on a one-rank NCCL (1, 1) mesh: step ms {mesh_ms}, one "
+              f"device {one_ms} [{card}]; {series(tr)}, one device {ref['series']}; {n_same} "
+              f"of {len(ref_state)} state tensors bit-equal; launches {launches}")
+        check(series(tr) == ref["series"], f"{arch} one-rank mesh: {series(tr)} != one "
+              f"device's {ref['series']}")
+        check(n_same == len(ref_state) == len(got),
+              f"{arch} one-rank mesh: {len(ref_state) - n_same} state tensors differ")
+        check_launches(f"{arch} one-rank mesh", launches, per_step, XATTN_TP_STEPS)
+        by_path[XATTN_TP_PATH[arch]] = launches
+        del tr, one, got, ref_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for call, want, (forced, calls, _) in zip(XATTN_TP_CALLS, ref_calls,
+                                                  xattn_tp_calls(mesh)):
+            same = torch.equal(forced, want)
+            print(f"xattn tensor-parallel: {named(call)} at full width, teacher-forced "
+                  f"prefill of {len(XATTN_TP_PROMPT)} tokens and {XATTN_TP_DECODE} decode "
+                  f"steps on random {'frames' if call[0] == arch else 'patches'} (gates "
+                  f"{CROSS_GATE}) on the one-rank mesh: bit-equal to one device's {same} "
+                  f"[{card}]; launches {calls}")
+            check(same, f"{named(call)} one-rank mesh: the teacher-forced logits differ from "
+                  f"one device's by {max_err(forced, want)}")
+            check_calls(call, "one-rank mesh", calls)
+            add(XATTN_TP_PATH[call[0]], calls)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    # (c) two gloo ranks on the one card, a (1, 2) mesh
+    t0 = time.perf_counter()
+    reports = run_two_ranks(300, _xattn_tp_rank)
+    ranks_s = time.perf_counter() - t0
+    r0 = reports[0]
+    for rank, rep in enumerate(reports):
+        got = rep["train"]
+        check(got["split"], f"{arch} (1, 2): rank {rank}'s heads are not split")
+        for key in ("loss", "grad_norm"):
+            a, b = torch.tensor(got["series"][key]), torch.tensor(ref["series"][key])
+            check(len(a) == XATTN_TP_STEPS and close(a, b, SSM_TP_LOSS_TOL),
+                  f"{arch} (1, 2) rank {rank}: {key} {a.tolist()} not within "
+                  f"{SSM_TP_LOSS_TOL} of one device's {b.tolist()}")
+        check_launches(f"{arch} (1, 2) rank {rank}", got["launches"], per_step, XATTN_TP_STEPS)
+        for call, (forced, calls, split), first in zip(XATTN_TP_CALLS, rep["calls"],
+                                                       r0["calls"]):
+            check(split, f"{named(call)} (1, 2): rank {rank}'s heads are not split")
+            check(torch.equal(forced, first[0]), f"{named(call)} (1, 2): the ranks' logits differ")
+            check_calls(call, f"(1, 2) rank {rank}", calls)
+    train = r0["train"]
+    print(f"xattn tensor-parallel (1, 2): {arch} full width, {XATTN_TP_TRAIN_LAYERS} + "
+          f"{XATTN_TP_TRAIN_LAYERS} layers, two gloo ranks on the one card: step ms "
+          f"{[round(t, 1) for t in train['walls']]} (one device {ref['ms']}) [{card}]; losses "
+          f"{train['series']['loss']}, one device {ref['series']['loss']}; grad norms "
+          f"{train['series']['grad_norm']}, one device {ref['series']['grad_norm']}; launches "
+          f"{train['launches']}")
+    by_path[XATTN_TP2_PATH[arch]] = dict(train["launches"])
+    for call, want, (forced, calls, _) in zip(XATTN_TP_CALLS, ref_calls, r0["calls"]):
+        err, gate = max_err(forced, want), call[3]
+        steps = [round(max_err(a, b), 4) for a, b in zip(forced, want)]
+        print(f"xattn tensor-parallel (1, 2): {named(call)} teacher-forced logits max err "
+              f"{err:.4g} (prefill, then each decode step: {steps}; |logit| max "
+              f"{want.abs().max().item():.3g}; gate "
+              f"{f'{gate} + {gate}|x|' if gate else 'none, printed'}) [{card}]; launches "
+              f"{calls}")
+        if gate:
+            check(close(forced, want, gate), f"{named(call)} (1, 2): teacher-forced logits "
+                  f"max err {err}")
+        add(XATTN_TP2_PATH[call[0]], calls)
+    print(f"xattn tensor-parallel: phase {time.perf_counter() - t_phase:.1f} s (one device and "
+          f"the one-rank mesh {t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
     return by_path
 
 
@@ -5490,6 +5817,8 @@ def main(argv=None) -> int:
     mark("tensor-parallel done")
     by_path.update(phase_ssm_tensor_parallel(card))
     mark("ssm and hybrid tensor-parallel done")
+    by_path.update(phase_xattn_tensor_parallel(card))
+    mark("encdec and vlm tensor-parallel done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)

@@ -5,8 +5,9 @@ Parameters arrive as the dicts of ``models.params``. On one card every sharding
 constraint of the JAX package is the identity, and the dots keep their natural
 output dtype (the serving path's ``reduce_dtype`` is None).
 
-Tensor parallelism over "model" (the dense layers and the hybrid's shared block
-on a multi-rank mesh; the mamba2 block's is in ``models/ssm.py``): a layer
+Tensor parallelism over "model" (the attention and MLP layers of every family
+but moe on a multi-rank mesh, the cross-attention's included; the mamba2
+block's is in ``models/ssm.py``): a layer
 given ``tp`` (``parallel.sharding.TensorParallel``) takes each rank's local shards
 of the weights and runs at the JAX package's ``constrain`` sites the collectives
 of ``parallel/sharding.py``, Megatron-LM's way. ``swiglu`` is column-parallel in
@@ -15,8 +16,9 @@ local q heads and the k/v heads the rank holds: its 1/M of them where the axis
 divides the kv heads, else all of them (``local_kv`` then slices the kv heads of
 the local q heads' groups before K1); ``attn_out`` is row-parallel. K2's
 ``qk_norm_rope`` and K1 run on the local heads unchanged. A replicated tensor that
-enters a split region (x, the qk-norm scales, the undivided ``wk``/``wv``) goes
-through ``copy_to``, so its gradient is summed over the ranks. Without ``tp``
+enters a split region (x, the qk-norm scales, the undivided ``wk``/``wv``, a
+cross-attention's memory) goes through ``copy_to``, so its gradient is summed
+over the ranks. Without ``tp``
 (one card, a one-rank mesh, or a split the axis does not divide: every rank then
 holds and computes the whole) the code is the one-card code.
 """
@@ -71,11 +73,11 @@ def qkv_project(p: dict, x: torch.Tensor, *, positions: Optional[torch.Tensor],
     is ``model.Model._encode``'s).
 
     With ``tp`` splitting the heads: q of the local heads, k/v of the kv heads the
-    rank holds (see the module docstring); self-attention only."""
+    rank holds (see the module docstring); ``kv_from`` must have entered the split
+    region already (``copy_to``: the model enters the memory once, before its
+    decoder stack, rather than once a layer)."""
     if tp is not None and tp.heads:
-        if kv_from is not None:
-            raise NotImplementedError("cross-attention under tensor parallelism")
-        return _qkv_split(p, x, positions, theta, eps, tp)
+        return _qkv_split(p, x, positions, theta, eps, tp, kv_from)
     src = x if kv_from is None else kv_from.to(p["wk"].dtype)
     q = _project(x, p["wq"])
     k = _project(src, p["wk"])
@@ -91,15 +93,17 @@ def qkv_project(p: dict, x: torch.Tensor, *, positions: Optional[torch.Tensor],
 
 
 def _qkv_split(p: dict, x: torch.Tensor, positions, theta: float, eps: float,
-               tp: TensorParallel):
+               tp: TensorParallel, kv_from: Optional[torch.Tensor] = None):
     """``qkv_project`` on the local heads: x, the qk-norm scales and undivided
-    k/v weights enter the split region through ``copy_to``."""
+    k/v weights enter the split region through ``copy_to``; ``kv_from`` (the
+    cross-attention's memory) has entered it before."""
     plan = tp.plan
     x = copy_to(x, plan)
+    src = x if kv_from is None else kv_from.to(p["wk"].dtype)
     wk, wv = p["wk"], p["wv"]
     if not tp.kv_heads:
         wk, wv = copy_to(wk, plan), copy_to(wv, plan)
-    q, k, v = _project(x, p["wq"]), _project(x, wk), _project(x, wv)
+    q, k, v = _project(x, p["wq"]), _project(src, wk), _project(src, wv)
     if positions is None:
         return q, k, v
     if "q_norm" in p:

@@ -71,17 +71,18 @@ out by its rules (the cache's logical axes are the JAX package's, declared in
 ``cache_defs``). On a one-device plan every layout is the identity and the code
 above runs as it is.
 
-Tensor and data parallelism (the dense, ssm and hybrid families on a plan over a
+Tensor and data parallelism (every family but moe on a plan over a
 ``DeviceMesh``: ``ranked``): the params are DTensors laid out by
 ``param_specs``. Every entry point works on this rank's shards in the compute
 layout (``shard_params``: the "model" splits of heads, kv heads, ffn, vocab and
 ssm heads, ``parallel.sharding.compute_spec``; any other split gathered) and
 on its rows of the batch (``_rows``: a DTensor leaf's rows by its placements, a
 plain leaf holds the whole batch and each rank takes its rows by the "batch"
-rule), and the layers run the collectives of
-``parallel/sharding.py`` at the JAX package's ``constrain`` sites, with
-``self.tp`` (``TensorParallel``). ``_embed`` is a vocab-parallel lookup (a masked
-local gather, summed over "model"); ``_unembed`` gives vocab-split logits,
+rule; whisper's frames and llama-vision's patches ride the tokens' rows), and
+the layers run the collectives of ``parallel/sharding.py`` at the JAX package's
+``constrain`` sites, with ``self.tp`` (``TensorParallel``). ``_embed`` is a
+vocab-parallel lookup (a masked local gather, summed over "model"); ``_unembed``
+gives vocab-split logits,
 which ``forward`` returns as a DTensor on ``plan.spec(("batch", "seq",
 "vocab"))``'s placements; ``loss_fn``'s cross-entropy is vocab-parallel (max and
 sum of exp reduced over "model", the target's logit from the rank that holds it;
@@ -95,6 +96,15 @@ own cache positions for all heads (``ops.attend_cache_part``), the partial
 softmaxes are combined across "model" by log-sum-exp (``_lse_combine``; a rank
 with no live position adds zero weight), and each rank keeps its heads for the
 row-parallel ``wo``; gemma3's ring takes the same combine over its slots. A
+cross-attention (encdec, vlm) takes q from the rank's heads and k/v from the
+memory (the encoder's output, the patches) on the kv heads the rank holds; the
+memory enters the split region once, before the decoder stack (``copy_to``, so
+the encoder's gradient is summed over "model"); vlm's tanh gate multiplies the
+row-parallel output after its reduction. Its cross K/V cache, written once at
+prefill, is split as ``cache_specs`` says: along the memory (whisper's 1,500
+frames over 2 or 4 ranks), where each rank attends its slice with every
+position live and ``_lse_combine`` joins them; by kv heads (llama-vision's
+1,601 patches, a prime), where attention is local; or not at all. A
 mamba2 layer (ssm, and the hybrid's; ``models/ssm.py``) splits d_inner and its
 heads over "model" where the axis divides both, and the hybrid's shared block is
 the dense layers' code. Its decode state is computed in its own layout (the
@@ -105,9 +115,8 @@ prefill lays the tails out (``_conv_laid_out``: the xs channels gathered over
 "model", the rank's slice cut), and a decode step takes them back into its
 layout (``_conv_computed``) and lays the new tails out again, two all-gathers of
 the tails a step. On a one-rank mesh every axis has size 1: no collective runs
-and the code is the one-card code op for op. The moe, encdec and vlm families'
-DTensor params take ``forward``'s gather route (``_sharded_forward``); loss,
-prefill and decode on them are refused (ROADMAP §1 items 2-4).
+and the code is the one-card code op for op. The moe family's loss, prefill and
+decode on DTensor params are refused (ROADMAP §1 items 2-3).
 """
 from __future__ import annotations
 
@@ -141,15 +150,15 @@ _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 # the families whose layers are tensor-parallel on a DeviceMesh (``Model.ranked``)
-TP_FAMILIES = ("dense", "ssm", "hybrid")
+TP_FAMILIES = ("dense", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _refuse_sharded(cfg: ArchConfig, params: dict, what: str) -> None:
     if isinstance(params["embed"], DTensor) and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{what} of the {cfg.family} family on DTensor params is not in the port: "
-            "tensor parallelism covers the dense, ssm and hybrid families (ROADMAP §1 "
-            "items 2-4); moe, encdec and vlm have only forward's gather route")
+            "tensor parallelism covers the dense, ssm, hybrid, encdec and vlm families; "
+            "moe's expert parallelism is not ported yet (ROADMAP §1 items 2-3)")
 
 
 def _split(spec, dim: int) -> bool:
@@ -240,29 +249,55 @@ def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool,
     return LY.swiglu(p["mlp"], h, tp), None
 
 
-def _cross_attn(cfg: ArchConfig, p: dict, h: torch.Tensor, memory: torch.Tensor):
+def _cross_attn(cfg: ArchConfig, p: dict, h: torch.Tensor, memory: torch.Tensor,
+                tp: Optional[TensorParallel] = None):
     """q from h [B,S,D], k/v from memory [B,M,D]; K1 not causal over Sq != Skv.
-    Returns (the un-added output, k, v)."""
+    Returns (the un-added output, k, v). Under ``tp`` q holds the rank's heads and
+    k/v the kv heads the rank holds; ``memory`` has entered the split region
+    (``copy_to``) before the stack."""
     q, k, v = LY.qkv_project(p, h, positions=None, theta=0.0, eps=cfg.norm_eps,
-                             kv_from=memory)
-    o = ops.flash_attention(q, k, v, causal=False)
-    return LY.attn_out(p, o), k, v
+                             kv_from=memory, tp=tp)
+    o = ops.flash_attention(q, LY.local_kv(q, k, tp), LY.local_kv(q, v, tp), causal=False)
+    return LY.attn_out(p, o, tp), k, v
 
 
 def _cross_attn_cached(cfg: ArchConfig, p: dict, h: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
+                       v: torch.Tensor, tp: Optional[TensorParallel] = None,
+                       seq: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One token's cross-attention against the cross K/V [B,M,K,hd] written at
-    prefill: the plain ``attend_cache`` with every one of the M positions live."""
+    prefill: the plain ``attend_cache`` with every one of the M positions live.
+    Under ``tp`` the cache holds the kv heads the rank computes (``seq`` None:
+    local, K1's local kv heads read) or every kv head of a slice of the memory
+    (``seq``: each rank attends its slice with every position live,
+    ``_attend_split``)."""
     q = LY._project(h, p["wq"])
+    if seq is not None:
+        live = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+        return LY.attn_out(p, _attend_split(q, k, v, live, tp), tp)
     full = torch.full((h.shape[0], 1, 1, 1), k.shape[1] - 1, dtype=torch.int32,
                       device=h.device)
-    return LY.attn_out(p, ops.attend_cache(q, k, v, full, packed=cfg.packed_decode))
+    o = ops.attend_cache(q, LY.local_kv(q, k, tp), LY.local_kv(q, v, tp), full,
+                         packed=cfg.packed_decode)
+    return LY.attn_out(p, o, tp)
 
 
 def _gated(gate: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """The vlm cross layer's tanh gate, rounded to a's dtype before the product,
-    as the JAX package rounds it."""
+    as the JAX package rounds it. Under tensor parallelism ``a`` is the reduced
+    output of the row-parallel ``wo``, so the gate's gradient is whole on every
+    rank."""
     return torch.tanh(gate.float()).to(a.dtype) * a
+
+
+def _into_split(memory: Optional[torch.Tensor],
+                tp: Optional[TensorParallel]) -> Optional[torch.Tensor]:
+    """The memory a stack's cross-attentions read, entered into the split region
+    once (``copy_to``) where ``tp`` splits their heads: each layer's k/v of the
+    rank's kv heads give partial gradients of it, summed over "model" in one
+    all-reduce."""
+    if memory is None or tp is None or not tp.heads:
+        return memory
+    return copy_to(memory, tp.plan)
 
 
 def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
@@ -290,7 +325,7 @@ def _block_normed(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
     xkv = None
     if "xattn" in p:
         x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
-        a, xk, xv = _cross_attn(cfg, p["xattn"], h, memory)
+        a, xk, xv = _cross_attn(cfg, p["xattn"], h, memory, tp)
         xkv = {"k": xk, "v": xv} if want_kv else None
     x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
     y, aux = _ff(cfg, p, h, decode=False, tp=tp)
@@ -300,13 +335,15 @@ def _block_normed(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
                   cache: dict, pos: torch.Tensor, window: int,
                   xkv: Optional[dict] = None, tp: Optional[TensorParallel] = None,
-                  seq: Optional[Tuple[int, int]] = None):
+                  seq: Optional[Tuple[int, int]] = None,
+                  xseq: Optional[Tuple[int, int]] = None):
     """Decode variant of ``_block``; cache is {"k","v"}: a ring of W slots when
     window > 0, else full-length; xkv the layer's cross K/V where it has one.
     Under ``tp`` the cache holds, at every position, the kv heads the rank
     computes (``seq`` None: the write and the attention are local, K1's local
     kv heads read), or every kv head of a slice of the positions (``seq``, the
-    slice's first position and the whole length: ``_attend_slices``)."""
+    slice's first position and the whole length: ``_attend_slices``); ``xseq``
+    is the cross K/V's (``_cross_attn_cached``)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     q, k_new, v_new = LY.qkv_project(p["attn"], h, positions=pos[:, None],
                                      theta=cfg.rope_theta, eps=cfg.norm_eps, tp=tp)
@@ -324,7 +361,7 @@ def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.T
     a = LY.attn_out(p["attn"], o, tp)
     if "xattn" in p:
         x, h = ops.add_rmsnorm(x, a, p["ln3"], eps=cfg.norm_eps)
-        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"])
+        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"], tp, xseq)
     x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
     return x, _ff(cfg, p, h, decode=True, tp=tp)[0]
 
@@ -353,7 +390,6 @@ def _attend_slices(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, ca
     plan = tp.plan
     lo, length = seq
     Sl = cache["k"].shape[1]
-    qf = gather_along(q, 2, plan) if tp.heads else q
     if tp.kv_heads:
         k_new, v_new = gather_along(k_new, 2, plan), gather_along(v_new, 2, plan)
     at = torch.remainder(pos, length) if window > 0 else pos
@@ -364,8 +400,18 @@ def _attend_slices(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, ca
         live = pos[:, None] - torch.remainder(pos[:, None] - slots, length) >= 0
     else:
         live = slots <= pos[:, None]
-    m, l, o = ops.attend_cache_part(qf, cache["k"], cache["v"], live)
-    o = _lse_combine(m, l, o, plan, q.dtype)
+    return _attend_split(q, cache["k"], cache["v"], live, tp)
+
+
+def _attend_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, live: torch.Tensor,
+                  tp: TensorParallel) -> torch.Tensor:
+    """One token's attention over k/v [B, Sl, K, hd], this rank's slice of a cache
+    split along the sequence over "model" (``live`` [B, Sl] its positions that
+    hold a token): q's heads gathered, the slice attended for all heads
+    (``ops.attend_cache_part``), the slices joined by ``_lse_combine``. Returns
+    the output of this rank's q heads."""
+    qf = gather_along(q, 2, tp.plan) if tp.heads else q
+    o = _lse_combine(*ops.attend_cache_part(qf, k, v, live), tp.plan, q.dtype)
     return o.narrow(2, tp.rank * q.shape[2], q.shape[2]) if tp.heads else o
 
 
@@ -386,6 +432,7 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
     carry), None where no layer has one."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
+    memory = _into_split(memory, tp)
 
     def group(x, d, aux, ps, memory):
         """One group of ``period`` layers (the JAX package's scan body)."""
@@ -420,10 +467,10 @@ def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   cache_layers: tuple, pos: torch.Tensor,
                   cross_kvs: Optional[tuple] = None, tp: Optional[TensorParallel] = None,
-                  seq: Optional[tuple] = None):
+                  seq: Optional[tuple] = None, xseq: Optional[tuple] = None):
     """cross_kvs[j]: the cross K/V {"k","v": [G,B,M,K,hd]} of period position j
-    (encdec); seq[j]: ``_block_decode``'s ``seq`` of period position j's cache.
-    Returns (x, d): the stream is x + d."""
+    (encdec); seq[j], xseq[j]: ``_block_decode``'s ``seq`` and ``xseq`` of period
+    position j's caches. Returns (x, d): the stream is x + d."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     d = None
@@ -434,7 +481,8 @@ def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
             cache = {n: cache_layers[j][n][g] for n in ("k", "v")}
             xkv = None if cross_kvs is None else {n: cross_kvs[j][n][g] for n in ("k", "v")}
             x, d = _block_decode(cfg, p, x, d, cache, pos, windows[j], xkv, tp,
-                                 None if seq is None else seq[j])
+                                 None if seq is None else seq[j],
+                                 None if xseq is None else xseq[j])
     return x, d
 
 
@@ -580,36 +628,39 @@ def _vlm_groups(params: dict) -> list:
 
 def _vlm_cross_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
                      patches: Optional[torch.Tensor] = None, want_kv: bool = False,
-                     xkv: Optional[dict] = None):
+                     xkv: Optional[dict] = None, tp: Optional[TensorParallel] = None,
+                     xseq: Optional[Tuple[int, int]] = None):
     """The gated cross layer on the stream x + d: x + tanh(gate) * xattn(ln1),
     then the mlp; the cross-attention onto the patches, or onto their K/V ``xkv``
-    cached at prefill (decode). Returns (x, the mlp's un-added output, the cross
-    K/V where ``want_kv``)."""
+    cached at prefill (decode; ``xseq`` its slice of the patches under ``tp``).
+    Returns (x, the mlp's un-added output, the cross K/V where ``want_kv``)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     if xkv is None:
-        a, k, v = _cross_attn(cfg, p["xattn"], h, patches)
+        a, k, v = _cross_attn(cfg, p["xattn"], h, patches, tp)
         xkv = {"k": k, "v": v} if want_kv else None
     else:
-        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"])
+        a = _cross_attn_cached(cfg, p["xattn"], h, xkv["k"], xkv["v"], tp, xseq)
     x, h = ops.add_rmsnorm(x, _gated(p["gate"], a), p["ln2"], eps=cfg.norm_eps)
-    return x, LY.swiglu(p["mlp"], h), xkv
+    return x, LY.swiglu(p["mlp"], h, tp), xkv
 
 
 def _vlm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
-             patches: torch.Tensor, want_kv: bool = False):
+             patches: torch.Tensor, want_kv: bool = False,
+             tp: Optional[TensorParallel] = None):
     """Returns (x, d, kvs, xkvs): the stream is x + d; kvs = {"k","v": [nc *
     (k-1), B, S, K, hd]} of the self layers in order, xkvs = {"k","v": [nc, B, P,
-    K, hd]} of the cross layers."""
+    K, hd]} of the cross layers (under ``tp``, the kv heads the rank holds)."""
     def group(x, d, selfs, cross, patches):
         """k - 1 self layers, then the gated cross layer (the JAX package's body)."""
         gkv = []
         for lp in selfs:
-            x, d, kv, _, _ = _block(cfg, lp, x, d, positions, 0, want_kv)
+            x, d, kv, _, _ = _block(cfg, lp, x, d, positions, 0, want_kv, tp=tp)
             gkv.append(kv)
-        x, d, xkv = _vlm_cross_layer(cfg, cross, x, d, patches, want_kv)
+        x, d, xkv = _vlm_cross_layer(cfg, cross, x, d, patches, want_kv, tp=tp)
         return x, d, gkv, xkv
 
     group = _remat(group, cfg.remat)
+    patches = _into_split(patches, tp)
     kvs, xkvs = [], []
     d = None
     for selfs, cross in _vlm_groups(params):
@@ -622,16 +673,22 @@ def _vlm_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor, positions: torch.Te
 
 
 def _vlm_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
-                pos: torch.Tensor):
+                pos: torch.Tensor, tp: Optional[TensorParallel] = None,
+                seq: Optional[Tuple[int, int]] = None,
+                xseq: Optional[Tuple[int, int]] = None):
     """One token through the groups; writes each self layer's k/v at ``pos`` of
-    ``cache["self"]`` in place and reads ``cache["cross"]``. Returns (x, d)."""
+    ``cache["self"]`` in place and reads ``cache["cross"]`` (under ``tp``, ``seq``
+    and ``xseq`` their slices of the sequence and of the patches, as
+    ``_block_decode``'s). Returns (x, d)."""
     d = None
     for g, (selfs, cross) in enumerate(_vlm_groups(params)):
         for j, lp in enumerate(selfs):
             x, d = _block_decode(cfg, lp, x, d,
-                                 {n: cache["self"][n][g, j] for n in ("k", "v")}, pos, 0)
+                                 {n: cache["self"][n][g, j] for n in ("k", "v")}, pos, 0,
+                                 tp=tp, seq=seq)
         x, d, _ = _vlm_cross_layer(cfg, cross, x, d,
-                                   xkv={n: cache["cross"][n][g] for n in ("k", "v")})
+                                   xkv={n: cache["cross"][n][g] for n in ("k", "v")}, tp=tp,
+                                   xseq=xseq)
     return x, d
 
 
@@ -686,22 +743,41 @@ class Model:
         return specs
 
     def _tensor_parallel(self) -> Optional[TensorParallel]:
-        """The split over a "model" axis of more than one rank: the dense layers'
-        or the shared block's attention and MLP (a hybrid's), the mamba2 blocks'
-        (ssm, hybrid) and the vocab."""
+        """The split over a "model" axis of more than one rank: the attention and
+        MLP of the dense layers, the shared block (hybrid), the decoder's and the
+        encoder's layers and the decoder's cross-attention (encdec), the self and
+        the cross layers (vlm); the mamba2 blocks' (ssm, hybrid) and the vocab.
+        Every stack of a model has the same heads, kv heads and ffn, so they split
+        alike; a ``ValueError`` where they would not."""
         if not self.ranked or self.plan.axis_size("model") == 1:
             return None
         specs = self.compute_specs()
+        family = self.cfg.family
         flags = {"heads": False, "kv_heads": False, "ffn": False,
                  "vocab": _split(specs["embed"], 0)}
-        if self.cfg.family in ("ssm", "hybrid"):
+        if family in ("ssm", "hybrid"):
             flags["ssm"] = _split(specs["layers"]["ssm"]["w_x"], 2)
-        if self.cfg.family in ("dense", "hybrid"):      # stacked layers, or one block
-            block, lead = ((specs["layers"], 1) if self.cfg.family == "dense"
-                           else (specs["shared_block"], 0))
-            flags.update(heads=_split(block["attn"]["wq"], lead + 1),
-                         kv_heads=_split(block["attn"]["wk"], lead + 1),
-                         ffn=_split(block["mlp"]["w_gate"], lead + 1))
+        # (attention, lead dims) and (MLP, lead dims) of each stack
+        attns, mlps = [], []
+        if family in ("dense", "encdec"):
+            attns.append((specs["layers"]["attn"], 1))
+            mlps.append((specs["layers"]["mlp"], 1))
+        if family == "hybrid":
+            attns.append((specs["shared_block"]["attn"], 0))
+            mlps.append((specs["shared_block"]["mlp"], 0))
+        if family == "encdec":
+            attns += [(specs["layers"]["xattn"], 1), (specs["enc_layers"]["attn"], 1)]
+            mlps.append((specs["enc_layers"]["mlp"], 1))
+        if family == "vlm":
+            attns += [(specs["self_layers"]["attn"], 2), (specs["cross_layers"]["xattn"], 1)]
+            mlps += [(specs["self_layers"]["mlp"], 2), (specs["cross_layers"]["mlp"], 1)]
+        for flag, leaves, name in (("heads", attns, "wq"), ("kv_heads", attns, "wk"),
+                                   ("ffn", mlps, "w_gate")):
+            split = {_split(block[name], lead + 1) for block, lead in leaves}
+            if len(split) > 1:
+                raise ValueError(f"{self.cfg.name}: the stacks split {flag} over 'model' "
+                                 f"in some places and not in others")
+            flags[flag] = split == {True}
         return TensorParallel(self.plan, **flags)
 
     def shard_params(self, params: dict) -> dict:
@@ -828,16 +904,19 @@ class Model:
         f32 params) are promoted to theirs, exactly, and the first norm rounded
         to the frames' dtype: the JAX package's rmsnorm returns its input's
         dtype, and its q/k/v products and first residual add promote. Where the
-        dtypes agree both casts are no-ops."""
-        cfg = self.cfg
+        dtypes agree both casts are no-ops.
+
+        On ranks the frames are this rank's rows, whole over "model", and the
+        layers are tensor-parallel (``self.tp``) as the decoder's."""
+        cfg, tp = self.cfg, self.tp
         positions = self._positions(frames.shape[0], frames.shape[1])
 
         def first_layer(lp, x):
             h = LY.rmsnorm(x, lp["ln1"], cfg.norm_eps).to(frames.dtype).to(x.dtype)
-            return _block_normed(cfg, lp, x, h, positions, 0, False, None, False)[:2]
+            return _block_normed(cfg, lp, x, h, positions, 0, False, None, False, tp)[:2]
 
         def layer(lp, x, d):
-            return _block(cfg, lp, x, d, positions, 0, False, causal=False)[:2]
+            return _block(cfg, lp, x, d, positions, 0, False, causal=False, tp=tp)[:2]
 
         first, *rest = _unstack(params["enc_layers"])
         x, d = _remat(first_layer, cfg.remat)(first, frames.to(params["enc_norm"].dtype))
@@ -851,12 +930,15 @@ class Model:
                 return_hidden: bool = False):
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
         final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE).
-        DTensor params: those of the dense, ssm and hybrid families are
-        tensor-parallel and the output a DTensor; the other families' take the
-        gather route (``_sharded_forward``)."""
+        DTensor params are tensor-parallel and the output a DTensor; the moe
+        family's are refused."""
         dtensors = isinstance(params["embed"], DTensor)
-        if dtensors and not self.ranked:
-            return self._sharded_forward(params, batch, return_hidden)
+        if dtensors:
+            _refuse_sharded(self.cfg, params, "forward")
+            mesh = params["embed"].device_mesh
+            if not self.ranked or self.plan.mesh != mesh:
+                raise ValueError(f"params are DTensors on {mesh}, the model's plan is on "
+                                 f"{self.plan.mesh}")
         rows, axes = self._rows(batch)
         out, aux = self._forward_local(self.shard_params(params), rows, return_hidden)
         if not dtensors:
@@ -879,7 +961,7 @@ class Model:
             x, d, _ = _hybrid_fwd(self.cfg, params, x, self._positions(B, S), tp=self.tp)
         elif family == "vlm":
             x, d, _, _ = _vlm_fwd(self.cfg, params, x, self._positions(B, S),
-                                  batch["patches"])
+                                  batch["patches"], tp=self.tp)
         else:
             memory = self._encode(params, batch["frames"]) if family == "encdec" else None
             x, d, _, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S),
@@ -889,53 +971,6 @@ class Model:
         if return_hidden:
             return self._final_norm(params, x, d), aux
         return self._unembed(params, x, d), aux
-
-    def _sharded_forward(self, params: dict, batch: Dict[str, torch.Tensor],
-                         return_hidden: bool):
-        """The gather route: the forward of the families that tensor parallelism
-        does not cover yet, encdec and vlm (ROADMAP §1 items 3-4; moe is refused),
-        on DTensor params and batch (a plan over a ``DeviceMesh``). The dense, ssm
-        and hybrid families take the tensor-parallel route (``forward``) instead.
-        Every parameter leaf is gathered whole (``full_tensor``, an all-gather, as
-        ZeRO-3 gathers a layer's weights), every rank runs the one-card forward on
-        its rows of the batch (a batch leaf sharded on another dim than the batch
-        dim is gathered on that dim first), and the output is a DTensor on
-        ``plan.spec(("batch", "seq", "vocab"))``'s placements (the hidden state:
-        ``("batch", "seq", None)``). Ranks along a mesh axis that does not shard
-        the batch compute the same rows: for these families the JAX package's
-        tensor parallelism over "model" inside a layer is not ported. The aux loss is the forward's own,
-        replicated: the MoE family's load-balance loss is a function of the whole
-        batch, so the moe family is refused here."""
-        mesh = params["embed"].device_mesh
-        if self.plan.mesh != mesh:
-            raise ValueError(f"params are DTensors on {mesh}, the model's plan is on "
-                             f"{self.plan.mesh}")
-        if self.cfg.family == "moe":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the sharded forward of the moe family needs its "
-                "load-balance loss reduced over the whole batch across ranks "
-                "(ROADMAP §1 item 2)")
-        full = tree_map(lambda p: p.full_tensor() if isinstance(p, DTensor) else p, params)
-        rows, local = None, {}
-        for name, v in batch.items():
-            if not isinstance(v, DTensor):
-                local[name] = v
-                continue
-            keep = tuple(p if p.is_shard(0) else Replicate() for p in v.placements)
-            if rows not in (None, keep):
-                raise ValueError(f"batch leaf {name!r} splits its rows {keep}, "
-                                 f"another leaf {rows}")
-            rows = keep
-            local[name] = v.redistribute(mesh, keep).to_local()
-        rows = rows or (Replicate(),) * mesh.ndim
-        out, aux = self.forward(full, local, return_hidden)
-        shape = (batch["tokens"].shape[0],) + tuple(out.shape[1:])
-        stride = torch.empty(shape, device="meta").stride()
-        out = DTensor.from_local(out, mesh, rows, run_check=False, shape=shape, stride=stride)
-        logical = ("batch", "seq", None if return_hidden else "vocab")
-        out = out.redistribute(mesh, self.plan.sharding(logical, shape))
-        aux = DTensor.from_local(aux, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-        return out, aux
 
     # ------------------------------------------------------------------------- loss
     def loss_fn(self, params: dict, batch: Dict[str, torch.Tensor]):
@@ -1017,14 +1052,14 @@ class Model:
         family = self.cfg.family
         if family == "vlm":
             x, d, kv, xkv = _vlm_fwd(self.cfg, params, x, self._positions(B, S),
-                                     batch["patches"], want_kv=True)
+                                     batch["patches"], want_kv=True, tp=self.tp)
             groups = (xkv["k"].shape[0], self.cfg.cross_attn_every - 1)
             cache = {"pos": pos, "cross": xkv, "self": {
                 n: _pad_seq(t, max_len).unflatten(0, groups) for n, t in kv.items()}}
         elif family == "encdec":
             memory = self._encode(params, batch["frames"])
             x, d, (kv,), (xkv,), _ = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                               want_kv=True, memory=memory)
+                                               want_kv=True, memory=memory, tp=self.tp)
             cache = {"pos": pos, "self": {n: _pad_seq(t, max_len) for n, t in kv.items()},
                      "cross": xkv}
         elif family == "ssm":
@@ -1054,21 +1089,24 @@ class Model:
 
     def _cache_laid_out(self, cache: dict, batch: int, max_len: int) -> dict:
         """A prefill's cache of this rank's rows in the compute layout as DTensors
-        on ``cache_specs``' placements: of k/v [G, B, S, K, hd] the kv heads
-        gathered where the cache does not split them, the sequence narrowed to this
-        rank's slice where it does; a conv tail laid out by ``_conv_laid_out``; the
-        SSD state's heads split as they are computed."""
+        on ``cache_specs``' placements: of a k/v leaf (self or cross; [G, B, S, K,
+        hd], vlm's self cache [nc, grp, B, S, K, hd]: its dims read from its
+        logical axes) the kv heads gathered where the cache does not split them,
+        the sequence narrowed to this rank's slice where it does; a conv tail
+        laid out by ``_conv_laid_out``; the SSD state's heads split as they are
+        computed."""
         mesh, plan = self.plan.mesh, self.plan
 
         def lay(t, d):
             spec = plan.spec(d.logical, d.shape)
-            if "cache_seq" in d.logical:                # k/v [G, B, S, K, hd]
-                heads = spec[3] if len(spec) > 3 else None
-                if self.tp is not None and self.tp.kv_heads and heads is None:
-                    t = gather_along(t, 3, plan)
-                lo, hi = local_range(plan, spec, 2, d.shape[2])
-                if hi - lo != t.shape[2]:
-                    t = t[:, :, lo:hi].contiguous()
+            if "cache_seq" in d.logical:                # a k/v leaf
+                seq, heads = d.logical.index("cache_seq"), d.logical.index("kv_heads")
+                if (self.tp is not None and self.tp.kv_heads
+                        and (spec[heads] if heads < len(spec) else None) is None):
+                    t = gather_along(t, heads, plan)
+                lo, hi = local_range(plan, spec, seq, d.shape[seq])
+                if hi - lo != t.shape[seq]:
+                    t = t.narrow(seq, lo, hi - lo).contiguous()
             elif d.logical[-1] == "ffn":                # the conv tail
                 t = self._conv_laid_out(t, d)
             return as_dtensor(t, mesh, placements(mesh, spec), d.shape)
@@ -1107,13 +1145,15 @@ class Model:
         r = self.tp.rank
         return torch.cat([t[..., r * (DI // M):(r + 1) * (DI // M)], t[..., DI:]], dim=-1)
 
-    def _seq_slice(self, kv: DTensor) -> Optional[Tuple[int, int]]:
-        """(first position, whole length) of this rank's slice of a cache leaf
-        whose sequence is split over "model"; None where it is not split."""
-        spec = self.plan.spec((None, "batch", "cache_seq", "kv_heads", None), kv.shape)
-        if self.tp is None or len(spec) < 3 or spec[2] is None:
+    def _seq_slice(self, kv: DTensor, d: TensorDef) -> Optional[Tuple[int, int]]:
+        """(first position, whole length) of this rank's slice of a k/v cache leaf
+        (``d`` its ``cache_defs`` entry) whose sequence is split over "model";
+        None where it is not split."""
+        spec = self.plan.spec(d.logical, kv.shape)
+        seq = d.logical.index("cache_seq")
+        if self.tp is None or len(spec) <= seq or spec[seq] is None:
             return None
-        return local_range(self.plan, spec, 2, kv.shape[2])[0], kv.shape[2]
+        return local_range(self.plan, spec, seq, kv.shape[seq])[0], kv.shape[seq]
 
     # ------------------------------------------------------------------- decode step
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
@@ -1149,12 +1189,23 @@ class Model:
         pos = local["pos"]
         x = self._embed(params, rows["tokens"])
         family = self.cfg.family
+        defs = self.cache_defs(cache["pos"].shape[0], 1)
+
+        def seq(name):
+            return self._seq_slice(cache[name]["k"], defs[name]["k"])
         if family == "dense":
-            seq = tuple(self._seq_slice(kv["k"]) for kv in cache["layers"])
+            slices = tuple(self._seq_slice(kv["k"], dk["k"])
+                           for kv, dk in zip(cache["layers"], defs["layers"]))
             x, d = _stack_decode(self.cfg, params, x, local["layers"], pos, tp=self.tp,
-                                 seq=seq)
+                                 seq=slices)
+        elif family == "encdec":
+            x, d = _stack_decode(self.cfg, params, x, (local["self"],), pos,
+                                 cross_kvs=(local["cross"],), tp=self.tp,
+                                 seq=(seq("self"),), xseq=(seq("cross"),))
+        elif family == "vlm":
+            x, d = _vlm_decode(self.cfg, params, x, local, pos, self.tp, seq("self"),
+                               seq("cross"))
         else:      # the conv tails in the compute layout for the step, then laid back
-            defs = self.cache_defs(cache["pos"].shape[0], 1)
             stacks = ("layers",) if family == "ssm" else ("main", "tail")
             states = {n: dict(local[n], conv=self._conv_computed(local[n]["conv"],
                                                                  defs[n]["conv"]))
@@ -1163,7 +1214,7 @@ class Model:
                 x, d = _ssm_decode(self.cfg, params, x, states["layers"], self.tp)
             else:
                 x, d = _hybrid_decode(self.cfg, params, x, dict(local, **states), pos, self.tp,
-                                      self._seq_slice(cache["shared"]["k"]))
+                                      seq("shared"))
             for n in stacks:
                 local[n]["conv"].copy_(self._conv_laid_out(states[n]["conv"], defs[n]["conv"]))
         logits = self._wrap(self._unembed(params, x, d)[:, 0], ("batch", "vocab"), axes)

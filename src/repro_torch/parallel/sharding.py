@@ -26,8 +26,8 @@ set here does. A spec that lists a dim's axes in another order, or names an axis
 the mesh lacks, raises ``ValueError``.
 
 Tensor parallelism over "model" (the forward, loss, backward, prefill and decode
-of the dense, ssm and hybrid families, ``models/layers.py``, ``models/ssm.py``
-and ``models/model.py``): the layers
+of every family but moe, ``models/layers.py``, ``models/ssm.py`` and
+``models/model.py``): the layers
 run on each rank's local shards, plain tensors, and call the collectives below
 at the JAX package's ``constrain`` sites, on the process group of this rank's
 line along one mesh axis (``axis_group``). Autograd goes through
@@ -505,7 +505,9 @@ class TensorParallel:
     of the weights (a dim the axis does not divide stays whole, as
     ``MeshPlan.spec`` drops the axis); ``rank`` is this rank's index along it.
     ``heads``, ``kv_heads`` and ``ffn`` are those of the attention and the MLP
-    (the dense layers, the hybrid's shared block); ``ssm`` says that a mamba2
+    (every stack's: the dense layers, the hybrid's shared block, the encoder's
+    and the decoder's layers and cross-attention, the vlm's self and cross
+    layers; they split alike); ``ssm`` says that a mamba2
     block splits both its d_inner ("ffn") and its heads ("ssm_heads"), which a
     rank then holds 1/size of, in step: where the axis divides only one of them
     the block is not split, and every rank holds and computes the whole."""

@@ -14,11 +14,12 @@ so there is no per-prompt-length compile cache. The model's plan is the JAX
 package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh unless one
 is given.
 
-On a ("data", "model") ``DeviceMesh`` of a process group (the dense, ssm and
-hybrid families; moe, encdec and vlm are refused on more than one rank, ROADMAP
-§1 items 2-4) the params and the cache are DTensors laid out by ``param_specs``
-and ``cache_specs``: the slots are split over "data", a k/v cache's sequence over
-"model", a mamba2 layer's SSD state by its heads and its conv tail by its
+On a ("data", "model") ``DeviceMesh`` of a process group (every family but
+moe, which is refused on more than one rank, ROADMAP §1 items 2-3) the params
+and the cache are DTensors laid out by ``param_specs`` and ``cache_specs``: the
+slots are split over "data", a k/v cache's sequence over "model" (a cross K/V
+cache's along the memory, or by kv heads where "model" does not divide the
+memory), a mamba2 layer's SSD state by its heads and its conv tail by its
 channels, the layers are tensor-parallel (``models/model.py``). Every rank runs the same scheduler on the
 whole logits (gathered), so every rank takes the same decisions. A request's
 prefill (B = 1, which "data" does not divide) runs on every data rank, and the
@@ -84,8 +85,8 @@ class Server:
         if chips(mesh) != 1 and arch_cfg.family not in TP_FAMILIES:
             raise NotImplementedError(
                 f"a {arch_cfg.family} Server on a mesh of {chips(mesh)} devices: multi-rank "
-                "serving covers the dense, ssm and hybrid families; moe, encdec and vlm are "
-                "not ported yet (ROADMAP §1 items 2-4)")
+                "serving covers the dense, ssm, hybrid, encdec and vlm families; moe's "
+                "expert parallelism is not ported yet (ROADMAP §1 items 2-3)")
         self.model = Model(arch_cfg, self.device, MeshPlan(mesh=mesh, fsdp=False))
         self.params = self._laid_out(params if params is not None else
                                      self.model.init_params(cfg.seed))

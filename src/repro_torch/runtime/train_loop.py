@@ -10,16 +10,18 @@
 
 The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
 ``make_test_mesh``'s mesh unless one is given. Which families take which mesh:
-  * the dense, ssm and hybrid families in sync mode run on any ("data",
-    "model") mesh of a process group (a ``DeviceMesh``, one rank or many): the
-    state is DTensors laid out by ``train_state_specs``, the step tensor- and
-    data-parallel (``models/model.py``, ``launch/steps.py``); each rank builds the
-    global batch from the seed and the model takes its rows by the "batch" rule;
-    the metrics are the same on every rank;
+  * the dense, ssm, hybrid, encdec and vlm families in sync mode run on any
+    ("data", "model") mesh of a process group (a ``DeviceMesh``, one rank or
+    many): the state is DTensors laid out by ``train_state_specs``, the step
+    tensor- and data-parallel (``models/model.py``, ``launch/steps.py``); each
+    rank builds the global batch from the seed (whisper's frames and the vlm's
+    patches the run's one fixed draw of the global batch, alike on every rank)
+    and the model takes its rows by the "batch" rule; the metrics are the same
+    on every rank;
   * every family runs on a mesh of one device (one card, or a one-rank mesh with
     a plain state);
-  * moe, encdec and vlm, and local_sgd, on a mesh of more ranks are refused
-    (ROADMAP §1 items 2-4).
+  * moe, and local_sgd, on a mesh of more ranks are refused (ROADMAP §1 items
+    2-4).
 ``remesh`` moves the state onto another mesh (``runtime/elastic.py``
 ``remesh_state``) and training goes on where it lands.
 
@@ -114,8 +116,8 @@ class Trainer:
                                  or cfg.mode != "sync"):
             raise NotImplementedError(
                 f"a {self.arch_cfg.family} Trainer in {cfg.mode} mode on a mesh of "
-                f"{chips(mesh)} devices: multi-rank training covers the dense, ssm and "
-                "hybrid families in sync mode; moe, encdec and vlm, and local_sgd on more "
+                f"{chips(mesh)} devices: multi-rank training covers the dense, ssm, "
+                "hybrid, encdec and vlm families in sync mode; moe, and local_sgd on more "
                 "than one rank, are not ported yet (ROADMAP §1 items 2-4)")
         self.plan = MeshPlan(mesh=mesh, fsdp=False)
         # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
@@ -187,7 +189,9 @@ class Trainer:
         vision tower are stubs). Drawn once on the host from a ``torch.Generator``
         seeded ``seed + 1`` (frames) or ``seed + 2`` (patches), so the card and the
         CPU see the same values (they cannot be ``jax.random``'s bit for bit), and
-        kept on the device."""
+        kept on the device. On a mesh every rank draws the whole [B, ...] alike and
+        the model cuts its rows, as the tokens', so a mesh run sees the one-device
+        run's frames."""
         c = self.arch_cfg
         if c.family not in ("encdec", "vlm"):
             return batch

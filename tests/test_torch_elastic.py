@@ -14,7 +14,8 @@ JAX package's ``repro.runtime.elastic``.
   on 8 forced host devices from the same params (a JAX subprocess, its
   ``init_params`` from ``PRNGKey(0)``, carried across by ``convert.py``; qwen3
   and gemma3, the dense family, take the tensor-parallel route); the other
-  families' sharded forward on (4, 2) against their one-device forward.
+  families' sharded forward on (4, 2) against their one-device forward (every
+  family but moe tensor-parallel, moe refused).
   Rank 0
   also runs the card's elastic phase of ``chip_smoke.py`` at reduced size: a
   Trainer's state re-meshed onto a one-rank ``DeviceMesh`` and back between its
@@ -109,9 +110,9 @@ def test_trainer_continues_after_remesh_same_device():
 
 
 def test_trainer_refuses_a_mesh_of_several_devices():
-    """Multi-rank training covers the dense, ssm and hybrid families in sync mode:
-    a deepseek-moe Trainer and a local_sgd Trainer on several devices are refused,
-    naming ROADMAP."""
+    """Multi-rank training covers the dense, ssm, hybrid, encdec and vlm families
+    in sync mode: a deepseek-moe Trainer and a local_sgd Trainer on several
+    devices are refused, naming ROADMAP."""
     class FakeMesh:
         shape = {"data": 4, "model": 2}
     for job in (dict(TRAIN, arch="deepseek-moe-16b"), dict(TRAIN, mode="local_sgd")):
@@ -203,8 +204,8 @@ def _one_rank_phase(mesh1) -> dict:
     return out
 
 
-# the other families' sharded forward on the (4, 2) mesh: frames and patches ride
-# the batch's rows; moe is refused
+# the other families' sharded forward on the (4, 2) mesh, tensor-parallel: frames
+# and patches ride the batch's rows; moe is refused
 FAMILY_ARCHS = ("gemma3-12b", "mamba2-2.7b", "zamba2-7b", "whisper-medium",
                 "llama-3.2-vision-90b")
 
@@ -359,7 +360,8 @@ def test_sharded_forward_agrees_across_meshes_and_with_jax(remesh_runs, dtype):
 
 def test_sharded_forward_of_the_other_families(remesh_runs):
     """Reduced f32 dense (gemma3's local:global), ssm, hybrid, encdec and vlm on
-    the (4, 2) mesh, frames and patches sharded with the tokens: the logits within
+    the (4, 2) mesh, each tensor-parallel, frames and patches sharded with the
+    tokens: the logits within
     F32_TOL of the one-device forward on every rank; moe refused; ``constrain``
     moves a replicated DTensor to its spec's placements, values kept."""
     for rank, rep in enumerate(remesh_runs[1]):
