@@ -126,6 +126,16 @@ Phases, each failing loudly (nonzero exit):
      0.02 (losses), 0.08 (bf16 logits; whisper's at full depth printed) and 1e-4
      (f32 logits), launches exact (the paths "whisper-medium tensor-parallel",
      "llama-3.2-vision-90b tensor-parallel", "... (1, 2) ranks"); then
+     (``phase_moe_tensor_parallel``) the moe family's expert parallelism the same
+     two ways: a deepseek-moe-16b Trainer at 2 layers (2 steps of 2,048 tokens,
+     capacity 1.25) and teacher-forced prefill and decode steps of deepseek-moe at
+     4 layers and qwen3-moe-235b-a22b at 2, bit-equal to one device on the
+     one-rank mesh (the Trainer with PyTorch's deterministic algorithms on, beside
+     the spread of a one-device run with them off); on the two gloo ranks, each
+     holding half the experts, losses within 5e-3, grad norms within 0.02 and
+     bf16 logits within 0.08, launches exact (the paths "deepseek-moe-16b
+     expert-parallel", "qwen3-moe-235b-a22b expert-parallel", "... (1, 2)
+     ranks"); then
      (``phase_local_plane``) make the control agent's calls on the port's
      local planes: the same job (6 steps, a checkpoint every 4) on plane A,
      lost after its step-4 manifest, resumed on plane B from it, its losses an
@@ -296,7 +306,8 @@ MOE_CAPACITIES = (1.25, 8.0)
 # a group's capacity reaches its S tokens: prefill's and forward's dispatch then drop
 # no assignment that decode's dense all-experts path keeps (at the JAX suite's 8.0
 # random full-width routers overfill experts: ``routing_drops``). The serve task
-# runs the configs' 1.25. The cross-attending families: whisper-medium (encdec) at
+# runs the configs' 1.25. A MoE prefill's kernels count each layer's routing
+# statistics (five kernels) and their one stack, which a forward's aux reads. The cross-attending families: whisper-medium (encdec) at
 # full width and depth (24 encoder layers over 1,500 frames, not causal, run at
 # prefill only; 24 decoder layers, each causal self-attention then cross-attention
 # onto the encoder's output; MHA 16/16 of 64; 1.89 GiB of bf16), its f32 check at
@@ -333,12 +344,12 @@ PATHS = [
     {"arch": "deepseek-moe-16b", "params": 16_879_568_896, "f32_leaves": (),
      "toks": [(2, 601)], "check_layers": (8, 4), "deep_prefill_tol": 0.08,
      "launches": {"flash_attention": (28, 0), "rmsnorm": (1, 1), "add_rmsnorm": (56, 56)},
-     "kernels": {"prefill": 3_146, "decode": 3_000}},
+     "kernels": {"prefill": 3_036, "decode": 3_000}},
     {"arch": "qwen3-moe-235b-a22b", "layers": 2, "params": 6_220_173_824, "f32_leaves": (),
      "toks": [(2, 601)], "check_layers": (None, None), "deep_prefill_tol": 0.08,
      "launches": {"flash_attention": (2, 0), "rmsnorm": (1, 1), "add_rmsnorm": (4, 4),
                   "qk_norm_rope": (2, 2)},
-     "kernels": {"prefill": 153, "decode": 135}},
+     "kernels": {"prefill": 147, "decode": 135}},
     # whisper: a prefill runs the encoder (24 layers, K1 not causal over the 1,500
     # frames; ln1 of its layer 0, 47 adds + norms, enc_norm) and the decoder (24
     # causal self and 24 cross K1 launches; ln1 of its layer 0, ln3 and ln2 a layer,
@@ -539,6 +550,23 @@ XATTN_TP_CALLS = [("whisper-medium", "bfloat16", None, None),
 XATTN_TP_PROMPT = [(7 * i + 5) % 30000 for i in range(96)]
 XATTN_TP_DECODE = 4            # teacher-forced decode steps after the prefill
 XATTN_TP_SEED = 21             # the frames' and patches' generator
+# the moe family's expert parallelism (``phase_moe_tensor_parallel``): a deepseek-moe
+# Trainer at full width and MOE_TP_TRAIN_LAYERS (2 steps of one 2,048-token sequence
+# at the config's capacity 1.25, drops happening) and the teacher-forced calls of
+# MOE_TP_CALLS (arch, layers) in bf16 at full width, (b) on a one-rank NCCL mesh and
+# (c) on two gloo ranks sharing the card as a (1, 2) mesh, each holding half of every
+# layer's experts (32 of 64, 64 of 128); (c) held to one device's at the gates below
+MOE_TP_PATH = {"deepseek-moe-16b": "deepseek-moe-16b expert-parallel",
+               "qwen3-moe-235b-a22b": "qwen3-moe-235b-a22b expert-parallel"}
+MOE_TP2_PATH = {"deepseek-moe-16b": "deepseek-moe-16b (1, 2) ranks",
+                "qwen3-moe-235b-a22b": "qwen3-moe-235b-a22b (1, 2) ranks"}
+MOE_TP_TRAIN = {"arch": "deepseek-moe-16b", "reduced": False, "seq_len": 2048,
+                "global_batch": 1, "microbatches": 1}
+MOE_TP_TRAIN_LAYERS = 2
+MOE_TP_STEPS = 2
+MOE_TP_CALLS = [("deepseek-moe-16b", 4), ("qwen3-moe-235b-a22b", 2)]
+MOE_TP_LOSS_TOL = 5e-3     # the (1, 2) losses against one device's
+MOE_TP_NORM_TOL = 0.02     # the (1, 2) grad norms: 0.02 + 0.02|x|
 
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
@@ -2557,8 +2585,8 @@ def router_log(log: list):
     from repro_torch.models import moe as MOE
     real = MOE.router_probs
 
-    def logged(cfg, p, x):
-        out = real(cfg, p, x)
+    def logged(*args):
+        out = real(*args)
         log.append((out[1].detach(), out[2].detach()))
         return out
 
@@ -3596,13 +3624,13 @@ def phase_ssm_tensor_parallel(card: str) -> dict:
     return by_path
 
 
-def xattn_tp_per_call(arch: str, layers) -> dict:
+def forced_per_call(arch: str, layers) -> dict:
     """Kernel launches (a prefill, a decode step) of ``arch`` at ``layers`` decoder
     layers (None: every one): PATHS' tables at another depth (whisper: each
     encoder layer's and each decoder layer's self- and cross-attention, ln1 of both
-    stacks' layer 0, every other norm with its add; llama-vision: one attention a
-    layer, ln1 of layer 0, two norms a layer but the first's ln1, and the final
-    norm)."""
+    stacks' layer 0, every other norm with its add; llama-vision and the moe archs:
+    one attention a layer, ln1 of layer 0, two norms a layer but the first's ln1,
+    and the final norm, and qk-norm once a layer where the arch has it)."""
     from repro_torch import configs
     cfg = configs.get(arch)
     L = layers or cfg.num_layers
@@ -3610,7 +3638,10 @@ def xattn_tp_per_call(arch: str, layers) -> dict:
         enc = cfg.encoder_layers
         return {"flash_attention": (enc + 2 * L, 0), "rmsnorm": (2, 1),
                 "add_rmsnorm": (2 * enc + 3 * L, 3 * L)}
-    return {"flash_attention": (L, 0), "rmsnorm": (1, 1), "add_rmsnorm": (2 * L, 2 * L)}
+    per = {"flash_attention": (L, 0), "rmsnorm": (1, 1), "add_rmsnorm": (2 * L, 2 * L)}
+    if cfg.qk_norm:
+        per["qk_norm_rope"] = (L, L)
+    return per
 
 
 def xattn_model(arch: str, dtype: str, layers, mesh=None):
@@ -3654,6 +3685,15 @@ def xattn_forced(model, params) -> torch.Tensor:
     return torch.stack(out)
 
 
+def counted_forced(model, params) -> tuple:
+    """(``xattn_forced``'s teacher-forced logits of ``model``, each kernel's
+    launches in them, counted from 0 just before)."""
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    forced = xattn_forced(model, params)
+    return forced, {name: fn.launches for name, fn in wrappers.items()}
+
+
 def xattn_tp_trainer(mesh):
     """The phase's whisper-medium Trainer (XATTN_TP_TRAIN at XATTN_TP_TRAIN_LAYERS +
     XATTN_TP_TRAIN_LAYERS) on ``mesh``."""
@@ -3663,13 +3703,12 @@ def xattn_tp_trainer(mesh):
         return Trainer(TrainJobConfig.from_job({"payload": dict(XATTN_TP_TRAIN)}), mesh=mesh)
 
 
-def xattn_tp_steps(tr) -> tuple:
-    """(each kernel's launches in XATTN_TP_STEPS steps of ``tr``, their walls in
-    ms)."""
+def xattn_tp_steps(tr, n: int = XATTN_TP_STEPS) -> tuple:
+    """(each kernel's launches in ``n`` steps of ``tr``, their walls in ms)."""
     torch.cuda.synchronize()
     wrappers = reset_launches()
     walls = []
-    for _ in range(XATTN_TP_STEPS):
+    for _ in range(n):
         t0 = time.perf_counter()
         tr.step_once()
         torch.cuda.synchronize()
@@ -3683,11 +3722,7 @@ def xattn_tp_calls(mesh) -> list:
     out = []
     for arch, dtype, layers, _ in XATTN_TP_CALLS:
         model, params = xattn_model(arch, dtype, layers, mesh)
-        torch.cuda.synchronize()
-        wrappers = reset_launches()
-        forced = xattn_forced(model, params)
-        out.append((forced, {name: fn.launches for name, fn in wrappers.items()},
-                    model.tp is not None and model.tp.heads))
+        out.append(counted_forced(model, params) + (model.tp is not None and model.tp.heads,))
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3765,7 +3800,7 @@ def phase_xattn_tensor_parallel(card: str) -> dict:
                   f"{tag}: {name} launched {n}, want {want.get(name, 0) * times}")
 
     def check_calls(call: tuple, tag: str, calls: dict) -> None:
-        per = xattn_tp_per_call(call[0], call[2])
+        per = forced_per_call(call[0], call[2])
         for kernel, n in calls.items():
             pre, dec = per.get(kernel, (0, 0))
             check(n == pre + dec * XATTN_TP_DECODE, f"{named(call)} {tag}: {kernel} launched "
@@ -3878,6 +3913,231 @@ def phase_xattn_tensor_parallel(card: str) -> dict:
                   f"max err {err}")
         add(XATTN_TP2_PATH[call[0]], calls)
     print(f"xattn tensor-parallel: phase {time.perf_counter() - t_phase:.1f} s (one device and "
+          f"the one-rank mesh {t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
+    return by_path
+
+
+def moe_tp_trainer(mesh):
+    """The phase's deepseek-moe-16b Trainer (MOE_TP_TRAIN at MOE_TP_TRAIN_LAYERS) on
+    ``mesh``."""
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    with arch_depth(MOE_TP_TRAIN["arch"], MOE_TP_TRAIN_LAYERS):
+        return Trainer(TrainJobConfig.from_job({"payload": dict(MOE_TP_TRAIN)}), mesh=mesh)
+
+
+def local_experts(model) -> int:
+    """The experts of a layer that this rank holds and computes."""
+    E = model.cfg.num_experts
+    return model.tp.expert_range(E)[1] if model.tp is not None else E
+
+
+def _moe_tp_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two gloo ranks on the one card, a (1, 2) ("data", "model") mesh: the
+    deepseek-moe Trainer's MOE_TP_STEPS steps and the teacher-forced calls of
+    MOE_TP_CALLS, each rank's launches counted from 0 just before each. Writes its
+    report to ``tmp``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    report = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        tr = moe_tp_trainer(mesh)
+        launches, walls = xattn_tp_steps(tr, MOE_TP_STEPS)
+        report["train"] = {"launches": launches, "walls": walls,
+                           "experts": local_experts(tr.model),
+                           "series": {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["calls"] = []
+        for arch, layers in MOE_TP_CALLS:
+            model, params = xattn_model(arch, "bfloat16", layers, mesh)
+            report["calls"].append(counted_forced(model, params) + (local_experts(model),))
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+        dist.destroy_process_group()
+
+
+def phase_moe_tensor_parallel(card: str) -> dict:
+    """The moe family's expert parallelism on the card.
+
+    (b) A one-rank NCCL ("data", "model") mesh, every axis of size 1 (no collective
+    runs): a deepseek-moe-16b Trainer at full width and MOE_TP_TRAIN_LAYERS on the
+    mesh (its state DTensors) takes MOE_TP_STEPS steps of one 2,048-token sequence
+    at capacity 1.25, its losses, grad norms and every state tensor bit-equal to a
+    one-device Trainer's, both with PyTorch's deterministic algorithms on (the
+    dispatch gather's backward otherwise adds each token's K slot gradients with
+    atomics, in no fixed order); a one-device run with them off gives the spread
+    that atomics leave, printed, which the mesh run lies within; the kernels
+    launched exactly ``dense_per_step`` a step. The teacher-forced prefill and
+    decode steps of MOE_TP_CALLS (deepseek-moe-16b at 4 layers, qwen3-moe-235b-a22b
+    at 2, bf16, full width, capacity 1.25) on the mesh, bit-equal to one device's,
+    launches exact.
+    (c) Two gloo ranks on the one card as a (1, 2) mesh (``run_two_ranks``,
+    ``_moe_tp_rank``), each holding half of every layer's experts: the same
+    Trainer, losses within MOE_TP_LOSS_TOL and grad norms within MOE_TP_NORM_TOL
+    of one device's; the same teacher-forced calls, logits within
+    SSM_TP_LOGIT_TOL of one device's; every kernel's launches exact on both
+    ranks; the warm step beside one device's.
+    Returns each path's launches (c's: rank 0's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import MeshPlan, OneDeviceMesh, distribute, full_value
+    from repro_torch.tree import tree_flatten_sorted, tree_map
+
+    t_phase = time.perf_counter()
+    arch = MOE_TP_TRAIN["arch"]
+    per_step = dense_per_step(MOE_TP_TRAIN_LAYERS, qk_norm=False)
+    one_mesh = OneDeviceMesh(torch.device("cuda"))
+
+    def series(tr) -> dict:
+        return {k: tr.metrics.series(k) for k in ("loss", "grad_norm")}
+
+    def check_launches(tag: str, launches: dict, want: dict, times: int = 1) -> None:
+        for name, n in launches.items():
+            check(n == want.get(name, 0) * times,
+                  f"{tag}: {name} launched {n}, want {want.get(name, 0) * times}")
+
+    def check_calls(call: tuple, tag: str, calls: dict) -> None:
+        per = forced_per_call(*call)
+        for kernel, n in calls.items():
+            pre, dec = per.get(kernel, (0, 0))
+            check(n == pre + dec * XATTN_TP_DECODE, f"{call[0]} ({call[1]} layers) {tag}: "
+                  f"{kernel} launched {n} in the prefill and {XATTN_TP_DECODE} decode steps, "
+                  f"want {pre + dec * XATTN_TP_DECODE}")
+
+    def deterministic(tr) -> tuple:
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return xattn_tp_steps(tr, MOE_TP_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    # one device: a Trainer with deterministic algorithms, then again without
+    one = moe_tp_trainer(one_mesh)
+    _, det_ms = deterministic(one)
+    det = series(one)
+    ref_state = list(tree_flatten_sorted(one.state))
+    one.rebind(one.cfg)
+    _, one_ms = xattn_tp_steps(one, MOE_TP_STEPS)
+    ref = {"series": series(one), "ms": one_ms}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    spread = {k: max(abs(a - b) for a, b in zip(det[k], ref["series"][k])) for k in det}
+    by_path, ref_calls = {}, []
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        tr = moe_tp_trainer(mesh)
+        check(tr.model.ranked and all(isinstance(t, DTensor) for _, t in
+                                      tree_flatten_sorted(tr.state)),
+              f"{arch} one-rank mesh: the Trainer's state is not DTensors")
+        launches, mesh_ms = deterministic(tr)
+        got = list(tree_flatten_sorted(tr.state))
+        n_same = sum(p == q and full_value(x).dtype == y.dtype and torch.equal(full_value(x), y)
+                     for (p, x), (q, y) in zip(got, ref_state))
+        print(f"moe expert-parallel: {arch} full width, {MOE_TP_TRAIN_LAYERS} layers, "
+              f"{MOE_TP_TRAIN['seq_len']} tokens a step at capacity 1.25, deterministic "
+              f"algorithms, on a one-rank NCCL (1, 1) mesh: step ms {mesh_ms}, one device "
+              f"{det_ms} [{card}]; {series(tr)}, one device {det}; {n_same} of "
+              f"{len(ref_state)} state tensors bit-equal; a one-device run without "
+              f"deterministic algorithms {ref['series']} (step ms {one_ms}), spread {spread}; "
+              f"launches {launches}")
+        check(series(tr) == det, f"{arch} one-rank mesh: {series(tr)} != one device's {det}")
+        check(n_same == len(ref_state) == len(got),
+              f"{arch} one-rank mesh: {len(ref_state) - n_same} state tensors differ")
+        check_launches(f"{arch} one-rank mesh", launches, per_step, MOE_TP_STEPS)
+        by_path[MOE_TP_PATH[arch]] = launches
+        del tr, got, ref_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for call in MOE_TP_CALLS:
+            model, params = xattn_model(call[0], "bfloat16", call[1])
+            want, _ = counted_forced(model, params)
+            meshed = Model(model.cfg, "cuda", MeshPlan(mesh=mesh, fsdp=False))
+            dparams = tree_map(lambda x, sp: distribute(x, mesh, sp), params,
+                               meshed.param_specs())
+            forced, calls = counted_forced(meshed, dparams)
+            same = torch.equal(forced, want)
+            print(f"moe expert-parallel: {call[0]} (bf16, {call[1]} layers) at full width, "
+                  f"teacher-forced prefill of {len(XATTN_TP_PROMPT)} tokens and "
+                  f"{XATTN_TP_DECODE} decode steps on the one-rank mesh: bit-equal to one "
+                  f"device's {same} [{card}]; launches {calls}")
+            check(same, f"{call[0]} one-rank mesh: the teacher-forced logits differ from one "
+                  f"device's by {max_err(forced, want)}")
+            check_calls(call, "one-rank mesh", calls)
+            by_path[MOE_TP_PATH[call[0]]] = {
+                k: by_path.get(MOE_TP_PATH[call[0]], {}).get(k, 0) + n for k, n in calls.items()}
+            ref_calls.append(want)
+            del model, params, meshed, dparams
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    # (c) two gloo ranks on the one card, a (1, 2) mesh
+    t0 = time.perf_counter()
+    reports = run_two_ranks(300, _moe_tp_rank)
+    ranks_s = time.perf_counter() - t0
+    r0 = reports[0]
+    for rank, rep in enumerate(reports):
+        got = rep["train"]
+        check(got["experts"] == 32, f"{arch} (1, 2): rank {rank} holds {got['experts']} experts "
+              "a layer, not 32 of 64")
+        a, b = torch.tensor(got["series"]["loss"]), torch.tensor(ref["series"]["loss"])
+        check(len(a) == MOE_TP_STEPS and bool(((a - b).abs() <= MOE_TP_LOSS_TOL).all()),
+              f"{arch} (1, 2) rank {rank}: losses {a.tolist()} not within {MOE_TP_LOSS_TOL} "
+              f"of one device's {b.tolist()}")
+        a, b = torch.tensor(got["series"]["grad_norm"]), torch.tensor(ref["series"]["grad_norm"])
+        check(len(a) == MOE_TP_STEPS and close(a, b, MOE_TP_NORM_TOL),
+              f"{arch} (1, 2) rank {rank}: grad norms {a.tolist()} not within "
+              f"{MOE_TP_NORM_TOL} + {MOE_TP_NORM_TOL}|x| of one device's {b.tolist()}")
+        check_launches(f"{arch} (1, 2) rank {rank}", got["launches"], per_step, MOE_TP_STEPS)
+        for call, (forced, calls, experts), first in zip(MOE_TP_CALLS, rep["calls"], r0["calls"]):
+            E = 64 if call[0] == arch else 128
+            check(experts * 2 == E, f"{call[0]} (1, 2): rank {rank} holds {experts} experts "
+                  f"a layer, not {E // 2} of {E}")
+            check(torch.equal(forced, first[0]), f"{call[0]} (1, 2): the ranks' logits differ")
+            check_calls(call, f"(1, 2) rank {rank}", calls)
+    train = r0["train"]
+    print(f"moe expert-parallel (1, 2): {arch} full width, {MOE_TP_TRAIN_LAYERS} layers, two "
+          f"gloo ranks on the one card, 32 of 64 experts each: step ms "
+          f"{[round(t, 1) for t in train['walls']]}, warm {train['walls'][-1]:.1f} against one "
+          f"device's {ref['ms'][-1]:.1f} [{card}]; losses {train['series']['loss']}, one device "
+          f"{ref['series']['loss']}; grad norms {train['series']['grad_norm']}, one device "
+          f"{ref['series']['grad_norm']}; launches {train['launches']}")
+    by_path[MOE_TP2_PATH[arch]] = dict(train["launches"])
+    for call, want, (forced, calls, experts) in zip(MOE_TP_CALLS, ref_calls, r0["calls"]):
+        err = max_err(forced, want)
+        steps = [round(max_err(a, b), 4) for a, b in zip(forced, want)]
+        print(f"moe expert-parallel (1, 2): {call[0]} (bf16, {call[1]} layers, {experts} experts "
+              f"a rank) teacher-forced logits max err {err:.4g} (prefill, then each decode step: "
+              f"{steps}; |logit| max {want.abs().max().item():.3g}; gate {SSM_TP_LOGIT_TOL} + "
+              f"{SSM_TP_LOGIT_TOL}|x|) [{card}]; launches {calls}")
+        check(close(forced, want, SSM_TP_LOGIT_TOL), f"{call[0]} (1, 2): teacher-forced logits "
+              f"max err {err}")
+        into = by_path.setdefault(MOE_TP2_PATH[call[0]], {})
+        for k, n in calls.items():
+            into[k] = into.get(k, 0) + n
+    print(f"moe expert-parallel: phase {time.perf_counter() - t_phase:.1f} s (one device and "
           f"the one-rank mesh {t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
     return by_path
 
@@ -5819,6 +6079,8 @@ def main(argv=None) -> int:
     mark("ssm and hybrid tensor-parallel done")
     by_path.update(phase_xattn_tensor_parallel(card))
     mark("encdec and vlm tensor-parallel done")
+    by_path.update(phase_moe_tensor_parallel(card))
+    mark("moe expert-parallel done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)

@@ -28,8 +28,9 @@ in ``state`` need not require grad: the step differentiates detached views of
 them, and ``adamw_update`` writes the new values into the same tensors in place,
 so the state is updated in place and returned.
 
-On DTensor params (every family but moe on a ``DeviceMesh``, twin of the JAX
-package's step on a mesh; every leaf alike): each rank differentiates its
+On DTensor params (every family on a ``DeviceMesh``, twin of the JAX
+package's step on a mesh; every leaf alike, the moe family's experts, router and
+shared experts included): each rank differentiates its
 compute shards (``Model.shard_params``) on its rows of the batch (a
 microbatch's frames or patches cut with its tokens); the local
 gradients are accumulated over the microbatches in ``accum_dtype`` as on one
@@ -207,8 +208,8 @@ def abstract_train_state(cfg: ArchConfig) -> dict:
 
 
 def init_train_state(model: Model, seed: int) -> dict:
-    """The initial train state from ``seed``; for every family but moe on a
-    ``DeviceMesh`` (``Model.ranked``), laid out by
+    """The initial train state from ``seed``; on a ``DeviceMesh``
+    (``Model.ranked``), laid out by
     ``train_state_specs`` (DTensors: each rank draws the whole state and keeps its
     shards)."""
     params = model.init_params(seed)

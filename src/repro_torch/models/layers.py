@@ -6,8 +6,9 @@ constraint of the JAX package is the identity, and the dots keep their natural
 output dtype (the serving path's ``reduce_dtype`` is None).
 
 Tensor parallelism over "model" (the attention and MLP layers of every family
-but moe on a multi-rank mesh, the cross-attention's included; the mamba2
-block's is in ``models/ssm.py``): a layer
+on a multi-rank mesh, the cross-attention's and the moe layers' shared experts'
+included; the mamba2 block's is in ``models/ssm.py``, the experts' in
+``models/moe.py``): a layer
 given ``tp`` (``parallel.sharding.TensorParallel``) takes each rank's local shards
 of the weights and runs at the JAX package's ``constrain`` sites the collectives
 of ``parallel/sharding.py``, Megatron-LM's way. ``swiglu`` is column-parallel in

@@ -3,10 +3,12 @@
 All six families are ported: dense (``[attn -> mlp] x L`` with the local:global
 period of ``_period``/``_window_for``; gemma3's windowed layers keep a ring-buffer
 cache of W slots, slot = position mod W), moe (``[attn -> moe] x L``, the dense
-stack with ``_ff``'s MoE branch; the layers' load-balance losses summed into
-``forward``'s aux), ssm (``[mamba2 SSD] x L``), hybrid
-(zamba2: ``[[mamba2 SSD] x k -> shared attn+mlp block] x G``, then the
-``L - G*k`` tail layers; the one shared block's params serve every group),
+stack with ``_ff``'s MoE branch; each layer's routing statistics summed over the
+batch's tokens, and over the batch axes on a mesh, before its load-balance loss
+is formed, the layers' losses summed into ``forward``'s aux), ssm (``[mamba2
+SSD] x L``), hybrid (zamba2: ``[[mamba2 SSD] x k -> shared attn+mlp block] x
+G``, then the ``L - G*k`` tail layers; the one shared block's params serve every
+group),
 encdec (whisper: an encoder ``[attn -> mlp] x Le``, not causal, over the frame
 embeddings, then the decoder ``[attn -> xattn -> mlp] x L``, whose
 cross-attention reads the encoder's output; its cross K/V are written once at
@@ -71,12 +73,12 @@ out by its rules (the cache's logical axes are the JAX package's, declared in
 ``cache_defs``). On a one-device plan every layout is the identity and the code
 above runs as it is.
 
-Tensor and data parallelism (every family but moe on a plan over a
-``DeviceMesh``: ``ranked``): the params are DTensors laid out by
+Tensor and data parallelism (every family on a plan over a ``DeviceMesh``:
+``ranked``): the params are DTensors laid out by
 ``param_specs``. Every entry point works on this rank's shards in the compute
-layout (``shard_params``: the "model" splits of heads, kv heads, ffn, vocab and
-ssm heads, ``parallel.sharding.compute_spec``; any other split gathered) and
-on its rows of the batch (``_rows``: a DTensor leaf's rows by its placements, a
+layout (``shard_params``: the "model" splits of heads, kv heads, ffn, vocab, ssm
+heads and experts, ``parallel.sharding.compute_spec``; any other split gathered)
+and on its rows of the batch (``_rows``: a DTensor leaf's rows by its placements, a
 plain leaf holds the whole batch and each rank takes its rows by the "batch"
 rule; whisper's frames and llama-vision's patches ride the tokens' rows), and
 the layers run the collectives of ``parallel/sharding.py`` at the JAX package's
@@ -114,9 +116,17 @@ B and C) and handed out in the JAX package's ``cache_specs`` layout, whose
 prefill lays the tails out (``_conv_laid_out``: the xs channels gathered over
 "model", the rank's slice cut), and a decode step takes them back into its
 layout (``_conv_computed``) and lays the new tails out again, two all-gathers of
-the tails a step. On a one-rank mesh every axis has size 1: no collective runs
-and the code is the one-card code op for op. The moe family's loss, prefill and
-decode on DTensor params are refused (ROADMAP §1 items 2-3).
+the tails a step. A moe layer holds its 1/M of the experts where "model"
+divides them (``models/moe.py``: every rank routes each token alike from the
+gathered router, dispatches its rows to its own experts and combines by an
+all-reduce of the partial sums, or under ``plan.moe_combine_reshard`` by
+gathering the slot buffer first); its shared experts are the split SwiGLU; the
+load-balance loss sums each layer's assignment counts and probability sums over
+the batch axes (``sum_over``: its backward the identity, so each rank takes its
+rows' share of the gradient) before it forms their product, so every rank
+reports the global aux, as the JAX package computes it over the global batch. On
+a one-rank mesh every axis has size 1: no collective runs and the code is the
+one-card code op for op.
 """
 from __future__ import annotations
 
@@ -147,18 +157,6 @@ from repro_torch.tree import tree_leaves, tree_map
 REMAT_MODES = ("none", "dots", "full")
 # the weight products whose outputs ``dots`` keeps
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-# the families whose layers are tensor-parallel on a DeviceMesh (``Model.ranked``)
-TP_FAMILIES = ("dense", "ssm", "hybrid", "encdec", "vlm")
-
-
-def _refuse_sharded(cfg: ArchConfig, params: dict, what: str) -> None:
-    if isinstance(params["embed"], DTensor) and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{what} of the {cfg.family} family on DTensor params is not in the port: "
-            "tensor parallelism covers the dense, ssm, hybrid, encdec and vlm families; "
-            "moe's expert parallelism is not ported yet (ROADMAP §1 items 2-3)")
 
 
 def _split(spec, dim: int) -> bool:
@@ -239,13 +237,13 @@ def _add_norm(x: torch.Tensor, d: Optional[torch.Tensor], scale: torch.Tensor,
 
 def _ff(cfg: ArchConfig, p: dict, h: torch.Tensor, decode: bool,
         tp: Optional[TensorParallel] = None):
-    """Feed-forward: MoE where the layer has one, else SwiGLU. Returns (y, aux):
-    aux is the MoE load-balance loss of a full-sequence call, else None (so the
-    other families launch nothing for it)."""
+    """Feed-forward: MoE where the layer has one, else SwiGLU. Returns (y, stats):
+    stats is the MoE layer's ``routing_stats`` [2, E] of a full-sequence call,
+    else None (so the other families launch nothing for it)."""
     if "moe" in p:
         if decode:
-            return MOE.moe_block_decode(cfg, p["moe"], h), None
-        return MOE.moe_block(cfg, p["moe"], h)
+            return MOE.moe_block_decode(cfg, p["moe"], h, tp), None
+        return MOE.moe_block_stats(cfg, p["moe"], h, tp)
     return LY.swiglu(p["mlp"], h, tp), None
 
 
@@ -305,7 +303,8 @@ def _block(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
            memory: Optional[torch.Tensor] = None, causal: bool = True,
            tp: Optional[TensorParallel] = None):
     """attn [-> xattn onto memory] -> ff on the stream x + d. Returns (x, the ff's
-    un-added output, kv, the cross-attention's kv, the ff's aux or None)."""
+    un-added output, kv, the cross-attention's kv, the ff's routing stats or
+    None)."""
     x, h = _add_norm(x, d, p["ln1"], cfg.norm_eps)
     return _block_normed(cfg, p, x, h, positions, window, want_kv, memory, causal, tp)
 
@@ -328,8 +327,8 @@ def _block_normed(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
         a, xk, xv = _cross_attn(cfg, p["xattn"], h, memory, tp)
         xkv = {"k": xk, "v": xv} if want_kv else None
     x, h = ops.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
-    y, aux = _ff(cfg, p, h, decode=False, tp=tp)
-    return x, y, ({"k": k, "v": v} if want_kv else None), xkv, aux
+    y, stats = _ff(cfg, p, h, decode=False, tp=tp)
+    return x, y, ({"k": k, "v": v} if want_kv else None), xkv, stats
 
 
 def _block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, d: Optional[torch.Tensor],
@@ -424,44 +423,46 @@ def _stack_kv(kvs: list) -> dict:
 def _stack_fwd(cfg: ArchConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, want_kv: bool = False,
                memory: Optional[torch.Tensor] = None, tp: Optional[TensorParallel] = None):
-    """dense / moe / encdec-decoder stack. Returns (x, d, kvs, xkvs, aux): the
+    """dense / moe / encdec-decoder stack. Returns (x, d, kvs, xkvs, stats): the
     stream is x + d; kvs[j] = {"k","v": [G,B,S,K,hd]} per period position j,
     [G,B,W,K,hd] in ring layout where j is windowed; xkvs[j] the cross K/V
     [G,B,M,K,hd] onto ``memory`` (None where the layers have no cross-attention);
-    aux the sum of the layers' MoE load-balance losses (the JAX package's scan
-    carry), None where no layer has one."""
+    stats the MoE layers' ``routing_stats`` stacked [L, 2, E], None where no layer
+    has one."""
     period = _period(cfg)
     windows = [_window_for(cfg, j) for j in range(period)]
     memory = _into_split(memory, tp)
 
-    def group(x, d, aux, ps, memory):
+    def group(x, d, ps, memory):
         """One group of ``period`` layers (the JAX package's scan body)."""
-        kvs, xkvs = [], []
+        kvs, xkvs, stats = [], [], []
         for j, p in enumerate(ps):
-            x, d, kv, xkv, a = _block(cfg, p, x, d, positions, windows[j], want_kv, memory,
-                                      tp=tp)
-            if a is not None:
-                aux = a if aux is None else aux + a
+            x, d, kv, xkv, st = _block(cfg, p, x, d, positions, windows[j], want_kv, memory,
+                                       tp=tp)
+            if st is not None:
+                stats.append(st)
             if want_kv and windows[j] > 0:
                 kv = {n: _ring_slice(t, windows[j]) for n, t in kv.items()}
             kvs.append(kv)
             xkvs.append(xkv)
-        return x, d, aux, kvs, xkvs
+        return x, d, stats, kvs, xkvs
 
     group = _remat(group, cfg.remat)
     kvs = [[] for _ in range(period)]
     xkvs = [[] for _ in range(period)]
-    d = aux = None
+    d, stats = None, []
     layers = _unstack(params["layers"])
     for g in range(cfg.num_layers // period):
-        x, d, aux, gkv, gxkv = group(x, d, aux, layers[g * period:(g + 1) * period], memory)
+        x, d, gst, gkv, gxkv = group(x, d, layers[g * period:(g + 1) * period], memory)
+        stats.extend(gst)
         for j in range(period):
             kvs[j].append(gkv[j])
             xkvs[j].append(gxkv[j])
+    stats = torch.stack(stats) if stats else None
     if not want_kv:
-        return x, d, None, None, aux
+        return x, d, None, None, stats
     return (x, d, tuple(_stack_kv(kv) for kv in kvs),
-            tuple(_stack_kv(xkv) if xkv[0] is not None else None for xkv in xkvs), aux)
+            tuple(_stack_kv(xkv) if xkv[0] is not None else None for xkv in xkvs), stats)
 
 
 def _stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor,
@@ -717,7 +718,7 @@ class Model:
         self.cfg = cfg
         self.device = devices.resolve(device)
         self.plan = plan if plan is not None else MeshPlan(mesh=OneDeviceMesh(self.device))
-        self.ranked = cfg.family in TP_FAMILIES and isinstance(self.plan.mesh, DeviceMesh)
+        self.ranked = isinstance(self.plan.mesh, DeviceMesh)
         self.tp = self._tensor_parallel()
 
     def init_params(self, seed: int = 0) -> dict:
@@ -746,7 +747,8 @@ class Model:
         """The split over a "model" axis of more than one rank: the attention and
         MLP of the dense layers, the shared block (hybrid), the decoder's and the
         encoder's layers and the decoder's cross-attention (encdec), the self and
-        the cross layers (vlm); the mamba2 blocks' (ssm, hybrid) and the vocab.
+        the cross layers (vlm), the attention, the experts and the shared experts'
+        MLP of the moe layers; the mamba2 blocks' (ssm, hybrid) and the vocab.
         Every stack of a model has the same heads, kv heads and ffn, so they split
         alike; a ``ValueError`` where they would not."""
         if not self.ranked or self.plan.axis_size("model") == 1:
@@ -759,9 +761,15 @@ class Model:
             flags["ssm"] = _split(specs["layers"]["ssm"]["w_x"], 2)
         # (attention, lead dims) and (MLP, lead dims) of each stack
         attns, mlps = [], []
-        if family in ("dense", "encdec"):
+        if family in ("dense", "encdec", "moe"):
             attns.append((specs["layers"]["attn"], 1))
+        if family in ("dense", "encdec"):
             mlps.append((specs["layers"]["mlp"], 1))
+        if family == "moe":
+            moe = specs["layers"]["moe"]
+            flags["experts"] = _split(moe["we_gate"], 1)
+            if "shared" in moe:
+                mlps.append((moe["shared"], 1))
         if family == "hybrid":
             attns.append((specs["shared_block"]["attn"], 0))
             mlps.append((specs["shared_block"]["mlp"], 0))
@@ -930,17 +938,15 @@ class Model:
                 return_hidden: bool = False):
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss), or the
         final-normed hidden state [B,S,D] when ``return_hidden`` (chunked CE).
-        DTensor params are tensor-parallel and the output a DTensor; the moe
-        family's are refused."""
+        DTensor params are tensor-parallel and the output a DTensor."""
         dtensors = isinstance(params["embed"], DTensor)
         if dtensors:
-            _refuse_sharded(self.cfg, params, "forward")
             mesh = params["embed"].device_mesh
             if not self.ranked or self.plan.mesh != mesh:
                 raise ValueError(f"params are DTensors on {mesh}, the model's plan is on "
                                  f"{self.plan.mesh}")
         rows, axes = self._rows(batch)
-        out, aux = self._forward_local(self.shard_params(params), rows, return_hidden)
+        out, aux = self._forward_local(self.shard_params(params), rows, return_hidden, axes)
         if not dtensors:
             return out, aux
         logical = ("batch", "seq", None if return_hidden else "vocab")
@@ -948,12 +954,13 @@ class Model:
                 as_dtensor(aux, self.plan.mesh, (Replicate(),) * self.plan.mesh.ndim, ()))
 
     def _forward_local(self, params: dict, batch: Dict[str, torch.Tensor],
-                       return_hidden: bool):
-        """``forward`` on this rank's shards and rows."""
+                       return_hidden: bool, axes: tuple = ()):
+        """``forward`` on this rank's shards and rows (split over the mesh axes
+        ``axes``)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
-        aux = None
+        stats = None
         family = self.cfg.family
         if family == "ssm":
             x, d, _ = _ssm_fwd(self.cfg, params, x, tp=self.tp)
@@ -964,13 +971,23 @@ class Model:
                                   batch["patches"], tp=self.tp)
         else:
             memory = self._encode(params, batch["frames"]) if family == "encdec" else None
-            x, d, _, _, aux = _stack_fwd(self.cfg, params, x, self._positions(B, S),
-                                         memory=memory, tp=self.tp)
-        if aux is None:
-            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            x, d, _, _, stats = _stack_fwd(self.cfg, params, x, self._positions(B, S),
+                                           memory=memory, tp=self.tp)
+        aux = self._aux(stats, B * S, axes)
         if return_hidden:
             return self._final_norm(params, x, d), aux
         return self._unembed(params, x, d), aux
+
+    def _aux(self, stats: Optional[torch.Tensor], tokens: int, axes: tuple) -> torch.Tensor:
+        """The sum of the MoE layers' load-balance losses over the whole batch from
+        their ``routing_stats`` [L, 2, E] of this rank's ``tokens`` tokens, summed
+        over the batch ``axes`` first (the identity backward); 0 without MoE
+        layers."""
+        if stats is None:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+        stats = sum_over(stats, self.plan, axes)
+        n = tokens * math.prod(self.plan.axis_size(a) for a in axes)
+        return MOE.aux_from_stats(self.cfg, stats, n).sum()
 
     # ------------------------------------------------------------------------- loss
     def loss_fn(self, params: dict, batch: Dict[str, torch.Tensor]):
@@ -983,18 +1000,17 @@ class Model:
         On ranks (see the module docstring) the CE's denominator is the global
         token count and the CE is summed over the batch axes (identity backward),
         so the loss is the global one on every rank and each rank's gradient is
-        its rows' share."""
-        _refuse_sharded(self.cfg, params, "loss_fn (multi-rank training)")
+        its rows' share; the MoE aux is the global batch's too (``_aux``)."""
         params = self.shard_params(params)
         batch, axes = self._rows(batch)
         mask = batch["loss_mask"].float()
         tokens = sum_over(mask.sum(), self.plan, axes)
         denom = tokens.clamp_min(1.0)
         if self.cfg.loss_chunk:
-            hidden, aux = self._forward_local(params, batch, return_hidden=True)
+            hidden, aux = self._forward_local(params, batch, True, axes)
             ce = self._chunked_ce(params, hidden, batch["targets"], mask) / denom
         else:
-            logits, aux = self._forward_local(params, batch, return_hidden=False)
+            logits, aux = self._forward_local(params, batch, False, axes)
             ll = self._target_logp(logits, batch["targets"])                 # [B, S]
             ce = -(ll * mask).sum() / denom
         ce = sum_over(ce, self.plan, axes)
@@ -1039,7 +1055,6 @@ class Model:
         ``max_len``; the cross K/V (encdec, vlm) keep the memory's length.
         On ranks the logits and the cache are DTensors, the cache on
         ``cache_specs``' placements (``_cache_laid_out``)."""
-        _refuse_sharded(self.cfg, params, "prefill")
         params = self.shard_params(params)
         batch, axes = self._rows(batch)
         tokens = batch["tokens"]
@@ -1160,7 +1175,6 @@ class Model:
         """tokens [B, 1] -> (logits [B, V], new_cache). Writes the cache in place.
         On ranks the cache is DTensors on ``cache_specs``' placements (``init_cache``,
         ``prefill``) and the logits a DTensor."""
-        _refuse_sharded(self.cfg, params, "decode_step")
         if self.ranked:
             return self._decode_ranked(params, tokens, cache)
         pos = cache["pos"]
@@ -1193,7 +1207,7 @@ class Model:
 
         def seq(name):
             return self._seq_slice(cache[name]["k"], defs[name]["k"])
-        if family == "dense":
+        if family in ("dense", "moe"):
             slices = tuple(self._seq_slice(kv["k"], dk["k"])
                            for kv, dk in zip(cache["layers"], defs["layers"]))
             x, d = _stack_decode(self.cfg, params, x, local["layers"], pos, tp=self.tp,

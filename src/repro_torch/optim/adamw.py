@@ -13,8 +13,9 @@ each leaf's update in place too, in the functional form's f32 ops and order, so
 the bits are the same: mamba2-2.7b's largest leaves are 3.4 GB in f32, and every
 temporary of the functional form is one more of them at the step's memory peak.
 
-DTensor state (every family but moe on a ``DeviceMesh``; every leaf
-alike; a leaf replicated over "model", as a norm or vlm's gate, has the same
+DTensor state (every family on a ``DeviceMesh``; every leaf
+alike, the moe family's [L, E, D, F] expert leaves split over "model" by their
+experts; a leaf replicated over "model", as a norm or vlm's gate, has the same
 gradient on every model rank): each rank updates its
 ``opt_state_specs`` shard of master, m and v from its shard of the gradient in
 that layout (a view of the gradient's, which splits no more), and the new

@@ -26,8 +26,9 @@ set here does. A spec that lists a dim's axes in another order, or names an axis
 the mesh lacks, raises ``ValueError``.
 
 Tensor parallelism over "model" (the forward, loss, backward, prefill and decode
-of every family but moe, ``models/layers.py``, ``models/ssm.py`` and
-``models/model.py``): the layers
+of every family, ``models/layers.py``, ``models/ssm.py``, ``models/moe.py`` and
+``models/model.py``; the moe family's experts split over "model" as the JAX
+package's "experts" rule lays them): the layers
 run on each rank's local shards, plain tensors, and call the collectives below
 at the JAX package's ``constrain`` sites, on the process group of this rank's
 line along one mesh axis (``axis_group``). Autograd goes through
@@ -36,6 +37,10 @@ line along one mesh axis (``axis_group``). Autograd goes through
 replicated tensor enters a split region, ``reduce_from`` (all-reduce forward,
 identity backward) where a split region's partial sums leave it, and
 ``gather_along`` (all-gather along a dim forward, the local slice backward).
+``sum_over`` is ``reduce_from`` over several axes: the sum over the batch axes
+of a statistic every rank forms from its rows (the loss's token count and CE,
+the MoE routing counts and probability sums), whose gradient each rank takes as
+it is, its rows' share.
 Every collective returns its input, and launches nothing, where the plan's mesh
 is not a ``DeviceMesh`` or the axis has size 1: on one card, or a one-rank mesh,
 the layers run the one-card code op for op. A row-parallel product's partial
@@ -481,7 +486,7 @@ def full_value(x: torch.Tensor) -> torch.Tensor:
 
 
 # the weights' logical dims that tensor parallelism splits over "model"
-TP_LOGICALS = ("heads", "kv_heads", "ffn", "vocab", "ssm_heads")
+TP_LOGICALS = ("heads", "kv_heads", "ffn", "vocab", "ssm_heads", "experts")
 
 
 def compute_spec(plan: MeshPlan, logical, shape) -> PartitionSpec:
@@ -510,13 +515,18 @@ class TensorParallel:
     layers; they split alike); ``ssm`` says that a mamba2
     block splits both its d_inner ("ffn") and its heads ("ssm_heads"), which a
     rank then holds 1/size of, in step: where the axis divides only one of them
-    the block is not split, and every rank holds and computes the whole."""
+    the block is not split, and every rank holds and computes the whole.
+    ``experts`` says that a rank holds 1/size of each MoE layer's experts (their
+    three weights and the router's columns), the run ``expert_range`` gives; where
+    the axis does not divide the experts every rank holds and computes them all.
+    The moe family's ``ffn`` is that of its shared experts' MLP."""
     plan: MeshPlan
     heads: bool
     kv_heads: bool
     ffn: bool
     vocab: bool
     ssm: bool = False
+    experts: bool = False
 
     @property
     def size(self) -> int:
@@ -525,3 +535,11 @@ class TensorParallel:
     @property
     def rank(self) -> int:
         return axis_index(self.plan, "model")
+
+    def expert_range(self, num_experts: int) -> Tuple[int, int]:
+        """(first, count) of the experts this rank holds: its 1/size run where
+        ``experts``, else all of them."""
+        if not self.experts:
+            return 0, num_experts
+        n = num_experts // self.size
+        return self.rank * n, n

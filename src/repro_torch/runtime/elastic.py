@@ -17,7 +17,7 @@ data step. Changed: the per-pod batch slicing (the global batch is invariant).
 Training goes on where the state lands, on one device or on a multi-rank mesh:
 ``Trainer.remesh`` (``runtime/train_loop.py``) moves the state with
 ``remesh_state`` and binds its model and step to the new mesh, whose
-tensor-parallel step (every family but moe) reads each leaf's new
+tensor-parallel step (every family) reads each leaf's new
 shards.
 ``ElasticController`` watches the overwatch's ``/clusters/`` prefix (the port's
 own plane, ``repro_torch.core``) and calls back on every change of membership.

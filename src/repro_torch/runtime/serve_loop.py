@@ -14,13 +14,14 @@ so there is no per-prompt-length compile cache. The model's plan is the JAX
 package's, ``MeshPlan(mesh, fsdp=False)`` on ``make_test_mesh``'s mesh unless one
 is given.
 
-On a ("data", "model") ``DeviceMesh`` of a process group (every family but
-moe, which is refused on more than one rank, ROADMAP §1 items 2-3) the params
-and the cache are DTensors laid out by ``param_specs`` and ``cache_specs``: the
+On a ("data", "model") ``DeviceMesh`` of a process group (every family) the
+params and the cache are DTensors laid out by ``param_specs`` and
+``cache_specs``: the
 slots are split over "data", a k/v cache's sequence over "model" (a cross K/V
 cache's along the memory, or by kv heads where "model" does not divide the
 memory), a mamba2 layer's SSD state by its heads and its conv tail by its
-channels, the layers are tensor-parallel (``models/model.py``). Every rank runs the same scheduler on the
+channels, a moe layer's experts over "model"; the layers are tensor-parallel
+(``models/model.py``). Every rank runs the same scheduler on the
 whole logits (gathered), so every rank takes the same decisions. A request's
 prefill (B = 1, which "data" does not divide) runs on every data rank, and the
 rank that holds the slot's rows writes its cache there.
@@ -38,8 +39,8 @@ from repro_torch import configs
 from repro_torch import device as devices
 from torch.distributed.tensor import DTensor
 
-from repro_torch.launch.mesh import chips, make_test_mesh
-from repro_torch.models.model import TP_FAMILIES, Model
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.model import Model
 from repro_torch.parallel.sharding import MeshPlan, distribute, full_value, local_range
 from repro_torch.tree import tree_map
 
@@ -82,11 +83,6 @@ class Server:
         arch_cfg = dataclasses.replace(arch_cfg, remat="none")
         self.arch_cfg = arch_cfg
         mesh = mesh if mesh is not None else make_test_mesh(device=self.device)
-        if chips(mesh) != 1 and arch_cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"a {arch_cfg.family} Server on a mesh of {chips(mesh)} devices: multi-rank "
-                "serving covers the dense, ssm, hybrid, encdec and vlm families; moe's "
-                "expert parallelism is not ported yet (ROADMAP §1 items 2-3)")
         self.model = Model(arch_cfg, self.device, MeshPlan(mesh=mesh, fsdp=False))
         self.params = self._laid_out(params if params is not None else
                                      self.model.init_params(cfg.seed))

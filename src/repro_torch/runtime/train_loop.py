@@ -10,8 +10,8 @@
 
 The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
 ``make_test_mesh``'s mesh unless one is given. Which families take which mesh:
-  * the dense, ssm, hybrid, encdec and vlm families in sync mode run on any
-    ("data", "model") mesh of a process group (a ``DeviceMesh``, one rank or
+  * every family (dense, moe, ssm, hybrid, encdec and vlm) in sync mode runs on
+    any ("data", "model") mesh of a process group (a ``DeviceMesh``, one rank or
     many): the state is DTensors laid out by ``train_state_specs``, the step
     tensor- and data-parallel (``models/model.py``, ``launch/steps.py``); each
     rank builds the global batch from the seed (whisper's frames and the vlm's
@@ -20,8 +20,7 @@ The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
     on every rank;
   * every family runs on a mesh of one device (one card, or a one-rank mesh with
     a plain state);
-  * moe, and local_sgd, on a mesh of more ranks are refused (ROADMAP §1 items
-    2-4).
+  * local_sgd on a mesh of more ranks is refused (ROADMAP §1 item 4).
 ``remesh`` moves the state onto another mesh (``runtime/elastic.py``
 ``remesh_state``) and training goes on where it lands.
 
@@ -50,7 +49,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.mesh import chips, make_test_mesh
 from repro_torch.launch.steps import init_train_state, make_train_step, train_state_specs
-from repro_torch.models.model import TP_FAMILIES, Model
+from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state,
                                          make_round_fn, pod_free_plan)
@@ -112,13 +111,12 @@ class Trainer:
     def _bind(self, mesh) -> None:
         """The plan, model and step function of ``mesh``."""
         cfg = self.cfg
-        if chips(mesh) != 1 and (self.arch_cfg.family not in TP_FAMILIES
-                                 or cfg.mode != "sync"):
+        if chips(mesh) != 1 and cfg.mode != "sync":
             raise NotImplementedError(
                 f"a {self.arch_cfg.family} Trainer in {cfg.mode} mode on a mesh of "
-                f"{chips(mesh)} devices: multi-rank training covers the dense, ssm, "
-                "hybrid, encdec and vlm families in sync mode; moe, and local_sgd on more "
-                "than one rank, are not ported yet (ROADMAP §1 items 2-4)")
+                f"{chips(mesh)} devices: multi-rank training covers every family in sync "
+                "mode; local_sgd on more than one rank is not ported yet (ROADMAP §1 "
+                "item 4)")
         self.plan = MeshPlan(mesh=mesh, fsdp=False)
         # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
         self.model = Model(self.arch_cfg, self.device,

@@ -15,7 +15,7 @@ JAX package's ``repro.runtime.elastic``.
   ``init_params`` from ``PRNGKey(0)``, carried across by ``convert.py``; qwen3
   and gemma3, the dense family, take the tensor-parallel route); the other
   families' sharded forward on (4, 2) against their one-device forward (every
-  family but moe tensor-parallel, moe refused).
+  family tensor-parallel, moe's experts split over "model").
   Rank 0
   also runs the card's elastic phase of ``chip_smoke.py`` at reduced size: a
   Trainer's state re-meshed onto a one-rank ``DeviceMesh`` and back between its
@@ -110,12 +110,13 @@ def test_trainer_continues_after_remesh_same_device():
 
 
 def test_trainer_refuses_a_mesh_of_several_devices():
-    """Multi-rank training covers the dense, ssm, hybrid, encdec and vlm families
-    in sync mode: a deepseek-moe Trainer and a local_sgd Trainer on several
-    devices are refused, naming ROADMAP."""
+    """Multi-rank training covers every family in sync mode: a local_sgd Trainer
+    on several devices is refused, naming ROADMAP, a deepseek-moe one among
+    them."""
     class FakeMesh:
         shape = {"data": 4, "model": 2}
-    for job in (dict(TRAIN, arch="deepseek-moe-16b"), dict(TRAIN, mode="local_sgd")):
+    for job in (dict(TRAIN, mode="local_sgd"),
+                dict(TRAIN, arch="deepseek-moe-16b", mode="local_sgd")):
         with pytest.raises(NotImplementedError, match="multi-rank training.*ROADMAP"):
             Trainer(TrainJobConfig(**job), mesh=FakeMesh())
 
@@ -205,20 +206,20 @@ def _one_rank_phase(mesh1) -> dict:
 
 
 # the other families' sharded forward on the (4, 2) mesh, tensor-parallel: frames
-# and patches ride the batch's rows; moe is refused
+# and patches ride the batch's rows; moe's experts split over "model"
 FAMILY_ARCHS = ("gemma3-12b", "mamba2-2.7b", "zamba2-7b", "whisper-medium",
-                "llama-3.2-vision-90b")
+                "llama-3.2-vision-90b", "deepseek-moe-16b")
 
 
 def _families_sharded(plan8) -> dict:
-    """{arch: max |sharded - one-device| of the f32 logits} on (4, 2), the moe
-    family's refusal, and ``constrain`` of a replicated DTensor."""
+    """{arch: max |sharded - one-device| of the f32 logits} on (4, 2), and
+    ``constrain`` of a replicated DTensor."""
     from repro_torch.configs.shapes import SHAPES, token_inputs
     from repro_torch.parallel.sharding import constrain, distribute
     mesh = plan8.mesh
     gen = torch.Generator().manual_seed(3)
     out = {}
-    for arch in FAMILY_ARCHS + ("deepseek-moe-16b",):
+    for arch in FAMILY_ARCHS:
         cfg = dataclasses.replace(tconfigs.get(arch).reduced(), remat="none",
                                   dtype="float32")
         one, sharded = Model(cfg, "cpu"), Model(cfg, "cpu", plan8)
@@ -234,13 +235,6 @@ def _families_sharded(plan8) -> dict:
         dparams = remesh_state(params, one.plan, plan8, lambda p: sharded.param_specs())
         dbatch = {k: distribute(v, mesh, specs[k]) for k, v in batch.items()}
         with torch.no_grad():
-            if cfg.family == "moe":
-                try:
-                    sharded.forward(dparams, dbatch)
-                    out[arch] = "not refused"
-                except NotImplementedError:
-                    out[arch] = "refused"
-                continue
             want = one.forward(params, batch)[0]
             got = sharded.forward(dparams, dbatch)[0].full_tensor()
         out[arch] = float((got - want).abs().max())
@@ -359,14 +353,14 @@ def test_sharded_forward_agrees_across_meshes_and_with_jax(remesh_runs, dtype):
 
 
 def test_sharded_forward_of_the_other_families(remesh_runs):
-    """Reduced f32 dense (gemma3's local:global), ssm, hybrid, encdec and vlm on
-    the (4, 2) mesh, each tensor-parallel, frames and patches sharded with the
-    tokens: the logits within
-    F32_TOL of the one-device forward on every rank; moe refused; ``constrain``
+    """Reduced f32 dense (gemma3's local:global), ssm, hybrid, encdec, vlm and moe
+    on the (4, 2) mesh, each tensor-parallel (moe's experts split over "model"),
+    frames and patches sharded with the tokens: the logits within
+    F32_TOL of the one-device forward on every rank; ``constrain``
     moves a replicated DTensor to its spec's placements, values kept."""
     for rank, rep in enumerate(remesh_runs[1]):
         fam = rep["families"]
-        assert fam["deepseek-moe-16b"] == "refused" and fam["constrain"] is True, rank
+        assert fam["constrain"] is True, rank
         for arch in FAMILY_ARCHS:
             assert fam[arch] <= F32_TOL, (rank, arch, fam[arch])
 
