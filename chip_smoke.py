@@ -568,6 +568,19 @@ MOE_TP_CALLS = [("deepseek-moe-16b", 4), ("qwen3-moe-235b-a22b", 2)]
 MOE_TP_LOSS_TOL = 5e-3     # the (1, 2) losses against one device's
 MOE_TP_NORM_TOL = 0.02     # the (1, 2) grad norms: 0.02 + 0.02|x|
 
+# local SGD with its pods on ranks of their own (phase_local_sgd_pods): qwen3-0.6b at
+# full width and depth, bf16, 2 pods of H = 2 inner steps of 1 x 2048 tokens a round,
+# 2 rounds, (a) on a one-rank NCCL ("pod", "data", "model") mesh and (b) on two gloo
+# ranks sharing the card as a (2, 1, 1) mesh, one pod a rank; both bit-equal to the
+# one-device local-SGD Trainer, compared by per-leaf bit digests (the one-device
+# state is 30.8 GiB: the runs go in turn)
+LOCAL_SGD_PODS = {"arch": "qwen3-0.6b", "reduced": False, "seq_len": 2048, "global_batch": 2,
+                  "mode": "local_sgd", "n_pods": 2, "local_sgd": {"inner_steps": 2},
+                  "steps": 4}
+LOCAL_SGD_PODS_PATH = "qwen3-0.6b local_sgd pods"
+LOCAL_SGD_PODS2_PATH = "qwen3-0.6b local_sgd (2, 1, 1) ranks"
+POD_AXES = ("pod", "data", "model")
+
 # the launcher phase: ``python -m repro_torch.launch.train`` with its defaults (driver
 # mode: a master and 2 private clusters; 30 steps of 8 x 64 tokens; qwen3-0.6b at full
 # width and depth on the card), then ``--direct``; ``launch.serve`` with its defaults
@@ -4142,6 +4155,221 @@ def phase_moe_tensor_parallel(card: str) -> dict:
     return by_path
 
 
+def bit_digest(t: torch.Tensor) -> tuple:
+    """Two int64 sums of a tensor's raw words (plain, and weighted by position),
+    wrapping: bit-equal tensors give equal digests."""
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    w = t.detach().contiguous().view(words).flatten()
+    plain = weighted = 0
+    for i, chunk in enumerate(w.split(1 << 26)):
+        c = chunk.to(torch.int64)
+        pos = torch.arange(c.numel(), device=c.device, dtype=torch.int64) + (i << 26)
+        plain += int(c.sum())
+        weighted += int((c * (pos % 65521 + 1)).sum())
+    return str(t.dtype), tuple(t.shape), plain, weighted
+
+
+def pod_digests(state, first: int = 0) -> dict:
+    """{leaf path: {pod: digest}} of this rank's values of a local-SGD state: a
+    stacked leaf's per local pod (numbered from ``first``), another's under pod
+    None."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_flatten_sorted
+    out = {}
+    for path, t in tree_flatten_sorted(state):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        if path[0] in ("pod_params", "pod_opt", "ef"):
+            out[path] = {first + p: bit_digest(t[p]) for p in range(t.shape[0])}
+        else:
+            out[path] = {None: bit_digest(t)}
+    return out
+
+
+def local_sgd_pods_rounds(tr) -> tuple:
+    """The Trainer's rounds of LOCAL_SGD_PODS, the launch counters set to 0 just
+    before: (launches, each round's wall ms)."""
+    H = LOCAL_SGD_PODS["local_sgd"]["inner_steps"]
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    walls = []
+    for _ in range(LOCAL_SGD_PODS["steps"] // H):
+        t0 = time.perf_counter()
+        tr.step_once()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {name: fn.launches for name, fn in wrappers.items()}, walls
+
+
+def _local_sgd_pods_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two gloo ranks on the one card, a (2, 1, 1) ("pod", "data", "model")
+    mesh, pod ``rank`` on each: LOCAL_SGD_PODS's Trainer, its launches counted from 0
+    just before its rounds, the bytes it sends over the "pod" group a round, and
+    its local pod's digests. Writes its report to ``tmp``."""
+    import datetime
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    report = {}
+    try:
+        mesh = init_device_mesh("cuda", (world, 1, 1), mesh_dim_names=POD_AXES)
+        pod = mesh.get_group("pod")
+        tr = Trainer(TrainJobConfig.from_job({"payload": dict(LOCAL_SGD_PODS)}), mesh=mesh)
+        sent = {"calls": 0, "bytes": 0, "dtypes": set()}
+        real = dist.all_gather
+
+        def counted(parts, x, group=None, **kw):
+            if group is pod:
+                sent["calls"] += 1
+                sent["bytes"] += x.numel() * x.element_size() * (world - 1)
+                sent["dtypes"].add(str(x.dtype))
+            return real(parts, x, group=group, **kw)
+
+        dist.all_gather = counted
+        try:
+            launches, walls = local_sgd_pods_rounds(tr)
+        finally:
+            dist.all_gather = real
+        rounds = len(walls)
+        sent.update(calls=sent["calls"] / rounds, bytes=sent["bytes"] / rounds)
+        report = {"launches": launches, "walls": walls, "sent": sent,
+                  "delta_norm": tr.metrics.series("delta_norm"),
+                  "local_pods": tr.state["pod_opt"]["step"].to_local().shape[0],
+                  "digests": pod_digests(tr.state, first=rank)}
+    except Exception:
+        report["error"] = traceback.format_exc()[-2000:]
+        raise
+    finally:
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(report, f)
+        dist.destroy_process_group()
+
+
+def phase_local_sgd_pods(card: str) -> dict:
+    """Local SGD with its pods on ranks of their own (``optim/local_sgd.py`` on a
+    mesh with a "pod" axis), on the card.
+
+    (a) A one-rank NCCL ("pod", "data", "model") mesh (1, 1, 1): a local-SGD
+    Trainer of LOCAL_SGD_PODS (qwen3-0.6b at full width and depth, 2 pods, H = 2,
+    2 rounds of 1 x 2048 tokens a pod and inner step), its state DTensors, every
+    leaf bit-equal (per-leaf, per-pod bit digests) to the one-device local-SGD
+    Trainer's, delta norms equal, K1 and K2 launched exactly 2 pods x H x 2 rounds
+    of ``dense_per_step``.
+    (b) Two gloo ranks sharing the card as a (2, 1, 1) mesh (``run_two_ranks``,
+    ``_local_sgd_pods_rank``), one pod a rank: each rank's pod bit-equal to that
+    pod of the one-device run, the global master and momentum bit-equal on both,
+    the delta norms equal; each rank's K1 and K2 launches exactly half the one-device
+    run's; the round's only collective over "pod" the all-gathers of each leaf's
+    int8 values and f32 scales, whose bytes a rank sends in a round are printed
+    beside ``dcn_bytes_per_round``'s figure (a ring all-reduce's 2x payload).
+    The one-device run and (a) go in turn, never at once (30.8 GiB of state each);
+    the ranks after both. Returns each path's launches ((b)'s: rank 0's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.optim.local_sgd import dcn_bytes_per_round
+    from repro_torch.runtime.train_loop import Trainer, TrainJobConfig
+    from repro_torch.tree import tree_flatten_sorted, tree_leaves
+
+    t_phase = time.perf_counter()
+    job = TrainJobConfig.from_job({"payload": dict(LOCAL_SGD_PODS)})
+    P, H = job.n_pods, job.local_sgd.inner_steps
+    rounds = job.steps // H
+    per_step = dense_per_step(28)
+
+    def held(tag: str, launches: dict, pods: int) -> None:
+        for name, n in launches.items():
+            want = per_step.get(name, 0) * pods * H * rounds
+            check(n == want, f"local SGD pods {tag}: {name} launched {n}, want {want}")
+
+    one = Trainer(job)
+    check(one.arch_cfg.num_layers == 28, "local SGD pods: the depth is cut")
+    one_launches, one_ms = local_sgd_pods_rounds(one)
+    want = pod_digests(one.state)
+    want_norms = one.metrics.series("delta_norm")
+    payload, _ = dcn_bytes_per_round(one.state["master"], job.local_sgd)
+    n_leaves = len(tree_leaves(one.state["master"]))
+    state_gib = sum(t.numel() * t.element_size() for t in tree_leaves(one.state)) / 2**30
+    held("one device", one_launches, P)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    by_path = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=POD_AXES)
+        tr = Trainer(job, mesh=mesh)
+        check(tr.model.ranked and all(isinstance(t, DTensor) and t.device_mesh == mesh
+                                      for _, t in tree_flatten_sorted(tr.state)),
+              "local SGD pods: the Trainer's state on the one-rank mesh is not DTensors")
+        launches, mesh_ms = local_sgd_pods_rounds(tr)
+        got = pod_digests(tr.state)
+        norms = tr.metrics.series("delta_norm")
+        n_same = sum(got[p] == want[p] for p in want)
+        print(f"local SGD pods: {job.arch} full width, 28 layers, bf16, {P} pods x H={H} x "
+              f"{job.global_batch // P} x {job.seq_len} tokens, {rounds} rounds, on a one-rank "
+              f"NCCL (1, 1, 1) ('pod', 'data', 'model') mesh: round ms "
+              f"{[round(t, 1) for t in mesh_ms]}, one device {[round(t, 1) for t in one_ms]} "
+              f"[{card}]; delta_norm {norms}, one device {want_norms}; {n_same} of "
+              f"{len(want)} leaves bit-equal (per-pod digests; {state_gib:.2f} GiB of state); "
+              f"launches {launches}")
+        check(norms == want_norms, f"local SGD pods one-rank mesh: delta_norm {norms} != "
+              f"one device's {want_norms}")
+        check(n_same == len(want) == len(got),
+              f"local SGD pods one-rank mesh: {len(want) - n_same} leaves differ from one "
+              f"device's")
+        held("one-rank mesh", launches, P)
+        by_path[LOCAL_SGD_PODS_PATH] = launches
+        del tr, got
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    # (b) two gloo ranks on the one card, a (2, 1, 1) mesh, one pod a rank
+    t0 = time.perf_counter()
+    reports = run_two_ranks(300, _local_sgd_pods_rank)
+    ranks_s = time.perf_counter() - t0
+    for rank, rep in enumerate(reports):
+        check("error" not in rep, f"local SGD pods (2, 1, 1) rank {rank}: {rep.get('error')}")
+        check(rep.get("local_pods") == 1, f"local SGD pods (2, 1, 1): rank {rank} holds "
+              f"{rep.get('local_pods')} pods, not 1")
+        digests = rep["digests"]
+        bad = [path for path, by_pod in digests.items()
+               if any(d != want[path][p] for p, d in by_pod.items())]
+        check(digests.keys() == want.keys() and not bad,
+              f"local SGD pods (2, 1, 1) rank {rank}: leaves differ from one device's: "
+              f"{bad[:4]}")
+        check(rep["delta_norm"] == want_norms, f"local SGD pods (2, 1, 1) rank {rank}: "
+              f"delta_norm {rep['delta_norm']} != one device's {want_norms}")
+        held(f"(2, 1, 1) rank {rank}", rep["launches"], 1)
+        sent = rep["sent"]
+        check(sent["calls"] == 2 * n_leaves and sent["dtypes"] == {"torch.int8", "torch.float32"},
+              f"local SGD pods (2, 1, 1) rank {rank}: {sent['calls']:g} all-gathers over 'pod' "
+              f"of {sorted(sent['dtypes'])} in a round, want {2 * n_leaves} of int8 and f32")
+    r0 = reports[0]
+    print(f"local SGD pods (2, 1, 1): two gloo ranks on the one card, one pod each: round ms "
+          f"{[round(t, 1) for t in r0['walls']]} (rank 1 "
+          f"{[round(t, 1) for t in reports[1]['walls']]}), one device "
+          f"{[round(t, 1) for t in one_ms]} [{card}]; every leaf bit-equal to one device's "
+          f"pod by pod; delta_norm {r0['delta_norm']}; a rank sent {r0['sent']['bytes']:,.0f} "
+          f"bytes over 'pod' in a round ({r0['sent']['calls']:g} all-gathers: int8 values and "
+          f"f32 scales), dcn_bytes_per_round {payload:,} (a ring all-reduce's 2x payload); "
+          f"launches {r0['launches']}")
+    by_path[LOCAL_SGD_PODS2_PATH] = dict(r0["launches"])
+    print(f"local SGD pods: phase {time.perf_counter() - t_phase:.1f} s (one device and the "
+          f"one-rank mesh {t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
+    return by_path
+
+
 def load_example(name: str):
     """The module of ``examples/<name>.py``."""
     import importlib.util
@@ -6081,6 +6309,8 @@ def main(argv=None) -> int:
     mark("encdec and vlm tensor-parallel done")
     by_path.update(phase_moe_tensor_parallel(card))
     mark("moe expert-parallel done")
+    by_path.update(phase_local_sgd_pods(card))
+    mark("local SGD pods done")
     by_path[PLANE_PATH] = phase_local_plane(card)
     mark("plane done")
     by_path[LAUNCH_PATH] = phase_launchers(card)

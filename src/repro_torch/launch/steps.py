@@ -57,8 +57,8 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import TensorDef, abstract_params, param_defs, partition_specs
 from repro_torch.optim.adamw import (AdamWConfig, abstract_opt_state, adamw_update,
                                      init_opt_state, opt_state_specs)
-from repro_torch.parallel.sharding import (DP_ONLY_RULES, MeshPlan, P, as_dtensor, placements,
-                                           relayout, sum_over)
+from repro_torch.parallel.sharding import (DP_ONLY_RULES, MeshPlan, P, as_dtensor, mesh_shape,
+                                           placements, relayout, sum_over)
 from repro_torch.tree import tree_flatten_sorted, tree_map, tree_unflatten_sorted
 
 
@@ -237,31 +237,52 @@ def make_decode_step(model: Model):
 
 
 # ------------------------------------------------------- Titchener local-SGD cell
+def local_sgd_state_specs(cfg: ArchConfig, plan: MeshPlan) -> dict:
+    """The local-SGD state's layout, twin of the JAX Titchener cell's
+    ``state_specs``: the per-pod trees P("pod", *specs) (their stacked pod dim
+    over "pod") and the pods' steps P("pod"), the global master and momentum by
+    the pod-free plan's param specs, ``round`` replicated. On a mesh without a
+    "pod" axis the pod dim is whole (every rank holds every pod)."""
+    from repro_torch.optim.local_sgd import pod_free_plan
+    pspecs = partition_specs(cfg, pod_free_plan(plan))
+    pod = "pod" if "pod" in mesh_shape(plan.mesh) else None
+
+    def stack(t):
+        return tree_map(lambda s: P(pod, *s), t)
+
+    return {
+        "pod_params": stack(pspecs),
+        "pod_opt": {"m": stack(pspecs), "v": stack(pspecs), "master": stack(pspecs),
+                    "step": P(pod)},
+        "master": pspecs,
+        "momentum": pspecs,
+        "ef": stack(pspecs),
+        "round": P(),
+    }
+
+
 def _build_titchener_cell(cfg: ArchConfig, spec: ShapeSpec, mesh, plan: MeshPlan,
                           opts: CellOptions, opt_cfg: AdamWConfig, device) -> "Cell":
     """One local-SGD ROUND (H pod-local AdamW steps + the compressed exchange of
     the pods' deltas) instead of one sync step. The round consumes the same
     tokens as one baseline step (H x Bp x P x seq = global_batch x seq). The pods
     are the mesh's "pod" axis (one on one device); the per-pod trees lead with a
-    pod dim sharded on it, as the JAX package's."""
+    pod dim sharded on it (``local_sgd_state_specs``), the batches P(None, "pod",
+    "data"), as the JAX package's; the round exchanges the int8 deltas over the
+    mesh's "pod" group."""
     from repro_torch.optim.local_sgd import LocalSGDConfig, make_round_fn, pod_free_plan
     extra = dict(opts.extra)
     P_pods = n_pods(mesh)
     H = int(extra.get("inner_steps", 8))
     lcfg = LocalSGDConfig(inner_steps=H, compress=bool(extra.get("compress", True)))
-    pf = pod_free_plan(plan)
-    model = Model(cfg, device, pf)
+    model = Model(cfg, device, pod_free_plan(plan))
     round_fn = make_round_fn(model, opt_cfg, lcfg)
 
     params_abs = abstract_params(cfg)
-    pspecs = partition_specs(cfg, pf)
     f32 = torch.float32
 
     def stack_abs(t, dtype=None):
         return tree_map(lambda a: TensorDef((P_pods,) + a.shape, dtype or a.dtype), t)
-
-    def stack_spec(t):
-        return tree_map(lambda s: P("pod", *s), t)
 
     state_abs = {
         "pod_params": stack_abs(params_abs),
@@ -273,16 +294,7 @@ def _build_titchener_cell(cfg: ArchConfig, spec: ShapeSpec, mesh, plan: MeshPlan
         "ef": stack_abs(params_abs, f32),
         "round": TensorDef((), torch.int32),
     }
-    global_spec = tree_map(lambda d: pf.spec(d.logical, d.shape), param_defs(cfg))
-    state_specs = {
-        "pod_params": stack_spec(pspecs),
-        "pod_opt": {"m": stack_spec(pspecs), "v": stack_spec(pspecs),
-                    "master": stack_spec(pspecs), "step": P("pod")},
-        "master": global_spec,
-        "momentum": global_spec,
-        "ef": stack_spec(pspecs),
-        "round": P(),
-    }
+    state_specs = local_sgd_state_specs(cfg, plan)
     Bp = spec.global_batch // (P_pods * H)
     assert Bp >= 1, "global batch too small for H x pods"
     lead = (H, P_pods, Bp, spec.seq_len)

@@ -12,7 +12,9 @@ to the overwatch at ``/checkpoints/{job_id}``), from the checkpoint writer's
 thread once a save is durable; a re-dispatched job carries its ``restore_from``
 manifest back. The plane's ``device`` is its jobs' device: "cuda" (the default)
 raises in ``submit`` without a card, so the agent fails the job instead of
-running it on the CPU.
+running it on the CPU. Its ``mesh`` (default: none, the one device) is the mesh
+its jobs' Trainers and Servers run on, as ``JaxLocalPlane``'s: a ``DeviceMesh``
+over a process group that every rank's plane drives alike.
 """
 from __future__ import annotations
 
@@ -79,11 +81,12 @@ class TorchLocalPlane:
     def __init__(self, caps=("cpu", "train", "serve"),
                  steps_per_poll: int = 2,
                  publish: Optional[Callable[[str, dict], None]] = None,
-                 device: str = "cuda", checkpoint_root: Optional[str] = None):
+                 device: str = "cuda", checkpoint_root: Optional[str] = None, mesh=None):
         self._caps = tuple(caps)
         self.steps_per_poll = steps_per_poll
         self.publish = publish
         self.device = device
+        self.mesh = mesh
         self.checkpoint_root = checkpoint_root
         self.jobs: Dict[str, object] = {}
 
@@ -96,7 +99,7 @@ class TorchLocalPlane:
         kind = job.get("kind", "train")
         if kind == "serve":
             cfg = dataclasses.replace(ServeJobConfig.from_job(job), device=self.device)
-            server = Server(cfg)
+            server = Server(cfg, mesh=self.mesh)
             for p in job.get("payload", {}).get("requests", ()):
                 server.submit(p.get("prompt", [1, 2, 3]), p.get("max_new", 8))
             self.jobs[jid] = _ServeJob(server)
@@ -111,7 +114,7 @@ class TorchLocalPlane:
                 # the checkpoint DIRECTORY (what a restoring Trainer needs)
                 ck_dir = os.path.dirname(os.path.dirname(path))
                 self.publish(_jid, {"step": step, "path": ck_dir})
-        trainer = Trainer(cfg, on_checkpoint=on_ckpt)
+        trainer = Trainer(cfg, on_checkpoint=on_ckpt, mesh=self.mesh)
         restore = job.get("restore_from")
         if restore:
             trainer.restore(restore)

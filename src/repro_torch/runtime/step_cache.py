@@ -6,7 +6,9 @@ depends on (arch, reduced, mode, seq_len, global_batch, n_pods, microbatches,
 data_task, opt, local_sgd) and the device; a hit calls ``Trainer.rebind``. A
 :class:`ServerCache` keys warm servers by (arch, reduced, slots, max_len,
 device); a hit calls ``Server.rebind``. ``capacity=0`` disables caching (a fresh
-build per task); eviction is LRU.
+build per task); eviction is LRU. A ``TrainerCache``'s ``mesh`` (default: none,
+the one device) is the mesh its Trainers run on, so ``run_train_task`` and
+``run_eval_task`` train and evaluate on it.
 
   * train - resume from the task's own ``checkpoint_dir`` (latest committed
     step) and run only the steps left to the payload's target, so a task
@@ -70,16 +72,19 @@ class _LRU:
 
 
 class TrainerCache(_LRU):
+    def __init__(self, capacity: int = 4, mesh=None):
+        super().__init__(capacity)
+        self.mesh = mesh
+
     @staticmethod
     def key_of(cfg) -> Tuple:
         return ("train", cfg.arch, cfg.reduced, cfg.mode, cfg.seq_len,
                 cfg.global_batch, cfg.n_pods, cfg.microbatches,
                 cfg.data_task, _freeze(cfg.opt), _freeze(cfg.local_sgd), cfg.device)
 
-    @staticmethod
-    def build(cfg):
+    def build(self, cfg):
         from repro_torch.runtime.train_loop import Trainer
-        return Trainer(cfg)
+        return Trainer(cfg, mesh=self.mesh)
 
     @staticmethod
     def rebind(trainer, cfg) -> None:

@@ -6,7 +6,8 @@
                   compressed delta exchange and an outer Nesterov step
                   (``optim/local_sgd.py``). ``step`` counts inner steps, so a
                   round advances it by H; the pods are a leading dim of the
-                  state, run in turn on the one card.
+                  state, run in turn on the one card, or split over a mesh's
+                  "pod" axis.
 
 The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
 ``make_test_mesh``'s mesh unless one is given. Which families take which mesh:
@@ -20,7 +21,15 @@ The Trainer's ``plan`` is the JAX package's: ``MeshPlan(mesh, fsdp=False)`` on
     on every rank;
   * every family runs on a mesh of one device (one card, or a one-rank mesh with
     a plain state);
-  * local_sgd on a mesh of more ranks is refused (ROADMAP §1 item 4).
+  * local_sgd runs on any ("pod", "data", "model") or ("data", "model") mesh: the
+    state is DTensors laid out by ``local_sgd_state_specs`` (a rank holds its
+    ``n_pods / mesh["pod"]`` local pods' slice of the pod-stacked trees; every
+    pod where the mesh has no "pod" axis), the pods' inner steps are the
+    tensor- and data-parallel step confined to the rank's pod (the model's plan
+    is ``pod_free_plan``'s), and the round's one collective across "pod" is the
+    int8 exchange of the deltas (``optim/local_sgd.py``). Each rank draws the
+    whole [H, n_pods, B/n_pods, ...] round alike and keeps its pods' and its
+    "data" slice's rows.
 ``remesh`` moves the state onto another mesh (``runtime/elastic.py``
 ``remesh_state``) and training goes on where it lands.
 
@@ -47,13 +56,14 @@ from repro_torch import configs
 from repro_torch import device as devices
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticTokens
-from repro_torch.launch.mesh import chips, make_test_mesh
-from repro_torch.launch.steps import init_train_state, make_train_step, train_state_specs
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.steps import (init_train_state, local_sgd_state_specs, make_train_step,
+                                      train_state_specs)
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state,
+from repro_torch.optim.local_sgd import (LocalSGDConfig, init_local_sgd_state, local_pods,
                                          make_round_fn, pod_free_plan)
-from repro_torch.parallel.sharding import MeshPlan
+from repro_torch.parallel.sharding import MeshPlan, P, distribute, mesh_shape
 from repro_torch.runtime.elastic import remesh_state
 from repro_torch.runtime.telemetry import MetricsLog, StepTimer
 from repro_torch.tree import tree_map
@@ -111,12 +121,8 @@ class Trainer:
     def _bind(self, mesh) -> None:
         """The plan, model and step function of ``mesh``."""
         cfg = self.cfg
-        if chips(mesh) != 1 and cfg.mode != "sync":
-            raise NotImplementedError(
-                f"a {self.arch_cfg.family} Trainer in {cfg.mode} mode on a mesh of "
-                f"{chips(mesh)} devices: multi-rank training covers every family in sync "
-                "mode; local_sgd on more than one rank is not ported yet (ROADMAP §1 "
-                "item 4)")
+        if cfg.mode == "local_sgd":
+            local_pods(mesh, cfg.n_pods)          # raises where "pod" does not divide them
         self.plan = MeshPlan(mesh=mesh, fsdp=False)
         # local_sgd: the pods are the state's leading dim; the model must not shard on "pod"
         self.model = Model(self.arch_cfg, self.device,
@@ -134,13 +140,19 @@ class Trainer:
         old = self.plan
         self._bind(mesh)
         if self.model.ranked:     # else one device, where the state stays plain
-            self.state = remesh_state(self.state, old, self.plan,
-                                      lambda p: train_state_specs(self.arch_cfg, p))
+            self.state = remesh_state(self.state, old, self.plan, self._specs)
+
+    def _specs(self, plan: MeshPlan) -> dict:
+        """The layout of this mode's state under ``plan``."""
+        if self.cfg.mode == "local_sgd":
+            return local_sgd_state_specs(self.arch_cfg, plan)
+        return train_state_specs(self.arch_cfg, plan)
 
     def _init_state(self, cfg: TrainJobConfig) -> dict:
         """The initial state of ``cfg.mode`` from ``cfg.seed``."""
         if cfg.mode == "local_sgd":
-            return init_local_sgd_state(self.model.init_params(cfg.seed), cfg.n_pods)
+            return init_local_sgd_state(self.model.init_params(cfg.seed), cfg.n_pods,
+                                        self.plan.mesh, self._specs(self.plan))
         return init_train_state(self.model, cfg.seed)
 
     def _arm(self, cfg: TrainJobConfig,
@@ -203,13 +215,20 @@ class Trainer:
 
     def _round_batches(self, step: int) -> Dict[str, torch.Tensor]:
         """local_sgd: the [H, n_pods, B/n_pods, ...] batch stack of one round; pod p
-        of inner step h reads shard p of data step ``step + h``."""
-        H, P = self.cfg.local_sgd.inner_steps, self.cfg.n_pods
-        Bp = self.cfg.global_batch // P
+        of inner step h reads shard p of data step ``step + h``. On a mesh every
+        rank draws the whole stack alike and keeps its DTensor shard: its pods'
+        (over "pod") and its "data" slice's rows (where "data" divides them)."""
+        H, n = self.cfg.local_sgd.inner_steps, self.cfg.n_pods
+        Bp = self.cfg.global_batch // n
         rows = [[self._with_aux_inputs(self.data.batch_at(step + h, shard_id=p, batch=Bp), Bp)
-                 for p in range(P)] for h in range(H)]
-        return {k: torch.stack([torch.stack([pod[k] for pod in row]) for row in rows])
-                .to(self.device) for k in rows[0][0]}
+                 for p in range(n)] for h in range(H)]
+        out = {k: torch.stack([torch.stack([pod[k] for pod in row]) for row in rows])
+               for k in rows[0][0]}
+        if not self.model.ranked:
+            return {k: v.to(self.device) for k, v in out.items()}
+        pod = "pod" if "pod" in mesh_shape(self.plan.mesh) else None
+        spec = P(None, pod, *self.model.plan.spec(("batch",), (Bp,)))
+        return {k: distribute(v, self.plan.mesh, spec) for k, v in out.items()}
 
     def step_once(self) -> Dict[str, float]:
         if self.cfg.mode == "local_sgd":

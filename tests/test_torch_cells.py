@@ -26,21 +26,12 @@ from test_torch_local_sgd import (DELTA_NORM_RTOL, EF_FLIP_SHARE, EF_TOL,  # noq
 from test_torch_model import BF16_TOL, _auto_mesh, _jax  # noqa: E402
 from test_torch_train import (LOSS_TOL, MASTER_TOL, MOMENT_TOL, OPT, _batch,  # noqa: E402
                               _f32, _jbatch, _named, _np_tree, _tbatch)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 CELLS = [(a, s) for a in tconfigs.names() for s in SHAPES
          if not cell_is_runnable(tconfigs.get(a), s)]
 SKIPS = [(a, s) for a in tconfigs.names() for s in SHAPES
          if cell_is_runnable(tconfigs.get(a), s)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny models: one intra-op thread runs them as fast, and keeps them fast
-    beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_skip_set_matches_the_jax_suite():

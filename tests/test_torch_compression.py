@@ -25,6 +25,8 @@ from repro_torch.optim import local_sgd as TL  # noqa: E402
 from repro_torch.tree import tree_flatten_sorted, tree_map  # noqa: E402
 from test_torch_model import _auto_mesh, _jax  # noqa: E402
 from test_torch_train import _named, _np_tree  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 # the outer step from the same pod masters, in f32: the last bits of one fused
 # multiply-add (ef ~1e-5 and momentum ~1e-3 move by ~1e-10; master ~1 by an ulp,

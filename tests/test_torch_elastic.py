@@ -45,6 +45,7 @@ from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
 from repro_torch.tree import tree_flatten_sorted, tree_map  # noqa: E402
 from test_torch_model import BF16_TOL, F32_TOL  # noqa: E402
 from test_torch_sharding import init_gloo, run_jax_subprocess, spawn_ranks  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-0.6b"
@@ -52,14 +53,6 @@ DTYPES = ("bfloat16", "float32")
 REMESH_TOL = 2e-2            # tests/test_elastic.py:89-91
 BATCH, SEQ = 4, 16           # tests/test_elastic.py's tokens
 TRAIN = {"arch": ARCH, "steps": 4, "seq_len": 8, "global_batch": 2, "device": "cpu"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------------- on the CPU
@@ -110,14 +103,14 @@ def test_trainer_continues_after_remesh_same_device():
 
 
 def test_trainer_refuses_a_mesh_of_several_devices():
-    """Multi-rank training covers every family in sync mode: a local_sgd Trainer
-    on several devices is refused, naming ROADMAP, a deepseek-moe one among
-    them."""
+    """Multi-rank training covers every family in both modes: a local_sgd Trainer
+    on a mesh whose "pod" axis does not divide its pods (2 over 4) is refused, a
+    deepseek-moe one among them."""
     class FakeMesh:
-        shape = {"data": 4, "model": 2}
+        shape = {"pod": 4, "data": 1, "model": 2}
     for job in (dict(TRAIN, mode="local_sgd"),
                 dict(TRAIN, arch="deepseek-moe-16b", mode="local_sgd")):
-        with pytest.raises(NotImplementedError, match="multi-rank training.*ROADMAP"):
+        with pytest.raises(ValueError, match="axis must divide the pods"):
             Trainer(TrainJobConfig(**job), mesh=FakeMesh())
 
 

@@ -42,6 +42,8 @@ from test_torch_model import (BF16_TOL, F32_TOL, _auto_mesh, _converted, _f32,  
                               _jax, _jax_model, _tokens)
 from test_torch_train import (LOSS_TOL, MASTER_TOL, MOMENT_TOL, OPT, _batch,  # noqa: E402
                               _bits, _jbatch, _named, _np_tree, _tbatch)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 ARCH = "whisper-medium"
 DTYPES = ["float32", "bfloat16"]

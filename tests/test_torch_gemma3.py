@@ -31,6 +31,8 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.step_cache import run_train_task  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 ARCH = "gemma3-12b"
 F32_TOL = 1e-4

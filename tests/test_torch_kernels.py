@@ -13,6 +13,8 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 # twins of tests/test_kernels.py:FLASH_SWEEP
 FLASH_SWEEP = [

@@ -14,19 +14,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.runtime.local_plane import TorchLocalPlane  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TRAIN_ARGS = ["--device", "cpu", "--steps", "4"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny models: one intra-op thread runs them as fast, and keeps them fast
-    beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _trainer_of(plane, jid):

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.runtime.local_plane import TorchLocalPlane  # noqa: E402
 from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCH = "qwen3-0.6b"
 TRAIN = {"arch": ARCH, "steps": 8, "seq_len": 16, "global_batch": 2, "checkpoint_every": 4}
@@ -26,17 +27,6 @@ SERVE = {"arch": ARCH, "slots": 2, "max_len": 32,
          "requests": [{"prompt": [1 + i, 2, 3] + [4] * (2 * (i % 2)), "max_new": 2 + i % 5}
                       for i in range(6)]}
 BF16_LOSS_TOL = 0.02     # tests/test_torch_train.py's: bf16 CE in two frameworks
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These models are tiny: one intra-op thread runs them as fast alone, and
-    keeps them fast beside other test workers, where spinning OpenMP threads of
-    several processes slowed them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax():

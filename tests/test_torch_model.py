@@ -22,6 +22,17 @@ from repro_torch.runtime.serve_loop import Server, ServeJobConfig  # noqa: E402
 from repro_torch.runtime.step_cache import ServerCache, run_serve_task  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models: one intra-op thread runs them as fast, and keeps them fast
+    beside other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCHS = tconfigs.names()
 DENSE_FULL_CACHE = ["phi4-mini-3.8b", "qwen3-0.6b", "qwen3-32b"]
 # tokens of the prefill + decode vs forward check: 16, or for gemma3 129, a prefill

@@ -42,6 +42,8 @@ from test_torch_model import (BF16_TOL, F32_TOL, _converted, _f32, _jax,  # noqa
                               _jax_model, _tokens)
 from test_torch_train import (BF16_LOSS_TOL, LOSS_TOL, MASTER_TOL, MOMENT_TOL,  # noqa: E402
                               OPT, _batch, _jbatch, _named, _np_tree, _tbatch)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 ARCHS = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 DTYPES = ["float32", "bfloat16"]

@@ -10,19 +10,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.pipelines import DEFAULT_HANDLERS, WarmHandlers  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 CPU = {"device": "cpu"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These models are tiny: one intra-op thread runs them as fast alone, and
-    keeps them fast beside other test workers, where spinning OpenMP threads of
-    several processes slowed them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _worker_module():

@@ -20,21 +20,12 @@ from repro_torch.launch.steps import _loss_and_grads  # noqa: E402
 from repro_torch.models.model import REMAT_MODES, Model  # noqa: E402
 from test_torch_train import (LOSS_TOL, _batch, _f32, _jax, _jax_model,  # noqa: E402
                               _jbatch, _named, _np_tree, _tbatch)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 # one arch of each family, and gemma3-12b: a dense group of 6 layers (5 local, 1
 # global) is one remat unit
 FAMILY_ARCHS = ["qwen3-0.6b", "gemma3-12b", "mamba2-2.7b", "zamba2-7b", "deepseek-moe-16b",
                 "whisper-medium", "llama-3.2-vision-90b"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny models: one intra-op thread runs them as fast, and keeps them fast
-    beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cfg(arch, remat, **overrides):

@@ -16,6 +16,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.models import layers as TLY  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

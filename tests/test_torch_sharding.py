@@ -46,6 +46,7 @@ from repro_torch.optim.adamw import opt_state_specs  # noqa: E402
 from repro_torch.parallel.sharding import (DEFAULT_RULES, DP_ONLY_RULES, MeshPlan,  # noqa: E402
                                            OneDeviceMesh, P, constrain, placements)
 from repro_torch.tree import tree_flatten_sorted  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = tconfigs.names()
@@ -64,14 +65,6 @@ RANK_MESHES = {"4x2": ((4, 2), ("data", "model"), None),
 RANK_BATCH, RANK_SEQ, RANK_CACHE_LEN = 8, 16, 16
 RANKS = 8
 TIMEOUT_S = 420             # tests/test_elastic.py's for its 8-device subprocess
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _fake_mesh(shape: dict):

@@ -13,6 +13,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.models import ssm as TSSM  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 # twins of tests/test_kernels.py:SSD_SWEEP
 SSD_SWEEP = [

@@ -17,6 +17,8 @@ from repro_torch.runtime.step_cache import ServerCache, run_serve_task  # noqa: 
 from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_model import (BF16_TOL, F32_TOL, PROMPTS, _auto_mesh,  # noqa: E402
                               _converted, _f32, _jax, _jax_model, _tokens)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 ARCH = "mamba2-2.7b"
 PROMPT = 80

@@ -22,6 +22,8 @@ from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.runtime.step_cache import run_eval_task, run_train_task  # noqa: E402
 from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
 from repro_torch.tree import tree_flatten_sorted  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 # twins of tests/test_kernels.py:SSD_SWEEP (B, S, H, P, N, chunk), ragged S included
 SSD_SWEEP = [(1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32)]

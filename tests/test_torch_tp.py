@@ -39,6 +39,7 @@ from repro_torch.models.params import param_defs  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 from test_torch_model import BF16_TOL, F32_TOL  # noqa: E402
 from test_torch_sharding import init_gloo, spawn_ranks  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"1x8": (1, 8), "2x4": (2, 4), "4x2": (4, 2)}
@@ -58,14 +59,6 @@ PROMPTS = {
                    ([2, 4, 6], 7)],
 }
 TIMEOUT_S = 420
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cfg_of(arch: str, dtype: str):

@@ -40,6 +40,7 @@ from test_torch_sharding import init_gloo, spawn_ranks  # noqa: E402
 from test_torch_tp import JAX_PRELUDE, MESHES, _counting, finish_jax, np_params  # noqa: E402
 from test_torch_tp import cfg_of as _cfg_of  # noqa: E402
 from test_torch_tp import start_jax  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCHS = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
 DTYPES = ("float32", "bfloat16")
@@ -66,14 +67,6 @@ def cfg_of(arch: str, dtype: str, variant: str = ""):
 def case_inputs(case) -> dict:
     arch, _, dtype, variant = case
     return {"params": np_params(cfg_of(arch, dtype, variant), 0)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 JAX_MOE = JAX_PRELUDE + """

@@ -37,6 +37,7 @@ from test_torch_tp import cfg_of as _cfg_of  # noqa: E402
 from test_torch_tp_moe import ARCHS  # noqa: E402
 from test_torch_tp_train import _np_named  # noqa: E402
 from test_torch_train import LOSS_TOL, MASTER_TOL, MOMENT_TOL, OPT  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 SEQ, BATCH, STEPS = 16, 8, 2
 TRAIN_CASES = {f"{a}-{m}": (a, m) for a in ARCHS for m in ("2x4", "4x2")}
@@ -46,14 +47,6 @@ ELASTIC_STEPS = 2                      # steps on (2, 2) after the re-mesh
 CKPT_FROM = "deepseek-moe-16b-2x4"     # the run saved at its end
 ONE_RANK_DECODE = 3                    # teacher-forced decode steps of the one-rank phase
 SERIES = ("loss", "aux_loss", "grad_norm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cfg_of(arch: str, dtype: str = "float32"):

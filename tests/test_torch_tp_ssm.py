@@ -37,6 +37,7 @@ from test_torch_tp import JAX_PRELUDE, MESHES, _counting, finish_jax  # noqa: E4
 from test_torch_tp import cfg_of as _cfg_of  # noqa: E402
 from test_torch_tp import np_params as _np_params  # noqa: E402
 from test_torch_tp import start_jax  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCHS = ("mamba2-2.7b", "zamba2-7b")
 DTYPES = ("float32", "bfloat16")
@@ -76,14 +77,6 @@ def np_params(cfg, seed: int) -> dict:
         x = np.log(u) if name == "a_log" else u + np.log(-np.expm1(-u))
         params["layers"]["ssm"][name] = x.astype(leaf.dtype)
     return params
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # two JAX processes side by side (compiling is the most of each, on one core)

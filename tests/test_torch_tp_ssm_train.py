@@ -36,6 +36,7 @@ from test_torch_tp import JAX_PRELUDE, MESHES, finish_jax, start_jax  # noqa: E4
 from test_torch_tp_ssm import cfg_of, np_params  # noqa: E402
 from test_torch_tp_train import EPS_V, _np_named  # noqa: E402
 from test_torch_train import LOSS_TOL, MASTER_TOL, MOMENT_TOL, OPT  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCHS = ("mamba2-2.7b", "zamba2-7b")
 SEQ, BATCH, STEPS = 40, 8, 3
@@ -49,14 +50,6 @@ JAX_GROUPS = (("mamba2-2.7b-1x8", "mamba2-2.7b-2x4"), ("mamba2-2.7b-4x2",), ("za
 ELASTIC_SPLIT = 2
 ELASTIC_FROM = "mamba2-2.7b-4x2"     # the run whose state at ELASTIC_SPLIT is re-meshed
 CKPT_FROM = "mamba2-2.7b-2x4"        # the run saved at its end
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 JAX_TRAIN = JAX_PRELUDE + """

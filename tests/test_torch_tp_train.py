@@ -44,6 +44,7 @@ from test_torch_tp import (JAX_PRELUDE, MESHES, cfg_of, finish_jax, np_params,  
                            start_jax)
 from test_torch_train import (BF16_LOSS_TOL, LOSS_TOL, MASTER_TOL, MOMENT_TOL,  # noqa: E402
                               OPT)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCH = "qwen3-0.6b"
 SEQ, BATCH, STEPS = 32, 8, 3
@@ -54,14 +55,6 @@ TRAIN_CASES["2x4-float32-M2"] = ("2x4", "float32", 2)
 ELASTIC_SPLIT = 2
 ELASTIC_FROM = "4x2-float32"     # the run whose state at ELASTIC_SPLIT is re-meshed
 EPS_V = 1e-14       # v below (10 x AdamW's eps)^2: |g| within 10 eps of 0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 JAX_TRAIN = JAX_PRELUDE + """

@@ -43,6 +43,7 @@ from test_torch_sharding import init_gloo, spawn_ranks  # noqa: E402
 from test_torch_tp import JAX_PRELUDE, MESHES, _counting, finish_jax, np_params  # noqa: E402
 from test_torch_tp import cfg_of as _cfg_of  # noqa: E402
 from test_torch_tp import start_jax  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ARCHS = ("whisper-medium", "llama-3.2-vision-90b")
 DTYPES = ("float32", "bfloat16")
@@ -100,14 +101,6 @@ def case_inputs(case) -> dict:
         import ml_dtypes
         aux = aux.astype(ml_dtypes.bfloat16)
     return {"params": with_gates(np_params(cfg, 0)), aux_name(cfg): aux}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 JAX_XATTN = JAX_PRELUDE + """

@@ -42,6 +42,7 @@ from test_torch_tp import cfg_of as _cfg_of  # noqa: E402
 from test_torch_tp_ssm_train import _state_close  # noqa: E402
 from test_torch_train import LOSS_TOL, OPT  # noqa: E402
 from test_torch_tp_xattn import ARCHS, with_gates  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 SEQ, BATCH, STEPS, MICRO = 16, 8, 3, 2
 TRAIN_CASES = {f"{a}-{m}": (a, m) for a in ARCHS for m in ("2x4", "4x2")}
@@ -49,14 +50,6 @@ ELASTIC_SPLIT = 2
 ELASTIC_FROM = "whisper-medium-4x2"  # the run whose state at ELASTIC_SPLIT is re-meshed
 CKPT_FROM = "whisper-medium-2x4"     # the run saved at its end
 ONE_RANK_DECODE = 3                  # teacher-forced decode steps of the one-rank phase
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cfg_of(arch: str, dtype: str = "float32"):

@@ -25,6 +25,8 @@ from repro_torch.runtime.step_cache import (TrainerCache, run_eval_task,  # noqa
                                             run_train_task)
 from repro_torch.runtime.train_loop import Trainer, TrainJobConfig  # noqa: E402
 from repro_torch.tree import tree_flatten_sorted  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 OPT = dict(peak_lr=1e-2, warmup_steps=20, total_steps=2000, weight_decay=0.1)
 # f32 loss and grad_norm: the same ops in another summation order (~1e-6 relative)

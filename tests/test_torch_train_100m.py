@@ -15,18 +15,9 @@ from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.launch.steps import init_train_state, make_train_step  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread keeps the 100M model's steps fast beside other test
-    workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _example(name: str):

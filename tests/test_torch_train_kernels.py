@@ -19,6 +19,8 @@ from repro_torch.kernels import autograd as AG  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 # tests/test_kernels.py's FLASH_SWEEP (GQA, MQA, bidirectional, window, ragged
 # D=80), q shorter than k/v (end-aligned masks), both at qwen3's head dim, and

@@ -31,6 +31,8 @@ from test_torch_encdec import (DTYPES, F32_TOL, GATE, aux, check_cache_defs,  # 
                                check_train_and_eval_tasks, check_train_step,
                                check_trainer_aux_inputs, close, full_params, pair,
                                stage_run, _tokens)
+from test_torch_model import _one_torch_thread  # noqa: E402,F401
+
 
 ARCH = "llama-3.2-vision-90b"
 # full-width parameter counts (from param_defs): the card's serving path at 10
