@@ -196,8 +196,14 @@ Phases, each failing loudly (nonzero exit):
      position, a wiring check), decode_32k (16 steps on the prefill's cache) and
      the Titchener round; the dry-run of the train cell (``roofline/op_stats.py``
      on fake tensors, in a CPU process started after the build on a core that
-     the script then leaves to it) beside the card's peak and step; mamba2-2.7b's long_500k cell (its decode in f32 at 4
-     layers against the prefill); ``examples/torch_train_100m.py --steps 300``.
+     the script then leaves to it) beside the card's peak and step; in the same
+     process, on PyTorch's fake process group, the dry-run of the Titchener
+     round on a (2, 1, 1) ("pod", "data", "model") world, whose cross-pod bytes
+     must equal what a rank sent over "pod" a round in phase 10's two ranks, and
+     of qwen3-32b/decode_32k on the (2, 16, 16) mesh of 512 fake ranks (its
+     per-device peak, terms and fit); mamba2-2.7b's long_500k cell (its decode
+     in f32 at 4 layers against the prefill); ``examples/torch_train_100m.py
+     --steps 300``.
 
 The last three lines of standard output are the card line, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -872,6 +878,11 @@ LONG_F32_TOL, LONG_F32_LAYERS = 1e-4, 4
 CELLS_K1_DROP = 64
 # the dry-run's predicted peak of the train cell (remat full) against the card's
 DRYRUN_PEAK_RTOL = 0.25
+# the production cell the dry-run process traces on the fake 512-rank (2, 16, 16)
+# mesh: an arch that never runs on the card, one step, quick to trace
+DRYRUN_PRODUCTION = ("qwen3-32b", "decode_32k", "multi")
+# what the script measured for later phases to hold predictions against
+MEASURED = {}
 TRAIN_100M_PATH = "qwen3 100M example"
 TRAIN_100M_STEPS = 300
 
@@ -4365,6 +4376,7 @@ def phase_local_sgd_pods(card: str) -> dict:
           f"f32 scales), dcn_bytes_per_round {payload:,} (a ring all-reduce's 2x payload); "
           f"launches {r0['launches']}")
     by_path[LOCAL_SGD_PODS2_PATH] = dict(r0["launches"])
+    MEASURED["pod_bytes_a_round"] = r0["sent"]["bytes"]
     print(f"local SGD pods: phase {time.perf_counter() - t_phase:.1f} s (one device and the "
           f"one-rank mesh {t_one:.1f} s, two ranks {ranks_s:.1f} s) [{card}]")
     return by_path
@@ -5740,7 +5752,54 @@ def dryrun_train_cut(out: str, core) -> None:
     cut = {k: TensorDef((CELLS_TRAIN_BATCH,) + d.shape[1:], d.dtype) for k, d in batch.items()}
     rec = stats_to_json(call_stats(cell.fn, (state, cut)))
     rec["seconds"] = time.perf_counter() - t0
+    rec["titchener_pods"] = dryrun_titchener_pods()
+    rec["production"] = dryrun_production()
     Path(out).write_text(json.dumps(rec))
+
+
+def dryrun_titchener_pods() -> dict:
+    """The dry-run of qwen3-0.6b's Titchener round at full width and depth on a fake
+    (2, 1, 1) ("pod", "data", "model") world, as rank 0: H = 1 and the batch cut to
+    CELLS_TRAIN_BATCH rows (the exchange's bytes depend on neither); its
+    collectives, a pod of one rank."""
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    from repro_torch.launch.steps import CellOptions, build_cell
+    from repro_torch.models.params import TensorDef
+    from repro_torch.roofline.op_stats import call_stats, stats_to_json
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    with fake_world(2):
+        mesh = make_test_mesh((2, 1, 1), POD_AXES, device="cpu")
+        cell = build_cell(CELLS_ARCH, "train_4k",
+                          CellOptions(titchener=True, extra=(("inner_steps", 1),)),
+                          device="cpu", mesh=mesh)
+        state, batch = cell.abstract_args
+        lead = (1, 2, CELLS_TRAIN_BATCH // 2)
+        cut = {k: TensorDef(lead + d.shape[3:], d.dtype) for k, d in batch.items()}
+        rec = stats_to_json(call_stats(cell.fn, (state, cut), mesh, cell.in_shardings,
+                                       pod_size=1))
+    check(not dist.is_initialized(), "the fake world outlived its block")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_production() -> dict:
+    """``launch/dryrun.py``'s record of DRYRUN_PRODUCTION on its production mesh
+    of fake ranks, with the report's row of it."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import CellOptions
+    from repro_torch.roofline.report import row_from_artifact
+    arch, shape, mesh = DRYRUN_PRODUCTION
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape, CellOptions(), verbose=False, mesh=mesh)
+    check(not dist.is_initialized(), "the fake world outlived its block")
+    row = row_from_artifact(rec)
+    rec["row"] = {"compute_s": row.compute_s, "memory_s": row.memory_s,
+                  "collective_s": row.collective_s, "dominant": row.dominant,
+                  "fits": row.fits, "mem_gb": row.mem_gb}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def start_dryrun():
@@ -6171,7 +6230,10 @@ def phase_dryrun_vs_card(card: str, dryrun, train: dict) -> None:
     """The dry-run's prediction of the train cell (remat full, the card's cut)
     beside the card: its peak_bytes within DRYRUN_PEAK_RTOL of the card's peak
     above the memory in use before the step's state; its flops over the warm step's
-    ms as a share of PEAK_FLOPS_BF16."""
+    ms as a share of PEAK_FLOPS_BF16. Then the same process's fake-group dry-runs:
+    the Titchener round's cross-pod bytes on (2, 1, 1) exactly those a rank sent
+    over "pod" a round in ``phase_local_sgd_pods``, all of them all-gathers; and
+    DRYRUN_PRODUCTION's per-device peak, terms and fit on 512 fake ranks."""
     proc, out = dryrun
     t0 = time.perf_counter()
     proc.join(timeout=600)
@@ -6190,6 +6252,25 @@ def phase_dryrun_vs_card(card: str, dryrun, train: dict) -> None:
           f"{rec['framework_bytes']:.4e}, kernel-internal {rec['kernel_bytes']:.4e} [{card}]")
     check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dry-run peak {rec['peak_bytes']} vs the card's "
           f"{card_peak}: {rel:+.3f} beyond {DRYRUN_PEAK_RTOL}")
+    tp = rec["titchener_pods"]
+    sent = MEASURED["pod_bytes_a_round"]
+    print(f"dry-run of qwen3-0.6b's Titchener round on a fake (2, 1, 1) world (full width and "
+          f"depth, H = 1, {tp['seconds']:.1f} s): cross-pod {tp['cross_pod_bytes']:,} bytes a "
+          f"device ({tp['by_opcode']}); a rank of phase 10's two sent {sent:,.0f} over 'pod' "
+          f"a round")
+    check(tp["cross_pod_bytes"] == sent and set(tp["by_opcode"]) == {"all-gather:dcn"},
+          f"dry-run of the Titchener round: {tp['cross_pod_bytes']} cross-pod bytes "
+          f"({tp['by_opcode']}), a rank sent {sent} over 'pod'")
+    prod = rec["production"]
+    row, hs = prod["row"], prod["hlo_stats"]
+    print(f"dry-run of {prod['cell']} on the {prod['mesh']} mesh ({prod['chips']} fake ranks, "
+          f"torch {torch.__version__}, {prod['seconds']:.1f} s): per device peak "
+          f"{hs['peak_bytes'] / 1e9:.2f} GB, flops {hs['flops']:.4e}, in-pod "
+          f"{hs['in_pod_bytes']:.4e} and cross-pod {hs['cross_pod_bytes']:.4e} bytes; compute "
+          f"{row['compute_s']:.4f} s, memory {row['memory_s']:.4f} s, collective "
+          f"{row['collective_s']:.4f} s, {row['dominant']}-bound, fits {row['fits']}")
+    check(prod["chips"] == 512 and hs["flops"] > 0 and hs["in_pod_bytes"] > 0,
+          f"dry-run of {prod['cell']}: {prod['chips']} chips, flops {hs['flops']}")
 
 
 def phase_train_100m(card: str) -> dict:

@@ -143,6 +143,20 @@ def _laid_out(model: Model, grads: list, params: dict, axes: tuple, specs: dict)
     return out
 
 
+def _microbatches(v: torch.Tensor, M: int):
+    """A batch leaf [B, ...] as M microbatches [B/M, ...]: of a plain leaf, its M
+    runs of rows; of a DTensor laid out by rows, the M runs of each rank's own
+    rows, as DTensors of the same placements (no communication)."""
+    if not isinstance(v, DTensor):
+        return v.reshape((M, v.shape[0] // M) + tuple(v.shape[1:]))
+    local = v.to_local()
+    if local.shape[0] % M:
+        raise ValueError(f"{local.shape[0]} local rows are not a multiple of {M} microbatches")
+    parts = local.reshape((M, local.shape[0] // M) + tuple(local.shape[1:]))
+    shape = (v.shape[0] // M,) + tuple(v.shape[1:])
+    return [as_dtensor(parts[i], v.device_mesh, tuple(v.placements), shape) for i in range(M)]
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
                     accum_dtype: str = "float32", zero2_accum: bool = False):
     """(state, batch) -> (state, metrics); grads accumulated over microbatches.
@@ -166,7 +180,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, num_microbatches: int,
         else:
             if B % M:
                 raise ValueError(f"batch {B} is not a multiple of {M} microbatches")
-            mb = {k: v.reshape((M, B // M) + tuple(v.shape[1:])) for k, v in batch.items()}
+            mb = {k: _microbatches(v, M) for k, v in batch.items()}
             grads, loss_sum, tok_sum = None, 0.0, 0.0
             for i in range(M):
                 m, g = _loss_and_grads(model, params, {k: v[i] for k, v in mb.items()})

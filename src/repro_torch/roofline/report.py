@@ -1,24 +1,31 @@
-"""Roofline report: three terms per (arch x shape) cell from the dry-run's
-artifacts, twin of ``repro.roofline.report``, on the H100's constants
+"""Roofline report: three terms per (arch x shape x mesh) cell from the
+dry-run's artifacts, twin of ``repro.roofline.report``, on the H100's constants
 (``launch/mesh.py``).
 
 Conventions:
-  * Every quantity is for the whole step on one card (``launch/dryrun.py``
-    counts it with ``roofline/op_stats.py`` on fake tensors).
+  * Every quantity is per device for the whole step (``launch/dryrun.py``
+    counts it with ``roofline/op_stats.py`` on fake tensors: on one card, or as
+    one rank of the 256- or 512-device production mesh).
   * compute term    = flops / PEAK_FLOPS_BF16 (dense bf16 tensor cores); K1's
     flops are its kept (query, key) pairs' (the record's ``dot_flops`` also
     counts the masked blocks that the plain path forms).
   * memory term     = framework_bytes / HBM_BW. Framework bytes exclude what a
     kernel's plain version forms between its inputs and its outputs: on the card
     those live in shared memory and registers.
-  * collective term = 0: one card has no collectives.
-  * MODEL_FLOPS     = the useful flops of a step:
+  * collective term = in_pod_bytes / IN_POD_BW + cross_pod_bytes / CROSS_POD_BW
+    (a device's InfiniBand port in the pod; its share of the hybrid-cloud link
+    across it); 0 on one card, which has no collectives.
+  * MODEL_FLOPS     = the useful flops of a step per device:
       train   6*N*D    prefill  2*N*D    decode  2*N*B     (N = active params)
   * roofline_fraction = (MODEL_FLOPS/peak) / max(terms): the share of the step's
     bound time that does useful model math. Also reported: compute_fraction =
     compute_s / max(terms) (how compute-bound the cell is), MODEL/HLO (the
     remat recompute and attention, which 6*N*D leaves out), and
-    the predicted peak memory against the card's (``fits``).
+    the predicted peak memory a device against the card's (``fits``).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.roofline.report               # every mesh's table
+  PYTHONPATH=src python -m repro_torch.roofline.report --mesh multi
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import json
 from pathlib import Path
 from typing import List
 
-from repro_torch.launch.mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import (CROSS_POD_BW, HBM_BW, HBM_BYTES, IN_POD_BW,
+                                     PEAK_FLOPS_BF16)
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_h100"
 
@@ -61,7 +69,7 @@ class RooflineRow:
 
     @property
     def collective_s(self) -> float:
-        return 0.0
+        return self.ici_bytes / IN_POD_BW + self.dcn_bytes / CROSS_POD_BW
 
     @property
     def bound_s(self) -> float:
@@ -91,12 +99,20 @@ class RooflineRow:
 
     def advice(self) -> str:
         if not self.fits:
-            return ("does not fit one card: cut the microbatch (num_microbatches), "
-                    "remat=full, or shard across cards")
+            return ("does not fit a card: cut the microbatch (num_microbatches), "
+                    "remat=full, or shard across more cards")
         if self.dominant == "memory":
             return ("memory-bound: fuse the elementwise passes around the kernels, "
                     "keep intermediates in bf16, raise arithmetic intensity (larger "
                     "matmuls per launch)")
+        if self.dominant == "collective":
+            if self.dcn_bytes / CROSS_POD_BW > self.ici_bytes / IN_POD_BW:
+                return ("cross-pod-bound: amortize the pod boundary - Titchener "
+                        "local-sync (H local steps + int8 delta) instead of a "
+                        "gradient all-reduce every step")
+            return ("in-pod-bound: replace tensor-parallel all-reduces with "
+                    "reduce-scatter + all-gather (sp=true), bf16 collectives, overlap "
+                    "with compute")
         return ("compute-bound: reduce remat recompute (remat=dots), larger "
                 "microbatches; near roofline otherwise")
 
@@ -119,12 +135,15 @@ def row_from_artifact(rec: dict) -> RooflineRow:
         mem_gb=hs["peak_bytes"] / 1e9)
 
 
-def load_rows(tag: str = "baseline", root: Path = ARTIFACTS) -> List[RooflineRow]:
-    """The rows of the artifacts of ``tag`` in ``root``."""
+def load_rows(tag: str = "baseline", root: Path = ARTIFACTS,
+              mesh: str = "h100") -> List[RooflineRow]:
+    """The rows of the artifacts of ``tag`` on ``mesh``: ``root`` itself for one
+    card ("h100"), ``root/<mesh>`` for "single" and "multi"."""
     rows = []
-    if not root.exists():
+    d = root if mesh == "h100" else root / mesh
+    if not d.exists():
         return rows
-    for p in sorted(root.glob("*.json")):
+    for p in sorted(d.glob("*.json")):
         rec = json.loads(p.read_text())
         if rec.get("tag", "baseline") != tag:
             continue
@@ -133,16 +152,19 @@ def load_rows(tag: str = "baseline", root: Path = ARTIFACTS) -> List[RooflineRow
 
 
 def markdown_table(rows: List[RooflineRow]) -> str:
+    """One mesh's table (``main`` prints one a mesh)."""
     hdr = ("| cell | step | compute s | memory s | collective s | bound s | "
-           "dominant | RF | CF | MODEL/HLO | mem GB | fits |\n"
-           "|---|---|---|---|---|---|---|---|---|---|---|---|\n")
+           "dominant | RF | CF | MODEL/HLO | mem GB/dev | fits | TFLOP/dev | in-pod GB/dev | "
+           "cross-pod GB/dev |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
     out = [hdr]
     for r in sorted(rows, key=lambda r: r.cell):
         out.append(
             f"| {r.cell} | {r.step} | {r.compute_s:.3f} | {r.memory_s:.3f} | "
             f"{r.collective_s:.3f} | {r.bound_s:.3f} | {r.dominant} | "
             f"{r.roofline_fraction:.2f} | {r.compute_fraction:.2f} | "
-            f"{r.model_over_hlo:.2f} | {r.mem_gb:.1f} | {'yes' if r.fits else 'no'} |\n")
+            f"{r.model_over_hlo:.2f} | {r.mem_gb:.1f} | {'yes' if r.fits else 'no'} | "
+            f"{r.hlo_flops / 1e12:.2f} | {r.ici_bytes / 1e9:.3f} | {r.dcn_bytes / 1e9:.4f} |\n")
     return "".join(out)
 
 
@@ -158,5 +180,20 @@ def to_json(rows: List[RooflineRow]) -> list:
              "advice": r.advice()} for r in rows]
 
 
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--mesh", choices=("h100", "single", "multi", "all"), default="all")
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--root", type=Path, default=ARTIFACTS)
+    args = ap.parse_args(argv)
+    meshes = ("h100", "single", "multi") if args.mesh == "all" else (args.mesh,)
+    for mesh in meshes:
+        rows = load_rows(args.tag, args.root, mesh)
+        if rows or args.mesh != "all":
+            print(f"## {mesh}\n\n{markdown_table(rows)}")
+    return 0
+
+
 if __name__ == "__main__":
-    print(markdown_table(load_rows()))
+    raise SystemExit(main())

@@ -21,7 +21,10 @@ helpers). Reduced models in f32, seq_len 16, global batch 8, H = 2, two rounds:
   leaf; none in the inner steps; no DTensor redistribute.
 * The Titchener cell on (2, 2, 2) (fsdp on: embed dims split over "data" too)
   against the JAX cell's jitted round, two rounds from the same state; every
-  master leaf's int8 scale formed from its shards equal to the whole leaf's.
+  master leaf's int8 scale formed from its shards equal to the whole leaf's. A
+  third round under the dry-run's counter (``roofline/op_stats.py``) on every
+  rank: its collectives equal the dry-run's count of the round on a fake (2, 2,
+  2) world, whose cross-pod bytes equal ``module_stats``' on the JAX cell.
 * Checkpoints: a (2, 2, 2) save restores bit-equal on one device and on (2, 4,
   1); a one-device save restores bit-equal on (2, 2, 2); ``Trainer.remesh``
   from (2, 2, 2) onto (2, 4, 1) after a round, then a round there, against the
@@ -156,6 +159,9 @@ for name, tr in trainers.items():
     tr.round_fn = programs[name]
     out[name] = run_trainer(tr)
 out["cell"] = run_cell(programs["cell"])
+from repro.roofline.hlo_stats import module_stats
+st = module_stats(programs["cell"].as_text(), pod_size=4, n_devices=8)
+out["cell_stats"] = {"by_opcode": st.by_opcode(), "cross_pod_bytes": st.cross_pod_bytes}
 with open(out_path, "wb") as f:
     pickle.dump(out, f)
 """
@@ -236,6 +242,7 @@ def _rank_local(rank, world, store, tmp, args):
     from repro_torch.optim.compression import quantize_int8
     from repro_torch.parallel.sharding import (OneDeviceMesh, P, distribute, full_value,
                                                local_range, placements)
+    from repro_torch.roofline.op_stats import measure, pod_size
     from repro_torch.runtime.train_loop import Trainer
     from repro_torch.tree import tree_flatten_sorted, tree_map
     init_gloo(rank, world, store)
@@ -393,6 +400,9 @@ def _rank_local(rank, world, store, tmp, args):
         scales.append((path, bool(torch.equal(s, sw)), bool(torch.equal(q, qw[sl]))))
         split.update(a for e in spec if e for a in (e if isinstance(e, tuple) else (e,)))
     cell_rep["scales"], cell_rep["split"] = scales, sorted(split)
+    # one more round under the dry-run's counter, on the real tensors
+    _, st = measure(cell.fn, (state, b), pod_size=pod_size(mesh))
+    cell_rep["counts"] = st.collective_counts()
     report["cell"] = cell_rep
     if rank == 0:
         cfgs.get = real_get
@@ -608,6 +618,57 @@ def test_titchener_cell_matches_jax(local_runs):
     _rounds_close(got["states"], want["states"], 2)
     for rank, r in enumerate(reports):
         assert r["cell"]["bad"] == [] and r["cell"]["delta_norm"] == got["delta_norm"], rank
+
+
+@pytest.fixture(scope="module")
+def cell_count():
+    """The dry-run's per-device count (``roofline/op_stats.py``) of the cell's
+    round on a fake (2, 2, 2) world, rank 0: the ranks' config, state and batch
+    shapes and dtypes, fake tensors, nothing computed."""
+    import torch.distributed as dist
+    from repro_torch import configs as tcfgs
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    from repro_torch.launch.steps import CellOptions, build_cell
+    from repro_torch.models.params import TensorDef
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.op_stats import call_stats
+    cfg = dataclasses.replace(dataclasses.replace(tcfgs.get("qwen3-0.6b"), dtype="float32")
+                              .reduced(), remat="none", num_layers=CELL_LAYERS)
+    lead = (H, 2, 2, SEQ)           # _round_batches(rng, 512, H, 2)'s [H, P, B, S]
+    batch = {"tokens": TensorDef(lead, torch.int32), "targets": TensorDef(lead, torch.int32),
+             "loss_mask": TensorDef(lead, torch.bfloat16)}
+    with fake_world(8):
+        mesh = make_test_mesh((2, 2, 2), POD_AXES, device="cpu")
+        cell = build_cell(cfg, "train_4k", CellOptions(titchener=True,
+                                                       extra=(("inner_steps", H),)),
+                          AdamWConfig(**OPT), device="cpu", mesh=mesh)
+        st = call_stats(cell.fn, (cell.abstract_args[0], batch), mesh, cell.in_shardings,
+                        pod_size=4)
+    assert not dist.is_initialized()
+    return st
+
+
+def test_the_dry_run_counts_the_round_as_every_rank_ran_it(local_runs, cell_count):
+    """One more round of the cell on each of the 8 ranks under the dry-run's
+    counter (real tensors, gloo): its collectives, each (opcode, link, operand
+    bytes) with its count, equal the fake world's count of the same round."""
+    want = cell_count.collective_counts()
+    assert want
+    for rank, r in enumerate(local_runs[1]):
+        assert r["cell"]["counts"] == want, rank
+
+
+def test_the_round_crosses_the_pod_as_the_jax_cell_does(local_runs, cell_count):
+    """The round's cross-pod bytes a device, the port's dry-run against
+    ``module_stats`` of the JAX cell's compiled round (a pod of 4 devices):
+    equal, all-gathers only on both sides (printed side by side)."""
+    jax_stats = local_runs[0]["cell_stats"]
+    mine, theirs = cell_count.by_opcode(), jax_stats["by_opcode"]
+    for key in sorted(set(mine) | set(theirs)):
+        print(f"  {key:24s} port {mine.get(key, 0):>10d}  JAX {theirs.get(key, 0):>10d}")
+    assert cell_count.cross_pod_bytes == jax_stats["cross_pod_bytes"] > 0
+    assert {k for k in mine if k.endswith(":dcn")} == {"all-gather:dcn"}
+    assert {k for k in theirs if k.endswith(":dcn")} == {"all-gather:dcn"}
 
 
 def test_a_sharded_leaf_is_scaled_by_the_whole_leafs_absmax(local_runs):

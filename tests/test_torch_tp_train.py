@@ -22,6 +22,9 @@ fixture (``tests/test_torch_tp.py``'s helpers).
   ``partition_specs`` slice.
 * ``zero2_accum``: the 2-microbatch step on (2, 4) with its accumulator in the
   optimizer's layout, against the same JAX run.
+* The dry-run's count: one 2-microbatch step of ``make_train_step`` on (2, 4)
+  under ``roofline/op_stats.py``'s counter on every rank; its collectives equal
+  the dry-run's count of the train cell's step on a fake world of 8 ranks.
 * Elastic: two steps on (4, 2), ``Trainer.remesh`` onto (2, 2) over ranks 0-3,
   two more steps there, against the JAX Trainer doing the same.
 * Checkpoints: a (2, 4) save restores bit-equal on one device and on (4, 2), and
@@ -204,6 +207,17 @@ def _rank_train(rank, world, store, tmp, args):
     state = whole(tr.state)
     report["zero2"] = dict(series(tr), state=state if rank == 0 else None)
 
+    # -- one 2-microbatch step of make_train_step (the train cell's step) on (2, 4)
+    # under the dry-run's counter, on the real tensors: its collectives
+    from repro_torch.roofline.op_stats import measure, pod_size
+    tr = start(meshes["2x4"], "float32", 2)
+    step_fn = make_train_step(tr.model, tr.cfg.opt, 2)
+    batch = {k: distribute(v, tr.plan.mesh, tr.plan.spec(("batch", "seq"), tuple(v.shape)))
+             for k, v in tr._sync_batch(0).items()}
+    _, st = measure(step_fn, (tr.state, batch), pod_size=pod_size(tr.plan.mesh))
+    report["counts"] = st.collective_counts()
+    report["batch"] = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+
     # -- elastic: the (4, 2) run's state at step 2 onto (2, 2) over ranks 0-3, 2 steps
     before, state = split
     tr = start(meshes["4x2"], "float32")
@@ -374,6 +388,34 @@ def test_each_rank_holds_its_specs_slice(train_runs, mesh):
         heads = "model" if mesh != "1x8" else None
         assert param_wq == ((None, None, heads) if heads else ())
         assert master_wq == ((None, "data", heads) if heads else (None, "data"))
+
+
+def test_the_dry_run_counts_a_train_step_as_every_rank_ran_it(train_runs):
+    """One 2-microbatch f32 step of ``make_train_step`` on (2, 4) on each of the 8
+    ranks under the dry-run's counter (real tensors, gloo), against the dry-run's
+    count of the train cell's step (the same function, plan, state and batch
+    shapes) on a fake world of 8 ranks, rank 0: the same collectives, each
+    (opcode, link, operand bytes) with its count; none crosses a pod (the mesh
+    has no "pod" axis)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    from repro_torch.launch.steps import CellOptions, build_cell
+    from repro_torch.models.params import TensorDef
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.op_stats import call_stats
+    reports = train_runs[1]
+    batch = {k: TensorDef(shape, dtype) for k, (shape, dtype) in reports[0]["batch"].items()}
+    with fake_world(8):
+        mesh = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+        cell = build_cell(cfg_of(ARCH, "float32"), "train_4k",
+                          CellOptions(fsdp=False, num_microbatches=2), AdamWConfig(**OPT),
+                          device="cpu", mesh=mesh)
+        want = call_stats(cell.fn, (cell.abstract_args[0], batch), mesh, cell.in_shardings,
+                          pod_size=8).collective_counts()
+    assert not dist.is_initialized()
+    assert want and all(link == "ici" for _, link, _ in want)
+    for rank, r in enumerate(reports):
+        assert r["counts"] == want, rank
 
 
 def test_zero2_accumulator_matches_jax(train_runs):
