@@ -72,7 +72,8 @@ Phases, each failing loudly (nonzero exit):
      gated_rmsnorm_split, gated_rmsnorm_split_dot and gated_rmsnorm_split_bwd, at
      d_inner 5,120 and 7,168 split 2, 4 and 8 ways, the row sums added in place
      of the all-reduce, against their plain versions and, put back together,
-     against the whole-row kernel, both ways; timed beside their byte bounds);
+     against the whole-row kernel, both ways; timed beside their byte bounds,
+     with the L2 flushed before each call and warm);
   6. one train step in f32 on the card against the same step on the CPU (loss,
      grad_norm, m, master; every leaf gets a nonzero gradient): qwen3-0.6b and
      mamba2-2.7b at full width, 2 layers; gemma3-12b at its attention shape
@@ -226,8 +227,11 @@ by kernel). ``--sass-against DIR`` checks that every kernel of DIR's
 ``csrc/flash_attention.cu``, ``csrc/rmsnorm.cu`` and ``csrc/ssd_scan.cu`` compiles
 to the same SASS here
 (``cuobjdump -sass``) and names the kernels this checkout adds and any that
-differ, SASS_REPLACED (the gated backward's old kernels) the one exception. The
-flags may be given together.
+differ, SASS_REPLACED's named exceptions (the older designs of the gated backward
+and of the split-row entries, each with its reason) aside; then it times K2's gated
+entries and the four split-row entries of both checkouts in turns, the split-row
+ones with the L2 flushed, each checkout's through its own wrappers. The flags may
+be given together.
 """
 from __future__ import annotations
 
@@ -909,6 +913,66 @@ def time_ms(fn, n: int = 20) -> float:
     return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(n))
 
 
+# written, then read, between the launches time_cold_ms times: 5x the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Write a buffer of L2_FLUSH_BYTES, then read it: the L2 then holds none of
+    what came before, and only clean lines, so the next call reads its inputs
+    from device memory and pays no write-back of the flush's own lines."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda"))
+    _FLUSH[0].zero_()
+    _FLUSH[0].sum()
+
+
+def time_cold_ms(fn, n: int = 20) -> float:
+    """Median device time of one call over ``n`` calls, each after flush_l2
+    (outside its event pair), after warm-up: the call finds none of its inputs in
+    the L2, as a byte bound over device memory assumes. A sleep kernel holds the
+    card while the host enqueues every call."""
+    for _ in range(3):
+        fn()
+    flush_l2()
+    torch.cuda.synchronize()
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    torch.cuda._sleep(100_000_000)
+    for i in range(n):
+        flush_l2()
+        start[i].record()
+        fn()
+        end[i].record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(start, end))
+
+
+def kernel_cold_ms(fn, names, n: int = 20) -> float:
+    """The device time of one call's kernels whose names hold one of ``names``
+    (one launch each a call), from torch.profiler over ``n`` calls, each after
+    flush_l2: the kernels' own time, without the launch and the event pair that
+    time_cold_ms also counts. The window leads with SPINS sentinel kernels, which
+    take any loss at its start; fails unless every call's kernels are in it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPINS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(n):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(name in e.key for name in names)]
+    launches = sum(e.count for e in mine)
+    check(launches == n * len(names), f"kernel_cold_ms: {launches} launches of {names} in "
+          f"the trace, want {n * len(names)}")
+    return sum(e.self_device_time_total for e in mine) / n / 1e3
+
+
 def time_batch_ms(fn, n: int = 50) -> float:
     """Device time of one call from a single event pair around ``n`` back-to-back
     calls: without ``time_ms``'s event after every call, so its per-event floor
@@ -1100,17 +1164,23 @@ def ptxas_kernels(log: str) -> list:
     return kernels
 
 
+# the modes of K2's kernels that take one as their last template argument
+K2_MODES = {"rows_bwd_kernel": ("plain", "add", "gated"),
+            "split_rows_kernel": ("squares", "dot", "norm")}
+
+
 def gated_registers(kernels: list, strict: bool = True) -> list:
     """"name<args> registers" of each kernel that must not spill (K1's forward in
     both designs at every head dim, its bf16 backward ones, every instance of K2's
-    three backward kernels and K3's bf16 backward ones), failing on any that spills
-    (strict) or naming its spill stores. Mode 2 of rows_bwd_kernel, the gated one,
-    is an older checkout's."""
+    three backward kernels and of its two split-row kernels, and K3's bf16 backward
+    ones), failing on any that spills (strict) or naming its spill stores. Mode 2
+    of rows_bwd_kernel, the gated one, is an older checkout's."""
     out = []
     for kernel, stores, r in kernels:
         k1 = re.search(r"(bwd_\w+_bf16_kernel|flash_fwd_bf16_kernel|flash_fwd_kernel)ILi(\d+)E",
                        kernel)
-        k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|gated_bwd_kernel|fold)"
+        k2 = re.search(r"(rows_bwd_kernel|qk_norm_rope_bwd_kernel|gated_bwd_kernel|fold"
+                       r"|split_rows_kernel|split_bwd_kernel)"
                        r"I(f|13__nv_bfloat16)Li(\d+)E(Li([012])E)?", kernel)
         k3 = re.search(r"(ssd_scan_bwd_states|ssd_scan_bwd_grad)ILi(\d+)ELi(\d+)E"
                        r"|(ssd_scan_bwd_bf16_finish)E", kernel)
@@ -1119,7 +1189,8 @@ def gated_registers(kernels: list, strict: bool = True) -> list:
         elif k3:
             name = k3.group(4) or f"{k3.group(1)}<N={k3.group(2)}, P={k3.group(3)}>"
         elif k2:
-            add = {"0": ", plain", "1": ", add", "2": ", gated"}.get(k2.group(5), "")
+            modes = K2_MODES.get(k2.group(1))
+            add = f", {modes[int(k2.group(5))]}" if modes and k2.group(5) else ""
             dtype = "f32" if k2.group(2) == "f" else "bf16"
             name = f"{k2.group(1)}<{dtype}, {k2.group(3)}{add}>"
         else:
@@ -2476,8 +2547,12 @@ def phase_split_norm(gen) -> list:
     and the whole row put back together against the whole-row kernel
     and the whole-row plain version (f32 backward against the f64 evaluation);
     two runs bit-equal. Then timed in bf16 at the training rows beside its byte
-    bound, the whole-row kernel on the same local row and on the whole row.
-    Returns one JSON row per entry (mamba2's two-way split, the main path's)."""
+    bound, with the L2 flushed before each call (time_cold_ms: "ms", which no
+    reading may beat) and warm (time_ms: "warm_ms", back to back; a warm
+    reading under the bound is the L2's), the whole-row kernel on the same local
+    row and on the whole row warm beside them. Returns one JSON row per entry
+    (mamba2's two-way split, the main path's; the other five points under
+    "others")."""
     from repro_torch.kernels import rmsnorm as RN
     f32, bf16 = torch.float32, torch.bfloat16
     t_phase = time.perf_counter()
@@ -2543,7 +2618,12 @@ def phase_split_norm(gen) -> list:
           f"of its plain version, the whole row within them of the whole-row kernel and plain "
           f"version both ways, two runs bit-equal")
     # timed in bf16 at the training rows: each entry, and beside them the one-launch
-    # whole-row kernels on the same local row and on the whole row
+    # whole-row kernels on the same local row and on the whole row; first the floor
+    # that time_cold_ms puts under any launch
+    tiny = torch.zeros(16, device="cuda")
+    print(f"gated split row: a 16-element torch.add timed as the entries, L2 flushed "
+          f"{time_cold_ms(lambda: torch.add(tiny, tiny, out=tiny)):.4f} ms, warm "
+          f"{time_ms(lambda: torch.add(tiny, tiny, out=tiny)):.4f} ms: the floor a launch")
     rows, timed = [], {}
     for D in SPLIT_WIDTHS:
         for ways in SPLIT_WAYS:
@@ -2553,39 +2633,50 @@ def phase_split_norm(gen) -> list:
             dot = RN.gated_rmsnorm_split_dot_cuda(a, b, c, g)
             n, e, Dl, R = a.numel(), a.element_size(), a.shape[-1], a.numel() // a.shape[-1]
             # entry -> (kernel, plain, bytes: each input read once, each output written once,
-            # f32 flops)
+            # f32 flops, the names of its kernels)
+            rows_k, bwd_k = ("split_rows_kernel",), ("split_bwd_kernel", "gated_fold_kernel")
             entries = {
                 "gated_rmsnorm_stats": (lambda: RN.gated_rmsnorm_stats_cuda(a, b),
                                         lambda: RN.gated_rmsnorm_stats_plain(a, b),
-                                        2 * n * e + 4 * R, 7 * n),
+                                        2 * n * e + 4 * R, 7 * n, rows_k),
                 "gated_rmsnorm_split": (lambda: RN.gated_rmsnorm_split_cuda(a, b, c, ss, D),
                                         lambda: RN.gated_rmsnorm_split_plain(a, b, c, ss, D),
-                                        3 * n * e + Dl * e + 4 * R, 8 * n),
+                                        3 * n * e + Dl * e + 4 * R, 8 * n, rows_k),
                 "gated_rmsnorm_split_dot": (
                     lambda: RN.gated_rmsnorm_split_dot_cuda(a, b, c, g),
                     lambda: RN.gated_rmsnorm_split_dot_plain(a, b, c, g),
-                    3 * n * e + Dl * e + 4 * R, 8 * n),
+                    3 * n * e + Dl * e + 4 * R, 8 * n, rows_k),
                 "gated_rmsnorm_split_bwd": (
                     lambda: RN.gated_rmsnorm_split_bwd_cuda(a, b, c, g, ss, dot, D),
                     lambda: RN.gated_rmsnorm_split_bwd_plain(a, b, c, g, ss, dot, D),
-                    5 * n * e + 2 * Dl * e + 8 * R, 20 * n)}
+                    5 * n * e + 2 * Dl * e + 8 * R, 20 * n, bwd_k)}
             one = {"fwd local": time_ms(lambda: RN.gated_rmsnorm_cuda(a, b, c)),
                    "bwd local": time_ms(lambda: RN.gated_rmsnorm_bwd_cuda(a, b, c, g)),
                    "fwd whole": time_ms(lambda: RN.gated_rmsnorm_cuda(y, z, sc)),
                    "bwd whole": time_ms(lambda: RN.gated_rmsnorm_bwd_cuda(y, z, sc, dout))}
             line = []
-            for name, (kernel, plain, nbytes, flops) in entries.items():
-                t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain)}
+            for name, (kernel, plain, nbytes, flops, names) in entries.items():
+                t = {"ms": time_cold_ms(kernel), "warm_ms": time_ms(kernel),
+                     "kernel_ms": kernel_cold_ms(kernel, names), "plain_ms": time_ms(plain)}
                 t["bound_ms"], t["bound_by"] = bound(nbytes, flops, PEAK_FLOPS[f32])
+                check(t["ms"] >= t["bound_ms"], f"{name} [2048, {Dl}] bf16 with the L2 "
+                      f"flushed: {t['ms']} ms beats its device-memory bound {t['bound_ms']} ms")
                 timed[(name, D, ways)] = t
-                line.append(f"{name} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
-                            f"{t['bound_ms']:.5f} ms {t['bound_by']}, {nbytes / 1e6:.2f} MB)")
-            fwd = timed[("gated_rmsnorm_stats", D, ways)]["ms"] + \
-                timed[("gated_rmsnorm_split", D, ways)]["ms"]
-            bwd = timed[("gated_rmsnorm_split_dot", D, ways)]["ms"] + \
-                timed[("gated_rmsnorm_split_bwd", D, ways)]["ms"]
+                warm = (f"{t['bound_ms'] / t['warm_ms']:.2f} of it" if t["warm_ms"] >= t["bound_ms"]
+                        else "under it: the L2's")
+                alone = (f"{t['bound_ms'] / t['kernel_ms']:.2f}" if t["kernel_ms"] >= t["bound_ms"]
+                         else "under the bound: its stores still in the L2")
+                line.append(f"{name} L2 flushed {t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.2f} of "
+                            f"the bound; its kernels alone {t['kernel_ms']:.4f} ms, {alone}), "
+                            f"warm {t['warm_ms']:.4f} ms ({warm}), plain "
+                            f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f} ms "
+                            f"{t['bound_by']} ({nbytes / 1e6:.2f} MB)")
+            fwd = timed[("gated_rmsnorm_stats", D, ways)]["warm_ms"] + \
+                timed[("gated_rmsnorm_split", D, ways)]["warm_ms"]
+            bwd = timed[("gated_rmsnorm_split_dot", D, ways)]["warm_ms"] + \
+                timed[("gated_rmsnorm_split_bwd", D, ways)]["warm_ms"]
             print(f"gated split row [2048, {D}] / {ways} = [2048, {Dl}] bf16: "
-                  f"{'; '.join(line)}; forward {fwd:.4f} ms against the whole-row kernel "
+                  f"{'; '.join(line)}; warm forward {fwd:.4f} ms against the whole-row kernel "
                   f"{one['fwd local']:.4f} ms on the same local row ({fwd / one['fwd local']:.2f}x)"
                   f" and {one['fwd whole']:.4f} ms on the whole row; backward {bwd:.4f} ms "
                   f"against {one['bwd local']:.4f} ({bwd / one['bwd local']:.2f}x) and "
@@ -2597,7 +2688,8 @@ def phase_split_norm(gen) -> list:
                      "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                      "replaces": "src/repro/kernels/rmsnorm.py:11", "max_abs_err": worst[name],
                      **main, "library_ms": None,
-                     "others": {f"{D}/{w}": timed[(name, D, w)]["ms"]
+                     "others": {f"{D}/{w}": {k: timed[(name, D, w)][k]
+                                             for k in ("ms", "warm_ms", "kernel_ms", "bound_ms")}
                                 for D in SPLIT_WIDTHS for w in SPLIT_WAYS}})
     print(f"gated split row: phase {time.perf_counter() - t_phase:.1f} s")
     return rows
@@ -5287,13 +5379,20 @@ def sass_functions(lib: Path) -> dict:
 # K2's gated entries timed in turns against the other checkout: mamba2-2.7b's prefill
 # of 512 tokens (forward) and training shape (backward), bf16
 GATED_TURNS = (1, 512, 5120), (1, 2048, 5120)
-# K2's gated backward in rows_bwd_kernel's third mode (MODE 2): an older checkout's
-# kernels, which this one has replaced by gated_bwd_kernel; the one K1 or K2 kernel
-# whose SASS may differ from (here: be missing against) the other checkout's
-SASS_REPLACED = (re.compile(r"rows_bwd_kernelI(f|13__nv_bfloat16)Li\d+ELi2E"),
-                 "K2's gated backward, redesigned as gated_bwd_kernel and gated_fold_kernel "
-                 "(both held within K2's gates, dy and dz bit-equal where each row's sums "
-                 "keep their order)")
+# The K1, K2 and K3 kernels whose SASS may differ from (here: be missing against)
+# the other checkout's, each pattern with its reason: an older checkout's kernels
+# that this one has replaced
+SASS_REPLACED = [
+    (re.compile(r"rows_bwd_kernelI(f|13__nv_bfloat16)Li\d+ELi2E"),
+     "K2's gated backward in rows_bwd_kernel's third mode (MODE 2), redesigned as "
+     "gated_bwd_kernel and gated_fold_kernel (both held within K2's gates, dy and dz "
+     "bit-equal where each row's sums keep their order)"),
+    (re.compile(r"gated_split_(sums|norm|bwd)_kernel"),
+     "K2's split-row entries' first kernels, redesigned as split_rows_kernel (the three "
+     "row passes, on rows_kernel's plan) and split_bwd_kernel (the backward's finish, "
+     "on gated_bwd_kernel's; gated_fold_kernel unchanged), held within K2's gates by "
+     "phase_split_norm and timed in turns against them below"),
+]
 
 
 def fold_scratch(blocks: int):
@@ -5357,6 +5456,78 @@ def gated_bwd_held(tag: str, mine, theirs, want, dtype) -> int:
     return differ
 
 
+def other_rmsnorm(checkout: Path, lib):
+    """The other checkout's kernels/rmsnorm.py loaded as a module of its own whose
+    wrappers call ``lib`` (its rmsnorm.cu, from build_other): each checkout's
+    split-row entries through its own wrappers, plans and scratch sizes. Its
+    imports resolve to this checkout's package."""
+    import importlib.util
+    from repro_torch.kernels import rmsnorm as RN
+    spec = importlib.util.spec_from_file_location(
+        "other_rmsnorm", checkout.resolve() / "src" / "repro_torch" / "kernels" / "rmsnorm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mine = RN._lib()
+    for fn in ("gated_rmsnorm_split_stats", "gated_rmsnorm_split_fwd", "gated_rmsnorm_split_dot",
+               "gated_rmsnorm_split_bwd"):
+        getattr(lib, fn).argtypes = getattr(mine, fn).argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    mod._lib = lambda: lib
+    return mod
+
+
+def split_entries(RN, a, b, c, g, ss, dot, width: int) -> dict:
+    """SPLIT_NAMES -> a call of that entry of module RN on one local row block."""
+    return {"gated_rmsnorm_stats": lambda: RN.gated_rmsnorm_stats_cuda(a, b),
+            "gated_rmsnorm_split": lambda: RN.gated_rmsnorm_split_cuda(a, b, c, ss, width),
+            "gated_rmsnorm_split_dot": lambda: RN.gated_rmsnorm_split_dot_cuda(a, b, c, g),
+            "gated_rmsnorm_split_bwd": lambda: RN.gated_rmsnorm_split_bwd_cuda(a, b, c, g, ss,
+                                                                               dot, width)}
+
+
+def split_turns(other_rn, gen, card: str) -> None:
+    """K2's four split-row entries of both checkouts in bf16 at the training rows of
+    SPLIT_WIDTHS split SPLIT_WAYS ways, each through its own checkout's wrapper on
+    the same inputs and row sums, timed with the L2 flushed in turns (other, this,
+    this, other): the norm bit-equal, the sums within K2's bf16 gate of the
+    other's, every backward output within it of the plain version, and the
+    elements of dy and dz that differ from the other's counted."""
+    from repro_torch.kernels import rmsnorm as RN
+    bf16 = torch.bfloat16
+    tol = RMS_TOL[bf16]
+    for D in SPLIT_WIDTHS:
+        for ways in SPLIT_WAYS:
+            y, z, sc, dout = gated_bwd_case(gen, (1, 2048, D), bf16)
+            a, b, c, g = (split_parts(t, ways)[0] for t in (y, z, sc, dout))
+            ss = RN.gated_rmsnorm_stats_cuda(a, b) * ways
+            dot = RN.gated_rmsnorm_split_dot_cuda(a, b, c, g)
+            tag = f"sass-against split row [2048, {D}] / {ways} bf16"
+            mine = split_entries(RN, a, b, c, g, ss, dot, D)
+            theirs = split_entries(other_rn, a, b, c, g, ss, dot, D)
+            for name in ("gated_rmsnorm_stats", "gated_rmsnorm_split_dot"):
+                m, t = mine[name](), theirs[name]()
+                check(close(m, t, tol), f"{tag} {name}: max err {max_err(m, t)} from the other's")
+            check(torch.equal(mine["gated_rmsnorm_split"](), theirs["gated_rmsnorm_split"]()),
+                  f"{tag} gated_rmsnorm_split: the two checkouts' outputs differ")
+            got = mine["gated_rmsnorm_split_bwd"](), theirs["gated_rmsnorm_split_bwd"]()
+            want = RN.gated_rmsnorm_split_bwd_plain(a, b, c, g, ss, dot, D)
+            for who, outs in zip(("this", "other"), got):
+                for i, (o, w) in enumerate(zip(outs, want)):
+                    check(close(o, w, tol), f"{tag} gated_rmsnorm_split_bwd {who} output {i}: "
+                          f"max err {max_err(o, w)}")
+            n_diff = sum(int((p != q).sum()) for p, q in zip(got[0][:2], got[1][:2]))
+            line = []
+            for name in SPLIT_NAMES:
+                t = [time_cold_ms(theirs[name]), time_cold_ms(mine[name]),
+                     time_cold_ms(mine[name]), time_cold_ms(theirs[name])]
+                line.append(f"{name} other {t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, other "
+                            f"{t[3]:.4f} ms ({(t[0] + t[3]) / (t[1] + t[2]):.2f}x)")
+            print(f"{tag}, L2 flushed, in turns: {'; '.join(line)}; the norm bit-equal, the "
+                  f"sums and the backward within K2's gate, {n_diff} of {2 * a.numel()} "
+                  f"elements of dy and dz differ from the other's [{card}]")
+            del y, z, sc, dout, a, b, c, g
+
+
 def phase_sass_against(other: Path, card: str) -> None:
     """Every kernel of the other checkout's csrc/flash_attention.cu,
     csrc/rmsnorm.cu and csrc/ssd_scan.cu (K1's, K2's and K3's, built with this
@@ -5366,7 +5537,8 @@ def phase_sass_against(other: Path, card: str) -> None:
     and are timed in turns (other, this, this, other): the forward through this checkout's wrapper, its output
     bit-equal; the backward through each checkout's own entry (other_gated_bwd),
     every output within K2's bf16 gate and the elements of dy and dz that differ
-    counted (gated_bwd_held; dscale is summed in another order)."""
+    counted (gated_bwd_held; dscale is summed in another order); then the four
+    split-row entries, each checkout's through its own wrappers (split_turns)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as RN
     differ, libs = [], {}
@@ -5375,16 +5547,19 @@ def phase_sass_against(other: Path, card: str) -> None:
         theirs = sass_functions(_build.BUILD_DIR / f"other-{name}.so")
         mine = sass_functions(_build.library_path(name))
         changed = [n for n in theirs if mine.get(n) != theirs[n]]
-        replaced = [n for n in changed if SASS_REPLACED[0].search(n)]
-        changed = [n for n in changed if n not in replaced]
+        replaced = {reason: [n for n in changed if pattern.search(n)]
+                    for pattern, reason in SASS_REPLACED}
+        gone = {n for names in replaced.values() for n in names}
+        changed = [n for n in changed if n not in gone]
         added = sorted(n for n in mine if n not in theirs)
-        print(f"sass-against {name}: {len(theirs) - len(changed) - len(replaced)} of "
+        print(f"sass-against {name}: {len(theirs) - len(changed) - len(gone)} of "
               f"{len(theirs)} kernels of the other checkout SASS-identical here "
               f"({sum(len(t.splitlines()) for t in theirs.values())} lines); {len(added)} "
               f"added: {', '.join(added)}; {len(changed)} differ: {', '.join(changed)}")
-        if replaced:
-            print(f"sass-against {name}: {len(replaced)} replaced, the one exception "
-                  f"({SASS_REPLACED[1]}): {', '.join(replaced)}")
+        for reason, names in replaced.items():
+            if names:
+                print(f"sass-against {name}: {len(names)} replaced, a named exception "
+                      f"({reason}): {', '.join(names)}")
         differ += changed
     check(not differ, f"sass-against: SASS differs or is missing for {differ}")
 
@@ -5423,6 +5598,7 @@ def phase_sass_against(other: Path, card: str) -> None:
           f"{n_diff} of {2 * yb.numel()} elements of dy and dz differ from the other's; in "
           f"turns: other {t[0]:.4f} ms, this {t[1]:.4f} ms, this {t[2]:.4f} ms, other "
           f"{t[3]:.4f} ms [{card}]")
+    split_turns(other_rmsnorm(other, lib), gen, card)
 
 
 @contextlib.contextmanager

@@ -132,14 +132,19 @@ __device__ __forceinline__ float group_sum(float v, int width) {
   for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+__device__ __forceinline__ double group_sum(double v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
 
 // sum over the block (a multiple of 32 threads); every thread gets the same sum
-__device__ __forceinline__ float block_sum(float v, float* partial) {
+template <typename A>
+__device__ __forceinline__ A block_sum(A v, A* partial) {
   v = group_sum(v, 32);
   const int warps = blockDim.x >> 5;
   if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = v;
   __syncthreads();
-  float t = 0.f;
+  A t = 0;
   for (int w = 0; w < warps; ++w) t += partial[w];
   __syncthreads();   // partial is reused by the next row
   return t;
@@ -451,11 +456,6 @@ qk_norm_rope_kernel(QkArgs<T> a) {
 // blocks an SM or loading the next row ahead did not move the pass itself. f32
 // rather than f64 row work for bf16 sped qk_norm_rope_bwd up and left the plain
 // rows as they were.
-
-__device__ __forceinline__ double group_sum(double v, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
 
 // the type of a row's sum of squares, rstd and dw's terms: f64 for f32 inputs,
 // f32 for bf16 (see above)
@@ -1348,15 +1348,12 @@ cudaError_t launch_rows_bwd(RowsBwd<T> a, double* scratch, int max_blocks, int D
   }
 }
 
-// The gated backward's block: as many teams as the compiled kernel's registers
-// (its maxThreadsPerBlock), the named barriers and shared memory allow, one block
-// an SM; the grid: at most one block an SM, a row and a scratch row each. Then
-// the fold, on the same stream.
-template <typename T, int NV>
-cudaError_t run_gated_bwd(const RowsBwd<T>& a, double* scratch, int max_rows, cudaStream_t s) {
-  using Acc = typename AccOf<T>::type;
-  auto kernel = gated_bwd_kernel<T, NV>;
-  const int D = a.nvec * Vec<T>::N;
+// A block of `kernel` at one block an SM: as many teams of tpr threads as the
+// compiled kernel's registers (its maxThreadsPerBlock), max_teams and shared memory
+// allow, smem_of(teams) bytes of it dynamic (the kernel's bound raised to it).
+template <typename K, class SmemOf>
+cudaError_t team_block(K kernel, int tpr, int max_teams, SmemOf smem_of, int* threads,
+                       size_t* smem) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   int dev = 0, optin = 0;
@@ -1364,25 +1361,45 @@ cudaError_t run_gated_bwd(const RowsBwd<T>& a, double* scratch, int max_rows, cu
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
+  int teams = attr.maxThreadsPerBlock / tpr;
+  if (teams > max_teams) teams = max_teams;
+  while (teams > 0 && attr.sharedSizeBytes + smem_of(teams) > (size_t)optin) --teams;
+  if (teams < 1) return cudaErrorInvalidConfiguration;
+  *threads = teams * tpr;
+  *smem = smem_of(teams);
+  if ((size_t)attr.maxDynamicSharedSizeBytes < *smem)   // only raised
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return err;
+}
+
+// the grid of a row pass of teams: at most one block an SM, a row and a scratch row each
+unsigned one_block_an_sm(long long rows, int max_rows) {
+  long long blocks = sm_count();
+  if (blocks > rows) blocks = rows;
+  if (blocks > max_rows) blocks = max_rows;
+  return (unsigned)blocks;
+}
+
+// The gated backward's block: team_block's, at most GATED_MAX_TEAMS wide teams (the
+// named barriers); the grid one_block_an_sm's. Then the fold, on the same stream.
+template <typename T, int NV>
+cudaError_t run_gated_bwd(const RowsBwd<T>& a, double* scratch, int max_rows, cudaStream_t s) {
+  using Acc = typename AccOf<T>::type;
+  auto kernel = gated_bwd_kernel<T, NV>;
+  const int D = a.nvec * Vec<T>::N;
   auto smem_of = [&](int teams) {   // the teams' rings, reused for their dscale rows
     const size_t rings = teams * gated_team_bytes<T, NV>(a.tpr);
     const size_t sums = (size_t)teams * D * sizeof(Acc);
     return rings > sums ? rings : sums;
   };
-  int teams = attr.maxThreadsPerBlock / a.tpr;
-  if (a.tpr > 32 && teams > GATED_MAX_TEAMS) teams = GATED_MAX_TEAMS;
-  while (teams > 0 && attr.sharedSizeBytes + smem_of(teams) > (size_t)optin) --teams;
-  if (teams < 1) return cudaErrorInvalidConfiguration;
-  const int threads = teams * a.tpr;
-  const size_t smem = smem_of(teams);
-  if ((size_t)attr.maxDynamicSharedSizeBytes < smem)   // only raised
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int threads = 0;
+  size_t smem = 0;
+  cudaError_t err = team_block(kernel, a.tpr, a.tpr > 32 ? GATED_MAX_TEAMS : 1 << 30, smem_of,
+                               &threads, &smem);
   if (err != cudaSuccess) return err;
-  long long blocks = sm_count();
-  if (blocks > a.rows) blocks = a.rows;
-  if (blocks > max_rows) blocks = max_rows;
+  const unsigned blocks = one_block_an_sm(a.rows, max_rows);
   double* rows = scratch + FOLD_COUNTERS / 2;
-  kernel<<<(unsigned)blocks, threads, smem, s>>>(a, rows);
+  kernel<<<blocks, threads, smem, s>>>(a, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gated_fold_kernel<T><<<(D + 31) / 32, 32 * GATED_SLICES, 0, s>>>(rows, (int)blocks, D,
@@ -1390,17 +1407,12 @@ cudaError_t run_gated_bwd(const RowsBwd<T>& a, double* scratch, int max_rows, cu
   return cudaGetLastError();
 }
 
-// rows_bwd_kernel's lane groups for rows of up to 128 vectors (each row's sums in
-// its order), GATED_WIDE_NV vectors a thread past them (twice as many where a
-// row would take more threads than the kernel's bound: rows of 2,048 vectors)
-template <typename T>
-cudaError_t launch_gated_bwd(RowsBwd<T> a, double* scratch, int max_rows, int D,
-                             cudaStream_t s) {
-  constexpr int VEC = Vec<T>::N;
-  RowShape r;
-  if (a.rows <= 0 || D <= 0 || D % VEC || max_rows <= 0 ||
-      !row_shape(a.rows, D / VEC, BWD_THREADS, r))
-    return cudaErrorInvalidValue;
+// The gated backward's teams, which the split row's finish shares: rows_bwd_kernel's
+// lane groups for rows of up to 128 vectors (each row's sums in its order),
+// GATED_WIDE_NV vectors a thread past them (twice as many where a row would take
+// more threads than the kernel's bound: rows of 2,048 vectors)
+bool gated_shape(long long rows, int nvec, RowShape& r) {
+  if (!row_shape(rows, nvec, BWD_THREADS, r)) return false;
   if (r.nvec > MAX_GROUP_VECS) {
     r.nv = GATED_WIDE_NV;
     r.tpr = ((r.nvec + r.nv - 1) / r.nv + 31) / 32 * 32;
@@ -1409,6 +1421,16 @@ cudaError_t launch_gated_bwd(RowsBwd<T> a, double* scratch, int max_rows, int D,
       r.tpr = ((r.nvec + r.nv - 1) / r.nv + 31) / 32 * 32;
     }
   }
+  return true;
+}
+
+template <typename T>
+cudaError_t launch_gated_bwd(RowsBwd<T> a, double* scratch, int max_rows, int D,
+                             cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  RowShape r;
+  if (a.rows <= 0 || D <= 0 || D % VEC || max_rows <= 0 || !gated_shape(a.rows, D / VEC, r))
+    return cudaErrorInvalidValue;
   a.nvec = r.nvec;
   a.tpr = r.tpr;
   a.inv_d = 1.0f / (float)D;
@@ -1497,211 +1519,410 @@ QkArgs<T> qk_args(const void* q, const void* k, const void* q_scale, const void*
 // GSPMD sums the row's squares across the shards in f32). A row's sums cross the
 // ranks, so each direction is two passes with an f32 all-reduce of one float a
 // row between them, which the caller runs (kernels/autograd.py):
-//   forward   gated_split_sums_kernel<SUM_SQUARES>: ss = the sum of t^2 over the
-//             local columns, t = T(y * T(silu(z))) formed as GatedOp::pre forms it;
+//   forward   split_rows_kernel<SPLIT_SQUARES>: ss = the sum of t^2 over the local
+//             columns, t = T(y * T(silu(z))) formed as GatedOp::pre forms it;
 //             [ss summed over the ranks]
-//             gated_split_norm_kernel: out = T(t * rstd * w), rstd = rsqrt(ss / D
-//             + eps) with the whole row's D, as rows_kernel forms it.
-//   backward  gated_split_sums_kernel<SUM_DOT>: dot = the sum of dout * w * t over
-//             the local columns;
+//             split_rows_kernel<SPLIT_NORM>: out = T(t * rstd * w), rstd =
+//             rsqrt(ss / D + eps) with the whole row's D, as rows_kernel forms it.
+//   backward  split_rows_kernel<SPLIT_DOT>: dot = the sum of dout * w * t over the
+//             local columns;
 //             [dot summed over the ranks]
-//             gated_split_bwd_kernel: dt = T(rstd dout w - t rstd^3 dot / D), then
+//             split_bwd_kernel: dt = T(rstd dout w - t rstd^3 dot / D), then
 //             dy = T(dt * T(silu(z))) and dz = T(silu'(z) * T(dt * y)) as
-//             gated_bwd_kernel forms them; each block's dscale terms over its rows
-//             (f64 for f32 inputs, f32 for bf16: AccOf) into one f64 row of the
+//             gated_bwd_kernel forms them; dscale's terms (f64 for f32 inputs, f32
+//             for bf16: AccOf) summed by each block into one f64 row of the
 //             scratch, then gated_fold_kernel sums those rows in row order. No
 //             atomics on values: two runs give the same bits.
-// New kernels beside the one-launch ones, which a row on one rank keeps.
-// What bounds them on the H100: bytes, as the one-launch kernels. t is formed
-// twice each way (the second pass reads y and z again): the forward moves 3 x the
-// row's bytes where rows_kernel moves 3 (y, z in; out) and reads 2 more, the
-// backward 5 + 3 where gated_bwd_kernel moves 5. A simple design: the row passes
-// give a warp a row (16-byte vectors, the lanes' partial sums by xor shuffles); the
-// backward's finish gives a thread a 16-byte column of the row in every row its
-// block takes, so its dscale terms stay in registers until its last row.
-constexpr int SPLIT_THREADS = 256;   // a block of the row passes: 8 rows at a time
-constexpr int SUM_SQUARES = 0, SUM_DOT = 1;
+// The sums take AccOf<T>: for f32 inputs a lane's sequential f32 sum of 80 terms
+// (a 2,560-wide local row) is ~2e-5 off, past K2's 1e-5 where dout * w * t
+// cancels.
+//
+// What bounds them on the H100: bytes. t is formed in both passes of a direction
+// (the second reads y and z again), so the forward moves 2 + 3 times the local
+// row's bytes (y, z in; y, z in and out) and the backward 3 + 5 (y, z, dout in;
+// the same in and dy, dz out), where one launch on a whole row moves 3 and 5. At
+// the training rows of two ranks, [2048, 2560] / [2048, 3584] bf16: 21.0 / 29.4 MB
+// for the sums, 31.5 / 44.1 for the norm and the dot, 52.4 / 73.4 for the finish,
+// bounds of 0.00626 / 0.00877, 0.00939 / 0.01315 and 0.01566 / 0.02192 ms at 3.35
+// TB/s. Passes this short are lost to the launch ramp and to loads that wait on
+// each other, and each element's gate (an expf and a division) costs about as
+// much issue as its bytes, so the design keeps a row's loads in flight together
+// and cuts instructions:
+//   - The three row passes are one kernel, split_rows_kernel, on rows_kernel's
+//     plan (row_shape, grid_for): a lane group a row up to 128 vectors (the 8-way
+//     splits, 640 and 896 bf16 columns), a block a row past that (the 2- and
+//     4-way ones), NV vectors a thread; every load of a row issued before its
+//     first sum or store; scale held in registers across the grid-stride loop.
+//     A kernel of its own rather than Ops of rows_kernel: the sums are
+//     AccOf<T>'s where rows_kernel reduces in f32, and the norm reads its row's
+//     sum where rows_kernel reduces one, two hooks that would fork rows_kernel's
+//     loop. Their roundings to bf16 go two values a conversion (round_pair,
+//     pack_pairs: the same bits as round_to and pack).
+//   - The finish runs on gated_bwd_kernel's plan (gated_shape, team_block,
+//     one_block_an_sm): teams of lane groups or of tpr threads of GATED_WIDE_NV
+//     vectors, one block an SM, each thread copying its own vectors of the row
+//     GATED_STAGES - 1 rounds ahead into its slots of a cp.async ring. The whole
+//     row's ss and dot are read, not reduced: no team waits on another, and a
+//     row is one pass; the gate is formed once an element (e = expf(-z) gives
+//     silu and sig). At most SPLIT_THREADS threads a block, so 96 registers a
+//     thread (a warp scheduler's 16,384 registers over 5 warps).
+//   - A thread owns the same columns in every row it takes, so its dscale terms
+//     stay in registers until the block's last row; the block sums its teams'
+//     terms in team order into its f64 row, and gated_fold_kernel folds the rows.
+// Choices the card decided (H100 80GB HBM3 at 700 W; bf16, ms at [2048, 2560] /
+// [2048, 3584], the median of four turns of tools/split_norm_variants.py, each
+// the median of 20 calls with the L2 flushed before each; sums, norm, dot,
+// finish): this design 0.0138 / 0.0168, 0.0148 / 0.0177, 0.0171 / 0.0214,
+// 0.0271 / 0.0325, against the first design's warp-a-row passes and
+// thread-a-column finish
+// 0.0179 / 0.0223, 0.0189 / 0.0250, 0.0234 / 0.0306, 0.0305 / 0.0378, and
+// torch.add(y, z) on the same local rows 0.0136 / 0.0164. Undoing one choice at
+// a time: one conversion a rounding in the row passes, 0.0144 / 0.0167, 0.0149 /
+// 0.0181, 0.0172 / 0.0216 (0.0095 against 0.0089 for the sums at 8 ways); scale
+// read from L1 at every row, 0.0139 / 0.0167, 0.0153 / 0.0184, 0.0181 / 0.0220;
+// twice the vectors a thread past 128 vectors (half the threads), 0.0140 /
+// 0.0164, 0.0163 / 0.0195, 0.0180 / 0.0223; the row passes compiled for 6
+// blocks of 256 an SM (40 registers), 0.0139 / 0.0168 for the sums and 0.0201 /
+// 0.0244, 0.0263 / 0.0325 for the norm and the dot, which spill: more blocks
+// resident do not move the sums; the finish at 768 threads (80 registers),
+// 0.0276 / 0.0347; with no row ahead (one stage), 0.0286 / 0.0375; two rows
+// ahead, 0.0279 / 0.0335; 4 vectors a thread, 0.0297 / 0.0373. Rounding the
+// finish's values in pairs spills at 96 registers and stays one a value. What is
+// left: a 16-element torch.add times ~0.005 ms by the same events (the launch and
+// the event pair; chip_smoke.py's phase_split_norm), and torch.add(y, z), which
+// moves half as many bytes again as the sums read, times as the sums do.
+constexpr int SPLIT_SQUARES = 0, SPLIT_DOT = 1, SPLIT_NORM = 2;   // split_rows_kernel's passes
+constexpr int SPLIT_THREADS = 640;   // the finish's bound on a block at NV <= 2
+
+template <typename T>
+struct SplitArgs {
+  const T* y;
+  const T* z;
+  const T* dout;            // DOT, the finish
+  const T* scale;           // DOT, NORM, the finish
+  const float* ss;          // NORM, the finish: the whole row's sum of t^2
+  const float* dot;         // the finish: the whole row's sum of dout * w * t
+  float* sums;              // SQUARES, DOT: each row's sum over the local columns
+  T* out;                   // NORM: the normed row; the finish: dy
+  T* dz;                    // the finish
+  long long rows;
+  int nvec, tpr;
+  float inv_d, eps;         // inv_d: 1 / the whole row's width
+};
+
+// a and b rounded to T and back, as round_to rounds them: in bf16 one
+// cvt.rn.bf16x2.f32 for the pair
+template <typename T>
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(&h);
+    a = bf_lo(w);
+    b = bf_hi(w);
+  }
+}
+
+// f rounded to T, as a 16-byte vector (pack<T>'s bits, a pair a conversion)
+template <typename T>
+__device__ __forceinline__ uint4 pack_pairs(const float* f) {
+  if constexpr (sizeof(T) == 4) {
+    return pack<T>(f);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+      w[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// silu(z) = z / (1 + e) with e = expf(-z) before its rounding to T, as gate_silu<T>
+// forms it: the IEEE division in f32, __fdividef in bf16
+template <typename T>
+__device__ __forceinline__ float silu_raw(float z, float e) {
+  if constexpr (sizeof(T) == 4) return z / (1.0f + e);
+  else return __fdividef(z, 1.0f + e);
+}
 
 // t = T(y * T(silu(z))) of a vector, as GatedOp::pre rounds it
 template <typename T>
 __device__ __forceinline__ void gate_product(const float* yf, const float* zf, float* t) {
 #pragma unroll
-  for (int k = 0; k < Vec<T>::N; ++k)
-    t[k] = round_to<T>(__fmul_rn(yf[k], gate_silu<T>(zf[k])));
+  for (int k = 0; k < Vec<T>::N; k += 2) {
+    float s0 = silu_raw<T>(zf[k], expf(-zf[k])), s1 = silu_raw<T>(zf[k + 1], expf(-zf[k + 1]));
+    round_pair<T>(s0, s1);
+    t[k] = __fmul_rn(yf[k], s0);
+    t[k + 1] = __fmul_rn(yf[k + 1], s1);
+    round_pair<T>(t[k], t[k + 1]);
+  }
 }
 
-// out[row] = the sum over the row's nvec local vectors of t^2 (SUM_SQUARES) or of
-// dout * w * t (SUM_DOT), a warp a row, rounded to f32 once. The terms and sums in
-// AccOf<T>: for f32 inputs a lane's sequential f32 sum of 80 terms (a 2,560-wide
-// local row) is ~2e-5 off, past K2's 1e-5 where dout * w * t cancels, so f32
-// inputs sum in f64, as the one-launch backward's row math does
-template <typename T, int WHAT>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-gated_split_sums_kernel(const T* __restrict__ y, const T* __restrict__ z,
-                        const T* __restrict__ dout, const T* __restrict__ scale,
-                        float* __restrict__ out, long long rows, int nvec) {
-  constexpr int VEC = Vec<T>::N;
+// One pass over the local rows, taken as rows_kernel takes them. SQUARES and DOT
+// write each row's sum (a lane group's shuffles, or the block's), rounded to f32
+// once; NORM writes the normed row from the row's whole ss.
+template <typename T, int NV, int WHAT>
+__global__ void __launch_bounds__(MAX_THREADS)
+split_rows_kernel(SplitArgs<T> a) {
+  constexpr int VEC = Vec<T>::N, IN = WHAT == SPLIT_DOT ? 3 : 2;
   using Acc = typename AccOf<T>::type;
-  const int lane = threadIdx.x & 31;
-  const long long step = (long long)gridDim.x * (SPLIT_THREADS / 32);
-  for (long long row = (long long)blockIdx.x * (SPLIT_THREADS / 32) + (threadIdx.x >> 5);
-       row < rows; row += step) {
-    Acc s = 0;
-    for (int i = lane; i < nvec; i += 32) {
-      float yf[VEC], zf[VEC], t[VEC];
-      widen<T>(ld16(y, row * nvec + i), yf);
-      widen<T>(ld16(z, row * nvec + i), zf);
-      gate_product<T>(yf, zf, t);
-      if constexpr (WHAT == SUM_DOT) {
-        float gf[VEC], w[VEC];
-        widen<T>(ld16(dout, row * nvec + i), gf);
-        widen<T>(ld16(scale, i), w);
+  __shared__ Acc partial[32];
+  const int nvec = a.nvec, tpr = a.tpr;
+  const bool wide = tpr > 32;
+  const int rpb = wide ? 1 : blockDim.x / tpr;
+  const int lane = wide ? threadIdx.x : (threadIdx.x & (tpr - 1));
+  const int sub = wide ? 0 : threadIdx.x / tpr;
+
+  uint4 sc[NV];
+  if constexpr (WHAT != SPLIT_SQUARES) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) s += (Acc)gf[k] * w[k] * t[k];
-      } else {
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (i < nvec) sc[v] = ld16(a.scale, i);
+    }
+  }
+  for (long long r0 = (long long)blockIdx.x * rpb; r0 < a.rows;
+       r0 += (long long)gridDim.x * rpb) {
+    const long long row = r0 + sub;
+    const bool live = row < a.rows;
+    float ss = 0.f;
+    if constexpr (WHAT == SPLIT_NORM) {
+      if (live) ss = a.ss[row];
+    }
+    uint4 raw[NV][IN];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) s += (Acc)t[k] * t[k];
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        raw[v][0] = ld16(a.y, row * nvec + i);
+        raw[v][1] = ld16(a.z, row * nvec + i);
+        if constexpr (WHAT == SPLIT_DOT) raw[v][2] = ld16(a.dout, row * nvec + i);
       }
     }
-    s = group_sum(s, 32);
-    if (lane == 0) out[row] = (float)s;
-  }
-}
-
-// out = T(t * rstd * w) from the whole row's ss, a warp a row
-template <typename T>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-gated_split_norm_kernel(const T* __restrict__ y, const T* __restrict__ z,
-                        const T* __restrict__ scale, const float* __restrict__ ss,
-                        T* __restrict__ out, long long rows, int nvec, float inv_d, float eps) {
-  constexpr int VEC = Vec<T>::N;
-  const int lane = threadIdx.x & 31;
-  const long long step = (long long)gridDim.x * (SPLIT_THREADS / 32);
-  for (long long row = (long long)blockIdx.x * (SPLIT_THREADS / 32) + (threadIdx.x >> 5);
-       row < rows; row += step) {
-    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(ss[row], inv_d), eps));
-    for (int i = lane; i < nvec; i += 32) {
-      float yf[VEC], zf[VEC], t[VEC], w[VEC];
-      widen<T>(ld16(y, row * nvec + i), yf);
-      widen<T>(ld16(z, row * nvec + i), zf);
-      widen<T>(ld16(scale, i), w);
-      gate_product<T>(yf, zf, t);
+    if constexpr (WHAT == SPLIT_NORM) {
+      const float rstd = rsqrtf(__fadd_rn(__fmul_rn(ss, a.inv_d), a.eps));
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) t[k] = __fmul_rn(__fmul_rn(t[k], rstd), w[k]);
-      put16(out, row * nvec + i, pack<T>(t));
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        if (live && i < nvec) {
+          float yf[VEC], zf[VEC], t[VEC], w[VEC];
+          widen<T>(raw[v][0], yf);
+          widen<T>(raw[v][1], zf);
+          widen<T>(sc[v], w);
+          gate_product<T>(yf, zf, t);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) t[k] = __fmul_rn(__fmul_rn(t[k], rstd), w[k]);
+          put16(a.out, row * nvec + i, pack_pairs<T>(t));
+        }
+      }
+    } else {
+      Acc s = 0;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        if (live && i < nvec) {
+          float yf[VEC], zf[VEC], t[VEC];
+          widen<T>(raw[v][0], yf);
+          widen<T>(raw[v][1], zf);
+          gate_product<T>(yf, zf, t);
+          if constexpr (WHAT == SPLIT_DOT) {
+            float gf[VEC], w[VEC];
+            widen<T>(raw[v][2], gf);
+            widen<T>(sc[v], w);
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) s += (Acc)gf[k] * w[k] * t[k];
+          } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) s += (Acc)t[k] * t[k];
+          }
+        }
+      }
+      s = wide ? block_sum(s, partial) : group_sum(s, tpr);
+      if (live && lane == 0) a.sums[row] = (float)s;
     }
   }
 }
 
-template <typename T>
-struct SplitBwd {
-  const T* y;
-  const T* z;
-  const T* dout;
-  const T* scale;
-  const float* ss;          // the whole row's sum of t^2 (the forward's)
-  const float* dot;         // the whole row's sum of dout * w * t
-  T* dy;
-  T* dz;
-  long long rows;
-  int nvec;
-  float inv_d, eps;
-};
+// threads a block of the finish at most, by NV: what bounds each thread's registers
+__host__ __device__ constexpr int split_threads(int nv) { return nv <= 2 ? SPLIT_THREADS : 512; }
 
-// Thread (blockIdx.y * blockDim.x + threadIdx.x) owns that 16-byte column of the
-// local row; block x takes rows x, x + gridDim.x, ... and writes its f64 row of
-// dscale terms to rows_out[blockIdx.x].
-template <typename T>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-gated_split_bwd_kernel(SplitBwd<T> a, double* __restrict__ rows_out) {
-  constexpr int VEC = Vec<T>::N;
+// The finish. Team `team` of a block takes rows blockIdx.x + gridDim.x * (team +
+// teams * k), round k = 0, 1, ..., as gated_bwd_kernel's teams; each thread copies
+// its own vectors of y, dout and z into its slots of the ring ([team][stage][y,
+// dout, z][NV][tpr] vectors) and reads back only those, so no barrier guards it.
+// Writes the block's f64 row of dscale terms to rows[blockIdx.x].
+template <typename T, int NV>
+__global__ void __launch_bounds__(split_threads(NV), 1)
+split_bwd_kernel(SplitArgs<T> a, double* rows) {
+  constexpr int VEC = Vec<T>::N, S = GATED_STAGES;
   using Acc = typename AccOf<T>::type;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= a.nvec) return;
-  Acc acc[VEC];
-  float w[VEC];
+  extern __shared__ __align__(16) uint4 ring[];
+  const int nvec = a.nvec, tpr = a.tpr, D = nvec * VEC;
+  const int teams = blockDim.x / tpr, team = threadIdx.x / tpr;
+  const int lane = threadIdx.x - team * tpr;
+  uint4* slots = ring + (size_t)team * S * 3 * NV * tpr + lane;   // (stage, input, v) at
+                                                                   // ((stage * 3 + input) * NV + v) * tpr
+  const long long round_rows = (long long)gridDim.x * teams;
+  const long long row0 = blockIdx.x + (long long)gridDim.x * team;
+  const long long rounds =
+      blockIdx.x < a.rows ? (a.rows - blockIdx.x + round_rows - 1) / round_rows : 0;
+  // round k's row into stage k % S, one commit group a round (empty past the rows)
+  auto fetch = [&](long long k) {
+    const long long r = row0 + k * round_rows;
+    if (k < rounds && r < a.rows) {
+      uint4* st = slots + (size_t)(k % S) * 3 * NV * tpr;
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0;
-  widen<T>(ld16(a.scale, i), w);
-  for (long long row = blockIdx.x; row < a.rows; row += gridDim.x) {
-    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(a.ss[row], a.inv_d), a.eps));
-    const float coef = rstd * rstd * rstd * a.dot[row] * a.inv_d;
-    const long long at = row * a.nvec + i;
-    float yf[VEC], zf[VEC], gf[VEC], dy[VEC], dz[VEC];
-    widen<T>(ld16(a.y, at), yf);
-    widen<T>(ld16(a.z, at), zf);
-    widen<T>(ld16(a.dout, at), gf);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float e = expf(-zf[k]);
-      const float sf = silu_of<T>(zf[k], e);
-      const float sig = __fdividef(1.0f, 1.0f + e);
-      const float t = round_to<T>(__fmul_rn(yf[k], sf));
-      acc[k] += (Acc)gf[k] * t * (Acc)rstd;
-      const float dt = round_to<T>(rstd * gf[k] * w[k] - t * coef);
-      dz[k] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[k])),
-                        __fmul_rn(sig, 1.0f + zf[k] * (1.0f - sig)));
-      dy[k] = __fmul_rn(dt, sf);
+      for (int v = 0; v < NV; ++v) {
+        const int i = v * tpr + lane;
+        if (i < nvec) {
+          cp_async16(st + (0 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.y) + r * nvec + i);
+          cp_async16(st + (1 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.dout) + r * nvec + i);
+          cp_async16(st + (2 * NV + v) * tpr, reinterpret_cast<const uint4*>(a.z) + r * nvec + i);
+        }
+      }
     }
-    put16(a.dz, at, pack<T>(dz));
-    put16(a.dy, at, pack<T>(dy));
-  }
-  double* out = rows_out + (long long)blockIdx.x * a.nvec * VEC + (long long)i * VEC;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  Acc acc[NV][VEC];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) out[k] = (double)acc[k];
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[v][j] = 0;
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) fetch(k);
+  for (long long k = 0; k < rounds; ++k) {
+    const long long row = row0 + k * round_rows;
+    const bool live = row < a.rows;
+    float ss = 0.f, dot = 0.f;         // in flight with the ring's wait
+    if (live) {
+      ss = a.ss[row];
+      dot = a.dot[row];
+    }
+    fetch(k + S - 1);
+    asm volatile("cp.async.wait_group %0;" ::"n"(S - 1) : "memory");
+    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(ss, a.inv_d), a.eps));
+    const float coef = rstd * rstd * rstd * dot * a.inv_d;
+    const uint4* st = slots + (size_t)(k % S) * 3 * NV * tpr;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = v * tpr + lane;
+      if (live && i < nvec) {
+        float yf[VEC], gf[VEC], zf[VEC], w[VEC], dy[VEC], dz[VEC];
+        widen<T>(st[(0 * NV + v) * tpr], yf);
+        widen<T>(st[(1 * NV + v) * tpr], gf);
+        widen<T>(st[(2 * NV + v) * tpr], zf);
+        widen<T>(ld16(a.scale, i), w);   // from L1
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float e = expf(-zf[j]);
+          const float sf = silu_of<T>(zf[j], e);
+          const float sig = __fdividef(1.0f, 1.0f + e);
+          const float t = round_to<T>(__fmul_rn(yf[j], sf));
+          acc[v][j] += (Acc)gf[j] * t * (Acc)rstd;
+          const float dt = round_to<T>(rstd * gf[j] * w[j] - t * coef);
+          dz[j] = __fmul_rn(round_to<T>(__fmul_rn(dt, yf[j])),
+                            __fmul_rn(sig, 1.0f + zf[j] * (1.0f - sig)));
+          dy[j] = __fmul_rn(dt, sf);
+        }
+        put16(a.dz, row * nvec + i, pack<T>(dz));
+        put16(a.out, row * nvec + i, pack<T>(dy));
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");   // (empty groups only)
+  __syncthreads();                                       // the ring is reused below
+
+  // the block's sum of its teams' terms, in team order, in f64
+  Acc* stage = reinterpret_cast<Acc*>(ring);   // [teams][D]
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int i = v * tpr + lane;
+    if (i < nvec)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) stage[(size_t)team * D + i * VEC + j] = acc[v][j];
+  }
+  __syncthreads();
+  double* out = rows + (long long)blockIdx.x * D;
+  for (int e = threadIdx.x; e < D; e += blockDim.x) {
+    double s = 0.0;
+    for (int j = 0; j < teams; ++j) s += stage[(size_t)j * D + e];
+    out[e] = s;
+  }
 }
 
-// a grid of the row passes: a warp a row, at most eight blocks an SM
-unsigned split_grid(long long rows) {
-  const long long blocks = (rows + SPLIT_THREADS / 32 - 1) / (SPLIT_THREADS / 32);
-  const long long cap = 8LL * sm_count();
-  return (unsigned)(blocks < cap ? blocks : cap);
+// SplitArgs of the entries' pointers; width: the whole row's columns
+template <typename T>
+SplitArgs<T> split_args(const void* y, const void* z, const void* dout, const void* scale,
+                        const void* ss, const void* dot, void* sums, void* out, void* dz,
+                        long long rows, int width, float eps) {
+  return SplitArgs<T>{(const T*)y, (const T*)z, (const T*)dout, (const T*)scale,
+                      (const float*)ss, (const float*)dot, (float*)sums, (T*)out, (T*)dz,
+                      rows, 0, 0, 1.0f / (float)width, eps};
 }
 
+// a row pass: row_shape's plan, rows_kernel's grid
 template <typename T, int WHAT>
-cudaError_t launch_split_sums(const void* y, const void* z, const void* dout, const void* scale,
-                              void* out, long long rows, int D, cudaStream_t s) {
+cudaError_t launch_split_rows(SplitArgs<T> a, int D, int width, cudaStream_t s) {
   constexpr int VEC = Vec<T>::N;
-  if (rows <= 0 || D <= 0 || D % VEC) return cudaErrorInvalidValue;
-  gated_split_sums_kernel<T, WHAT><<<split_grid(rows), SPLIT_THREADS, 0, s>>>(
-      (const T*)y, (const T*)z, (const T*)dout, (const T*)scale, (float*)out, rows, D / VEC);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_split_norm(const void* y, const void* z, const void* scale, const void* ss,
-                              void* out, long long rows, int D, int width, float eps,
-                              cudaStream_t s) {
-  constexpr int VEC = Vec<T>::N;
-  if (rows <= 0 || D <= 0 || D % VEC || width < D) return cudaErrorInvalidValue;
-  gated_split_norm_kernel<T><<<split_grid(rows), SPLIT_THREADS, 0, s>>>(
-      (const T*)y, (const T*)z, (const T*)scale, (const float*)ss, (T*)out, rows, D / VEC,
-      1.0f / (float)width, eps);
-  return cudaGetLastError();
-}
-
-// the finish's grid: y = the column blocks of a row (at most SPLIT_THREADS threads
-// each, as even as a warp's multiple allows), x = the row blocks, about four
-// blocks an SM in all and at most max_rows (the scratch's rows); then the fold
-template <typename T>
-cudaError_t launch_split_bwd(SplitBwd<T> a, T* dscale, double* scratch, int max_rows, int D,
-                             int width, cudaStream_t s) {
-  constexpr int VEC = Vec<T>::N;
-  if (a.rows <= 0 || D <= 0 || D % VEC || width < D || max_rows <= 0)
+  RowShape r;
+  if (a.rows <= 0 || D <= 0 || D % VEC || width < D || !row_shape(a.rows, D / VEC, MAX_THREADS, r))
     return cudaErrorInvalidValue;
-  a.nvec = D / VEC;
-  a.inv_d = 1.0f / (float)width;
-  const int cols = (a.nvec + SPLIT_THREADS - 1) / SPLIT_THREADS;
-  const int threads = ((a.nvec + cols - 1) / cols + 31) / 32 * 32;
-  long long blocks = (4LL * sm_count() + cols - 1) / cols;
-  if (blocks > a.rows) blocks = a.rows;
-  if (blocks > max_rows) blocks = max_rows;
+  a.nvec = r.nvec;
+  a.tpr = r.tpr;
+  const unsigned blocks = grid_for(r.groups, r.threads);
+  switch (r.nv) {
+    case 1: split_rows_kernel<T, 1, WHAT><<<blocks, r.threads, 0, s>>>(a); break;
+    case 2: split_rows_kernel<T, 2, WHAT><<<blocks, r.threads, 0, s>>>(a); break;
+    case 4: split_rows_kernel<T, 4, WHAT><<<blocks, r.threads, 0, s>>>(a); break;
+    case 8: split_rows_kernel<T, 8, WHAT><<<blocks, r.threads, 0, s>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// the finish: team_block's block, one_block_an_sm's grid; then the fold
+template <typename T, int NV>
+cudaError_t run_split_bwd(const SplitArgs<T>& a, T* dscale, double* scratch, int max_rows,
+                          cudaStream_t s) {
+  using Acc = typename AccOf<T>::type;
+  auto kernel = split_bwd_kernel<T, NV>;
+  const int D = a.nvec * Vec<T>::N;
+  auto smem_of = [&](int teams) {   // the teams' rings, reused for their dscale rows
+    const size_t rings = (size_t)teams * a.tpr * GATED_STAGES * 3 * NV * sizeof(uint4);
+    const size_t sums = (size_t)teams * D * sizeof(Acc);
+    return rings > sums ? rings : sums;
+  };
+  int threads = 0;
+  size_t smem = 0;
+  cudaError_t err = team_block(kernel, a.tpr, 1 << 30, smem_of, &threads, &smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = one_block_an_sm(a.rows, max_rows);
   double* rows = scratch + FOLD_COUNTERS / 2;
-  gated_split_bwd_kernel<T><<<dim3((unsigned)blocks, (unsigned)cols), threads, 0, s>>>(a, rows);
-  cudaError_t err = cudaGetLastError();
+  kernel<<<blocks, threads, smem, s>>>(a, rows);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gated_fold_kernel<T><<<(D + 31) / 32, 32 * GATED_SLICES, 0, s>>>(rows, (int)blocks, D, dscale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_split_bwd(SplitArgs<T> a, T* dscale, double* scratch, int max_rows, int D,
+                             int width, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  RowShape r;
+  if (a.rows <= 0 || D <= 0 || D % VEC || width < D || max_rows <= 0 ||
+      !gated_shape(a.rows, D / VEC, r))
+    return cudaErrorInvalidValue;
+  a.nvec = r.nvec;
+  a.tpr = r.tpr;
+  switch (r.nv) {
+    case 1: return run_split_bwd<T, 1>(a, dscale, scratch, max_rows, s);
+    case 2: return run_split_bwd<T, 2>(a, dscale, scratch, max_rows, s);
+    case 4: return run_split_bwd<T, 4>(a, dscale, scratch, max_rows, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1898,10 +2119,15 @@ extern "C" int gated_rmsnorm_split_stats(const void* y, const void* z, void* ss,
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_split_sums<float, SUM_SQUARES>(y, z, nullptr, nullptr, ss, rows, D, s);
+    return (int)launch_split_rows<float, SPLIT_SQUARES>(
+        split_args<float>(y, z, nullptr, nullptr, nullptr, nullptr, ss, nullptr, nullptr, rows,
+                          D, 0.f),
+        D, D, s);
   if (dtype == 1)
-    return (int)launch_split_sums<__nv_bfloat16, SUM_SQUARES>(y, z, nullptr, nullptr, ss, rows,
-                                                              D, s);
+    return (int)launch_split_rows<__nv_bfloat16, SPLIT_SQUARES>(
+        split_args<__nv_bfloat16>(y, z, nullptr, nullptr, nullptr, nullptr, ss, nullptr,
+                                  nullptr, rows, D, 0.f),
+        D, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1911,9 +2137,16 @@ extern "C" int gated_rmsnorm_split_fwd(const void* y, const void* z, const void*
                                        void* stream) {
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_split_norm<float>(y, z, scale, ss, out, rows, D, width, eps, s);
+  if (dtype == 0)
+    return (int)launch_split_rows<float, SPLIT_NORM>(
+        split_args<float>(y, z, nullptr, scale, ss, nullptr, nullptr, out, nullptr, rows, width,
+                          eps),
+        D, width, s);
   if (dtype == 1)
-    return (int)launch_split_norm<__nv_bfloat16>(y, z, scale, ss, out, rows, D, width, eps, s);
+    return (int)launch_split_rows<__nv_bfloat16, SPLIT_NORM>(
+        split_args<__nv_bfloat16>(y, z, nullptr, scale, ss, nullptr, nullptr, out, nullptr,
+                                  rows, width, eps),
+        D, width, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1923,9 +2156,15 @@ extern "C" int gated_rmsnorm_split_dot(const void* y, const void* z, const void*
   DeviceScope scope(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_split_sums<float, SUM_DOT>(y, z, dout, scale, dot, rows, D, s);
+    return (int)launch_split_rows<float, SPLIT_DOT>(
+        split_args<float>(y, z, dout, scale, nullptr, nullptr, dot, nullptr, nullptr, rows, D,
+                          0.f),
+        D, D, s);
   if (dtype == 1)
-    return (int)launch_split_sums<__nv_bfloat16, SUM_DOT>(y, z, dout, scale, dot, rows, D, s);
+    return (int)launch_split_rows<__nv_bfloat16, SPLIT_DOT>(
+        split_args<__nv_bfloat16>(y, z, dout, scale, nullptr, nullptr, dot, nullptr, nullptr,
+                                  rows, D, 0.f),
+        D, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1939,15 +2178,12 @@ extern "C" int gated_rmsnorm_split_bwd(const void* y, const void* z, const void*
   double* p = static_cast<double*>(scratch);
   if (dtype == 0)
     return (int)launch_split_bwd<float>(
-        SplitBwd<float>{(const float*)y, (const float*)z, (const float*)dout,
-                        (const float*)scale, (const float*)ss, (const float*)dot, (float*)dy,
-                        (float*)dz, rows, 0, 0.f, eps},
+        split_args<float>(y, z, dout, scale, ss, dot, nullptr, dy, dz, rows, width, eps),
         (float*)dscale, p, max_rows, D, width, s);
   if (dtype == 1) {
     using B = __nv_bfloat16;
     return (int)launch_split_bwd<B>(
-        SplitBwd<B>{(const B*)y, (const B*)z, (const B*)dout, (const B*)scale,
-                    (const float*)ss, (const float*)dot, (B*)dy, (B*)dz, rows, 0, 0.f, eps},
+        split_args<B>(y, z, dout, scale, ss, dot, nullptr, dy, dz, rows, width, eps),
         (B*)dscale, p, max_rows, D, width, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -19,7 +19,9 @@ all-reduce): ``gated_rmsnorm_stats`` (each local row's sum of t^2, t = y *
 silu(z)), ``gated_rmsnorm_split`` (the norm from the whole row's sum, over the
 whole width), ``gated_rmsnorm_split_dot`` (the backward's sum of dout * scale *
 t) and ``gated_rmsnorm_split_bwd`` (dy, dz and the local columns' dscale from
-both sums). A row on one rank keeps the one-launch entries.
+both sums). Their row passes take rows as the one-launch forward does, their
+backward's finish as the one-launch gated backward does. A row on one rank
+keeps the one-launch entries.
 
 Each ``*_plain`` is exactly the sequence of PyTorch ops the model ran before the
 fusion, so the CPU path computes bit for bit what it computed then.
@@ -572,8 +574,9 @@ def gated_rmsnorm_split_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.
                                  dout: torch.Tensor, ss: torch.Tensor, dot: torch.Tensor,
                                  width: int, *, eps: float = 1e-6):
     """(dy, dz, dscale) of this rank's columns on the card from the whole row's
-    sums ``ss`` and ``dot``; dscale summed over the rows. Two launches: the rows,
-    each block's dscale terms into a scratch row, then gated_rmsnorm_bwd's fold."""
+    sums ``ss`` and ``dot``; dscale summed over the rows. Two launches, as
+    gated_rmsnorm_bwd's: the rows on its teams, each block's dscale terms into a
+    scratch row, then its fold."""
     refuse_grad("gated_rmsnorm_split_bwd_cuda", y, z, scale, dout)
     D = _split_args("gated_rmsnorm_split_bwd_cuda", y, z, scale, width, dout)
     _row_sums("gated_rmsnorm_split_bwd_cuda", y, ss, dot)
@@ -593,8 +596,8 @@ def gated_rmsnorm_split_bwd_cuda(y: torch.Tensor, z: torch.Tensor, scale: torch.
 
 def split_rows(sms: int) -> int:
     """f64 rows the split-row backward writes at most on a card of ``sms`` SMs:
-    one a row block of its finish, about four blocks an SM."""
-    return 4 * sms
+    one a block of its finish, at most one block an SM, as ``gated_rows``."""
+    return gated_rows(sms)
 
 
 for _wrapper in (rmsnorm_cuda, add_rmsnorm_cuda, gated_rmsnorm_cuda, qk_norm_rope_cuda,

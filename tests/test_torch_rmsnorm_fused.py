@@ -281,23 +281,75 @@ def test_rmsnorm_kernel_serving_shapes_on_card(cuda, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ways", [2, 4, 8])
 @pytest.mark.parametrize("shape", [(1, 512, 5120), (4, 1, 5120), (3, 5, 7168),
-                                   (1, 2048, 7168)])
+                                   (1, 2048, 7168), (1, 2048, 5120), (3, 5, 5120)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_split_row_kernels_vs_plain_on_card(cuda, shape, ways, dtype):
     """Each split-row entry against its plain version on the same column slices,
-    the row sums added here in place of the all-reduce."""
+    the row sums added here in place of the all-reduce, and two runs of each
+    bit-equal. 8 ways give local rows of up to 128 16-byte vectors (a lane group a
+    row in the row passes), 2 and 4 ways wider ones (a block a row); (3, 5) is a
+    ragged row count."""
     y, z, sc, dout = (t.to(cuda) for t in _gated_case(shape, dtype, 130))
     parts = [[c.contiguous() for c in t.chunk(ways, dim=-1)] for t in (y, z, sc, dout)]
+    f32 = dtype == "float32"
     ss = sum(RN.gated_rmsnorm_stats_cuda(a, b) for a, b, _, _ in zip(*parts))
-    ss_p = sum(RN.gated_rmsnorm_stats_plain(a, b) for a, b, _, _ in zip(*parts))
+    ss_p = sum(_sums_f64(*p)[0] if f32 else RN.gated_rmsnorm_stats_plain(p[0], p[1])
+               for p in zip(*parts))
     dot = sum(RN.gated_rmsnorm_split_dot_cuda(*p) for p in zip(*parts))
-    dot_p = sum(RN.gated_rmsnorm_split_dot_plain(*p) for p in zip(*parts))
+    dot_p = sum(_sums_f64(*p)[1] if f32 else RN.gated_rmsnorm_split_dot_plain(*p)
+                for p in zip(*parts))
     _close(ss, ss_p, dtype)
     _close(dot, dot_p, dtype)
     D = shape[-1]
     for p in zip(*parts):
-        _close(RN.gated_rmsnorm_split_cuda(p[0], p[1], p[2], ss, D, eps=1e-5),
-               RN.gated_rmsnorm_split_plain(p[0], p[1], p[2], ss, D, eps=1e-5), dtype)
-        for g, w in zip(RN.gated_rmsnorm_split_bwd_cuda(*p, ss, dot, D, eps=1e-5),
-                        RN.gated_rmsnorm_split_bwd_plain(*p, ss, dot, D, eps=1e-5)):
+        runs = [(RN.gated_rmsnorm_stats_cuda(p[0], p[1]),
+                 RN.gated_rmsnorm_split_dot_cuda(*p),
+                 RN.gated_rmsnorm_split_cuda(p[0], p[1], p[2], ss, D, eps=1e-5),
+                 *RN.gated_rmsnorm_split_bwd_cuda(*p, ss, dot, D, eps=1e-5))
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        _close(runs[0][2], RN.gated_rmsnorm_split_plain(p[0], p[1], p[2], ss, D, eps=1e-5),
+               dtype)
+        want = list(RN.gated_rmsnorm_split_bwd_plain(*p, ss, dot, D, eps=1e-5))
+        if f32:
+            want[2] = _dscale_f64(p[0], p[1], p[3], ss, D, 1e-5)
+        for g, w in zip(runs[0][3:], want):
             _close(g, w, dtype)
+
+
+def _sums_f64(y, z, sc, dout):
+    """The split-row row sums (of t^2; of dout * scale * t) in f64 from the gate t
+    in y's dtype, as the kernels form and, for f32 inputs, sum them. The plain
+    versions sum in f32, whose error passes 1e-5 where dout * scale * t cancels,
+    so the f32 kernels are held against these."""
+    t = RN._gate(y, z).double()
+    return (t * t).sum(dim=-1), (dout.double() * sc.double() * t).sum(dim=-1)
+
+
+def _dscale_f64(y, z, dout, ss, width, eps):
+    """The split-row backward's dscale in f64 from the f32 gate and the given ss,
+    as the kernel sums it over the rows (the plain version's f32 sum over 2,048
+    rows is off by more than 1e-5)."""
+    t = RN._gate(y, z).double()
+    rstd = torch.rsqrt(ss.double()[..., None] / width + eps)
+    return (dout.double() * t * rstd).reshape(-1, y.shape[-1]).sum(dim=0)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 8, 9, 114, 132, 144])
+def test_split_bwd_scratch_holds_the_grid(sms):
+    """The split-row backward's scratch sizing (``split_rows``) against
+    csrc/rmsnorm.cu: its finish launches one_block_an_sm's grid (the SM count, cut
+    to the rows and to the scratch's rows) and writes one f64 row a block after
+    the tickets, so split_rows(sms) holds every block of a card of ``sms`` SMs."""
+    src = (RN._build.CSRC / "rmsnorm.cu").read_text()
+
+    def body(head):
+        rest = src[src.index(head):]
+        return rest[:rest.index("\n}\n")]
+
+    run = body("cudaError_t run_split_bwd(")
+    assert "const unsigned blocks = one_block_an_sm(a.rows, max_rows);" in run
+    assert "double* rows = scratch + FOLD_COUNTERS / 2;" in run
+    assert "long long blocks = sm_count();" in body("unsigned one_block_an_sm(")
+    assert RN.split_rows(sms) >= sms
